@@ -3,9 +3,18 @@
 
 Builds the CUDA kernels of ``periodicschurdecompositions_jl_torch/csrc``,
 checks each kernel against its plain torch version on the card at the
-shapes of the main path (p=16, n=512), then drives the main path
-``pschur(A, 'R')`` on the headline draw and one 'L' problem, and checks the
-results.  Any failure raises (exit code != 0).
+shapes of its path, then drives the paths through the public entry points
+and checks the results:
+
+* real: the kernels of the double-shift sweep and the 2x2 deflation at
+  p=16, n=512; ``pschur(A, 'R')`` on the headline draw and one 'L' problem;
+* complex: the kernels of the single-shift QZ sweep and its shift at p=8,
+  n=256 with an alternating signature; ``pschur`` on a complex p=8 n=256
+  cycle (no signature) and a p=8 n=128 cycle with an alternating signature,
+  and a small signed cycle against numpy's eigenvalues.
+
+Each kernel's launch counter is set to 0 just before the path that runs it
+and read just after.  Any failure raises (exit code != 0).
 
 Output: the card's name and power limit, per-phase lines, a JSON line
 ``{"kernels": [...]}`` and, last, ``{"ok": true, "device": {...}}``.
@@ -24,7 +33,11 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 P_HEAD, N_HEAD, SEED_HEAD = 16, 512, 12345
+P_CX, N_CX, N_CX_SIGNED, SEED_CX = 8, 256, 128, 777
 TOL = 1e-12  # kernel vs plain: max|dH| <= TOL * max|H|, max|dZ| <= TOL
+# H100 SXM data sheet: HBM3 3.35 TB/s; FP64 34 TFLOP/s outside the tensor
+# cores (67 with FP64 MMA, which no kernel here uses)
+HBM_BPS, FP64_FLOPS = 3.35e12, 34e12
 
 
 def _log(*a):
@@ -53,6 +66,13 @@ def mk_sweep_problem(p, n, rng):
     v0 = rng.standard_normal(3)
     v0 /= np.abs(v0).sum()
     return H, Z, v0
+
+
+def bound(nbytes, flops):
+    """(bound_ms, bound_by): the larger of bytes over the memory rate and
+    FP64 operations over the FP64 peak."""
+    tb, tf = nbytes / HBM_BPS, flops / FP64_FLOPS
+    return (max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations")
 
 
 def structure_ok(H):
@@ -203,6 +223,19 @@ def sweep_phase(dev, p, n, report):
          f"B0 {ms_b0:.3f} ms, B {ms_b:.3f} ms; plain sweep {times['plain_sweep']:.1f} "
          f"ms, plain apply (B0+B) {times['plain_apply']:.1f} ms")
     src = "periodicschurdecompositions_jl_torch/csrc/sweep.cu"
+    # bytes and operations of the window [0, n-1] (K steps): A reads the
+    # window's rows once and writes the log; B0 reads and writes rows k..k+2
+    # of every column; B those of H's rows 0..i and all of Z; a 3x3
+    # application is 15 flops per entry triple
+    K = i - m
+    steps = sum(N - k for k in range(m, i))
+    bounds = {
+        "sweep_generate": bound(8 * p * N * (i + 2 - m) + 8 * 9 * p * K,
+                                15 * p * steps),
+        "sweep_left": bound(2 * 8 * p * (i + 2 - m) * (N - max(m - 1, 0))
+                            + 8 * 9 * p * K, 15 * p * (N - max(m - 1, 0)) * K),
+        "sweep_right": bound(2 * 8 * p * (i + 1 + N) * (K + 2) + 8 * 9 * p * K,
+                             15 * p * (i + 1 + N) * K)}
     for name, ms, rep, err, pms in (
             ("sweep_generate", ms_a,
              "periodicschurdecompositions_jl_tpu/ops/pallas_sweep.py:396", err_a,
@@ -215,7 +248,8 @@ def sweep_phase(dev, p, n, report):
              times["plain_apply"])):
         report[name] = {"name": name, "route": "cuda", "source": src,
                         "replaces": rep, "max_abs_err": err, "ms": ms,
-                        "plain_ms": pms}
+                        "plain_ms": pms, "bound_ms": bounds[name][0],
+                        "bound_by": bounds[name][1], "library_ms": None}
 
 
 def deflate_cases(p, n):
@@ -289,11 +323,16 @@ def deflate_phase(dev, p, n, report):
         worst = max(worst, dH / scale, dZ)
         times[label] = (t_k, t_plain)
     t_k, t_plain = times["chainB"]
+    # rows and columns i-1, i of every H[f] and columns i-1, i of every Z[f],
+    # read and written once; a 2x2 application is 6 flops per entry pair
+    N = n + 1
+    bms, bby = bound(2 * 8 * p * 6 * N, 6 * p * 3 * N)
     report["deflate2x2"] = {
         "name": "deflate2x2", "route": "cuda",
         "source": "periodicschurdecompositions_jl_torch/csrc/deflate.cu",
         "replaces": "periodicschurdecompositions_jl_tpu/ops/pallas_deflate.py:71",
-        "max_abs_err": worst, "ms": t_k, "plain_ms": t_plain}
+        "max_abs_err": worst, "ms": t_k, "plain_ms": t_plain, "bound_ms": bms,
+        "bound_by": bby, "library_ms": None}
 
 
 def backerr(A, T, Z, left=False):
@@ -366,6 +405,308 @@ def small_reference_check(dev):
         raise AssertionError("small reference check failed")
 
 
+# ---------------------------------------------------------------------------
+# complex periodic QZ
+
+
+def alternating(p):
+    return tuple(l % 2 == 0 for l in range(p))
+
+
+def mk_cx_problem(p, n, rng):
+    """Complex Hessenberg-triangular cycle, unitary Z and a shift rotation.
+
+    As tests/test_pallas_cx.py::_mk_problem, except that the triangular
+    factors' diagonals have modulus in [1, 2) (the same reason as
+    mk_sweep_problem's)."""
+    def cplx(*shape):
+        return rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+
+    H = np.zeros((p, n, n), complex)
+    H[0] = np.triu(cplx(n, n), -1)
+    for f in range(1, p):
+        H[f] = np.triu(cplx(n, n))
+        d = np.diagonal(H[f]).copy()
+        np.fill_diagonal(H[f], d / np.abs(d) * (1.0 + rng.random(n)))
+    Z = np.stack([np.linalg.qr(cplx(n, n))[0] for _ in range(p)])
+    f, g = cplx(2)
+    d = np.hypot(abs(f), abs(g))
+    cs = np.array([abs(f) / d, (f / abs(f)) * np.conj(g) / d])
+    return H, Z, cs
+
+
+def cx_recon_err(H0, Z0, H, Z, S):
+    """max over factors of max|Z H Z^H - Z0 H0 Z0^H| (signature-aware),
+    relative to max|H0|."""
+    p = H0.shape[0]
+    worst = 0.0
+    for l in range(p):
+        a, b = (l, (l + 1) % p) if S[l] else ((l + 1) % p, l)
+        A = Z0[a] @ H0[l] @ Z0[b].conj().T
+        B = Z[a] @ H[l] @ Z[b].conj().T
+        worst = max(worst, float((A - B).abs().max()))
+    return worst / float(H0.abs().max())
+
+
+def cx_kernel_phase(dev, p, n, report):
+    """Kernels S, A -> B0 -> B against the plain versions, alternating S.
+
+    1. The sweep (A, B0, B through qz_sweep) against qz_sweep_plain on
+       three windows; tolerance max(1e-12, 10 sens) as in sweep_phase.
+    2. B0 and B against qz_apply_log_plain on kernel A's own log: 1e-13.
+    3. Backward error of the kernel sweep <= 1e-13 max|H0|, exact
+       structural zeros, H[0]'s columns left of the window untouched.
+    4. want_z=False leaves H identical.
+    5. S against qz_shift_plain within 1e-14 relative, for an all-direct
+       and an alternating signature.
+    """
+    import torch
+    from periodicschurdecompositions_jl_torch.ops import _cuda, sweep_cx
+    S = alternating(p)
+    rng = np.random.default_rng(2025)
+    Hn, Zn, csn = mk_cx_problem(p, n, rng)
+    windows = [(0, n - 1), (37, min(200, n - 2)), (min(120, n - 3), min(122, n - 1))]
+    lib = _cuda.load()
+    st = torch.cuda.current_stream().cuda_stream
+    cs = torch.tensor(csn, device=dev)
+    Sd = torch.tensor([int(x) for x in S], dtype=torch.int32, device=dev)
+    err_a = err_b = 0.0
+    times = {}
+    for (m, i) in windows:
+        H0 = torch.tensor(Hn, device=dev)
+        if m > 0:
+            H0[0, m, m - 1] = 0.0       # the window's boundaries are deflated
+        if i + 1 < n:
+            H0[0, i + 1, i] = 0.0
+        Z0 = torch.tensor(Zn, device=dev)
+        scale = float(H0.abs().max())
+        Hk, Zk = H0.clone(), Z0.clone()
+        sweep_cx.qz_sweep(Hk, Zk, m, i, cs, S, want_z=True)
+        Hp, Zp = H0.clone(), Z0.clone()
+        t_plain = wall_ms(lambda: sweep_cx.qz_sweep_plain(Hp, Zp, m, i, cs, S,
+                                                          want_z=True))
+        pert = torch.tensor(1.0 + 1e-16 * np.random.default_rng(1).standard_normal(
+            Hn.shape), device=dev)
+        Hq, Zq = H0 * pert, Z0.clone()
+        sweep_cx.qz_sweep_plain(Hq, Zq, m, i, cs, S, want_z=True)
+        sens_h = float((Hq - Hp).abs().max()) / scale
+        sens_z = float((Zq - Zp).abs().max())
+        dh = float((Hk - Hp).abs().max()) / scale
+        dz = float((Zk - Zp).abs().max())
+        tol_h, tol_z = max(TOL, 10 * sens_h), max(TOL, 10 * sens_z)
+        # 2. the apply kernels on kernel A's own log
+        log = torch.empty((p, n, sweep_cx.LOG), dtype=torch.complex128, device=dev)
+        C = torch.empty((p, n, n), dtype=torch.complex128, device=dev)
+        _cuda.check(lib.psd_qz_sweep_generate(H0.data_ptr(), C.data_ptr(),
+                                              log.data_ptr(), cs.data_ptr(),
+                                              Sd.data_ptr(), p, n, m, i, st),
+                    "qz_sweep_generate")
+        Hb, Zb = H0.clone(), Z0.clone()
+        _cuda.check(lib.psd_qz_sweep_left(Hb.data_ptr(), log.data_ptr(), p, n, m, i,
+                                          st), "qz_sweep_left")
+        _cuda.check(lib.psd_qz_sweep_right(Hb.data_ptr(), Zb.data_ptr(),
+                                           log.data_ptr(), p, n, m, i, st),
+                    "qz_sweep_right")
+        Ha, Za = H0.clone(), Z0.clone()
+        t_apply = wall_ms(lambda: sweep_cx.qz_apply_log_plain(Ha, Za, log, m, i,
+                                                              want_z=True))
+        db = max(float((Hb - Ha).abs().max()) / scale, float((Zb - Za).abs().max()))
+        be_k = cx_recon_err(H0, Z0, Hk, Zk, S)
+        be_p = cx_recon_err(H0, Z0, Hp, Zp, S)
+        _log(f"cx sweep window [{m}, {i}]: vs qz_sweep_plain max|dH|/max|H| {dh:.3e} "
+             f"max|dZ| {dz:.3e} (plain's own 1e-16 sensitivity {sens_h:.3e} / "
+             f"{sens_z:.3e}; tolerance {tol_h:.3e} / {tol_z:.3e}); B0+B vs "
+             f"qz_apply_log_plain {db:.3e}; backward error kernel {be_k:.3e} plain "
+             f"{be_p:.3e}; plain sweep {t_plain:.1f} ms, plain apply {t_apply:.1f} ms")
+        if not (dh <= tol_h and dz <= tol_z):
+            raise AssertionError(f"cx sweep kernels disagree with qz_sweep_plain on "
+                                 f"[{m}, {i}]: {dh:.3e} {dz:.3e}")
+        if not db <= 1e-13:
+            raise AssertionError(f"cx B0/B disagree with qz_apply_log_plain on [{m}, {i}]")
+        if not torch.equal(Hb, Hk) or not torch.equal(Zb, Zk):
+            raise AssertionError("the cx wrapper and the direct kernel calls differ")
+        if not be_k <= 1e-13:
+            raise AssertionError(f"cx sweep backward error {be_k:.3e} on [{m}, {i}]")
+        if not (structure_ok(Hk) and structure_ok(Hp)):
+            raise AssertionError(f"cx sweep [{m}, {i}]: structural zeros not exact")
+        if not torch.equal(Hk[0, :, :m], H0[0, :, :m]):
+            raise AssertionError(f"cx sweep [{m}, {i}] touched H[0] left of the window")
+        err_a = max(err_a, dh, dz)
+        err_b = max(err_b, db)
+        if (m, i) == windows[0]:
+            times["plain_sweep"], times["plain_apply"] = t_plain, t_apply
+        if (m, i) == windows[1]:
+            Hnz = H0.clone()
+            sweep_cx.qz_sweep(Hnz, None, m, i, cs, S, want_z=False)
+            if not torch.equal(Hnz, Hk):
+                raise AssertionError("cx want_z=False sweep changed H")
+            _log("cx sweep want_z=False: H identical to want_z=True")
+
+    # 5. kernel S against qz_shift_plain
+    H = torch.tensor(Hn, device=dev)
+    err_s = 0.0
+    for Ssh in ((True,) * p, S):
+        for (a, b) in windows:
+            ck = sweep_cx.qz_shift(H, a, b, Ssh)
+            cp = sweep_cx.qz_shift_plain(H, a, b, Ssh)
+            e = float((ck - cp).abs().max()) / max(float(cp.abs().max()), 1e-300)
+            err_s = max(err_s, e)
+    _log(f"cx shift kernel vs qz_shift_plain: max relative difference {err_s:.3e}")
+    if not err_s <= 1e-14:
+        raise AssertionError(f"cx shift kernel disagrees: {err_s:.3e}")
+    out = torch.empty(2, dtype=torch.complex128, device=dev)
+    Sall = torch.tensor([int(x) for x in S], dtype=torch.int32, device=dev)
+    m, i = windows[0]
+    ms_s = event_ms(lambda: _cuda.check(lib.psd_qz_shift(
+        H.data_ptr(), out.data_ptr(), Sall.data_ptr(), p, n, m, i, st), "qz_shift"), 20)
+    t_shift_plain = wall_ms(lambda: sweep_cx.qz_shift_plain(H, m, i, S))
+
+    # per-kernel times at the full window [0, n-1]
+    Z = torch.tensor(Zn, device=dev)
+    log = torch.empty((p, n, sweep_cx.LOG), dtype=torch.complex128, device=dev)
+    C = torch.empty((p, n, n), dtype=torch.complex128, device=dev)
+    ms_a = event_ms(lambda: _cuda.check(lib.psd_qz_sweep_generate(
+        H.data_ptr(), C.data_ptr(), log.data_ptr(), cs.data_ptr(), Sd.data_ptr(),
+        p, n, m, i, st), "qz_sweep_generate"), 5)
+    ms_b0 = event_ms(lambda: _cuda.check(lib.psd_qz_sweep_left(
+        H.data_ptr(), log.data_ptr(), p, n, m, i, st), "qz_sweep_left"), 5)
+    ms_b = event_ms(lambda: _cuda.check(lib.psd_qz_sweep_right(
+        H.data_ptr(), Z.data_ptr(), log.data_ptr(), p, n, m, i, st),
+        "qz_sweep_right"), 5)
+    _log(f"cx kernels at p={p} n={n} window [0, {n - 1}]: A {ms_a:.3f} ms, B0 "
+         f"{ms_b0:.3f} ms, B {ms_b:.3f} ms, S {ms_s:.4f} ms; plain sweep "
+         f"{times['plain_sweep']:.1f} ms, plain apply (B0+B) {times['plain_apply']:.1f} "
+         f"ms, plain shift {t_shift_plain:.2f} ms")
+    # bytes and operations of the window [0, n-1] (K steps), complex128
+    # (16 B); a complex 2x2 application is 28 flops per entry pair
+    K = i - m
+    steps = sum(n - k for k in range(m, i))
+    bounds = {
+        "qz_sweep_generate": bound(16 * p * n * (min(i + 1, n - 1) + 1 - m)
+                                   + 16 * 13 * p * K, 28 * p * steps),
+        "qz_sweep_left": bound(2 * 16 * p * (K + 1) * (n - m) + 16 * 4 * p * K,
+                               28 * p * (n - m) * K),
+        "qz_sweep_right": bound(2 * 16 * p * (i + 1 + n) * (K + 1) + 16 * 8 * p * K,
+                                28 * p * (i + 1 + n) * K),
+        "qz_shift": bound(16 * (2 * p + 1) + 32, 60 * p)}
+    src = "periodicschurdecompositions_jl_torch/csrc/sweep_cx.cu"
+    rep = "periodicschurdecompositions_jl_tpu/ops/pallas_sweep_cx.py:"
+    for name, ms, line, err, pms in (
+            ("qz_sweep_generate", ms_a, 295, err_a, times["plain_sweep"]),
+            ("qz_sweep_left", ms_b0, 507, err_b, times["plain_apply"]),
+            ("qz_sweep_right", ms_b, 549, err_b, times["plain_apply"]),
+            ("qz_shift", ms_s, 771, err_s, t_shift_plain)):
+        report[name] = {"name": name, "route": "cuda", "source": src,
+                        "replaces": f"{rep}{line}", "max_abs_err": err, "ms": ms,
+                        "plain_ms": pms, "bound_ms": bounds[name][0],
+                        "bound_by": bounds[name][1], "library_ms": None}
+
+
+def cx_backerr(A, T, Z, S, left=False):
+    """max_l max|Ahat - A| / max|A| with the signature and orientation."""
+    p = T.shape[0]
+    worst = 0.0
+    scale = np.abs(A).max()
+    for l in range(p):
+        ln = (l + 1) % p
+        Ax = (Z[l] @ T[l] @ Z[ln].conj().T if bool(S[l]) ^ left
+              else Z[ln] @ T[l] @ Z[l].conj().T)
+        worst = max(worst, np.abs(Ax - A[l]).max() / scale)
+    return worst
+
+
+def cx_e2e_case(dev, p, n, seed, S, lr):
+    """pschur on a complex cycle through the public entry point."""
+    import torch
+    import periodicschurdecompositions_jl_torch as pt
+    from periodicschurdecompositions_jl_torch.ops import pqz_complex, sweep_cx
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((p, n, n)) + 1j * rng.standard_normal((p, n, n))
+    At = torch.tensor(A, device=dev)
+    for k in sweep_cx.launches:
+        sweep_cx.launches[k] = 0
+    t0 = time.perf_counter()
+    P = pt.pschur(At, lr, S=S)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(sweep_cx.launches)
+    info = dict(pqz_complex.last_info)
+    T = P.Ts.cpu().numpy()
+    Z = P.Zs.cpu().numpy()
+    Sg = (True,) * p if S is None else S
+    ok, rep = pt.check_psd(P, A, tol=200.0)
+    be = cx_backerr(A, T, Z, Sg, left=(lr == "L"))
+    orth_bound = 10 * np.finfo(np.float64).eps * n
+    vals = P.values.cpu().numpy()
+    _log(f"pschur complex p={p} n={n} seed={seed} S={'None' if S is None else 'alternating'} "
+         f"lr={lr}: wall {wall:.3f} s (reduction {info['reduce_s']:.3f} s, iteration "
+         f"{info['iterate_s']:.3f} s), niter {info['niter']}, sweeps {info['sweeps']}, "
+         f"exceptional {info['exceptional']}, czshift {info['czshift']}, backerr {be:.3e}, "
+         f"check_psd ok={ok} orth {rep['orthonormality']:.3e} (bound {orth_bound:.3e}) "
+         f"residual {rep['residual_rel']:.3e}; launches {launches}")
+    if not ok:
+        raise AssertionError(f"check_psd failed: {rep}")
+    if not (be <= 1e-12):
+        raise AssertionError(f"backward error {be:.3e} > 1e-12")
+    if not (rep["orthonormality"] <= orth_bound):
+        raise AssertionError("orthonormality above 10 eps n")
+    if not (np.all(np.isfinite(vals)) and vals.shape == (n,)):
+        raise AssertionError("eigenvalues not finite or of the wrong shape")
+    for k, v in launches.items():
+        if v <= 0:
+            raise AssertionError(f"kernel {k} was not launched by the complex path")
+    return launches
+
+
+def cx_iteration_profile(dev, p, n, seed):
+    """torch.profiler over the complex iteration of the p x n leg (the same
+    draw, reduced once more): wall, device busy time, idle share, and the
+    device time of the top kernels.  Runs after the leg's counters are
+    read."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from periodicschurdecompositions_jl_torch.ops.hessenberg import phessenberg_core
+    from periodicschurdecompositions_jl_torch.ops.pqz_complex import pqz_complex_core
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((p, n, n)) + 1j * rng.standard_normal((p, n, n))
+    H, Q = phessenberg_core(torch.tensor(A, device=dev))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pqz_complex_core(H, (True,) * p, Z=Q)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+    # device-side events only (an operator's self device time would count
+    # its kernels twice)
+    ev = [e for e in prof.key_averages() if "CUDA" in str(e.device_type) and dev_us(e) > 0]
+    busy = sum(dev_us(e) for e in ev) / 1e6
+    top = sorted(ev, key=dev_us, reverse=True)[:6]
+    _log(f"profile of the complex iteration p={p} n={n}: wall {wall:.3f} s (profiler on), "
+         f"device busy {busy:.3f} s, idle share {1 - busy / wall:.1%}; by kernel: "
+         + "; ".join(f"{e.key[:48]} {dev_us(e) / 1e3:.1f} ms in {e.count}" for e in top))
+
+
+def cx_small_check(dev):
+    """A small signed complex cycle on the card: eigenvalues against numpy's
+    eigvals of the signed product."""
+    import torch
+    import periodicschurdecompositions_jl_torch as pt
+    rng = np.random.default_rng(4)
+    S = (True, False, True)
+    A = rng.standard_normal((3, 10, 10)) + 1j * rng.standard_normal((3, 10, 10))
+    P = pt.pschur(torch.tensor(A, device=dev), "R", S=S)
+    ok, _ = pt.check_psd(P, A)
+    w = np.sort_complex(P.values.cpu().numpy())
+    ref = np.sort_complex(np.linalg.eigvals(A[0] @ np.linalg.inv(A[1]) @ A[2]))
+    err = np.abs(w - ref).max() / np.abs(ref).max()
+    _log(f"small signed complex check p=3 n=10 S={S}: eigenvalue error {err:.3e}, ok={ok}")
+    if not (ok and err < 1e-10):
+        raise AssertionError("small signed complex check failed")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -395,8 +736,15 @@ def main() -> int:
     launches = e2e_case(dev, P_HEAD, N_HEAD, SEED_HEAD, "R")
     e2e_case(dev, 8, 128, 99, "L")
 
+    cx_kernel_phase(dev, P_CX, N_CX, report)
+    cx_small_check(dev)
+    launches.update(cx_e2e_case(dev, P_CX, N_CX, SEED_CX, None, "R"))
+    cx_iteration_profile(dev, P_CX, N_CX, SEED_CX)
+    cx_e2e_case(dev, P_CX, N_CX_SIGNED, SEED_CX, alternating(P_CX), "R")
+
     kernels = []
-    for name in ("sweep_generate", "sweep_left", "sweep_right", "deflate2x2"):
+    for name in ("sweep_generate", "sweep_left", "sweep_right", "deflate2x2",
+                 "qz_sweep_generate", "qz_sweep_left", "qz_sweep_right", "qz_shift"):
         kernels.append({**report[name], "launches": launches[name]})
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -1,23 +1,28 @@
 """Periodic Schur decompositions in PyTorch, with CUDA kernels for Hopper.
 
 Port of the JAX package ``periodicschurdecompositions_jl_tpu`` (the
-reference implementation).  Computes in float64 on the input's device; on a
-CUDA device the Francis sweep and the 2x2 deflation run as hand-written
-CUDA kernels (``csrc/``, built with nvcc on first use), on the CPU as their
+reference implementation).  Computes in float64 / complex128.  A torch
+tensor is computed on its own device; an array or a sequence of matrices
+goes to ``device`` (default ``"cuda"``; without a card pass
+``device="cpu"``).  On a CUDA device the real Francis sweep, the 2x2
+deflation, the complex QZ sweep and its shift run as hand-written CUDA
+kernels (``csrc/``, built with nvcc on first use), on the CPU as their
 plain torch versions.  Sets no global torch state.
 
-Ported so far: ``pschur`` for real cycles without a signature, ``phessenberg``
-without a signature and ``check_psd``.  Other routes raise
+Ported so far: ``pschur`` for real cycles without a signature and for
+complex cycles with or without one, ``gpschur`` for complex pairs,
+``phessenberg`` and ``check_psd``.  Other routes raise
 ``PSDNotImplemented``.
 """
 from .config import AlgoConfig, default_config, setverbosity, verbosity
 from .diagnostics import check_psd
 from .models.drivers import gpschur, phessenberg, pschur
-from .types import (ConvergenceFailure, IllConditionedException, PeriodicSchur,
-                    PSDNotImplemented)
+from .types import (ConvergenceFailure, GeneralizedPeriodicSchur,
+                    IllConditionedException, PeriodicSchur, PSDNotImplemented)
 
 __all__ = [
     "AlgoConfig", "default_config", "setverbosity", "verbosity", "check_psd",
     "gpschur", "phessenberg", "pschur", "ConvergenceFailure",
-    "IllConditionedException", "PeriodicSchur", "PSDNotImplemented",
+    "GeneralizedPeriodicSchur", "IllConditionedException", "PeriodicSchur",
+    "PSDNotImplemented",
 ]

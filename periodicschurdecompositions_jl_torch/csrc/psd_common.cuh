@@ -1,8 +1,9 @@
 // Shared device helpers of the periodic Schur kernels: reflector and Givens
 // generation with the semantics of the JAX package's ops/householder.py
 // (LAPACK xLARFG with the underflow rescue) and ops/rotations.py
-// (givens_real).  Correctly rounded division and sqrt only: build without
-// --use_fast_math (the generations set the backward error).
+// (givens_real, givens_complex), and complex128 arithmetic on double2.
+// Correctly rounded division and sqrt only: build without --use_fast_math
+// (the generations set the backward error).
 #pragma once
 
 #include <cfloat>
@@ -97,6 +98,63 @@ __device__ __forceinline__ void givens(double f, double g, double& c,
   } else {
     c = af / dsafe;
     s = g / ((r == 0.0) ? 1.0 : r);
+  }
+}
+
+// ---- complex128 as double2 (x = re, y = im: torch's complex128 layout) ----
+
+__device__ __forceinline__ double2 cmul(double2 a, double2 b) {
+  return make_double2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+
+__device__ __forceinline__ double2 cadd(double2 a, double2 b) {
+  return make_double2(a.x + b.x, a.y + b.y);
+}
+
+__device__ __forceinline__ double2 cconj(double2 a) {
+  return make_double2(a.x, -a.y);
+}
+
+__device__ __forceinline__ double2 cneg(double2 a) {
+  return make_double2(-a.x, -a.y);
+}
+
+// real c times complex a
+__device__ __forceinline__ double2 rmul(double c, double2 a) {
+  return make_double2(c * a.x, c * a.y);
+}
+
+// Complex Givens (zlartg semantics, the JAX package's givens_complex):
+// c real >= 0, [c s; -conj(s) c] (f, g)^T = (r, 0)^T.  g == 0 gives
+// (1, 0, f) exactly; f == 0 gives (0, conj(g)/|g|, |g|).
+__device__ __forceinline__ void givens_cx(double2 f, double2 g, double& c,
+                                          double2& s, double2& r) {
+  const double scale =
+      fmax(fmax(fabs(f.x), fabs(f.y)), fmax(fabs(g.x), fabs(g.y)));
+  const double sc = (scale == 0.0) ? 1.0 : scale;
+  const double fsr = f.x / sc, fsi = f.y / sc, gsr = g.x / sc, gsi = g.y / sc;
+  const double f2 = fsr * fsr + fsi * fsi;
+  const double g2 = gsr * gsr + gsi * gsi;
+  if (g.x == 0.0 && g.y == 0.0) {
+    c = 1.0;
+    s = make_double2(0.0, 0.0);
+    r = f;
+  } else if (f.x == 0.0 && f.y == 0.0) {
+    const double ag = sqrt(g2);
+    const double agsafe = (ag == 0.0) ? 1.0 : ag;
+    c = 0.0;
+    s = make_double2(gsr / agsafe, -(gsi / agsafe));
+    r = make_double2(ag * sc, 0.0);
+  } else {
+    const double af = sqrt(f2);
+    const double d = sqrt(f2 + g2);
+    const double dsafe = (d == 0.0) ? 1.0 : d;
+    const double afsafe = (af == 0.0) ? 1.0 : af;
+    c = af / dsafe;
+    const double fgr = fsr / afsafe, fgi = fsi / afsafe;
+    r = make_double2(fgr * d * sc, fgi * d * sc);
+    s = make_double2((fgr * gsr + fgi * gsi) / dsafe,
+                     (fgi * gsr - fgr * gsi) / dsafe);
   }
 }
 

@@ -2,7 +2,8 @@
 
 Host-side numpy on purpose, like the JAX package's: it is a diagnostic, not
 a hot path.  Checks triangularity of the factors, orthonormality of the
-Schur vectors and the per-factor reconstruction residual.
+Schur vectors and the per-factor reconstruction residual, honouring the
+signature of a GeneralizedPeriodicSchur and complex (unitary) Z.
 """
 from __future__ import annotations
 
@@ -11,6 +12,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .types import GeneralizedPeriodicSchur
+
 
 def _np(x):
     if isinstance(x, torch.Tensor):
@@ -18,15 +21,17 @@ def _np(x):
     return np.asarray(x)
 
 
-def _reconstruct(Ts, Zs, left):
+def _reconstruct(Ts, Zs, left, S):
+    """Per-factor reconstruction Ahat[l] from (T, Z), honouring the
+    orientation and the signature."""
     p = Ts.shape[0]
     Ahat = np.empty_like(Ts)
     for l in range(p):
         ln = (l + 1) % p
-        if not left:
-            Ahat[l] = Zs[l] @ Ts[l] @ Zs[ln].T
+        if bool(S[l]) ^ left:
+            Ahat[l] = Zs[l] @ Ts[l] @ Zs[ln].conj().T
         else:
-            Ahat[l] = Zs[ln] @ Ts[l] @ Zs[l].T
+            Ahat[l] = Zs[ln] @ Ts[l] @ Zs[l].conj().T
     return Ahat
 
 
@@ -35,8 +40,8 @@ def check_psd(P, A: Optional[np.ndarray] = None, *, qtol: float = 10.0,
     """Verify a periodic Schur decomposition.
 
     Args:
-      P: PeriodicSchur (with Zs present for the orthonormality and
-         residual checks).
+      P: PeriodicSchur or GeneralizedPeriodicSchur (with Zs present for
+         the orthonormality and residual checks).
       A: optional original cycle (p, n, n), tensor or array; enables the
          reconstruction-residual check.
       qtol: orthonormality threshold multiplier: ||Z Z' - I||_1 < qtol*eps*n.
@@ -48,13 +53,15 @@ def check_psd(P, A: Optional[np.ndarray] = None, *, qtol: float = 10.0,
     """
     Ts = _np(P.Ts)
     p, n, _ = Ts.shape
-    eps = np.finfo(Ts.dtype).eps
+    eps = np.finfo(Ts.real.dtype).eps
     report = {}
     ok = True
 
+    # the schurindex factor may be quasi-triangular for real dtypes only
+    isreal = not np.iscomplexobj(Ts)
     tri_junk = 0.0
     for l in range(p):
-        k = -1 if l == P.schurindex else 0
+        k = -1 if (l == P.schurindex and isreal) else 0
         sub = np.tril(Ts[l], k - 1)
         tri_junk = max(tri_junk, np.abs(sub).max() if sub.size else 0.0)
     report["triangularity_junk"] = tri_junk
@@ -62,7 +69,7 @@ def check_psd(P, A: Optional[np.ndarray] = None, *, qtol: float = 10.0,
 
     if P.Zs is not None:
         Zs = _np(P.Zs)
-        orth = max(np.linalg.norm(Zs[l] @ Zs[l].T - np.eye(n), ord=1)
+        orth = max(np.linalg.norm(Zs[l] @ Zs[l].conj().T - np.eye(n), ord=1)
                    for l in range(p))
         report["orthonormality"] = orth
         report["orthonormality_bound"] = qtol * eps * n
@@ -70,10 +77,11 @@ def check_psd(P, A: Optional[np.ndarray] = None, *, qtol: float = 10.0,
 
         if A is not None:
             A = _np(A)
-            Ahat = _reconstruct(Ts, Zs, P.orientation == "L")
+            S = P.S if isinstance(P, GeneralizedPeriodicSchur) else (True,) * p
+            Ahat = _reconstruct(Ts, Zs, P.orientation == "L", S)
             worst = 0.0
             for l in range(p):
-                anorm = max(np.linalg.norm(A[l], ord=1), np.finfo(A.dtype).tiny)
+                anorm = max(np.linalg.norm(A[l], ord=1), np.finfo(A.real.dtype).tiny)
                 worst = max(worst, np.linalg.norm(A[l] - Ahat[l], ord=1) / anorm)
             report["residual_rel"] = worst
             report["residual_bound"] = tol * eps

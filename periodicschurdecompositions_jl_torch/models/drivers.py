@@ -1,8 +1,19 @@
 """Public decomposition drivers (port of ``models/drivers.py``).
 
-Ported so far: ``pschur`` for real input with no signature (both
-orientations) and ``phessenberg`` with no signature.  Every other route
-raises ``PSDNotImplemented`` naming the ROADMAP item that ports it.
+Ported so far:
+
+* ``pschur`` for real input with no signature, and for complex input with
+  or without a signature (both orientations);
+* ``gpschur`` for complex pairs;
+* ``phessenberg`` with or without a signature.
+
+Every other route (the real generalized decomposition) raises
+``PSDNotImplemented`` naming the ROADMAP item that ports it.
+
+Device rule: a torch tensor is computed on its own device (a CPU tensor is
+an explicit request for the CPU).  An array or a sequence of matrices goes
+to ``device``, by default ``"cuda"``; without a CUDA card that raises
+unless ``device="cpu"`` is given.
 """
 from __future__ import annotations
 
@@ -11,29 +22,45 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..ops.hessenberg import phessenberg_core
-from ..types import PSDNotImplemented
+from ..ops.hessenberg import phessenberg_core, phessenberg_signed_core
+from ..types import GeneralizedPeriodicSchur, PeriodicSchur, PSDNotImplemented
 
-_COMPLEX = "the complex route is not ported yet (ROADMAP queue 1, item 8)"
-_SIGNED = ("signature (S=) routes are not ported yet (ROADMAP queue 1, "
-           "items 8-9)")
+_REAL_SIGNED = ("the real generalized decomposition (real input with S=) is "
+                "not ported yet (ROADMAP queue 1, item 9)")
 
 
-def _stack(A) -> torch.Tensor:
-    """A (p, n, n) tensor from a stacked tensor/array or a sequence of
-    matrices.  Tensors keep their device; arrays land on the CPU."""
+def _target(device):
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: arrays are computed on the card by default; pass "
+            "device=\"cpu\" (or a CPU tensor) to compute on the CPU")
+    return dev
+
+
+def _stack(A, device=None) -> torch.Tensor:
+    """A (p, n, n) float64 or complex128 tensor from a stacked tensor/array
+    or a sequence of matrices.
+
+    A tensor, or a sequence of tensors, keeps its device unless ``device``
+    is given.  An array or a sequence holding arrays goes to ``device``,
+    by default ``"cuda"``; with no card that raises unless ``device="cpu"``.
+    """
     if isinstance(A, torch.Tensor):
-        T = A
-    elif hasattr(A, "ndim"):
-        T = torch.as_tensor(np.asarray(A))
+        T = A if device is None else A.to(_target(device))
+    elif not hasattr(A, "ndim") and len(A) and all(isinstance(a, torch.Tensor)
+                                                   for a in A):
+        T = torch.stack(list(A))
+        T = T if device is None else T.to(_target(device))
     else:
-        T = torch.stack([torch.as_tensor(np.asarray(a)) if not isinstance(a, torch.Tensor)
-                         else a for a in A])
+        dev = _target(device)
+        arr = np.asarray(A) if hasattr(A, "ndim") else np.stack(
+            [a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+             for a in A])
+        T = torch.as_tensor(arr).to(dev)
     if T.ndim != 3 or T.shape[1] != T.shape[2]:
         raise ValueError(f"expected a (p, n, n) cycle, got shape {tuple(T.shape)}")
-    if T.is_complex():
-        raise PSDNotImplemented(_COMPLEX)
-    return T.to(torch.float64)
+    return T.to(torch.complex128 if T.is_complex() else torch.float64)
 
 
 def _char_lr(lr) -> str:
@@ -43,45 +70,82 @@ def _char_lr(lr) -> str:
     return s
 
 
-def phessenberg(A, S: Optional[Sequence[bool]] = None, want_q: bool = True):
-    """Periodic Hessenberg-triangular reduction of a real cycle.
+def phessenberg(A, S: Optional[Sequence[bool]] = None, want_q: bool = True, *,
+                device=None):
+    """Periodic Hessenberg(-triangular) reduction of a real or complex cycle.
 
-    Returns (H, Q) with ``Q[l]^T A[l] Q[(l+1)%p] = H[l]``.
+    Returns (H, Q): H[0] upper Hessenberg, H[1:] upper triangular, with
+    ``Q[l]^H A[l] Q[(l+1)%p] = H[l]`` (direct factors) or
+    ``Q[(l+1)%p]^H A[l] Q[l] = H[l]`` (inverted factors, when ``S`` given;
+    ``S[0]`` must be True).  ``device``: see the module docstring.
     """
-    if S is not None and not all(bool(x) for x in S):
-        raise PSDNotImplemented(_SIGNED)
-    return phessenberg_core(_stack(A), want_q=want_q)
+    A = _stack(A, device)
+    if S is None or all(bool(x) for x in S):
+        return phessenberg_core(A, want_q=want_q)
+    return phessenberg_signed_core(A, tuple(bool(x) for x in S), want_q=want_q)
 
 
 def pschur(A, lr="R", S: Optional[Sequence[bool]] = None, *,
            want_t: bool = True, want_z: bool = True,
-           maxitfac: Optional[int] = None):
-    """Periodic Schur decomposition of a real matrix cycle.
+           maxitfac: Optional[int] = None, device=None):
+    """Periodic (generalized) Schur decomposition of a matrix cycle.
 
     Args:
-      A: (p, n, n) real cycle (tensor, array, or sequence of matrices),
-         computed in float64 on its own device (arrays: the CPU).  On a
-         CUDA device the sweep and the 2x2 deflation run as hand-written
-         CUDA kernels.
+      A: (p, n, n) cycle (tensor, array, or sequence of matrices), computed
+         in float64 (real) or complex128 (complex).  A tensor is computed on
+         its own device; an array goes to ``device`` (default ``"cuda"``;
+         without a card pass ``device="cpu"``).  On a CUDA device the sweeps,
+         the 2x2 deflation and the complex shift run as hand-written CUDA
+         kernels.
       lr: 'R' for the product ``A[0] @ ... @ A[p-1]``, 'L' for
           ``A[p-1] @ ... @ A[0]``.
-      S: signature; only None (all direct factors) is ported.
-      want_t/want_z: keep the triangular/orthogonal factors (want_t=False
+      S: optional signature (True = direct, False = inverted factor); the
+         generalized decomposition.  Ported for complex input only.
+      want_t/want_z: keep the triangular/unitary factors (want_t=False
           raises PSDNotImplemented for now).
       maxitfac: iteration budget factor (default 30).
 
     Returns:
-      PeriodicSchur.
+      PeriodicSchur (S is None) or GeneralizedPeriodicSchur (S given).
     """
-    A = _stack(A)
+    A = _stack(A, device)
     orient = _char_lr(lr)
+    mif = 30 if maxitfac is None else int(maxitfac)
+    if A.is_complex():
+        from ..ops.pqz_complex import pschur_complex_pipeline
+        Sb = (True,) * A.shape[0] if S is None else tuple(bool(x) for x in S)
+        gps = pschur_complex_pipeline(A, Sb, orient, want_t=want_t,
+                                      want_z=want_z, maxitfac=mif)
+        if S is not None:
+            return gps
+        return PeriodicSchur(Ts=gps.Ts, Zs=gps.Zs, values=gps.values,
+                             orientation=gps.orientation,
+                             schurindex=gps.schurindex)
     if S is not None:
-        raise PSDNotImplemented(_SIGNED)
+        raise PSDNotImplemented(_REAL_SIGNED)
     from ..ops.pqr_real import pschur_real_pipeline
     return pschur_real_pipeline(A, orient, want_t=want_t, want_z=want_z,
-                                maxitfac=30 if maxitfac is None else int(maxitfac))
+                                maxitfac=mif)
 
 
-def gpschur(As, Bs, **kwargs):
-    """GPSD of ``B[p-1]^-1 A[p-1] ... B[0]^-1 A[0]`` (not ported yet)."""
-    raise PSDNotImplemented("gpschur is not ported yet (ROADMAP queue 1, item 9)")
+def gpschur(As, Bs, **kwargs) -> GeneralizedPeriodicSchur:
+    """GPSD of the formal product ``B[p-1]^-1 A[p-1] ... B[0]^-1 A[0]``.
+
+    Interleaves the pairs into a length-2p signed cycle (terms shifted by
+    one, which does not change eigenvalues), as the JAX package's
+    ``gpschur``.  Complex pairs only; ``kwargs`` go to ``pschur`` (``lr``
+    defaults to 'R').
+    """
+    As, Bs = list(As), list(Bs)
+    ph = len(As)
+    ib = 0 if ph == 1 else ph - 2
+    Cs = [As[ph - 1], Bs[ib]]
+    Ss = [True, False]
+    for j in range(ph - 2, -1, -1):
+        Cs.append(As[j])
+        Cs.append(Bs[ph - 1 if j == 0 else j - 1])
+        Ss.extend([True, False])
+    C = _stack(Cs, kwargs.pop("device", None))
+    if not C.is_complex():
+        raise PSDNotImplemented(_REAL_SIGNED)
+    return pschur(C, kwargs.pop("lr", "R"), S=tuple(Ss), **kwargs)

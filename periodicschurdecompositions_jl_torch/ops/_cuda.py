@@ -1,7 +1,8 @@
 """Build and load the hand-written CUDA kernels of ``csrc/``.
 
-The sources in ``csrc/*.cu`` have a plain C interface.  On first use they
-are compiled with ``nvcc`` into one shared library, keyed by a hash of the
+The sources in ``csrc/*.cu`` have a plain C interface.  On first use each
+is compiled with ``nvcc`` to an object file, all at once in parallel, and
+the objects are linked into one shared library, keyed by a hash of the
 sources and the flags, under ``_build/`` next to this package, and loaded
 with ctypes.  Pointers and the CUDA stream cross as ``c_void_p``.  There is
 no fallback: a missing ``nvcc`` or a failed build raises.
@@ -23,7 +24,7 @@ _CSRC = _PKG / "csrc"
 _BUILD = _PKG / "_build"
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 _lib = None
 
@@ -67,8 +68,15 @@ def _declare(lib):
     lib.psd_sweep_right.argtypes = [vp, vp, vp, i32, i32, i32, i32, vp]
     lib.psd_deflate2x2.argtypes = [vp, vp, i32, i32, i32, i32, i32, i32, i32,
                                    f64, f64, f64, vp]
+    lib.psd_qz_sweep_generate.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32,
+                                          i32, vp]
+    lib.psd_qz_sweep_left.argtypes = [vp, vp, i32, i32, i32, i32, vp]
+    lib.psd_qz_sweep_right.argtypes = [vp, vp, vp, i32, i32, i32, i32, vp]
+    lib.psd_qz_shift.argtypes = [vp, vp, vp, i32, i32, i32, i32, vp]
     for fn in (lib.psd_sweep_generate, lib.psd_sweep_left,
-               lib.psd_sweep_right, lib.psd_deflate2x2):
+               lib.psd_sweep_right, lib.psd_deflate2x2,
+               lib.psd_qz_sweep_generate, lib.psd_qz_sweep_left,
+               lib.psd_qz_sweep_right, lib.psd_qz_shift):
         fn.restype = i32
     lib.psd_error_string.argtypes = [i32]
     lib.psd_error_string.restype = ctypes.c_char_p
@@ -86,17 +94,41 @@ def load():
     nvcc = _find_nvcc()
     so = _BUILD / f"libpsd_kernels_{_key(srcs)}.so"
     if not so.exists():
-        _BUILD.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-I", str(_CSRC), "-o", str(tmp),
-               *map(str, srcs)]
-        res = subprocess.run(cmd, capture_output=True, text=True)
-        if res.returncode != 0:
-            raise RuntimeError("nvcc build of the CUDA kernels failed:\n"
-                               + " ".join(cmd) + "\n" + res.stdout + res.stderr)
-        os.replace(tmp, so)
+        _build(nvcc, srcs, so)
     _lib = _declare(ctypes.CDLL(str(so)))
     return _lib
+
+
+def _run_all(cmds):
+    """Run the commands concurrently; raise with the output of any failure."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    failed = []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(" ".join(cmd) + "\n" + out)
+    if failed:
+        raise RuntimeError("nvcc build of the CUDA kernels failed:\n"
+                           + "\n".join(failed))
+
+
+def _build(nvcc, srcs, so):
+    """One nvcc per source, all started together, then one link."""
+    _BUILD.mkdir(parents=True, exist_ok=True)
+    tag = f"{so.stem}.{os.getpid()}"
+    objs = [_BUILD / f"{tag}.{s.stem}.o" for s in srcs]
+    try:
+        _run_all([[nvcc, *NVCC_FLAGS, "-I", str(_CSRC), "-c", "-o", str(o),
+                   str(s)] for s, o in zip(srcs, objs)])
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        _run_all([[nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp),
+                   *map(str, objs)]])
+        os.replace(tmp, so)
+    finally:
+        for o in objs:
+            o.unlink(missing_ok=True)
 
 
 def check(rc: int, what: str) -> None:

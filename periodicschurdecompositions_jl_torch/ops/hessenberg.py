@@ -1,8 +1,9 @@
-"""Periodic Hessenberg reduction, all-positive signature (port of ``hessenberg.py``).
+"""Periodic Hessenberg-triangular reduction (port of ``hessenberg.py``).
 
-Reduce a cycle ``A[0..p-1]`` by orthogonal similarity,
+``phessenberg_core`` (all direct factors) reduces a cycle ``A[0..p-1]`` by
+unitary similarity,
 
-    Q[j]^T A[j] Q[(j+1) % p] = H[j],
+    Q[j]^H A[j] Q[(j+1) % p] = H[j],
 
 with ``H[0]`` upper Hessenberg and ``H[1..p-1]`` upper triangular (MB03VD
 column sweep).  One host loop over columns; for each column the p-cycle of
@@ -11,15 +12,31 @@ tensors' device.  The generators are branch-free, so the loop never reads
 a value back to the host.  Each reflector is zero outside its window, so
 the rank-1 updates touch only the rows (left) or columns (right) of that
 window; outside it the full-width update of the JAX package is an exact
-no-op.
+no-op.  Real and complex input.
+
+``phessenberg_signed_core`` handles a mixed signature (Kressner's
+two-stage scheme): QR/RQ factorizations of the triangular factors, then
+Givens chains that reduce H[0] to Hessenberg form while re-triangularizing
+the others.  Its chains loop over the active rotations only (the JAX
+package runs all n steps with masks) and generate each rotation on the
+host from the two entries it annihilates.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 
 from .householder import refl_left, refl_right, reflector_masked
+from .rotations import colsk, givens_host, lmat_host, rmat_adj_host, rowsk
+
+
+def _scrub(A):
+    """Exact zeros outside the Hessenberg-triangular structure."""
+    A[0] = torch.triu(A[0], -1)
+    if A.shape[0] > 1:
+        A[1:] = torch.triu(A[1:])
+    return A
 
 
 def phessenberg_core(A: torch.Tensor, want_q: bool = True
@@ -27,12 +44,12 @@ def phessenberg_core(A: torch.Tensor, want_q: bool = True
     """Reduce a stacked cycle to periodic Hessenberg/triangular form.
 
     Args:
-      A: (p, n, n) real stack (not modified).
-      want_q: accumulate the orthogonal factors.
+      A: (p, n, n) real or complex stack (not modified).
+      want_q: accumulate the unitary factors.
 
     Returns:
       (H, Q): H[0] upper Hessenberg, H[1:] upper triangular; Q (p, n, n)
-      with Q[j]^T A[j] Q[(j+1)%p] = H[j] (None if not requested).
+      with Q[j]^H A[j] Q[(j+1)%p] = H[j] (None if not requested).
     """
     p, n, n2 = A.shape
     if n != n2:
@@ -46,7 +63,7 @@ def phessenberg_core(A: torch.Tensor, want_q: bool = True
         # factors p-1 .. 1: triangularize column i
         for j in range(p - 1, 0, -1):
             w, tau, beta = reflector_masked(A[j, :, i], i)
-            refl_left(A[j, i:], w[i:], tau)
+            refl_left(A[j, i:], w[i:], tau.conj())
             A[j, i, i] = beta
             A[j, i + 1:, i] = 0.0
             refl_right(A[j - 1, :, i:], w[i:], tau)
@@ -54,14 +71,125 @@ def phessenberg_core(A: torch.Tensor, want_q: bool = True
                 refl_right(Q[j, :, i:], w[i:], tau)
         # factor 0: Hessenberg column i (annihilate below row i+1)
         w, tau, beta = reflector_masked(A[0, :, i], i + 1)
-        refl_left(A[0, i + 1:], w[i + 1:], tau)
+        refl_left(A[0, i + 1:], w[i + 1:], tau.conj())
         A[0, i + 1, i] = beta
         A[0, i + 2:, i] = 0.0
         refl_right(A[p - 1, :, i + 1:], w[i + 1:], tau)
         if want_q:
             refl_right(Q[0, :, i + 1:], w[i + 1:], tau)
-    # exact zeros outside the structure
-    A[0] = torch.triu(A[0], -1)
-    if p > 1:
-        A[1:] = torch.triu(A[1:])
-    return A, Q
+    return _scrub(A), Q
+
+
+def _rq(A):
+    """RQ decomposition A = R @ Q via a flipped QR (R upper triangular)."""
+    B = torch.flip(A, (0,)).conj().T          # B = A^H J
+    Q1, R1 = torch.linalg.qr(B)
+    R = torch.flip(R1.conj().T, (0, 1))       # J R1^H J
+    Q = torch.flip(Q1.conj().T, (0,))         # J Q1^H
+    return R, Q
+
+
+def phessenberg_signed_core(A: torch.Tensor, S: Sequence[bool],
+                            want_q: bool = True
+                            ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Generalized periodic Hessenberg-triangular reduction (mixed signature).
+
+    Stage 1 triangularizes factors p-1..1 by QR (direct factors) or RQ
+    (inverted factors) with ``torch.linalg.qr``, propagating the unitary
+    into the neighbour according to its sign; stage 2 reduces factor 0 to
+    Hessenberg form with Givens chains, re-triangularizing each factor
+    (direct: QR-like rotation, inverted: RQ-like rotation).
+
+    Requires ``S[0]``.  Returns (H, Q) with H[0] Hessenberg, H[1:]
+    triangular, ``Q[l]^H A[l] Q[(l+1)%p] = H[l]`` for S[l], else
+    ``Q[(l+1)%p]^H A[l] Q[l] = H[l]``.  Real or complex input.
+    """
+    p, n, _ = A.shape
+    S = tuple(bool(x) for x in S)
+    if len(S) != p or not S[0]:
+        raise ValueError("signature: one entry per factor, S[0] must be True")
+    A = A.clone()
+    Q = torch.eye(n, dtype=A.dtype, device=A.device).expand(p, n, n).clone() \
+        if want_q else None
+
+    # ---- stage 1: triangular decompositions (QR / RQ) -------------------
+    for l in range(p - 1, 0, -1):
+        if S[l]:
+            Qf, R = torch.linalg.qr(A[l])
+            A[l] = R
+            A[l - 1] = A[l - 1] @ Qf if S[l - 1] else Qf.conj().T @ A[l - 1]
+            if want_q:
+                Q[l] = Q[l] @ Qf
+        else:
+            R, Qf = _rq(A[l])
+            A[l] = R
+            A[l - 1] = A[l - 1] @ Qf.conj().T if S[l - 1] else Qf @ A[l - 1]
+            if want_q:
+                Q[l] = Q[l] @ Qf.conj().T
+    if n <= 2:
+        return _scrub(A), Q
+
+    # ---- stage 2: Givens Hessenberg reduction of factor 0 ---------------
+    # The rotations are generated on the host from the two entries each one
+    # annihilates (one read per rotation), in the JAX order.  An operation
+    # that no later generation of the same chain reads is deferred to the
+    # end of the chain and applied in the original order with the chain's
+    # 2x2 matrices sent in one transfer: the row updates of factor 0 and of
+    # the direct factors (rows i-1, i from column i on, disjoint from every
+    # later column update and generation) and the Q updates.
+    dt, dev = A.dtype, A.device
+
+    def mats(G, rng, build):
+        return torch.tensor([build(*G[i]) for i in rng], dtype=dt, device=dev)
+
+    for j in range(n - 2):
+        rng = range(n - 1, j + 1, -1)          # the active i >= j + 2
+        G = {}
+        A0 = A[0]
+        col = A0[:, j].tolist()                # factor 0 reads column j only
+        x = col[n - 1]
+        for i in rng:
+            c, s, x = givens_host(col[i - 1], x)
+            G[i] = (c, s)
+        A0[j + 1, j] = x
+        A0[j + 2:, j] = 0.0
+        L = mats(G, rng, lmat_host)
+        R = mats(G, rng, rmat_adj_host)
+        for t, i in enumerate(rng):
+            rowsk(A0, i - 1, L[t], lo=j + 1)
+        if want_q:
+            for t, i in enumerate(rng):
+                colsk(Q[0], i - 1, R[t])
+        for l in range(p - 1, 0, -1):
+            Al = A[l]
+            Gn = {}
+            if S[l]:
+                for t, i in enumerate(rng):
+                    colsk(Al, i - 1, R[t], hi=i + 1)
+                    f, g = Al[i - 1:i + 1, i - 1].tolist()
+                    c, s, r = givens_host(f, g)
+                    Al[i - 1, i - 1] = r
+                    Al[i, i - 1] = 0.0
+                    Gn[i] = (c, s)
+                Ln = mats(Gn, rng, lmat_host)
+                for t, i in enumerate(rng):
+                    rowsk(Al, i - 1, Ln[t], lo=i)
+            else:
+                Lp = mats(G, rng, lmat_host)
+                for t, i in enumerate(rng):
+                    rowsk(Al, i - 1, Lp[t], lo=i - 1)
+                    g, f = Al[i, i - 1:i + 1].tolist()
+                    c, s, r = givens_host(f, g)
+                    Al[i, i] = r
+                    Al[i, i - 1] = 0.0
+                    colsk(Al, i - 1, torch.tensor(lmat_host(c, s), dtype=dt,
+                                                  device=dev), hi=i)
+                    Gn[i] = (c, -s)
+            G = Gn
+            R = mats(G, rng, rmat_adj_host)
+            if want_q:
+                for t, i in enumerate(rng):
+                    colsk(Q[l], i - 1, R[t])
+        for t, i in enumerate(rng):
+            colsk(A0, i - 1, R[t])
+    return _scrub(A), Q

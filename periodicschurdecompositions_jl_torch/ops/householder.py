@@ -1,8 +1,11 @@
 """Householder reflector generation and application (port of ``householder.py``).
 
 Generation has LAPACK xLARFG semantics, including the underflow-rescue
-rescaling.  A reflector is ``P = I - tau * w @ w^T`` with ``w[first] = 1``
-and ``P @ x = [beta, 0, ..., 0]`` on the active window (real only).
+rescaling.  A reflector is ``P = I - tau * w @ w^H`` with ``w[first] = 1``
+and ``P^H @ x = [beta, 0, ..., 0]`` on the active window, ``beta`` real
+(for real input P is symmetric, so ``P @ x`` works too; for complex input
+apply the adjoint, i.e. pass ``conj(tau)`` to :func:`refl_left`).  Complex
+``tau`` is ``(beta - re(alpha))/beta - i im(alpha)/beta``.
 
 Every generator is branch-free tensor code (``torch.where`` selects), so it
 runs on the device without reading a value back to the host.
@@ -18,7 +21,8 @@ def _safemin(dtype) -> float:
 
 
 def _scaled_norm(x):
-    """Overflow/underflow-safe 2-norm of a real vector via max-scaling."""
+    """Overflow/underflow-safe 2-norm of a real or complex vector via
+    max-scaling."""
     a = torch.abs(x)
     m = torch.max(a) if a.numel() else torch.zeros((), dtype=x.dtype, device=x.device)
     msafe = torch.where(m == 0, torch.ones_like(m), m)
@@ -41,8 +45,18 @@ def _neg_copysign(mag, sgn):
     return torch.where(sgn >= 0, -am, am)
 
 
+def _hyp3(x, y, z):
+    """sqrt(x^2 + y^2 + z^2) with max-scaling (the JAX ``hyp3``)."""
+    m = torch.maximum(torch.maximum(torch.abs(x), torch.abs(y)), torch.abs(z))
+    ms = torch.where(m == 0, torch.ones_like(m), m)
+    xs, ys, zs = x / ms, y / ms, z / ms
+    return m * torch.sqrt(xs * xs + ys * ys + zs * zs)
+
+
 def _reflector_from(alpha, tail):
     """Shared xLARFG core: returns (beta, tau, scaled_tail)."""
+    if tail.is_complex():
+        return _reflector_from_complex(alpha, tail)
     dt = tail.dtype
     sfmin = _safemin(dt)
     rsfmin = 1.0 / sfmin
@@ -78,12 +92,49 @@ def _reflector_from(alpha, tail):
     return beta_out, tau, vtail
 
 
+def _reflector_from_complex(alpha, tail):
+    """Complex xLARFG (zlarfg): real beta, complex tau; the JAX package's
+    arithmetic order (1/denom as conj(denom)/|denom|^2)."""
+    rdt = tail.real.dtype
+    sfmin = _safemin(rdt)
+    rsfmin = 1.0 / sfmin
+    one = torch.ones((), dtype=rdt, device=tail.device)
+
+    xnorm = _scaled_norm(tail)
+    ar, ai = alpha.real, alpha.imag
+    trivial = (xnorm == 0) & (ai == 0)
+    beta = _neg_copysign(_hyp3(ar, ai, xnorm), ar)
+    need = torch.abs(beta) < sfmin
+    scl = torch.where(need, one * rsfmin, one)
+    tail = tail * scl
+    ar = ar * scl
+    ai = ai * scl
+    xnorm2 = _scaled_norm(tail)
+    beta2 = _neg_copysign(_hyp3(ar, ai, xnorm2), ar)
+    beta_in = torch.where(need, beta2, beta)
+
+    bsafe = torch.where(beta_in == 0, one, beta_in)
+    tau = torch.complex((beta_in - ar) / bsafe, -(ai / bsafe))
+    dr, di = ar - beta_in, ai
+    dz = (dr == 0) & (di == 0)
+    dr = torch.where(dz, one, dr)
+    di = torch.where(dz, torch.zeros_like(di), di)
+    d2 = dr * dr + di * di
+    vtail = tail * torch.complex(dr / d2, -di / d2)
+    beta_out = torch.where(need, beta_in * sfmin, beta_in)
+
+    tau = torch.where(trivial, torch.zeros_like(tau), tau)
+    vtail = torch.where(trivial, torch.zeros_like(vtail), vtail)
+    beta_out = torch.where(trivial, alpha.real, beta_out)
+    return beta_out, tau, vtail
+
+
 def reflector_masked(x, lo: int, hi: int = None):
     """xLARFG on the window ``x[lo:hi]`` of a vector.
 
     Returns ``(w, tau, beta)``: full-length ``w`` with ``w[lo] = 1``, the
     essential part in ``(lo, hi)`` and zeros elsewhere; scalar ``tau`` and
-    ``beta`` (the value that replaces ``x[lo]``).
+    real ``beta`` (the value that replaces ``x[lo]``).
     """
     n = x.shape[0]
     if hi is None:
@@ -106,19 +157,23 @@ def reflector_small(x):
     return w, tau, beta
 
 
+def _conj(w):
+    return torch.conj_physical(w) if w.is_complex() else w
+
+
 def refl_mat(w, tau):
-    """Dense k x k matrix ``I - tau w w^T`` for a small reflector."""
+    """Dense k x k matrix ``I - tau w w^H`` for a small reflector."""
     k = w.shape[0]
-    return torch.eye(k, dtype=w.dtype, device=w.device) - tau * torch.outer(w, w)
+    return torch.eye(k, dtype=w.dtype, device=w.device) - tau * torch.outer(w, _conj(w))
 
 
 def refl_left(A, w, tau):
-    """A <- (I - tau w w^T) @ A in place (rank-1 update); returns A."""
-    t = w @ A
+    """A <- (I - tau w w^H) @ A in place (rank-1 update); returns A."""
+    t = _conj(w) @ A
     return A.sub_(tau * torch.outer(w, t))
 
 
 def refl_right(A, w, tau):
-    """A <- A @ (I - tau w w^T) in place; returns A."""
+    """A <- A @ (I - tau w w^H) in place; returns A."""
     t = A @ w
-    return A.sub_(tau * torch.outer(t, w))
+    return A.sub_(tau * torch.outer(t, _conj(w)))

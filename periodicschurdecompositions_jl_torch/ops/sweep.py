@@ -130,9 +130,9 @@ def apply_log_plain(H, Z, R, m: int, i: int, *, want_z: bool):
     return H, Z
 
 
-def _check(name, t, shape):
-    if t.dtype != torch.float64 or not t.is_contiguous() or tuple(t.shape) != shape:
-        raise ValueError(f"{name}: expected a contiguous float64 tensor of shape "
+def _check(name, t, shape, dtype=torch.float64):
+    if t.dtype != dtype or not t.is_contiguous() or tuple(t.shape) != shape:
+        raise ValueError(f"{name}: expected a contiguous {dtype} tensor of shape "
                          f"{shape}, got {t.dtype} {tuple(t.shape)} "
                          f"contiguous={t.is_contiguous()}")
 

@@ -1,0 +1,251 @@
+"""One single-shift sweep of the complex periodic QZ core, and its shift.
+
+``qz_sweep`` chases one single-shift QZ step down the active window
+``[m, i]`` of a ``(p, n, n)`` complex128 cycle with signature ``S``, in
+place on H (and Z).  ``qz_shift`` computes the sweep's shift rotation
+(c, s).  Semantics: ``act_sweep`` of the JAX package's
+``ops/pqz_complex.py`` (reference src/generalized.jl:763-852).
+
+* On a CUDA tensor they launch the hand-written kernels of
+  ``csrc/sweep_cx.cu`` (they replace the Pallas kernels A, B0, B and S of
+  the JAX package's ``ops/pallas_sweep_cx.py``):
+
+  - ``qz_sweep_generate`` walks k = m..i-1 and generates, in the reference
+    order, the chase rotation of H[0] and the re-triangularizing rotation
+    of every factor p-1..1 on a working copy of H; it writes the log
+    (p, n, 16): per (factor, step) the left 2x2 L, the right 2x2 R, the Z
+    update ZR, and for factor 0 the regenerated subdiagonal entry r;
+  - ``qz_sweep_left`` applies every logged L to rows k, k+1 of H[l];
+  - ``qz_sweep_right`` applies every logged R to columns k, k+1 of H[l]
+    (rows 0..i) and ZR to Z[l], then writes the structural zeros and the
+    regenerated subdiagonal exactly;
+  - ``qz_shift`` computes (c, s) into a device buffer that
+    ``qz_sweep_generate`` reads, so no host read sits between them.
+* On a CPU tensor they run the plain versions ``qz_sweep_plain`` (the
+  interleaved reference order) and ``qz_shift_plain``.  Any other device
+  raises.
+
+``qz_apply_log_plain`` is the plain version of kernels B0 + B: it replays
+a log in their deferred order.  ``launches`` counts the launches of each
+kernel.
+"""
+from __future__ import annotations
+
+from typing import Sequence
+
+import torch
+
+from . import _cuda, sweep
+from .rotations import colsk, givens_complex, lmat, rmat_adj, rowsk
+
+launches = {"qz_sweep_generate": 0, "qz_sweep_left": 0, "qz_sweep_right": 0,
+            "qz_shift": 0}
+
+LOG = 16  # complex128 entries per (factor, step) in a sweep log
+
+_sig_cache: dict = {}
+
+
+def _signature(S: Sequence[bool], dev) -> torch.Tensor:
+    """The signature as a device int32 array (cached per signature/device)."""
+    key = (tuple(bool(x) for x in S), str(dev))
+    t = _sig_cache.get(key)
+    if t is None:
+        t = torch.tensor([int(x) for x in key[0]], dtype=torch.int32, device=dev)
+        _sig_cache[key] = t
+    return t
+
+
+def _put(log, l, k, at, M):
+    if log is not None:
+        log[l, k, at:at + 4] = M.reshape(4)
+
+
+def qz_sweep_plain(H, Z, m: int, i: int, cs, S: Sequence[bool], *,
+                   want_z: bool, log=None):
+    """Eager torch sweep in the reference (interleaved) order, in place.
+
+    ``cs``: (2,) complex tensor, the shift rotation (c + 0j, s).
+    ``log``: optional (p, n, 16) complex tensor that receives the rotations
+    in ``qz_sweep_generate``'s layout.
+    """
+    p, n, _ = H.shape
+    zero = torch.zeros((), dtype=H.dtype, device=H.device)
+    c, s = cs[0].real, cs[1]
+    for k in range(m, i):
+        if k > m:
+            c, s, r = givens_complex(H[0, k, k - 1], H[0, k + 1, k - 1])
+            H[0, k, k - 1] = r
+            H[0, k + 1, k - 1] = zero
+            if log is not None:
+                log[0, k, 12] = r
+        L = lmat(c, s)
+        rowsk(H[0], k, L, lo=k)
+        ZR = rmat_adj(c, s)
+        if want_z:
+            colsk(Z[0], k, ZR)
+        _put(log, 0, k, 0, L)
+        _put(log, 0, k, 8, ZR)
+        for l in range(p - 1, 0, -1):
+            if S[l]:
+                R = rmat_adj(c, s)
+                colsk(H[l], k, R, hi=k + 2)
+                c, s, r = givens_complex(H[l, k, k], H[l, k + 1, k])
+                H[l, k, k] = r
+                H[l, k + 1, k] = zero
+                L = lmat(c, s)
+                rowsk(H[l], k, L, lo=k + 1)
+            else:
+                L = lmat(c, s)
+                rowsk(H[l], k, L, lo=k)
+                cn, sn, r = givens_complex(H[l, k + 1, k + 1], H[l, k + 1, k])
+                H[l, k + 1, k] = zero
+                H[l, k + 1, k + 1] = r
+                R = lmat(cn, sn)
+                colsk(H[l], k, R, hi=k + 1)
+                c, s = cn, -sn
+            ZR = rmat_adj(c, s)
+            if want_z:
+                colsk(Z[l], k, ZR)
+            _put(log, l, k, 0, L)
+            _put(log, l, k, 4, R)
+            _put(log, l, k, 8, ZR)
+        R = rmat_adj(c, s)
+        colsk(H[0], k, R, hi=min(k + 3, n))
+        _put(log, 0, k, 4, R)
+    return H, Z
+
+
+def qz_apply_log_plain(H, Z, log, m: int, i: int, *, want_z: bool):
+    """Plain torch version of ``qz_sweep_left`` + ``qz_sweep_right``: apply a
+    (p, n, 16) sweep log to H (and Z) in place, left products first (rows
+    k, k+1 from column m on), then the right products (H rows 0..i, Z all
+    rows), then the exact structural zeros and the logged subdiagonal."""
+    p, n, _ = H.shape
+    L = log[:, :, 0:4].reshape(p, n, 2, 2)
+    R = log[:, :, 4:8].reshape(p, n, 2, 2)
+    ZR = log[:, :, 8:12].reshape(p, n, 2, 2)
+    for k in range(m, i):
+        rows = H[:, k:k + 2, m:]
+        rows.copy_(L[:, k] @ rows)
+    for k in range(m, i):
+        cols = H[:, :i + 1, k:k + 2]
+        cols.copy_(cols @ R[:, k])
+        if want_z:
+            zc = Z[:, :, k:k + 2]
+            zc.copy_(zc @ ZR[:, k])
+    for r in range(m + 1, i + 1):
+        H[0, r, m:r - 1] = 0.0
+        H[1:, r, m:r] = 0.0
+    for k in range(m + 1, i):
+        H[0, k, k - 1] = log[0, k, 12]
+    return H, Z
+
+
+def qz_shift_plain(H, ifirst: int, ilast: int, S: Sequence[bool]):
+    """The shift rotation of one sweep (``act_sweep``'s chain), as a (2,)
+    complex tensor (c + 0j, s) on H's device."""
+    p = H.shape[0]
+    one = torch.ones((), dtype=H.dtype, device=H.device)
+    c, s, _ = givens_complex(one, one)
+    for l in range(p - 1, 0, -1):
+        hf = H[l, ifirst, ifirst]
+        hl = H[l, ilast, ilast]
+        if S[l]:
+            c, s, _ = givens_complex(hf * c, hl * s.conj())
+        else:
+            c, s, _ = givens_complex(hl * c, -hf * s.conj())
+            s = -s
+    h0f = H[0, ifirst, ifirst]
+    h0l = H[0, ilast, ilast]
+    h0sub = H[0, ifirst + 1, ifirst]
+    c, s, _ = givens_complex(h0f * c - h0l * s.conj(), h0sub * c)
+    return torch.stack([c.to(H.dtype), s])
+
+
+def _check(name, t, shape):
+    sweep._check(name, t, shape, torch.complex128)
+
+
+def _device_kind(H, what):
+    if H.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {H.device}")
+    return H.device.type
+
+
+def qz_sweep(H, Z, m: int, i: int, cs, S: Sequence[bool], *, want_z: bool):
+    """One single-shift QZ sweep over the window [m, i], in place.
+
+    Args:
+      H: (p, n, n) complex128 stack; H[0] Hessenberg, H[1:] upper
+         triangular; H[0][i+1, i] must be zero (a deflated boundary).
+      Z: (p, n, n) complex128 Schur vector stack, or None when not wanted.
+      m, i: window bounds (host ints); the sweep chases k = m..i-1.
+      cs: (2,) complex128 tensor on H's device, the shift rotation
+          (c + 0j, s) (``qz_shift``'s output or an exceptional shift).
+      S: signature, one bool per factor, S[0] True.
+      want_z: update Z.
+
+    Returns (H, Z).  Entries below the subdiagonal of H[0] and below the
+    diagonal of H[1:] within the window are exact zeros on output.
+    """
+    if _device_kind(H, "qz_sweep") == "cpu":
+        return qz_sweep_plain(H, Z, m, i, cs, S, want_z=want_z)
+    p, n, _ = H.shape
+    _check("H", H, (p, n, n))
+    _check("cs", cs, (2,))
+    if want_z:
+        _check("Z", Z, (p, n, n))
+        if Z.device != H.device:
+            raise ValueError("qz_sweep: H and Z on different devices")
+    if cs.device != H.device:
+        raise ValueError("qz_sweep: cs must lie on H's device")
+    if len(S) != p or not S[0]:
+        raise ValueError("qz_sweep: one signature entry per factor, S[0] True")
+    if not (0 <= m <= i <= n - 1):
+        raise ValueError(f"qz_sweep: bad window m={m} i={i} for n={n}")
+    if i == m:
+        return H, Z
+    lib = _cuda.load()
+    st = _cuda.stream_ptr(H)
+    Sd = _signature(S, H.device)
+    log = torch.empty((p, n, LOG), dtype=torch.complex128, device=H.device)
+    C = torch.empty((p, n, n), dtype=torch.complex128, device=H.device)
+    _cuda.check(lib.psd_qz_sweep_generate(H.data_ptr(), C.data_ptr(),
+                                          log.data_ptr(), cs.data_ptr(),
+                                          Sd.data_ptr(), p, n, m, i, st),
+                "qz_sweep_generate")
+    launches["qz_sweep_generate"] += 1
+    _cuda.check(lib.psd_qz_sweep_left(H.data_ptr(), log.data_ptr(), p, n, m, i,
+                                      st), "qz_sweep_left")
+    launches["qz_sweep_left"] += 1
+    _cuda.check(lib.psd_qz_sweep_right(H.data_ptr(),
+                                       Z.data_ptr() if want_z else None,
+                                       log.data_ptr(), p, n, m, i, st),
+                "qz_sweep_right")
+    launches["qz_sweep_right"] += 1
+    return H, Z
+
+
+def qz_shift(H, ifirst: int, ilast: int, S: Sequence[bool], out=None):
+    """The shift rotation (c + 0j, s) of a sweep over [ifirst, ilast], as a
+    (2,) complex128 tensor on H's device (written into ``out`` if given)."""
+    if _device_kind(H, "qz_shift") == "cpu":
+        cs = qz_shift_plain(H, ifirst, ilast, S)
+        return cs if out is None else out.copy_(cs)
+    p, n, _ = H.shape
+    _check("H", H, (p, n, n))
+    if len(S) != p or not S[0]:
+        raise ValueError("qz_shift: one signature entry per factor, S[0] True")
+    if not (0 <= ifirst < ilast <= n - 1):
+        raise ValueError(f"qz_shift: bad window {ifirst}, {ilast} for n={n}")
+    if out is None:
+        out = torch.empty(2, dtype=torch.complex128, device=H.device)
+    _check("out", out, (2,))
+    lib = _cuda.load()
+    _cuda.check(lib.psd_qz_shift(H.data_ptr(), out.data_ptr(),
+                                 _signature(S, H.device).data_ptr(), p, n,
+                                 ifirst, ilast, _cuda.stream_ptr(H)),
+                "qz_shift")
+    launches["qz_shift"] += 1
+    return out

@@ -14,7 +14,7 @@ plain frozen dataclasses of tensors.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -86,3 +86,39 @@ class PeriodicSchur:
         if self.Zs is None:
             return None
         return [self.Zs[j] for j in range(self.period)]
+
+
+@dataclasses.dataclass(frozen=True)
+class GeneralizedPeriodicSchur:
+    """Generalized periodic Schur factorization of ``prod_j A[j]^{s[j]}``.
+
+    Fields:
+      S: tuple of bool; True: the factor enters the product directly,
+         False: it enters inverted.
+      schurindex: index of the triangular Schur factor.
+      Ts, Zs: stacked factors as in PeriodicSchur (Zs unitary).
+      alpha: (n,) scaled eigenvalue numerators, |alpha| in [1, 2) or 0.
+      beta: (n,) real; 1, or 0 for an infinite eigenvalue.
+      alphascale: (n,) int32 power-of-two exponents.
+      orientation: 'R' or 'L'.
+    """
+
+    S: Tuple[bool, ...]
+    schurindex: int
+    Ts: torch.Tensor
+    Zs: Optional[torch.Tensor]
+    alpha: torch.Tensor
+    beta: torch.Tensor
+    alphascale: torch.Tensor
+    orientation: str = "R"
+
+    @property
+    def period(self) -> int:
+        return len(self.S)
+
+    @property
+    def values(self):
+        """Eigenvalues ``alpha / beta * 2^alphascale`` (inf when beta == 0)."""
+        rdt = self.alpha.real.dtype
+        two = torch.tensor(2.0, dtype=rdt, device=self.alpha.device)
+        return self.alpha / self.beta.to(rdt) * two ** self.alphascale.to(rdt)

@@ -8,7 +8,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..types import PeriodicSchur
+from ..types import GeneralizedPeriodicSchur, PeriodicSchur
 
 
 def state_from_jax_ff(Hhi, Hlo, ZThi=None, ZTlo=None):
@@ -42,3 +42,32 @@ def schur_to_numpy(P: PeriodicSchur) -> dict:
         return None if x is None else x.detach().cpu().numpy()
     return {"Ts": a(P.Ts), "Zs": a(P.Zs), "values": a(P.values),
             "orientation": P.orientation, "schurindex": P.schurindex}
+
+
+def state_from_jax_cx(H, Z=None, device="cpu"):
+    """Complex128 (H, Z) of the JAX package (arrays, numpy-convertible) ->
+    contiguous complex128 tensors on ``device``; Z may be None."""
+    def t(x):
+        return torch.tensor(np.asarray(x, np.complex128), device=device)
+    return t(H), (None if Z is None else t(Z))
+
+
+def gps_from_jax(P, device="cpu") -> GeneralizedPeriodicSchur:
+    """A JAX-package ``GeneralizedPeriodicSchur`` -> this port's."""
+    def t(x, dt=None):
+        return None if x is None else torch.as_tensor(np.array(x, dt), device=device)
+    return GeneralizedPeriodicSchur(
+        S=tuple(bool(x) for x in P.S), schurindex=int(P.schurindex),
+        Ts=t(P.Ts), Zs=t(P.Zs), alpha=t(P.alpha, np.complex128),
+        beta=t(P.beta, np.float64), alphascale=t(P.alphascale, np.int32),
+        orientation=P.orientation)
+
+
+def gps_to_numpy(P: GeneralizedPeriodicSchur) -> dict:
+    """This port's ``GeneralizedPeriodicSchur`` -> a dict of numpy arrays
+    and metadata, the fields of the JAX package's type."""
+    def a(x):
+        return None if x is None else x.detach().cpu().numpy()
+    return {"S": tuple(P.S), "schurindex": P.schurindex, "Ts": a(P.Ts),
+            "Zs": a(P.Zs), "alpha": a(P.alpha), "beta": a(P.beta),
+            "alphascale": a(P.alphascale), "orientation": P.orientation}

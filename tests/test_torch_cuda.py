@@ -8,7 +8,8 @@ repository root (tests/conftest.py imports JAX).
 
 Tolerances: 1e-12 relative to max|H| (1e-12 for Z).  The windows here are
 short (n <= 40), where the sweep's generation chain amplifies rounding far
-less than at n=512 (see chip_smoke.py for the long-window check).
+less than at n=512 (see chip_smoke.py for the long-window check).  The
+complex shift kernel: 1e-14 relative to the plain version's |s|.
 """
 import numpy as np
 import pytest
@@ -16,7 +17,8 @@ import torch
 
 import periodicschurdecompositions_jl_torch as pt
 from periodicschurdecompositions_jl_torch.config import AlgoConfig
-from periodicschurdecompositions_jl_torch.ops import deflate, pqr_real, sweep
+from periodicschurdecompositions_jl_torch.ops import (deflate, pqr_real, pqz_complex,
+                                                     sweep, sweep_cx)
 
 pytestmark = pytest.mark.cuda
 
@@ -138,3 +140,76 @@ def test_core_switches_on_the_card(cuda, cfg):
     wk = np.sort_complex(out_k[2] + 1j * out_k[3])
     wc = np.sort_complex(out_c[2] + 1j * out_c[3])
     assert np.abs(wk - wc).max() <= 1e-10 * np.abs(wc).max()
+
+
+def _cx_problem(p, n, seed):
+    """Complex Hessenberg-triangular cycle (triangular diagonals of modulus
+    in [1, 2)), unitary Z, and a shift rotation (c, s)."""
+    rng = np.random.default_rng(seed)
+
+    def cplx(*shape):
+        return rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+
+    H = np.zeros((p, n, n), complex)
+    H[0] = np.triu(cplx(n, n), -1)
+    for f in range(1, p):
+        H[f] = np.triu(cplx(n, n))
+        d = cplx(n)
+        np.fill_diagonal(H[f], d / np.abs(d) * (1.0 + rng.random(n)))
+    Z = np.stack([np.linalg.qr(cplx(n, n))[0] for _ in range(p)])
+    f, g = cplx(2)
+    d = np.hypot(abs(f), abs(g))
+    return H, Z, np.array([abs(f) / d, (f / abs(f)) * np.conj(g) / d])
+
+
+@pytest.mark.parametrize("p,n,S,m,i", [
+    (1, 20, (True,), 0, 19), (2, 20, (True, False), 3, 17),
+    (4, 40, (True, False, True, False), 0, 39), (3, 12, (True, True, False), 4, 6),
+    (3, 24, (True, True, True), 5, 20)])
+def test_cx_sweep_kernels_match_plain(cuda, p, n, S, m, i):
+    Hn, Zn, cs = _cx_problem(p, n, p * 100 + n)
+    if i + 1 < n:
+        Hn[0, i + 1, i] = 0.0
+    H0, Z0 = torch.tensor(Hn, device=cuda), torch.tensor(Zn, device=cuda)
+    cst = torch.tensor(cs, device=cuda)
+    Hk, Zk = H0.clone(), Z0.clone()
+    sweep_cx.qz_sweep(Hk, Zk, m, i, cst, S, want_z=True)
+    Hp, Zp = H0.clone(), Z0.clone()
+    sweep_cx.qz_sweep_plain(Hp, Zp, m, i, cst, S, want_z=True)
+    torch.cuda.synchronize()
+    scale = float(H0.abs().max())
+    assert float((Hk - Hp).abs().max()) <= 1e-12 * scale
+    assert float((Zk - Zp).abs().max()) <= 1e-12
+    _structure_exact(Hk)
+    assert torch.equal(Hk[0, :, :m], H0[0, :, :m])   # boundary column kept
+    Hz = H0.clone()
+    sweep_cx.qz_sweep(Hz, None, m, i, cst, S, want_z=False)
+    assert torch.equal(Hz, Hk)
+
+
+@pytest.mark.parametrize("S", [(True, True, True, True), (True, False, True, False)])
+def test_cx_shift_kernel_matches_plain(cuda, S):
+    Hn, _, _ = _cx_problem(len(S), 16, 11)
+    H = torch.tensor(Hn, device=cuda)
+    for (a, b) in [(0, 15), (3, 9), (7, 8)]:
+        ck = sweep_cx.qz_shift(H, a, b, S)
+        cp = sweep_cx.qz_shift_plain(H, a, b, S)
+        assert float((ck - cp).abs().max()) <= 1e-14
+
+
+@pytest.mark.parametrize("p,n,S,lr", [(3, 24, None, "R"), (4, 20, (True, False, True, False), "R"),
+                                      (3, 16, (False, True, True), "L")])
+def test_pschur_complex_on_the_card(cuda, p, n, S, lr):
+    rng = np.random.default_rng(p + n)
+    A = rng.standard_normal((p, n, n)) + 1j * rng.standard_normal((p, n, n))
+    for k in sweep_cx.launches:
+        sweep_cx.launches[k] = 0
+    P = pt.pschur(torch.tensor(A, device=cuda), lr, S=S)
+    assert all(v > 0 for v in sweep_cx.launches.values()), sweep_cx.launches
+    ok, rep = pt.check_psd(P, A, tol=32.0)
+    assert ok, rep
+    Pc = pt.pschur(torch.tensor(A), lr, S=S)
+    w = np.sort_complex(P.values.cpu().numpy())
+    wc = np.sort_complex(Pc.values.numpy())
+    assert np.abs(w - wc).max() <= 1e-10 * np.abs(wc).max()
+    assert pqz_complex.last_info["converged"]

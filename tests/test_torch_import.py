@@ -6,7 +6,7 @@ import sys
 import pytest
 import torch
 
-from periodicschurdecompositions_jl_torch.ops import _cuda, deflate, sweep
+from periodicschurdecompositions_jl_torch.ops import _cuda, deflate, sweep, sweep_cx
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -18,8 +18,12 @@ import periodicschurdecompositions_jl_torch.ops._cuda
 import periodicschurdecompositions_jl_torch.ops.deflate
 import periodicschurdecompositions_jl_torch.ops.hessenberg
 import periodicschurdecompositions_jl_torch.ops.pqr_real
+import periodicschurdecompositions_jl_torch.ops.pqz_complex
+import periodicschurdecompositions_jl_torch.ops.pqz_deflate
 import periodicschurdecompositions_jl_torch.ops.sweep
+import periodicschurdecompositions_jl_torch.ops.sweep_cx
 import periodicschurdecompositions_jl_torch.utils.interop
+import periodicschurdecompositions_jl_torch.utils.safeprod
 assert not any(m.startswith('periodicschurdecompositions_jl_tpu') for m in sys.modules)
 assert sys.modules['jax'] is None
 print(pt.pschur.__name__, pt.check_psd.__name__)
@@ -47,12 +51,19 @@ def test_cuda_loader_raises_without_nvcc(monkeypatch, tmp_path):
     assert _cuda._lib is None
 
 
-@pytest.mark.parametrize("fn", ["sweep", "deflate"])
+@pytest.mark.parametrize("fn", ["sweep", "deflate", "qz_sweep", "qz_shift"])
 def test_wrappers_refuse_other_devices(fn):
     H = torch.zeros((2, 5, 5), dtype=torch.float64, device="meta")
+    Hc = torch.zeros((2, 5, 5), dtype=torch.complex128, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         if fn == "sweep":
             sweep.chase_sweep(H, None, 0, 3, [1.0, 0.0, 0.0], want_z=False)
-        else:
+        elif fn == "deflate":
             deflate.deflate2x2(H, None, 2, -1, -1, 1.0, 0.0, False, False,
                                1e-300, want_z=False)
+        elif fn == "qz_sweep":
+            sweep_cx.qz_sweep(Hc, None, 0, 3, torch.zeros(2, dtype=torch.complex128,
+                                                          device="meta"),
+                              (True, False), want_z=False)
+        else:
+            sweep_cx.qz_shift(Hc, 0, 3, (True, False))
