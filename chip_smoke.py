@@ -11,7 +11,12 @@ and checks the results:
 * complex: the kernels of the single-shift QZ sweep and its shift at p=8,
   n=256 with an alternating signature; ``pschur`` on a complex p=8 n=256
   cycle (no signature) and a p=8 n=128 cycle with an alternating signature,
-  and a small signed cycle against numpy's eigenvalues.
+  and a small signed cycle against numpy's eigenvalues;
+* real generalized: the kernels of the double-shift chase (rg A, B0, B) and
+  the rotation ladders (R) at p=8, n=256 with an alternating signature;
+  ``pschur(A, 'R', S)`` on the p=8 n=256 draw of seed 4242 (the source
+  configuration: benchmarks/probe_real_gen_ff.py), a profile of its
+  iteration, and a small real ``gpschur`` against numpy's eigenvalues.
 
 Each kernel's launch counter is set to 0 just before the path that runs it
 and read just after.  Any failure raises (exit code != 0).
@@ -34,6 +39,7 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 P_HEAD, N_HEAD, SEED_HEAD = 16, 512, 12345
 P_CX, N_CX, N_CX_SIGNED, SEED_CX = 8, 256, 128, 777
+P_RG, N_RG, SEED_RG = 8, 256, 4242
 TOL = 1e-12  # kernel vs plain: max|dH| <= TOL * max|H|, max|dZ| <= TOL
 # H100 SXM data sheet: HBM3 3.35 TB/s; FP64 34 TFLOP/s outside the tensor
 # cores (67 with FP64 MMA, which no kernel here uses)
@@ -707,6 +713,379 @@ def cx_small_check(dev):
         raise AssertionError("small signed complex check failed")
 
 
+# ---------------------------------------------------------------------------
+# real generalized periodic QZ
+
+
+def mk_rg_problem(p, n, rng):
+    """Real Hessenberg-triangular cycle (triangular diagonals of modulus in
+    [1, 2), the reason of mk_sweep_problem's), orthogonal Z and the opening
+    rotations (c1, s1, c2, s2)."""
+    H = np.zeros((p, n, n))
+    H[0] = np.triu(rng.standard_normal((n, n)), -1)
+    for f in range(1, p):
+        H[f] = np.triu(rng.standard_normal((n, n)))
+        d = rng.standard_normal(n)
+        np.fill_diagonal(H[f], np.where(d >= 0, 1.0, -1.0) * (1.0 + rng.random(n)))
+    Z = np.stack([np.linalg.qr(rng.standard_normal((n, n)))[0] for _ in range(p)])
+    rot = []
+    for f, g in rng.standard_normal((2, 2)):
+        d = np.hypot(f, g)
+        rot += [abs(f) / d, np.sign(f) * g / d]
+    return H, Z, np.array(rot)
+
+
+def rg_structure_ok(H, i):
+    """Exact structural zeros of a chase's output, apart from the closing
+    bulge H[0][i, i-2] (which must be there)."""
+    Hn = H.cpu().numpy()
+    H0 = Hn[0].copy()
+    if H0[i, i - 2] == 0:
+        return False
+    H0[i, i - 2] = 0.0
+    return bool(np.all(np.tril(H0, -2) == 0)
+                and all(np.all(np.tril(Hn[f], -1) == 0) for f in range(1, Hn.shape[0])))
+
+
+def rg_kernel_phase(dev, p, n, report):
+    """Kernels rg A -> B0 -> B and R against the plain versions, alternating S.
+
+    1. The chase (rg A, B0, B through rg_chase) against rg_chase_plain, on
+       the state the opening leaves, on the full window and two interior
+       ones; tolerance max(1e-12, 10 sens) as in sweep_phase.
+    2. B0 and B against rg_apply_log_plain on kernel A's own log: 1e-13.
+    3. Backward error of the kernel chase <= 1e-13 max|H0|, exact
+       structural zeros apart from the closing bulge, H[0]'s columns left
+       of the bulge column untouched, want_z=False leaves H identical.
+    4. R in its three modes (and with want_t=False bounds) against
+       rg_ladder_plain: 1e-13 max|H|.
+    """
+    import torch
+    from periodicschurdecompositions_jl_torch.ops import _cuda, rgopen, sweep_rg
+    S = alternating(p)
+    rng = np.random.default_rng(2026)
+    Hn, Zn, rotn = mk_rg_problem(p, n, rng)
+    windows = [(1, n - 1), (38, min(200, n - 2)), (min(121, n - 4), min(124, n - 2))]
+    lib = _cuda.load()
+    st = torch.cuda.current_stream().cuda_stream
+    rot = torch.tensor(rotn, device=dev)
+    Sd = torch.tensor([int(x) for x in S], dtype=torch.int32, device=dev)
+    err_a = err_b = 0.0
+    times = {}
+    for (m, i) in windows:
+        H0 = torch.tensor(Hn, device=dev)
+        if m > 1:
+            H0[0, m - 1, m - 2] = 0.0   # the window's boundaries are deflated
+        if i + 1 < n:
+            H0[0, i + 1, i] = 0.0
+        Z0 = torch.tensor(Zn, device=dev)
+        rgopen.rg_ladder_plain(H0, Z0, "open", m - 1, i, rot, S, want_z=True)
+        scale = float(H0.abs().max())
+        Hk, Zk = H0.clone(), Z0.clone()
+        sweep_rg.rg_chase(Hk, Zk, m, i, S, want_z=True)
+        Hp, Zp = H0.clone(), Z0.clone()
+        t_plain = wall_ms(lambda: sweep_rg.rg_chase_plain(Hp, Zp, m, i, S, want_z=True))
+        pert = torch.tensor(1.0 + 1e-16 * np.random.default_rng(1).standard_normal(
+            Hn.shape), device=dev)
+        Hq, Zq = H0 * pert, Z0.clone()
+        sweep_rg.rg_chase_plain(Hq, Zq, m, i, S, want_z=True)
+        sens_h = float((Hq - Hp).abs().max()) / scale
+        sens_z = float((Zq - Zp).abs().max())
+        dh = float((Hk - Hp).abs().max()) / scale
+        dz = float((Zk - Zp).abs().max())
+        tol_h, tol_z = max(TOL, 10 * sens_h), max(TOL, 10 * sens_z)
+        # 2. the apply kernels on kernel A's own log
+        log = torch.empty((p, n, sweep_rg.LOG), dtype=torch.float64, device=dev)
+        C = torch.empty((p, n, n), dtype=torch.float64, device=dev)
+        _cuda.check(lib.psd_rg_sweep_generate(H0.data_ptr(), C.data_ptr(), log.data_ptr(),
+                                              Sd.data_ptr(), p, n, m, i, st),
+                    "rg_sweep_generate")
+        Hb, Zb = H0.clone(), Z0.clone()
+        _cuda.check(lib.psd_rg_sweep_left(Hb.data_ptr(), log.data_ptr(), p, n, m, i, st),
+                    "rg_sweep_left")
+        _cuda.check(lib.psd_rg_sweep_right(Hb.data_ptr(), Zb.data_ptr(), log.data_ptr(),
+                                           p, n, m, i, st), "rg_sweep_right")
+        Ha, Za = H0.clone(), Z0.clone()
+        t_apply = wall_ms(lambda: sweep_rg.rg_apply_log_plain(Ha, Za, log, m, i,
+                                                              want_z=True))
+        db = max(float((Hb - Ha).abs().max()) / scale, float((Zb - Za).abs().max()))
+        be_k = cx_recon_err(H0, Z0, Hk, Zk, S)
+        be_p = cx_recon_err(H0, Z0, Hp, Zp, S)
+        _log(f"rg chase window [{m}, {i}]: vs rg_chase_plain max|dH|/max|H| {dh:.3e} "
+             f"max|dZ| {dz:.3e} (plain's own 1e-16 sensitivity {sens_h:.3e} / "
+             f"{sens_z:.3e}; tolerance {tol_h:.3e} / {tol_z:.3e}); B0+B vs "
+             f"rg_apply_log_plain {db:.3e}; backward error kernel {be_k:.3e} plain "
+             f"{be_p:.3e}; plain chase {t_plain:.1f} ms, plain apply {t_apply:.1f} ms")
+        if not (dh <= tol_h and dz <= tol_z):
+            raise AssertionError(f"rg kernels disagree with rg_chase_plain on "
+                                 f"[{m}, {i}]: {dh:.3e} {dz:.3e}")
+        if not db <= 1e-13:
+            raise AssertionError(f"rg B0/B disagree with rg_apply_log_plain on [{m}, {i}]")
+        if not torch.equal(Hb, Hk) or not torch.equal(Zb, Zk):
+            raise AssertionError("the rg wrapper and the direct kernel calls differ")
+        if not be_k <= 1e-13:
+            raise AssertionError(f"rg chase backward error {be_k:.3e} on [{m}, {i}]")
+        if not (rg_structure_ok(Hk, i) and rg_structure_ok(Hp, i)):
+            raise AssertionError(f"rg chase [{m}, {i}]: structural zeros not exact")
+        if not torch.equal(Hk[0, :, :m - 1], H0[0, :, :m - 1]):
+            raise AssertionError(f"rg chase [{m}, {i}] touched H[0] left of the bulge")
+        err_a = max(err_a, dh, dz)
+        err_b = max(err_b, db)
+        if (m, i) == windows[0]:
+            times["plain_chase"], times["plain_apply"] = t_plain, t_apply
+        if (m, i) == windows[1]:
+            Hnz = H0.clone()
+            sweep_rg.rg_chase(Hnz, None, m, i, S, want_z=False)
+            if not torch.equal(Hnz, Hk):
+                raise AssertionError("rg want_z=False chase changed H")
+            _log("rg chase want_z=False: H identical to want_z=True")
+
+    # 4. kernel R against rg_ladder_plain
+    H = torch.tensor(Hn, device=dev)
+    Z = torch.tensor(Zn, device=dev)
+    err_r = 0.0
+    spots = [("open", 0, n - 1), ("open", 37, 200), ("close", n - 2, n - 1),
+             ("close", 199, 200), ("chain", 100, 101), ("chain", n - 2, n - 1)]
+    for mode, j, il in spots:
+        for bounds in ({}, {"rhi": il + 1, "clo": max(j - 5, 0)}):
+            Hk, Zk = H.clone(), Z.clone()
+            rgopen.rg_ladder(Hk, Zk, mode, j, il, rot, S, want_z=True, **bounds)
+            Hp, Zp = H.clone(), Z.clone()
+            rgopen.rg_ladder_plain(Hp, Zp, mode, j, il, rot, S, want_z=True, **bounds)
+            e = max(float((Hk - Hp).abs().max()) / float(H.abs().max()),
+                    float((Zk - Zp).abs().max()))
+            err_r = max(err_r, e)
+            Hz = H.clone()
+            rgopen.rg_ladder(Hz, None, mode, j, il, rot, S, want_z=False, **bounds)
+            if not torch.equal(Hz, Hk):
+                raise AssertionError(f"rg ladder {mode} want_z=False changed H")
+    _log(f"rg ladder kernel vs rg_ladder_plain (open, close, chain; with and without "
+         f"want_t=False bounds): max relative difference {err_r:.3e}")
+    if not err_r <= 1e-13:
+        raise AssertionError(f"rg ladder kernel disagrees: {err_r:.3e}")
+
+    # per-kernel times at the full window [1, n-1] (the opening at 0)
+    m, i = windows[0]
+    H = torch.tensor(Hn, device=dev)
+    rgopen.rg_ladder_plain(H, Z, "open", 0, i, rot, S, want_z=True)
+    log = torch.empty((p, n, sweep_rg.LOG), dtype=torch.float64, device=dev)
+    C = torch.empty((p, n, n), dtype=torch.float64, device=dev)
+    ms_a = event_ms(lambda: _cuda.check(lib.psd_rg_sweep_generate(
+        H.data_ptr(), C.data_ptr(), log.data_ptr(), Sd.data_ptr(), p, n, m, i, st),
+        "rg_sweep_generate"), 5)
+    ms_b0 = event_ms(lambda: _cuda.check(lib.psd_rg_sweep_left(
+        H.data_ptr(), log.data_ptr(), p, n, m, i, st), "rg_sweep_left"), 5)
+    ms_b = event_ms(lambda: _cuda.check(lib.psd_rg_sweep_right(
+        H.data_ptr(), Z.data_ptr(), log.data_ptr(), p, n, m, i, st), "rg_sweep_right"), 5)
+    ms_r = event_ms(lambda: _cuda.check(lib.psd_rg_ladder(
+        H.data_ptr(), Z.data_ptr(), rot.data_ptr(), Sd.data_ptr(), p, n, 0, 0, n - 1, n,
+        0, st), "rg_ladder"), 20)
+    t_ladder_plain = wall_ms(lambda: rgopen.rg_ladder_plain(H, Z, "open", 0, n - 1, rot, S,
+                                                            want_z=True))
+    _log(f"rg kernels at p={p} n={n} window [{m}, {i}]: A {ms_a:.3f} ms, B0 {ms_b0:.3f} ms, "
+         f"B {ms_b:.3f} ms, R (open at 0) {ms_r:.4f} ms; plain chase "
+         f"{times['plain_chase']:.1f} ms, plain apply (B0+B) {times['plain_apply']:.1f} ms, "
+         f"plain ladder {t_ladder_plain:.2f} ms")
+    # bytes and operations of the window (K steps j = m..i-2), float64, of
+    # the entries that are not structural zeros.  A reads the upper parts of
+    # rows m..min(i+1, n-1) (every such entry reaches a later generation:
+    # each left rotation moves it two rows down), from column r-1 in H[0]
+    # (plus the opening's three bulge entries) and from column r in the
+    # other factors, writes the log (27 entries per (factor, step), one more
+    # for factor 0), and applies two 2-row rotations per (step, factor) to
+    # the columns right of j (12 flops per column).  B0 reads the upper
+    # parts of rows m..i and the log's L, and writes those rows, which it
+    # fills from column m-1 in H[0] and from column m in the others, a 3x3
+    # application being 15 flops per entry triple.  B reads and writes
+    # columns m..i of H's rows 0..i and of all of Z, and reads R and ZR.  R
+    # (open at 0) reads and writes rows j..j+2 and Z's columns j..j+2 of
+    # every factor, and H[0]'s columns j..j+2 (rows 0..ilast); two rotations
+    # per entry triple are 4 flops per entry.
+    K = i - 1 - m
+
+    def upper(lo, hi):
+        rows = range(lo, hi + 1)
+        return (sum(n - r + 1 for r in rows) + 3
+                + (p - 1) * sum(n - r for r in rows))
+    steps = sum(n - j for j in range(m, i - 1))
+    ent_r = p * (3 * n + 3 * n) + 3 * n
+    bounds = {
+        "rg_sweep_generate": bound(8 * upper(m, min(i + 1, n - 1)) + 8 * (27 * p + 1) * K,
+                                   12 * p * steps),
+        "rg_sweep_left": bound(8 * upper(m, i) + 8 * (i + 1 - m) * (p * (n - m) + 1)
+                               + 8 * 9 * p * K, 15 * p * (n - m + 1) * K),
+        "rg_sweep_right": bound(2 * 8 * p * (i + 1 + n) * (i + 1 - m) + 8 * 18 * p * K,
+                                15 * p * (i + 1 + n) * K),
+        "rg_ladder": bound(2 * 8 * ent_r + 32, 4 * ent_r)}
+    src = "periodicschurdecompositions_jl_torch/csrc/"
+    rep = "periodicschurdecompositions_jl_tpu/ops/"
+    for name, ms, where, err, pms in (
+            ("rg_sweep_generate", ms_a, "pallas_sweep_rg.py:182", err_a, times["plain_chase"]),
+            ("rg_sweep_left", ms_b0, "pallas_sweep_rg.py:372", err_b, times["plain_apply"]),
+            ("rg_sweep_right", ms_b, "pallas_sweep_rg.py:409", err_b, times["plain_apply"]),
+            ("rg_ladder", ms_r, "pallas_rgopen.py:66", err_r, t_ladder_plain)):
+        report[name] = {"name": name, "route": "cuda",
+                        "source": src + ("rgopen.cu" if name == "rg_ladder" else "sweep_rg.cu"),
+                        "replaces": rep + where, "max_abs_err": err, "ms": ms,
+                        "plain_ms": pms, "bound_ms": bounds[name][0],
+                        "bound_by": bounds[name][1], "library_ms": None}
+
+
+def rg_draw(p, n, seed):
+    """The rg cell's draw (benchmarks/probe_real_gen_ff.py)."""
+    return np.random.default_rng(seed).standard_normal((p, n, n)), alternating(p)
+
+
+def rg_block_check(P):
+    """Ties P's eigenvalues to T: T[0]'s subdiagonal is nonzero exactly at
+    the first row k of each complex pair (alpha[k] with a positive imaginary
+    part, alpha[k+1] its conjugate), never at two rows in a row, and the
+    eigenvalues of each 1x1 or 2x2 diagonal block's signed product, formed
+    on the host with numpy, are P.values there.  Raises on a structural
+    fault; returns the largest relative eigenvalue difference."""
+    T = P.Ts.cpu().numpy()
+    alpha = P.alpha.cpu().numpy()
+    vals = P.values.cpu().numpy()
+    n = T.shape[-1]
+    sub = np.diagonal(T[0], -1) != 0
+    first = alpha.imag[:-1] > 0
+    if not (np.array_equal(sub, first) and not np.any(sub[1:] & sub[:-1])
+            and np.array_equal(alpha.imag[1:] < 0, first) and not alpha.imag[0] < 0
+            and np.array_equal(alpha[1:][first], np.conj(alpha[:-1][first]))):
+        raise AssertionError("T[0]'s 2x2 blocks and alpha's complex pairs disagree")
+    err, k = 0.0, 0
+    while k < n:
+        w = 2 if k + 1 < n and sub[k] else 1
+        M = np.eye(w)
+        for l, s in enumerate(P.S):
+            B = T[l][k:k + w, k:k + w]
+            M = M @ (B if s else np.linalg.inv(B))
+        ref = sorted(np.linalg.eigvals(M), key=lambda z: -z.imag)
+        err = max(err, max(abs(g - r) / abs(r) for g, r in zip(vals[k:k + w], ref)))
+        k += w
+    return float(err)
+
+
+def rg_e2e_case(dev, p, n, seed):
+    """pschur(A, 'R', S) on a real cycle through the public entry point.
+    Returns the launch counts and the reduction (H, Q) the leg computed
+    (kept for rg_iteration_profile: at n=256 the signed reduction takes
+    most of a minute)."""
+    import torch
+    import periodicschurdecompositions_jl_torch as pt
+    from periodicschurdecompositions_jl_torch.ops import hessenberg, pqz_real, rgopen, sweep_rg
+    A, S = rg_draw(p, n, seed)
+    At = torch.tensor(A, device=dev)
+    counters = (sweep_rg.launches, rgopen.launches)
+    kept = {}
+    reduce = hessenberg.phessenberg_signed_core
+
+    def keep(*a, **k):
+        kept["HQ"] = reduce(*a, **k)
+        return kept["HQ"]
+    hessenberg.phessenberg_signed_core = keep
+    for d in counters:
+        for k in d:
+            d[k] = 0
+    try:
+        t0 = time.perf_counter()
+        P = pt.pschur(At, "R", S=S)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        hessenberg.phessenberg_signed_core = reduce
+    launches = {k: v for d in counters for k, v in d.items()}
+    info = dict(pqz_real.last_info)
+    T = P.Ts.cpu().numpy()
+    Z = P.Zs.cpu().numpy()
+    ok, rep = pt.check_psd(P, A, tol=200.0)
+    scale = np.abs(A).max()
+    per = []
+    for l in range(p):
+        ln = (l + 1) % p
+        Ax = Z[l] @ T[l] @ Z[ln].T if S[l] else Z[ln] @ T[l] @ Z[l].T
+        per.append(np.abs(Ax - A[l]).max() / scale)
+    be = max(per)
+    orth_bound = 10 * np.finfo(np.float64).eps * n
+    vals = P.values.cpu().numpy()
+    eig_err = rg_block_check(P)
+    _log(f"pschur real S=alternating p={p} n={n} seed={seed}: wall {wall:.3f} s (reduction "
+         f"{info['reduce_s']:.3f} s, iteration {info['iterate_s']:.3f} s), niter "
+         f"{info['niter']}, sweeps {info['sweeps']}, attacks {info['attacks']}, pairs "
+         f"{info['pairs']}, exceptional {info['exceptional']}, czshift {info['czshift']}, "
+         f"deflate_pos {info['deflate_pos']}, deflate_neg {info['deflate_neg']}; backerr "
+         f"{be:.3e} (per factor {', '.join(f'{x:.2e}' for x in per)}), check_psd ok={ok} "
+         f"orth {rep['orthonormality']:.3e} (bound {orth_bound:.3e}) residual "
+         f"{rep['residual_rel']:.3e}; eigenvalues vs T's diagonal blocks {eig_err:.3e}; "
+         f"launches {launches}")
+    if not ok:
+        raise AssertionError(f"check_psd failed: {rep}")
+    if not (be <= 1e-12):
+        raise AssertionError(f"backward error {be:.3e} > 1e-12")
+    if not (rep["orthonormality"] <= orth_bound):
+        raise AssertionError("orthonormality above 10 eps n")
+    if not (np.all(np.isfinite(vals)) and vals.shape == (n,)):
+        raise AssertionError("eigenvalues not finite or of the wrong shape")
+    if not eig_err <= 1e-10:
+        raise AssertionError(f"eigenvalues differ from T's diagonal blocks by {eig_err:.3e}")
+    for k, v in launches.items():
+        if v <= 0:
+            raise AssertionError(f"kernel {k} was not launched by the real generalized path")
+    return launches, kept["HQ"]
+
+
+def rg_iteration_profile(dev, S, HQ):
+    """torch.profiler (device activity only) over the real generalized
+    iteration from the rg leg's own reduction HQ: wall, device busy time,
+    idle share and the device time of the top kernels.  Runs after the
+    leg's counters are read."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from periodicschurdecompositions_jl_torch.ops.pqz_real import pqz_real_gen_core
+    H, Q = HQ
+    p, n, _ = H.shape
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pqz_real_gen_core(H, S, Z=Q)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+    ev = [e for e in prof.key_averages() if "CUDA" in str(e.device_type) and dev_us(e) > 0]
+    busy = sum(dev_us(e) for e in ev) / 1e6
+    top = sorted(ev, key=dev_us, reverse=True)[:6]
+    _log(f"profile of the real generalized iteration p={p} n={n}: wall {wall:.3f} s "
+         f"(profiler on), device busy {busy:.3f} s, idle share {1 - busy / wall:.1%}; by "
+         f"kernel: " + "; ".join(f"{e.key[:48]} {dev_us(e) / 1e3:.1f} ms in {e.count}"
+                                 for e in top))
+
+
+def rg_small_check(dev):
+    """A small real gpschur on the card (three pairs, a cycle of six):
+    eigenvalues against numpy's eigvals of the formal product."""
+    import torch
+    import periodicschurdecompositions_jl_torch as pt
+    rng = np.random.default_rng(5)
+    As = [torch.tensor(a, device=dev) for a in rng.standard_normal((3, 10, 10))]
+    Bs = [torch.tensor(b, device=dev) for b in rng.standard_normal((3, 10, 10))]
+    P = pt.gpschur(As, Bs)
+    An = [a.cpu().numpy() for a in As]
+    Bn = [b.cpu().numpy() for b in Bs]
+    M = np.eye(10)
+    for a, b in zip(An, Bn):
+        M = np.linalg.inv(b) @ a @ M
+    w = np.sort_complex(P.values.cpu().numpy())
+    ref = np.sort_complex(np.linalg.eigvals(M))
+    err = np.abs(w - ref).max() / np.abs(ref).max()
+    C = np.stack([An[2], Bn[1], An[1], Bn[0], An[0], Bn[2]])
+    ok, _ = pt.check_psd(P, C, tol=32.0)
+    _log(f"small real gpschur check p=3 pairs n=10: eigenvalue error {err:.3e}, ok={ok}")
+    if not (ok and err < 1e-10):
+        raise AssertionError("small real gpschur check failed")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -742,9 +1121,16 @@ def main() -> int:
     cx_iteration_profile(dev, P_CX, N_CX, SEED_CX)
     cx_e2e_case(dev, P_CX, N_CX_SIGNED, SEED_CX, alternating(P_CX), "R")
 
+    rg_kernel_phase(dev, P_RG, N_RG, report)
+    rg_small_check(dev)
+    rg_launches, rg_hq = rg_e2e_case(dev, P_RG, N_RG, SEED_RG)
+    launches.update(rg_launches)
+    rg_iteration_profile(dev, alternating(P_RG), rg_hq)
+
     kernels = []
     for name in ("sweep_generate", "sweep_left", "sweep_right", "deflate2x2",
-                 "qz_sweep_generate", "qz_sweep_left", "qz_sweep_right", "qz_shift"):
+                 "qz_sweep_generate", "qz_sweep_left", "qz_sweep_right", "qz_shift",
+                 "rg_sweep_generate", "rg_sweep_left", "rg_sweep_right", "rg_ladder"):
         kernels.append({**report[name], "launches": launches[name]})
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -5,14 +5,14 @@ reference implementation).  Computes in float64 / complex128.  A torch
 tensor is computed on its own device; an array or a sequence of matrices
 goes to ``device`` (default ``"cuda"``; without a card pass
 ``device="cpu"``).  On a CUDA device the real Francis sweep, the 2x2
-deflation, the complex QZ sweep and its shift run as hand-written CUDA
-kernels (``csrc/``, built with nvcc on first use), on the CPU as their
-plain torch versions.  Sets no global torch state.
+deflation, the complex QZ sweep and its shift, and the real generalized
+chase and its rotation ladders run as hand-written CUDA kernels (``csrc/``,
+built with nvcc on first use), on the CPU as their plain torch versions.
+Sets no global torch state.
 
-Ported so far: ``pschur`` for real cycles without a signature and for
-complex cycles with or without one, ``gpschur`` for complex pairs,
-``phessenberg`` and ``check_psd``.  Other routes raise
-``PSDNotImplemented``.
+Ported so far: ``pschur`` for real and complex cycles with or without a
+signature, ``gpschur`` for real and complex pairs, ``phessenberg`` and
+``check_psd``.  ``want_t=False`` raises ``PSDNotImplemented``.
 """
 from .config import AlgoConfig, default_config, setverbosity, verbosity
 from .diagnostics import check_psd

@@ -101,6 +101,29 @@ __device__ __forceinline__ void givens(double f, double g, double& c,
   }
 }
 
+// givens with r: [c s; -s c] (f, g)^T = (r, 0)^T (the JAX package's
+// givens_real, operation for operation).
+__device__ __forceinline__ void givens_r(double f, double g, double& c,
+                                         double& s, double& r) {
+  if (g == 0.0) {
+    c = 1.0;
+    s = 0.0;
+    r = f;
+  } else if (f == 0.0) {
+    c = 0.0;
+    s = (g >= 0.0) ? 1.0 : -1.0;
+    r = fabs(g);
+  } else {
+    const double af = fabs(f), ag = fabs(g);
+    const double sc = fmax(af, ag);
+    const double fs = f / sc, gs = g / sc;
+    const double d = sc * sqrt(fs * fs + gs * gs);
+    r = (f >= 0.0) ? d : -d;
+    c = af / d;
+    s = g / r;
+  }
+}
+
 // ---- complex128 as double2 (x = re, y = im: torch's complex128 layout) ----
 
 __device__ __forceinline__ double2 cmul(double2 a, double2 b) {

@@ -1,14 +1,9 @@
 """Public decomposition drivers (port of ``models/drivers.py``).
 
-Ported so far:
-
-* ``pschur`` for real input with no signature, and for complex input with
-  or without a signature (both orientations);
-* ``gpschur`` for complex pairs;
-* ``phessenberg`` with or without a signature.
-
-Every other route (the real generalized decomposition) raises
-``PSDNotImplemented`` naming the ROADMAP item that ports it.
+Ported: ``pschur`` for real and complex input, with or without a
+signature (both orientations), ``gpschur`` for real and complex pairs, and
+``phessenberg`` with or without a signature.  ``want_t=False`` raises
+``PSDNotImplemented`` (ROADMAP queue 1, item 4).
 
 Device rule: a torch tensor is computed on its own device (a CPU tensor is
 an explicit request for the CPU).  An array or a sequence of matrices goes
@@ -23,10 +18,7 @@ import numpy as np
 import torch
 
 from ..ops.hessenberg import phessenberg_core, phessenberg_signed_core
-from ..types import GeneralizedPeriodicSchur, PeriodicSchur, PSDNotImplemented
-
-_REAL_SIGNED = ("the real generalized decomposition (real input with S=) is "
-                "not ported yet (ROADMAP queue 1, item 9)")
+from ..types import GeneralizedPeriodicSchur, PeriodicSchur
 
 
 def _target(device):
@@ -87,7 +79,7 @@ def phessenberg(A, S: Optional[Sequence[bool]] = None, want_q: bool = True, *,
 
 def pschur(A, lr="R", S: Optional[Sequence[bool]] = None, *,
            want_t: bool = True, want_z: bool = True,
-           maxitfac: Optional[int] = None, device=None):
+           maxitfac: Optional[int] = None, aggressive: bool = False, device=None):
     """Periodic (generalized) Schur decomposition of a matrix cycle.
 
     Args:
@@ -95,15 +87,18 @@ def pschur(A, lr="R", S: Optional[Sequence[bool]] = None, *,
          in float64 (real) or complex128 (complex).  A tensor is computed on
          its own device; an array goes to ``device`` (default ``"cuda"``;
          without a card pass ``device="cpu"``).  On a CUDA device the sweeps,
-         the 2x2 deflation and the complex shift run as hand-written CUDA
-         kernels.
+         the 2x2 deflation, the complex shift and the real generalized
+         chase and its ladders run as hand-written CUDA kernels.
       lr: 'R' for the product ``A[0] @ ... @ A[p-1]``, 'L' for
           ``A[p-1] @ ... @ A[0]``.
       S: optional signature (True = direct, False = inverted factor); the
-         generalized decomposition.  Ported for complex input only.
+         generalized decomposition.
       want_t/want_z: keep the triangular/unitary factors (want_t=False
           raises PSDNotImplemented for now).
-      maxitfac: iteration budget factor (default 30).
+      maxitfac: iteration budget factor (default 120 for real input with
+          ``S``, else 30).
+      aggressive: fixed per-factor deflation thresholds (the real
+          generalized decomposition only; ValueError otherwise).
 
     Returns:
       PeriodicSchur (S is None) or GeneralizedPeriodicSchur (S given).
@@ -111,6 +106,11 @@ def pschur(A, lr="R", S: Optional[Sequence[bool]] = None, *,
     A = _stack(A, device)
     orient = _char_lr(lr)
     mif = 30 if maxitfac is None else int(maxitfac)
+    if aggressive and (S is None or A.is_complex()):
+        # the reference defines aggressive deflation for the real
+        # generalized decomposition only (src/rgeneralized.jl:7)
+        raise ValueError("aggressive deflation applies to the real "
+                         "generalized decomposition (real dtype + S) only")
     if A.is_complex():
         from ..ops.pqz_complex import pschur_complex_pipeline
         Sb = (True,) * A.shape[0] if S is None else tuple(bool(x) for x in S)
@@ -122,7 +122,11 @@ def pschur(A, lr="R", S: Optional[Sequence[bool]] = None, *,
                              orientation=gps.orientation,
                              schurindex=gps.schurindex)
     if S is not None:
-        raise PSDNotImplemented(_REAL_SIGNED)
+        from ..ops.pqz_real import pschur_real_gen_pipeline
+        return pschur_real_gen_pipeline(
+            A, tuple(bool(x) for x in S), orient, want_t=want_t, want_z=want_z,
+            maxitfac=120 if maxitfac is None else int(maxitfac),
+            aggressive=aggressive)
     from ..ops.pqr_real import pschur_real_pipeline
     return pschur_real_pipeline(A, orient, want_t=want_t, want_z=want_z,
                                 maxitfac=mif)
@@ -133,8 +137,8 @@ def gpschur(As, Bs, **kwargs) -> GeneralizedPeriodicSchur:
 
     Interleaves the pairs into a length-2p signed cycle (terms shifted by
     one, which does not change eigenvalues), as the JAX package's
-    ``gpschur``.  Complex pairs only; ``kwargs`` go to ``pschur`` (``lr``
-    defaults to 'R').
+    ``gpschur``.  Real or complex pairs; ``kwargs`` go to ``pschur``
+    (``lr`` defaults to 'R').
     """
     As, Bs = list(As), list(Bs)
     ph = len(As)
@@ -146,6 +150,4 @@ def gpschur(As, Bs, **kwargs) -> GeneralizedPeriodicSchur:
         Cs.append(Bs[ph - 1 if j == 0 else j - 1])
         Ss.extend([True, False])
     C = _stack(Cs, kwargs.pop("device", None))
-    if not C.is_complex():
-        raise PSDNotImplemented(_REAL_SIGNED)
     return pschur(C, kwargs.pop("lr", "R"), S=tuple(Ss), **kwargs)

@@ -96,9 +96,12 @@ class GeneralizedPeriodicSchur:
       S: tuple of bool; True: the factor enters the product directly,
          False: it enters inverted.
       schurindex: index of the triangular Schur factor.
-      Ts, Zs: stacked factors as in PeriodicSchur (Zs unitary).
-      alpha: (n,) scaled eigenvalue numerators, |alpha| in [1, 2) or 0.
-      beta: (n,) real; 1, or 0 for an infinite eigenvalue.
+      Ts, Zs: stacked factors as in PeriodicSchur (Zs unitary); for real
+          input Ts[schurindex] is quasi-triangular, with a 2x2 block per
+          complex pair.
+      alpha: (n,) complex128 scaled eigenvalue numerators, |alpha| in
+          [1, 2) or 0.
+      beta: (n,) float64; 1, or 0 for an infinite eigenvalue.
       alphascale: (n,) int32 power-of-two exponents.
       orientation: 'R' or 'L'.
     """

@@ -44,12 +44,23 @@ def schur_to_numpy(P: PeriodicSchur) -> dict:
             "orientation": P.orientation, "schurindex": P.schurindex}
 
 
+def _state(H, Z, dt, device):
+    def t(x):
+        return torch.tensor(np.asarray(x, dt), device=device)
+    return t(H), (None if Z is None else t(Z))
+
+
 def state_from_jax_cx(H, Z=None, device="cpu"):
     """Complex128 (H, Z) of the JAX package (arrays, numpy-convertible) ->
     contiguous complex128 tensors on ``device``; Z may be None."""
-    def t(x):
-        return torch.tensor(np.asarray(x, np.complex128), device=device)
-    return t(H), (None if Z is None else t(Z))
+    return _state(H, Z, np.complex128, device)
+
+
+def state_from_jax_rg(H, Z=None, device="cpu"):
+    """Float64 (H, Z) of the JAX package's real generalized core (arrays,
+    numpy-convertible) -> contiguous float64 tensors on ``device``; Z may be
+    None."""
+    return _state(H, Z, np.float64, device)
 
 
 def gps_from_jax(P, device="cpu") -> GeneralizedPeriodicSchur:

@@ -25,14 +25,21 @@ def pow2_scale(x, k: int):
     return math.ldexp(float(x), k)
 
 
+def frexp_exp(mag) -> int:
+    """The exponent e of ``mag = m * 2^e`` with m in [0.5, 1); zero and
+    non-finite inputs give 0 (the JAX package's ``frexp_exp``)."""
+    mag = float(mag)
+    if mag == 0 or not math.isfinite(mag):
+        return 0
+    return math.frexp(mag)[1]
+
+
 def _renorm(alpha: complex, scale: int) -> Tuple[complex, int]:
     """Rescale so that |alpha| is in [1, 2); alpha == 0 resets the scale."""
     mag = abs(alpha)
     if mag == 0:
         return 0j, 0
-    if not math.isfinite(mag):      # the JAX package's frexp_exp gives e = 0
-        return pow2_scale(alpha, 1), scale - 1
-    e = math.frexp(mag)[1]          # mag = m * 2^e, m in [0.5, 1)
+    e = frexp_exp(mag)              # mag = m * 2^e, m in [0.5, 1)
     return pow2_scale(alpha, 1 - e), scale + e - 1
 
 

@@ -9,7 +9,9 @@ repository root (tests/conftest.py imports JAX).
 Tolerances: 1e-12 relative to max|H| (1e-12 for Z).  The windows here are
 short (n <= 40), where the sweep's generation chain amplifies rounding far
 less than at n=512 (see chip_smoke.py for the long-window check).  The
-complex shift kernel: 1e-14 relative to the plain version's |s|.
+complex shift kernel: 1e-14 relative to the plain version's |s|.  The real
+generalized chase and ladders: 1e-12 on cycles whose triangular factors
+have diagonals of modulus in [1, 2).
 """
 import numpy as np
 import pytest
@@ -17,8 +19,9 @@ import torch
 
 import periodicschurdecompositions_jl_torch as pt
 from periodicschurdecompositions_jl_torch.config import AlgoConfig
-from periodicschurdecompositions_jl_torch.ops import (deflate, pqr_real, pqz_complex,
-                                                     sweep, sweep_cx)
+from periodicschurdecompositions_jl_torch.ops import (_cuda, deflate, pqr_real,
+                                                     pqz_complex, pqz_real, rgopen,
+                                                     sweep, sweep_cx, sweep_rg)
 
 pytestmark = pytest.mark.cuda
 
@@ -213,3 +216,107 @@ def test_pschur_complex_on_the_card(cuda, p, n, S, lr):
     wc = np.sort_complex(Pc.values.numpy())
     assert np.abs(w - wc).max() <= 1e-10 * np.abs(wc).max()
     assert pqz_complex.last_info["converged"]
+
+
+def _rg_problem(p, n, seed):
+    """Real Hessenberg-triangular cycle (triangular diagonals of modulus in
+    [1, 2)), orthogonal Z and opening rotations (c1, s1, c2, s2)."""
+    rng = np.random.default_rng(seed)
+    H = np.zeros((p, n, n))
+    H[0] = np.triu(rng.standard_normal((n, n)), -1)
+    for f in range(1, p):
+        H[f] = np.triu(rng.standard_normal((n, n)))
+        d = rng.standard_normal(n)
+        np.fill_diagonal(H[f], np.where(d >= 0, 1.0, -1.0) * (1.0 + rng.random(n)))
+    Z = np.stack([np.linalg.qr(rng.standard_normal((n, n)))[0] for _ in range(p)])
+    a, b = rng.standard_normal(2), rng.standard_normal(2)
+    rot = np.array([abs(a[0]), np.sign(a[0]) * a[1], abs(b[0]), np.sign(b[0]) * b[1]])
+    rot[:2] /= np.hypot(*a)
+    rot[2:] /= np.hypot(*b)
+    return H, Z, rot
+
+
+@pytest.mark.parametrize("p,n,S,m,i", [
+    (2, 20, (True, False), 1, 19), (3, 24, (True, True, False), 4, 20),
+    (4, 40, (True, False, True, False), 1, 39), (3, 12, (True, False, True), 5, 8)])
+def test_rg_chase_kernels_match_plain(cuda, p, n, S, m, i):
+    Hn, Zn, rot = _rg_problem(p, n, p * 100 + n)
+    if m > 1:
+        Hn[0, m - 1, m - 2] = 0.0
+    if i + 1 < n:
+        Hn[0, i + 1, i] = 0.0
+    H0, Z0 = torch.tensor(Hn, device=cuda), torch.tensor(Zn, device=cuda)
+    # the opening leaves the bulge the chase starts from
+    rgopen.rg_ladder_plain(H0, Z0, "open", m - 1, i, torch.tensor(rot, device=cuda), S,
+                           want_z=True)
+    Hk, Zk = H0.clone(), Z0.clone()
+    sweep_rg.rg_chase(Hk, Zk, m, i, S, want_z=True)
+    Hp, Zp = H0.clone(), Z0.clone()
+    log = torch.zeros((p, n, sweep_rg.LOG), dtype=torch.float64, device=cuda)
+    sweep_rg.rg_chase_plain(Hp, Zp, m, i, S, want_z=True, log=log)
+    torch.cuda.synchronize()
+    scale = float(H0.abs().max())
+    assert float((Hk - Hp).abs().max()) <= 1e-12 * scale
+    assert float((Zk - Zp).abs().max()) <= 1e-12
+    Hs = Hk.clone()
+    assert float(Hs[0, i, i - 2].abs()) > 0       # the closing bulge is kept
+    Hs[0, i, i - 2] = 0.0
+    _structure_exact(Hs)
+    assert torch.equal(Hk[0, :, :m - 1], H0[0, :, :m - 1])
+    Hz = H0.clone()
+    sweep_rg.rg_chase(Hz, None, m, i, S, want_z=False)
+    assert torch.equal(Hz, Hk)
+    # B0 + B on the plain log against their plain version
+    lib = _cuda.load()
+    Hb, Zb = H0.clone(), Z0.clone()
+    st = torch.cuda.current_stream().cuda_stream
+    _cuda.check(lib.psd_rg_sweep_left(Hb.data_ptr(), log.data_ptr(), p, n, m, i, st), "left")
+    _cuda.check(lib.psd_rg_sweep_right(Hb.data_ptr(), Zb.data_ptr(), log.data_ptr(), p, n,
+                                       m, i, st), "right")
+    Ha, Za = H0.clone(), Z0.clone()
+    sweep_rg.rg_apply_log_plain(Ha, Za, log, m, i, want_z=True)
+    torch.cuda.synchronize()
+    assert float((Hb - Ha).abs().max()) <= 1e-13 * scale
+    assert float((Zb - Za).abs().max()) <= 1e-13
+
+
+@pytest.mark.parametrize("mode", ["open", "close", "chain"])
+@pytest.mark.parametrize("S", [(True, False, True, False), (True, True, False)])
+def test_rg_ladder_kernel_matches_plain(cuda, mode, S):
+    p, n = len(S), 16
+    Hn, Zn, rot = _rg_problem(p, n, 3 * p + len(mode))
+    j = {"open": 4, "close": 11, "chain": 7}[mode]
+    Hn[0, j + 2, j] = 0.5           # the closing bulge the close mode consumes
+    H0, Z0 = torch.tensor(Hn, device=cuda), torch.tensor(Zn, device=cuda)
+    rt = torch.tensor(rot, device=cuda)
+    for bounds in ({}, {"rhi": 13, "clo": 2}):
+        Hk, Zk = H0.clone(), Z0.clone()
+        rgopen.rg_ladder(Hk, Zk, mode, j, 12, rt, S, want_z=True, **bounds)
+        Hp, Zp = H0.clone(), Z0.clone()
+        rgopen.rg_ladder_plain(Hp, Zp, mode, j, 12, rt, S, want_z=True, **bounds)
+        torch.cuda.synchronize()
+        assert float((Hk - Hp).abs().max()) <= 1e-13 * float(H0.abs().max())
+        assert float((Zk - Zp).abs().max()) <= 1e-13
+        Hz = H0.clone()
+        rgopen.rg_ladder(Hz, None, mode, j, 12, rt, S, want_z=False, **bounds)
+        assert torch.equal(Hz, Hk)
+
+
+@pytest.mark.parametrize("p,n,S,lr", [(4, 24, (True, False, True, False), "R"),
+                                      (3, 20, (False, True, True), "L"),
+                                      (3, 16, (True, True, True), "R")])
+def test_pschur_real_gen_on_the_card(cuda, p, n, S, lr):
+    A = np.random.default_rng(p + n).standard_normal((p, n, n))
+    counters = (sweep_rg.launches, rgopen.launches)
+    for d in counters:
+        for k in d:
+            d[k] = 0
+    P = pt.pschur(torch.tensor(A, device=cuda), lr, S=S)
+    assert all(v > 0 for d in counters for v in d.values()), counters
+    ok, rep = pt.check_psd(P, A, tol=32.0)
+    assert ok, rep
+    Pc = pt.pschur(torch.tensor(A), lr, S=S)
+    w = np.sort_complex(P.values.cpu().numpy())
+    wc = np.sort_complex(Pc.values.numpy())
+    assert np.abs(w - wc).max() <= 1e-10 * np.abs(wc).max()
+    assert pqz_real.last_info["converged"]

@@ -6,7 +6,8 @@ import sys
 import pytest
 import torch
 
-from periodicschurdecompositions_jl_torch.ops import _cuda, deflate, sweep, sweep_cx
+from periodicschurdecompositions_jl_torch.ops import (_cuda, deflate, rgopen, sweep,
+                                                     sweep_cx, sweep_rg)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -20,8 +21,11 @@ import periodicschurdecompositions_jl_torch.ops.hessenberg
 import periodicschurdecompositions_jl_torch.ops.pqr_real
 import periodicschurdecompositions_jl_torch.ops.pqz_complex
 import periodicschurdecompositions_jl_torch.ops.pqz_deflate
+import periodicschurdecompositions_jl_torch.ops.pqz_real
+import periodicschurdecompositions_jl_torch.ops.rgopen
 import periodicschurdecompositions_jl_torch.ops.sweep
 import periodicschurdecompositions_jl_torch.ops.sweep_cx
+import periodicschurdecompositions_jl_torch.ops.sweep_rg
 import periodicschurdecompositions_jl_torch.utils.interop
 import periodicschurdecompositions_jl_torch.utils.safeprod
 assert not any(m.startswith('periodicschurdecompositions_jl_tpu') for m in sys.modules)
@@ -51,7 +55,8 @@ def test_cuda_loader_raises_without_nvcc(monkeypatch, tmp_path):
     assert _cuda._lib is None
 
 
-@pytest.mark.parametrize("fn", ["sweep", "deflate", "qz_sweep", "qz_shift"])
+@pytest.mark.parametrize("fn", ["sweep", "deflate", "qz_sweep", "qz_shift", "rg_chase",
+                                "rg_ladder"])
 def test_wrappers_refuse_other_devices(fn):
     H = torch.zeros((2, 5, 5), dtype=torch.float64, device="meta")
     Hc = torch.zeros((2, 5, 5), dtype=torch.complex128, device="meta")
@@ -65,5 +70,11 @@ def test_wrappers_refuse_other_devices(fn):
             sweep_cx.qz_sweep(Hc, None, 0, 3, torch.zeros(2, dtype=torch.complex128,
                                                           device="meta"),
                               (True, False), want_z=False)
-        else:
+        elif fn == "qz_shift":
             sweep_cx.qz_shift(Hc, 0, 3, (True, False))
+        elif fn == "rg_chase":
+            sweep_rg.rg_chase(H, None, 1, 4, (True, False), want_z=False)
+        else:
+            rgopen.rg_ladder(H, None, "open", 0, 4,
+                             torch.zeros(4, dtype=torch.float64, device="meta"),
+                             (True, False), want_z=False)

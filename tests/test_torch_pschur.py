@@ -138,15 +138,15 @@ def test_no_z_keeps_eigenvalues():
 
 @pytest.mark.parametrize("route", ["complex", "signature", "want_t", "gpschur"])
 def test_unported_routes_raise(route):
-    # still to port: want_t=False windowing (real and complex input) and
-    # the real generalized decomposition (real S= and real gpschur)
+    # still to port: want_t=False windowing, for real and complex input,
+    # with and without a signature (real S= through pschur and gpschur)
     A = np.random.default_rng(2).standard_normal((2, 4, 4))
     with pytest.raises(pt.PSDNotImplemented):
         if route == "complex":
             pt.pschur(A + 1j * A, want_t=False, device="cpu")
         elif route == "signature":
-            pt.pschur(A, S=[True, False], device="cpu")
+            pt.pschur(A, S=[True, False], want_t=False, device="cpu")
         elif route == "want_t":
             pt.pschur(A, want_t=False, device="cpu")
         else:
-            pt.gpschur([A[0]], [A[1]], device="cpu")
+            pt.gpschur([A[0]], [A[1]], want_t=False, device="cpu")
