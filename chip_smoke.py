@@ -6,8 +6,11 @@ checks each kernel against its plain torch version on the card at the
 shapes of its path, then drives the paths through the public entry points
 and checks the results:
 
-* real: the kernels of the double-shift sweep and the 2x2 deflation at
-  p=16, n=512; ``pschur(A, 'R')`` on the headline draw and one 'L' problem;
+* real: the Hessenberg reduction kernel on the headline draw (p=16,
+  n=512) and at p=1 n=64 and p=3 n=101, the kernels of the double-shift
+  sweep and the 2x2 deflation at p=16, n=512; ``pschur(A, 'R')`` on the
+  headline draw, kernel G against its plain version on states of that leg's
+  iteration, and one 'L' problem;
 * complex: the kernels of the single-shift QZ sweep and its shift at p=8,
   n=256 with an alternating signature; ``pschur`` on a complex p=8 n=256
   cycle (no signature) and a p=8 n=128 cycle with an alternating signature,
@@ -41,9 +44,11 @@ P_HEAD, N_HEAD, SEED_HEAD = 16, 512, 12345
 P_CX, N_CX, N_CX_SIGNED, SEED_CX = 8, 256, 128, 777
 P_RG, N_RG, SEED_RG = 8, 256, 4242
 TOL = 1e-12  # kernel vs plain: max|dH| <= TOL * max|H|, max|dZ| <= TOL
-# H100 SXM data sheet: HBM3 3.35 TB/s; FP64 34 TFLOP/s outside the tensor
-# cores (67 with FP64 MMA, which no kernel here uses)
-HBM_BPS, FP64_FLOPS = 3.35e12, 34e12
+# H100 SXM data sheet: HBM3 3.35 TB/s; FP64 34 TFLOP/s on the FP64 units and
+# 67 TFLOP/s on the tensor cores (FP64 MMA).  An operation bound takes the
+# higher peak: a blocked version of the same work runs mostly as matrix
+# products, whatever the kernel here does.
+HBM_BPS, FP64_FLOPS, FP64_MMA_FLOPS = 3.35e12, 34e12, 67e12
 
 
 def _log(*a):
@@ -76,8 +81,8 @@ def mk_sweep_problem(p, n, rng):
 
 def bound(nbytes, flops):
     """(bound_ms, bound_by): the larger of bytes over the memory rate and
-    FP64 operations over the FP64 peak."""
-    tb, tf = nbytes / HBM_BPS, flops / FP64_FLOPS
+    FP64 operations over the card's FP64 peak (the tensor cores')."""
+    tb, tf = nbytes / HBM_BPS, flops / max(FP64_FLOPS, FP64_MMA_FLOPS)
     return (max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations")
 
 
@@ -108,6 +113,23 @@ def wall_ms(fn):
     fn()
     torch.cuda.synchronize()
     return (time.perf_counter() - t0) * 1e3
+
+
+def dev_us(e):
+    """Device time of a profiler event, in microseconds."""
+    return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+
+
+def profile_line(prof, wall):
+    """Wall clock, device busy time, idle share and the six kernels with the
+    most device time of a profile.  Device-side events only: an operator's
+    self device time would count its kernels twice."""
+    ev = [e for e in prof.key_averages() if "CUDA" in str(e.device_type) and dev_us(e) > 0]
+    busy = sum(dev_us(e) for e in ev) / 1e6
+    top = sorted(ev, key=dev_us, reverse=True)[:6]
+    return (f"wall {wall:.3f} s (profiler on), device busy {busy:.3f} s, idle share "
+            f"{1 - busy / wall:.1%}; by kernel: "
+            + "; ".join(f"{e.key[:48]} {dev_us(e) / 1e3:.1f} ms in {e.count}" for e in top))
 
 
 def recon_err(H0, Z0, H, Z):
@@ -341,6 +363,170 @@ def deflate_phase(dev, p, n, report):
         "bound_by": bby, "library_ms": None}
 
 
+def hess_work(p, n):
+    """(bytes, flops) of one reduction with Q: A read once, H and Q written
+    once; per stage (i, j) with a nonempty tail (window length k = n - lo
+    >= 2; an empty tail gives tau = 0 and no update) the xLARFG (3k), the
+    left update of A[j] (4 k (n-i-1)) and the right updates of A[j-1] and
+    Q[j] (4 n k each)."""
+    flops = 0
+    for i in range(n - 1):
+        for j in range(p):
+            k = n - (i + 1 if j == 0 else i)
+            if k >= 2:
+                flops += 3 * k + 4 * k * (n - i - 1) + 8 * n * k
+    return 8 * 3 * p * n * n, flops
+
+
+def hess_phase(dev, report):
+    """The reduction kernel (csrc/hess.cu) against phessenberg_core_plain on
+    the card: the headline draw (p=16 n=512 seed 12345), p=1 n=64 (left and
+    right updates on one matrix) and p=3 n=101 (odd n).
+
+    1. max|dH|/max|A| and max|dQ| within max(1e-11, 10 sens), sens being the
+       plain version's own change when A is perturbed by a relative 1e-16.
+    2. The kernel's similarity residual max_l |Q_l' A_l Q_{l+1} - H_l| /
+       max|A| <= 2e-13, orthonormality max_l ||Q_l Q_l' - I||_1 <= 10 eps n,
+       exact structural zeros, and want_q=False leaves H identical.
+    3. One reduction adds 2 p (n-1) kernel launches to the counter (n-1
+       more when p == 1).
+    """
+    import torch
+    from periodicschurdecompositions_jl_torch.ops import hessenberg
+    worst = 0.0
+    for (p, n, seed) in ((P_HEAD, N_HEAD, SEED_HEAD), (1, 64, 64), (3, 101, 101)):
+        A = torch.tensor(np.random.default_rng(seed).standard_normal((p, n, n)), device=dev)
+        scale = float(A.abs().max())
+        inner = 2 * p * (n - 1) + (n - 1 if p == 1 else 0)
+        hessenberg.launches["hess_reduce"] = 0
+        H, Q = hessenberg.phessenberg_core(A)
+        if hessenberg.launches["hess_reduce"] != inner:
+            raise AssertionError(f"hess p={p} n={n}: {hessenberg.launches['hess_reduce']} "
+                                 f"launches counted, {inner} expected")
+        out = {}
+        t_plain = wall_ms(lambda: out.update(hq=hessenberg.phessenberg_core_plain(A)))
+        Hp, Qp = out.pop("hq")
+        pert = torch.tensor(1.0 + 1e-16 * np.random.default_rng(1).standard_normal(
+            (p, n, n)), device=dev)
+        Hq, Qq = hessenberg.phessenberg_core_plain(A * pert)
+        sens_h = float((Hq - Hp).abs().max()) / scale
+        sens_q = float((Qq - Qp).abs().max())
+        del Hq, Qq, pert
+        dh = float((H - Hp).abs().max()) / scale
+        dq = float((Q - Qp).abs().max())
+        tol_h, tol_q = max(1e-11, 10 * sens_h), max(1e-11, 10 * sens_q)
+        eye = torch.eye(n, dtype=torch.float64, device=dev)
+        res = max(float((Q[l].T @ A[l] @ Q[(l + 1) % p] - H[l]).abs().max())
+                  for l in range(p)) / scale
+        orth = max(float(torch.linalg.matrix_norm(Q[l] @ Q[l].T - eye, ord=1))
+                   for l in range(p))
+        orth_bound = 10 * np.finfo(np.float64).eps * n
+        Hn, Qn = hessenberg.phessenberg_core(A, want_q=False)
+        ms = event_ms(lambda: hessenberg.phessenberg_core(A), 3)
+        nb, fl = hess_work(p, n)
+        bms, bby = bound(nb, fl)
+        _log(f"hess reduction p={p} n={n} seed={seed}: vs phessenberg_core_plain "
+             f"max|dH|/max|A| {dh:.3e} max|dQ| {dq:.3e} (plain's own 1e-16 sensitivity "
+             f"{sens_h:.3e} / {sens_q:.3e}; tolerance {tol_h:.3e} / {tol_q:.3e}); kernel "
+             f"residual {res:.3e}, orthonormality {orth:.3e} (bound {orth_bound:.3e}); "
+             f"kernel {ms:.3f} ms ({inner} launches), plain {t_plain:.1f} ms, "
+             f"bound {bms * 1e3:.3f} us ({bby})")
+        if not (dh <= tol_h and dq <= tol_q):
+            raise AssertionError(f"hess kernel disagrees with the plain version at "
+                                 f"p={p} n={n}: {dh:.3e} {dq:.3e}")
+        if not (res <= 2e-13 and orth <= orth_bound):
+            raise AssertionError(f"hess kernel residual {res:.3e} / orthonormality "
+                                 f"{orth:.3e} at p={p} n={n}")
+        if not (structure_ok(H) and structure_ok(Hp)):
+            raise AssertionError(f"hess p={p} n={n}: structural zeros not exact")
+        if not (Qn is None and torch.equal(Hn, H)):
+            raise AssertionError("hess want_q=False changed H")
+        worst = max(worst, dh, dq)
+        if (p, n) == (P_HEAD, N_HEAD):
+            from torch.profiler import ProfilerActivity, profile
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                hessenberg.phessenberg_core(A)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            _log(f"profile of one kernel reduction p={p} n={n}: {profile_line(prof, wall)}")
+            report["hess_reduce"] = {
+                "name": "hess_reduce", "route": "cuda",
+                "source": "periodicschurdecompositions_jl_torch/csrc/hess.cu",
+                "replaces": "periodicschurdecompositions_jl_tpu/ops/pallas_hess.py:127",
+                "ms": ms, "plain_ms": t_plain, "bound_ms": bms, "bound_by": bby,
+                "library_ms": None}
+    report["hess_reduce"]["max_abs_err"] = worst
+
+
+def glue_phase(dev, states, report):
+    """Kernel G (csrc/glue.cu) against glue_plain, on the card and on a CPU
+    copy, bit for bit (the whole packed buffer: band, lnew, v0 and the
+    factor entries; the CPU tests hold glue_plain to the numpy host glue bit
+    for bit), on states of the headline iteration captured by
+    capture_glue_states, under the default configuration and, on the first
+    state, slicot_convg and slicot_shifts."""
+    import torch
+    from periodicschurdecompositions_jl_torch.config import AlgoConfig
+    from periodicschurdecompositions_jl_torch.ops import _cuda, glue
+    err = 0.0
+    t_plain = None
+    _, Hp, l, i, its = states[0]
+    glue.glue_plain(Hp, Hp.shape[1] - 1, l, i, its, AlgoConfig())  # warm-up
+    for (label, Hp, l, i, its) in states:
+        p, N, _ = Hp.shape
+        n = N - 1
+        cfgs = [AlgoConfig()]
+        if label == states[0][0]:
+            cfgs += [AlgoConfig(slicot_convg=True), AlgoConfig(slicot_shifts=True)]
+        for cfg in cfgs:
+            k = glue.glue_cuda(Hp, n, l, i, its, cfg).cpu()
+            out = {}
+            tp = wall_ms(lambda: out.update(b=glue.glue_plain(Hp, n, l, i, its, cfg)))
+            t_plain = tp if t_plain is None else t_plain
+            ref = out["b"].cpu()
+            ref_cpu = glue.glue_plain(Hp.cpu(), n, l, i, its, cfg)
+            e = max(float((k - ref).abs().max()), float((k - ref_cpu).abs().max()))
+            same = torch.equal(k, ref) and torch.equal(k, ref_cpu)
+            _log(f"glue state {label} (l={l}, i={i}, its={its}, slicot_convg="
+                 f"{cfg.slicot_convg}, slicot_shifts={cfg.slicot_shifts}): lnew {int(k[0])}, "
+                 f"bitwise equal to glue_plain on the card and on the CPU: {same} (max "
+                 f"diff {e:.3e}); glue_plain {tp:.2f} ms")
+            if not same:
+                raise AssertionError(f"kernel G differs from glue_plain on {label}")
+            err = max(err, e)
+    label, Hp, l, i, its = states[0]
+    p, N, _ = Hp.shape
+    n = N - 1
+    # the kernel alone (preallocated buffers, straight through the C entry
+    # point), and the wrapper (buffer allocation, launch; no copy back)
+    lib = _cuda.load()
+    st = torch.cuda.current_stream().cuda_stream
+    k = glue.out_len(p, n)
+    buf = torch.empty(k + 3 * n, dtype=torch.float64, device=dev)
+    ulp, ulpx, smlnum = glue.scan_constants(n, AlgoConfig())
+    ms = event_ms(lambda: _cuda.check(lib.psd_glue(
+        Hp.data_ptr(), buf.data_ptr(), buf.data_ptr() + 8 * k, p, n, l, i, its, 0, 0, ulp,
+        ulpx, smlnum, st), "glue"), 200)
+    ms_wrap = event_ms(lambda: glue.glue_cuda(Hp, n, l, i, its, AlgoConfig()), 200)
+    # reads the diagonals 0 and 1 of every factor, diagonal 2 of H[1..p-1]
+    # and H[0]'s subdiagonal (3 p n doubles), writes the buffer; the band
+    # recurrence is 8 flops per (factor, row), the product with H[0] 8 per
+    # row, the scan about 25 per row of the window
+    bms, bby = bound(8 * (3 * p * n + glue.out_len(p, n)),
+                     8 * p * n + 25 * (i - l) + 80)
+    _log(f"kernel G at p={p} n={n} (state {label}): {ms * 1e3:.2f} us per launch "
+         f"({ms_wrap * 1e3:.2f} us through glue_cuda), glue_plain {t_plain:.2f} ms, bound "
+         f"{bms * 1e3:.4f} us ({bby})")
+    report["glue"] = {
+        "name": "glue", "route": "cuda",
+        "source": "periodicschurdecompositions_jl_torch/csrc/glue.cu",
+        "replaces": "periodicschurdecompositions_jl_tpu/ops/pallas_glue.py:98",
+        "max_abs_err": err, "ms": ms, "plain_ms": t_plain, "bound_ms": bms,
+        "bound_by": bby, "library_ms": None}
+
+
 def backerr(A, T, Z, left=False):
     """max_l max|Z T Z' - A| / max|A| per factor (bench.py's definition)."""
     p = T.shape[0]
@@ -354,19 +540,24 @@ def backerr(A, T, Z, left=False):
 
 
 def e2e_case(dev, p, n, seed, lr):
+    """pschur on a real cycle through the public entry point.  Returns the
+    launch counts and the iteration info with the wall clock and the
+    backward error; kernel G must have launched once per iteration."""
     import torch
     import periodicschurdecompositions_jl_torch as pt
-    from periodicschurdecompositions_jl_torch.ops import deflate, pqr_real, sweep
+    from periodicschurdecompositions_jl_torch.ops import (deflate, glue, hessenberg, pqr_real,
+                                                         sweep)
     A = np.random.default_rng(seed).standard_normal((p, n, n))
     At = torch.tensor(A, device=dev)
-    for d in (sweep.launches, deflate.launches):
+    counters = [sweep.launches, deflate.launches, hessenberg.launches, glue.launches]
+    for d in counters:
         for k in d:
             d[k] = 0
     t0 = time.perf_counter()
     P = pt.pschur(At, lr)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {**sweep.launches, **deflate.launches}
+    launches = {k: v for d in counters for k, v in d.items()}
     info = dict(pqr_real.last_info)
     T = P.Ts.cpu().numpy()
     Z = P.Zs.cpu().numpy()
@@ -392,7 +583,43 @@ def e2e_case(dev, p, n, seed, lr):
     for k, v in launches.items():
         if v <= 0:
             raise AssertionError(f"kernel {k} was not launched by the main path")
-    return launches
+    if launches["glue"] != info["niter"]:
+        raise AssertionError(f"kernel G launched {launches['glue']} times in "
+                             f"{info['niter']} iterations")
+    return launches, {**info, "wall_s": wall, "backerr": be}
+
+
+class capture_glue_states:
+    """Within the block, keeps a few states of the real iteration for
+    glue_phase: the padded stack and l, i, its at kernel G's first call,
+    calls 333 and 666, the first call with its == 10 and the first with
+    its >= 16 (a clone of the stack at each, five in all)."""
+
+    def __enter__(self):
+        from periodicschurdecompositions_jl_torch.ops import pqr_real
+        self.run = run = pqr_real.glue_products_scan_shift
+        self.states = states = {}
+        calls = [0]
+
+        def capture(Hp, n, l, i, its, cfg):
+            c = calls[0]
+            calls[0] += 1
+            for label, want in ((f"call {c}", c in (0, 333, 666)), ("its==10", its == 10),
+                                ("its>=16", its >= 16)):
+                if want and label not in states:
+                    states[label] = (label, Hp.clone(), l, i, its)
+            return run(Hp, n, l, i, its, cfg)
+        pqr_real.glue_products_scan_shift = capture
+        return self
+
+    def __exit__(self, *exc):
+        from periodicschurdecompositions_jl_torch.ops import pqr_real
+        pqr_real.glue_products_scan_shift = self.run
+        _, H0, l0, i0, _ = self.states["call 0"]
+        for label, its in (("its==10", 10), ("its>=16", 16)):
+            if label not in self.states:  # the run had none: the first state at that its
+                self.states[label] = (f"call 0 at its={its}", H0, l0, i0, its)
+        return False
 
 
 def small_reference_check(dev):
@@ -682,17 +909,7 @@ def cx_iteration_profile(dev, p, n, seed):
         pqz_complex_core(H, (True,) * p, Z=Q)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
-    # device-side events only (an operator's self device time would count
-    # its kernels twice)
-    ev = [e for e in prof.key_averages() if "CUDA" in str(e.device_type) and dev_us(e) > 0]
-    busy = sum(dev_us(e) for e in ev) / 1e6
-    top = sorted(ev, key=dev_us, reverse=True)[:6]
-    _log(f"profile of the complex iteration p={p} n={n}: wall {wall:.3f} s (profiler on), "
-         f"device busy {busy:.3f} s, idle share {1 - busy / wall:.1%}; by kernel: "
-         + "; ".join(f"{e.key[:48]} {dev_us(e) / 1e3:.1f} ms in {e.count}" for e in top))
+    _log(f"profile of the complex iteration p={p} n={n}: {profile_line(prof, wall)}")
 
 
 def cx_small_check(dev):
@@ -1050,16 +1267,8 @@ def rg_iteration_profile(dev, S, HQ):
         pqz_real_gen_core(H, S, Z=Q)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
-    ev = [e for e in prof.key_averages() if "CUDA" in str(e.device_type) and dev_us(e) > 0]
-    busy = sum(dev_us(e) for e in ev) / 1e6
-    top = sorted(ev, key=dev_us, reverse=True)[:6]
-    _log(f"profile of the real generalized iteration p={p} n={n}: wall {wall:.3f} s "
-         f"(profiler on), device busy {busy:.3f} s, idle share {1 - busy / wall:.1%}; by "
-         f"kernel: " + "; ".join(f"{e.key[:48]} {dev_us(e) / 1e3:.1f} ms in {e.count}"
-                                 for e in top))
+    _log(f"profile of the real generalized iteration p={p} n={n}: "
+         f"{profile_line(prof, wall)}")
 
 
 def rg_small_check(dev):
@@ -1104,15 +1313,19 @@ def main() -> int:
          f"python {sys.version.split()[0]}")
     dev = torch.device("cuda:0")
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     _cuda.load()
     _log(f"kernel build (nvcc) + load: {time.perf_counter() - t0:.2f} s")
 
     report = {}
+    hess_phase(dev, report)
     sweep_phase(dev, P_HEAD, N_HEAD, report)
     deflate_phase(dev, P_HEAD, N_HEAD, report)
     small_reference_check(dev)
-    launches = e2e_case(dev, P_HEAD, N_HEAD, SEED_HEAD, "R")
+    with capture_glue_states() as cap:
+        launches, _ = e2e_case(dev, P_HEAD, N_HEAD, SEED_HEAD, "R")
+    glue_phase(dev, list(cap.states.values()), report)
+    del cap
     e2e_case(dev, 8, 128, 99, "L")
 
     cx_kernel_phase(dev, P_CX, N_CX, report)
@@ -1130,8 +1343,10 @@ def main() -> int:
     kernels = []
     for name in ("sweep_generate", "sweep_left", "sweep_right", "deflate2x2",
                  "qz_sweep_generate", "qz_sweep_left", "qz_sweep_right", "qz_shift",
-                 "rg_sweep_generate", "rg_sweep_left", "rg_sweep_right", "rg_ladder"):
+                 "rg_sweep_generate", "rg_sweep_left", "rg_sweep_right", "rg_ladder",
+                 "hess_reduce", "glue"):
         kernels.append({**report[name], "launches": launches[name]})
+    _log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the kernel build to here")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

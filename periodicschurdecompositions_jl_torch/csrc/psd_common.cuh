@@ -11,16 +11,6 @@
 
 namespace psd {
 
-// 2-norm of (a, b) by max-scaling (the JAX package's _scaled_norm).
-__device__ __forceinline__ double scaled_norm2(double a, double b) {
-  a = fabs(a);
-  b = fabs(b);
-  const double m = fmax(a, b);
-  const double ms = (m == 0.0) ? 1.0 : m;
-  const double ra = a / ms, rb = b / ms;
-  return m * sqrt(ra * ra + rb * rb);
-}
-
 // sqrt(x^2 + z^2) by max-scaling (the JAX package's hyp3 with y == 0).
 __device__ __forceinline__ double hyp2(double x, double z) {
   const double m = fmax(fabs(x), fabs(z));
@@ -34,37 +24,56 @@ __device__ __forceinline__ double neg_copysign(double mag, double sgn) {
   return (sgn >= 0.0) ? -fabs(mag) : fabs(mag);
 }
 
+// xLARFG on (alpha, x) for a tail x of any length, from its max-scaled norm:
+// m = max|x_r| and rs = sqrt(sum (x_r / m)^2) (m == 0 for a zero or empty
+// tail).  The same arithmetic as the JAX package's _reflector_from: the
+// tail's norm is m * rs, the single-round rescue multiplies by the power of
+// two 1/sfmin (so the rescaled norm is (m / sfmin) * rs exactly).  The
+// essential part of w is w_r = (x_r * scl) / den; a zero tail gives tau = 0,
+// beta = alpha and w = 0.
+__device__ __forceinline__ void reflector_from_norm(double alpha, double m,
+                                                    double rs, double& tau,
+                                                    double& beta, double& scl,
+                                                    double& den) {
+  const double sfmin = 2.0 * DBL_MIN / DBL_EPSILON;
+  const double rsfmin = 1.0 / sfmin;
+  const double xnorm = m * rs;
+  if (xnorm == 0.0) {
+    tau = 0.0;
+    beta = alpha;
+    scl = 0.0;
+    den = 1.0;
+    return;
+  }
+  double b = neg_copysign(hyp2(alpha, xnorm), alpha);
+  double ar = alpha;
+  scl = 1.0;
+  const bool need = fabs(b) < sfmin;
+  if (need) {  // one rescaling round suffices in binary64
+    scl = rsfmin;
+    ar *= rsfmin;
+    b = neg_copysign(hyp2(ar, (m * rsfmin) * rs), ar);
+  }
+  const double bs = (b == 0.0) ? 1.0 : b;
+  tau = (b - ar) / bs;
+  const double d = ar - b;
+  den = (d == 0.0) ? 1.0 : d;
+  beta = need ? b * sfmin : b;
+}
+
 // xLARFG on (alpha, x1, x2): P = I - tau w w^T with w = (1, v1, v2) and
 // P (alpha, x1, x2)^T = (beta, 0, 0)^T.  A 2-vector is (alpha, x1, 0).
 __device__ __forceinline__ void gen_reflector(double alpha, double x1, double x2,
                                               double& tau, double& beta,
                                               double& v1, double& v2) {
-  const double sfmin = 2.0 * DBL_MIN / DBL_EPSILON;
-  const double rsfmin = 1.0 / sfmin;
-  const double xnorm = scaled_norm2(x1, x2);
-  if (xnorm == 0.0) {
-    tau = 0.0;
-    beta = alpha;
-    v1 = 0.0;
-    v2 = 0.0;
-    return;
-  }
-  double b = neg_copysign(hyp2(alpha, xnorm), alpha);
-  double ar = alpha, t1 = x1, t2 = x2;
-  const bool need = fabs(b) < sfmin;
-  if (need) {  // one rescaling round suffices in binary64
-    t1 *= rsfmin;
-    t2 *= rsfmin;
-    ar *= rsfmin;
-    b = neg_copysign(hyp2(ar, scaled_norm2(t1, t2)), ar);
-  }
-  const double bs = (b == 0.0) ? 1.0 : b;
-  tau = (b - ar) / bs;
-  const double den = ar - b;
-  const double ds = (den == 0.0) ? 1.0 : den;
-  v1 = t1 / ds;
-  v2 = t2 / ds;
-  beta = need ? b * sfmin : b;
+  const double a1 = fabs(x1), a2 = fabs(x2);
+  const double m = fmax(a1, a2);
+  const double ms = (m == 0.0) ? 1.0 : m;
+  const double r1 = a1 / ms, r2 = a2 / ms;
+  double scl, den;
+  reflector_from_norm(alpha, m, sqrt(r1 * r1 + r2 * r2), tau, beta, scl, den);
+  v1 = (m == 0.0) ? 0.0 : (x1 * scl) / den;
+  v2 = (m == 0.0) ? 0.0 : (x2 * scl) / den;
 }
 
 // 3x3 reflector matrix I - tau w w^T, row-major, w = (1, v1, v2).

@@ -86,9 +86,10 @@ def pschur(A, lr="R", S: Optional[Sequence[bool]] = None, *,
       A: (p, n, n) cycle (tensor, array, or sequence of matrices), computed
          in float64 (real) or complex128 (complex).  A tensor is computed on
          its own device; an array goes to ``device`` (default ``"cuda"``;
-         without a card pass ``device="cpu"``).  On a CUDA device the sweeps,
-         the 2x2 deflation, the complex shift and the real generalized
-         chase and its ladders run as hand-written CUDA kernels.
+         without a card pass ``device="cpu"``).  On a CUDA device the real
+         Hessenberg reduction, the real iteration's per-iteration glue, the
+         sweeps, the 2x2 deflation, the complex shift and the real
+         generalized chase and its ladders run as hand-written CUDA kernels.
       lr: 'R' for the product ``A[0] @ ... @ A[p-1]``, 'L' for
           ``A[p-1] @ ... @ A[0]``.
       S: optional signature (True = direct, False = inverted factor); the

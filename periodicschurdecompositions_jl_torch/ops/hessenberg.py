@@ -6,13 +6,27 @@ unitary similarity,
     Q[j]^H A[j] Q[(j+1) % p] = H[j],
 
 with ``H[0]`` upper Hessenberg and ``H[1..p-1]`` upper triangular (MB03VD
-column sweep).  One host loop over columns; for each column the p-cycle of
-reflector generate/apply steps runs as torch GEMV/GER updates on the
-tensors' device.  The generators are branch-free, so the loop never reads
-a value back to the host.  Each reflector is zero outside its window, so
-the rank-1 updates touch only the rows (left) or columns (right) of that
-window; outside it the full-width update of the JAX package is an exact
-no-op.  Real and complex input.
+column sweep).
+
+* A real float64 CUDA tensor launches the hand-written reduction of
+  ``csrc/hess.cu`` (it replaces the Pallas kernel of the JAX package's
+  ``ops/pallas_hess.py``): one C call enqueues the whole chain of
+  reflector generations and updates on the stream.  The JAX package keeps
+  its kernel off by default (``PSD_HESS_KERNEL``) only because it measured
+  no gain over its XLA glue on the TPU; that measurement says nothing about
+  this card, so here the kernel is the route and there is no switch.
+* A CPU tensor, and complex input on any device (the JAX complex reduction
+  has no Pallas kernel), take ``phessenberg_core_plain``: one host loop
+  over columns; for each column the p-cycle of reflector generate/apply
+  steps runs as torch GEMV/GER updates on the tensors' device.  The
+  generators are branch-free, so the loop never reads a value back to the
+  host.  Each reflector is zero outside its window, so the rank-1 updates
+  touch only the rows (left) or columns (right) of that window; outside it
+  the full-width update of the JAX package is an exact no-op.
+
+``launches["hess_reduce"]`` counts the launches of the reduction's kernels
+(2 p (n-1) per reduction, n-1 more when p == 1), as the C entry point
+reports them.
 
 ``phessenberg_signed_core`` handles a mixed signature (Kressner's
 two-stage scheme): QR/RQ factorizations of the triangular factors, then
@@ -23,12 +37,16 @@ host from the two entries it annihilates.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Optional, Sequence, Tuple
 
 import torch
 
+from . import _cuda
 from .householder import refl_left, refl_right, reflector_masked
 from .rotations import colsk, givens_host, lmat_host, rmat_adj_host, rowsk
+
+launches = {"hess_reduce": 0}
 
 
 def _scrub(A):
@@ -44,13 +62,45 @@ def phessenberg_core(A: torch.Tensor, want_q: bool = True
     """Reduce a stacked cycle to periodic Hessenberg/triangular form.
 
     Args:
-      A: (p, n, n) real or complex stack (not modified).
+      A: (p, n, n) real or complex stack (not modified); real input on a
+         CUDA device must be float64.
       want_q: accumulate the unitary factors.
 
     Returns:
-      (H, Q): H[0] upper Hessenberg, H[1:] upper triangular; Q (p, n, n)
-      with Q[j]^H A[j] Q[(j+1)%p] = H[j] (None if not requested).
+      (H, Q): H[0] upper Hessenberg, H[1:] upper triangular, with exact
+      structural zeros; Q (p, n, n) with Q[j]^H A[j] Q[(j+1)%p] = H[j]
+      (None if not requested).
     """
+    if A.is_complex() or A.device.type == "cpu":
+        return phessenberg_core_plain(A, want_q)
+    if A.device.type != "cuda":
+        raise ValueError(f"phessenberg_core: unsupported device {A.device}")
+    p, n, n2 = A.shape
+    if n != n2:
+        raise ValueError("factors must be square")
+    if A.dtype != torch.float64:
+        raise ValueError(f"phessenberg_core: real input on the card must be "
+                         f"float64, got {A.dtype}")
+    H = A.clone(memory_format=torch.contiguous_format)
+    Q = torch.eye(n, dtype=H.dtype, device=H.device).expand(p, n, n).clone() \
+        if want_q else None
+    if n <= 1:
+        return H, Q
+    ws = torch.empty(n + 2, dtype=H.dtype, device=H.device)
+    nlaunch = ctypes.c_int(0)
+    rc = _cuda.load().psd_hess_reduce(
+        H.data_ptr(), Q.data_ptr() if want_q else None, ws.data_ptr(), p, n,
+        ctypes.byref(nlaunch), _cuda.stream_ptr(H))
+    launches["hess_reduce"] += nlaunch.value
+    _cuda.check(rc, "hess_reduce")
+    return H, Q
+
+
+def phessenberg_core_plain(A: torch.Tensor, want_q: bool = True
+                           ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Plain torch reduction (the CPU route, and the reference the kernel
+    is checked against on the card); same contract as ``phessenberg_core``,
+    any dtype and device."""
     p, n, n2 = A.shape
     if n != n2:
         raise ValueError("factors must be square")

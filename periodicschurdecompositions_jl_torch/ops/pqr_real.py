@@ -8,13 +8,15 @@ without forming the product.
 Division of labour:
 
 * the matrices stay on their device, ghost-padded to ``(p, n+1, n+1)``;
-* the iteration control runs on the host.  Each iteration gathers the
-  diagonals -1..2 of the factors (everything the band products, the
-  deflation scan, the shifts and the 2x2 deflation read) into one tensor
-  and brings it to the host in ONE transfer; a second transfer happens
-  only in an iteration whose repair chain changed those diagonals before a
-  2x2 deflation.  Band products, the Ahues-Tisseur scan with the
-  stagnation relaxation, shifts and lanv2 are numpy/float host code;
+* the iteration control runs on the host.  Each iteration, kernel G
+  (``ops.glue``: the CUDA kernel on a CUDA device, its plain torch version
+  on the CPU) computes the band products of the cycle, the Ahues-Tisseur
+  deflation scan with the stagnation relaxation and the double-shift first
+  column v0, and the host reads them, with the factor entries the repair
+  test and the 2x2 deflation need, in ONE transfer; a second transfer (a
+  gather of the factor diagonals) happens only in an iteration whose
+  repair chain changed those diagonals before a 2x2 deflation.  The
+  early-QR start and lanv2 are numpy/float host code;
 * the sweep runs through ``ops.sweep.chase_sweep`` and the 2x2 deflation
   through ``ops.deflate.deflate2x2`` (CUDA kernels on a CUDA device); the
   rare repair chain runs as torch ops on the device.
@@ -39,6 +41,7 @@ from ..config import AlgoConfig, default_config, verbosity
 from ..types import ConvergenceFailure, PeriodicSchur, PSDNotImplemented
 from ..utils.circshift import rev_alias
 from .deflate import deflate2x2
+from .glue import glue_products_scan_shift
 from .householder import reflector_small
 from .lanv2 import lanv2
 from .rotations import colsk, rowsk
@@ -46,42 +49,6 @@ from .sweep import chase_sweep
 
 # wall-clock split and iteration count of the last pschur_real_pipeline call
 last_info: dict = {}
-
-
-def _band_products(D, U, V, S0):
-    """Band entries of T = H[1] @ ... @ H[p-1] and the cycle product H[0] @ T.
-
-    Args (host float64 arrays): D, U, V: (p, n) diagonals 0, +1, +2 of every
-      factor (U[:, n-1] = V[:, n-2:] = 0); S0: (n,) with S0[r] = H[0][r, r-1]
-      (S0[0] = 0).
-
-    Returns (hdiag, hsub, hsup): entries [r, r], [r, r-1], [r, r+1] of the
-    product for every r (0 outside the band).  Same recurrences, in the same
-    order, as the JAX package's vectorized ``_band_products``.
-    """
-    p, n = D.shape
-    z1 = np.zeros(1)
-    z2 = np.zeros(2)
-    P1 = np.ones(n)
-    P2 = np.zeros(n)
-    P3 = np.zeros(n)
-    for l in range(1, p):
-        Dl, Ul, Vl = D[l], U[l], V[l]
-        D1 = np.concatenate([Dl[1:], z1])
-        U1 = np.concatenate([Ul[1:], z1])
-        D2 = np.concatenate([Dl[2:], z2])
-        P3 = P1 * Vl + P2 * U1 + P3 * D2
-        P2 = P1 * Ul + P2 * D1
-        P1 = P1 * Dl
-    d0, u0, s0 = D[0], U[0], S0
-    P1m = np.concatenate([np.ones(1), P1[:-1]])
-    P2m = np.concatenate([z1, P2[:-1]])
-    P3m = np.concatenate([z1, P3[:-1]])
-    hsub = s0 * P1m
-    hdiag = s0 * P2m + d0 * P1
-    P11 = np.concatenate([P1[1:], z1])
-    hsup = s0 * P3m + d0 * P2 + u0 * P11
-    return hdiag, hsub, hsup
 
 
 class _BandGather:
@@ -142,7 +109,9 @@ def _repair(Hp, Zp, i, lnew, p, cfg, want_z):
 
 
 def _shift_v0(hdiag, hsub, hsup, lnew, i, its, n, cfg, ulp):
-    """Double-shift first column at the window head (reference :681-801).
+    """Double-shift first column at the window head (reference :681-801),
+    on the host from kernel G's band: the route of ``cfg.allow_early_qr``
+    (kernel G computes v0 at ``m = lnew`` alone, with the same arithmetic).
 
     Returns (m, v0, early): the sweep's start row, its normalized first
     column, and whether the early-QR start moved m below the window top.
@@ -248,7 +217,6 @@ def pqr_real_core(H: torch.Tensor, Z: Optional[torch.Tensor] = None,
     ulp = float(np.finfo(np.float64).eps)
     unfl = float(np.finfo(np.float64).tiny)
     smlnum = unfl * (n / ulp)
-    ulpx = cfg.ulp_x(ulp)
     maxit = maxitfac * n
 
     if n == 1:
@@ -275,7 +243,6 @@ def pqr_real_core(H: torch.Tensor, Z: Optional[torch.Tensor] = None,
         else:
             Zp[:, :n, :n] = Z
     gather = _BandGather(p, n, dev)
-    iv = np.arange(n)
     wr = np.zeros(n)
     wi = np.zeros(n)
     swaps = []  # (i, w1r, w2r) of real 2x2 deflations, checked at the end
@@ -283,34 +250,10 @@ def pqr_real_core(H: torch.Tensor, Z: Optional[torch.Tensor] = None,
     i, l, its, jiter = n - 1, 0, 1, 0
     steps = 0  # chase steps over all sweeps (sum of i - m)
     while i >= 0 and jiter < maxit:
-        D, U, V, S0 = gather(Hp)
-        hdiag, hsub, hsup = _band_products(D, U, V, S0)
-
-        # ---- deflation scan over k in [l+1, i], bottom-most hit ----------
-        hh11 = np.concatenate([np.zeros(1), hdiag[:-1]])
-        hh12 = np.concatenate([np.zeros(1), hsup[:-1]])
-        hh21 = hsub
-        hh22 = hdiag
-        tst1 = np.abs(hh11) + np.abs(hh22)
-        ab = np.maximum(np.abs(hh21), np.abs(hh12))
-        ba = np.minimum(np.abs(hh21), np.abs(hh12))
-        aa = np.maximum(np.abs(hh22), np.abs(hh11 - hh22))
-        bb = np.minimum(np.abs(hh22), np.abs(hh11 - hh22))
-        stmp = aa + ab
-        stmps = np.where(stmp == 0, 1.0, stmp)
-        if cfg.slicot_convg:
-            found = np.abs(hh21) <= np.maximum(ulp * tst1, smlnum)
-        else:
-            at_ok = ba * (ab / stmps) <= np.maximum(smlnum, ulpx * (bb * (aa / stmps)))
-            found = (np.abs(hh21) <= smlnum) | ((np.abs(hh21) <= ulp * tst1) & at_ok)
-            # stagnation relaxation after 16 fruitless iterations
-            if its >= 16:
-                found |= np.abs(hh21) <= np.maximum(ulp * tst1, smlnum)
-        found &= (iv >= l + 1) & (iv <= i)
-        if i > l:
-            lnew = int(iv[found].max()) if found.any() else l
-        else:
-            lnew = i
+        # kernel G: band, scan, v0 and the factor entries read below
+        g = glue_products_scan_shift(Hp, n, l, i, its, cfg)
+        hdiag, hsub, hsup, lnew = g.hdiag, g.hsub, g.hsup, g.lnew
+        D, U, S0 = g.D, g.U, g.S0
 
         # ---- subdiagonal repair -----------------------------------------
         repaired = False
@@ -325,7 +268,10 @@ def pqr_real_core(H: torch.Tensor, Z: Optional[torch.Tensor] = None,
 
         splitting = lnew >= i - 1
         if not splitting:
-            m, v0, early = _shift_v0(hdiag, hsub, hsup, lnew, i, its, n, cfg, ulp)
+            if cfg.allow_early_qr:
+                m, v0, early = _shift_v0(hdiag, hsub, hsup, lnew, i, its, n, cfg, ulp)
+            else:
+                m, v0, early = lnew, g.v0, False
             chase_sweep(Hp, Zp, m, i, v0, want_z=want_z, early=early)
             steps += i - m
         elif lnew == i:

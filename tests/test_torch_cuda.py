@@ -11,7 +11,10 @@ short (n <= 40), where the sweep's generation chain amplifies rounding far
 less than at n=512 (see chip_smoke.py for the long-window check).  The
 complex shift kernel: 1e-14 relative to the plain version's |s|.  The real
 generalized chase and ladders: 1e-12 on cycles whose triangular factors
-have diagonals of modulus in [1, 2).
+have diagonals of modulus in [1, 2).  The reduction kernel: 1e-12 relative
+to max|A| (n <= 128), similarity residual 2e-13 max|A|, orthonormality
+10 eps n.  Kernel G: bit for bit with its plain version and with the
+numpy host glue (it is written without FMA, in numpy's order).
 """
 import numpy as np
 import pytest
@@ -19,9 +22,9 @@ import torch
 
 import periodicschurdecompositions_jl_torch as pt
 from periodicschurdecompositions_jl_torch.config import AlgoConfig
-from periodicschurdecompositions_jl_torch.ops import (_cuda, deflate, pqr_real,
-                                                     pqz_complex, pqz_real, rgopen,
-                                                     sweep, sweep_cx, sweep_rg)
+from periodicschurdecompositions_jl_torch.ops import (_cuda, deflate, glue, hessenberg,
+                                                     pqr_real, pqz_complex, pqz_real,
+                                                     rgopen, sweep, sweep_cx, sweep_rg)
 
 pytestmark = pytest.mark.cuda
 
@@ -320,3 +323,60 @@ def test_pschur_real_gen_on_the_card(cuda, p, n, S, lr):
     wc = np.sort_complex(Pc.values.numpy())
     assert np.abs(w - wc).max() <= 1e-10 * np.abs(wc).max()
     assert pqz_real.last_info["converged"]
+
+
+@pytest.mark.parametrize("p,n", [(1, 33), (4, 64), (16, 128)])
+def test_hess_kernel_matches_plain(cuda, p, n):
+    A = torch.tensor(np.random.default_rng(1000 * p + n).standard_normal((p, n, n)),
+                     device=cuda)
+    before = hessenberg.launches["hess_reduce"]
+    H, Q = hessenberg.phessenberg_core(A)
+    assert hessenberg.launches["hess_reduce"] - before == 2 * p * (n - 1) + (n - 1) * (p == 1)
+    Hp, Qp = hessenberg.phessenberg_core_plain(A)
+    torch.cuda.synchronize()
+    scale = float(A.abs().max())
+    assert float((H - Hp).abs().max()) <= 1e-12 * scale
+    assert float((Q - Qp).abs().max()) <= 1e-12
+    _structure_exact(H)
+    eye = torch.eye(n, dtype=torch.float64, device=cuda)
+    for l in range(p):
+        R = Q[l].T @ A[l] @ Q[(l + 1) % p] - H[l]
+        assert float(R.abs().max()) <= 2e-13 * scale
+        assert float((Q[l].T @ Q[l] - eye).abs().max()) <= 10 * np.finfo(float).eps * n
+    Hn, Qn = hessenberg.phessenberg_core(A, want_q=False)
+    assert Qn is None and torch.equal(Hn, H)
+
+
+@pytest.mark.parametrize("cfg", [AlgoConfig(), AlgoConfig(slicot_convg=True),
+                                 AlgoConfig(slicot_shifts=True)],
+                         ids=["default", "slicot_convg", "slicot_shifts"])
+def test_glue_kernel_matches_plain_bitwise(cuda, cfg):
+    p, n = 5, 40
+    A = torch.tensor(np.random.default_rng(17).standard_normal((p, n, n)))
+    H, _ = hessenberg.phessenberg_core_plain(A, want_q=False)
+    Hp = torch.zeros((p, n + 1, n + 1), dtype=torch.float64)
+    Hp[:, :n, :n] = H
+    Hp[0, 21, 20] = 1e-17
+    Hc = Hp.to(cuda)
+    windows = [(0, n - 1, 1), (0, n - 1, 10), (4, 30, 16), (7, 33, 20), (22, 23, 3),
+               (0, 0, 1)] + [((7 * i) % (i - 1), i, 1 + i % 20) for i in range(3, n)]
+    for (l, i, its) in windows:
+        before = glue.launches["glue"]
+        k = glue.glue_cuda(Hc, n, l, i, its, cfg).cpu()
+        assert glue.launches["glue"] == before + 1
+        assert torch.equal(k, glue.glue_plain(Hc, n, l, i, its, cfg).cpu())
+        assert torch.equal(k, glue.glue_plain(Hp, n, l, i, its, cfg))
+
+
+def test_core_with_glue_on_the_card(cuda, monkeypatch):
+    from torch_glue_host import host_glue
+    A = np.random.default_rng(23).standard_normal((3, 24, 24))
+    H, Q = hessenberg.phessenberg_core(torch.tensor(A, device=cuda))
+    before = glue.launches["glue"]
+    out = pqr_real.pqr_real_core(H, Z=Q, with_info=True)
+    assert glue.launches["glue"] - before == out[5]["niter"]
+    monkeypatch.setattr(pqr_real, "glue_products_scan_shift", host_glue)
+    ref = pqr_real.pqr_real_core(H, Z=Q, with_info=True)
+    assert ref[4] and out[4] and out[5] == ref[5]
+    assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+    assert np.array_equal(out[2], ref[2]) and np.array_equal(out[3], ref[3])

@@ -6,8 +6,9 @@ import sys
 import pytest
 import torch
 
-from periodicschurdecompositions_jl_torch.ops import (_cuda, deflate, rgopen, sweep,
-                                                     sweep_cx, sweep_rg)
+from periodicschurdecompositions_jl_torch.config import AlgoConfig
+from periodicschurdecompositions_jl_torch.ops import (_cuda, deflate, glue, hessenberg, rgopen,
+                                                     sweep, sweep_cx, sweep_rg)
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -17,6 +18,7 @@ sys.modules['jax'] = None  # any 'import jax' now raises ImportError
 import periodicschurdecompositions_jl_torch as pt
 import periodicschurdecompositions_jl_torch.ops._cuda
 import periodicschurdecompositions_jl_torch.ops.deflate
+import periodicschurdecompositions_jl_torch.ops.glue
 import periodicschurdecompositions_jl_torch.ops.hessenberg
 import periodicschurdecompositions_jl_torch.ops.pqr_real
 import periodicschurdecompositions_jl_torch.ops.pqz_complex
@@ -56,7 +58,7 @@ def test_cuda_loader_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("fn", ["sweep", "deflate", "qz_sweep", "qz_shift", "rg_chase",
-                                "rg_ladder"])
+                                "rg_ladder", "hess", "glue"])
 def test_wrappers_refuse_other_devices(fn):
     H = torch.zeros((2, 5, 5), dtype=torch.float64, device="meta")
     Hc = torch.zeros((2, 5, 5), dtype=torch.complex128, device="meta")
@@ -74,6 +76,10 @@ def test_wrappers_refuse_other_devices(fn):
             sweep_cx.qz_shift(Hc, 0, 3, (True, False))
         elif fn == "rg_chase":
             sweep_rg.rg_chase(H, None, 1, 4, (True, False), want_z=False)
+        elif fn == "hess":
+            hessenberg.phessenberg_core(H)
+        elif fn == "glue":
+            glue.glue_products_scan_shift(H, 4, 0, 3, 1, AlgoConfig())
         else:
             rgopen.rg_ladder(H, None, "open", 0, 4,
                              torch.zeros(4, dtype=torch.float64, device="meta"),
