@@ -8,9 +8,12 @@ and checks the results:
 
 * real: the Hessenberg reduction kernel on the headline draw (p=16,
   n=512) and at p=1 n=64 and p=3 n=101, the kernels of the double-shift
-  sweep and the 2x2 deflation at p=16, n=512; ``pschur(A, 'R')`` on the
-  headline draw, kernel G against its plain version on states of that leg's
-  iteration, and one 'L' problem;
+  sweep, of the multi-bulge sweep (4 bulges) and of the 2x2 deflation at
+  p=16, n=512; ``pschur(A, 'R')`` on the headline draw, kernel G against
+  its plain version on states of that leg's iteration, the same draw
+  through ``pschur_real_pipeline(A, 'R', cfg=AlgoConfig(nbulges=4))``
+  (eigenvalues against the one-bulge leg's), and one 'L' problem with one
+  and with two bulges;
 * complex: the kernels of the single-shift QZ sweep and its shift at p=8,
   n=256 with an alternating signature; ``pschur`` on a complex p=8 n=256
   cycle (no signature) and a p=8 n=128 cycle with an alternating signature,
@@ -43,6 +46,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 P_HEAD, N_HEAD, SEED_HEAD = 16, 512, 12345
 P_CX, N_CX, N_CX_SIGNED, SEED_CX = 8, 256, 128, 777
 P_RG, N_RG, SEED_RG = 8, 256, 4242
+MB_NB, MB_GAP = 4, 3  # the multi-bulge phase and headline leg: AlgoConfig(nbulges=4)
 TOL = 1e-12  # kernel vs plain: max|dH| <= TOL * max|H|, max|dZ| <= TOL
 # H100 SXM data sheet: HBM3 3.35 TB/s; FP64 34 TFLOP/s on the FP64 units and
 # 67 TFLOP/s on the tensor cores (FP64 MMA).  An operation bound takes the
@@ -196,10 +200,10 @@ def sweep_phase(dev, p, n, report):
                                            p, N, m, i, float(v0[0]), float(v0[1]),
                                            float(v0[2]), st), "sweep_generate")
         Hb, Zb = H0.clone(), Z0.clone()
-        _cuda.check(lib.psd_sweep_left(Hb.data_ptr(), R.data_ptr(), p, N, m, i, st),
+        _cuda.check(lib.psd_sweep_left(Hb.data_ptr(), R.data_ptr(), p, N, m, i, 1, st),
                     "sweep_left")
         _cuda.check(lib.psd_sweep_right(Hb.data_ptr(), Zb.data_ptr(), R.data_ptr(),
-                                        p, N, m, i, st), "sweep_right")
+                                        p, N, m, i, 1, st), "sweep_right")
         Ha, Za = H0.clone(), Z0.clone()
         t_apply = wall_ms(lambda: sweep.apply_log_plain(Ha, Za, R, m, i, want_z=True))
         db = max(float((Hb - Ha).abs().max()) / scale, float((Zb - Za).abs().max()))
@@ -243,9 +247,9 @@ def sweep_phase(dev, p, n, report):
         H.data_ptr(), C.data_ptr(), R.data_ptr(), p, N, m, i,
         float(v0[0]), float(v0[1]), float(v0[2]), st), "sweep_generate"), 5)
     ms_b0 = event_ms(lambda: _cuda.check(lib.psd_sweep_left(
-        H.data_ptr(), R.data_ptr(), p, N, m, i, st), "sweep_left"), 5)
+        H.data_ptr(), R.data_ptr(), p, N, m, i, 1, st), "sweep_left"), 5)
     ms_b = event_ms(lambda: _cuda.check(lib.psd_sweep_right(
-        H.data_ptr(), Z.data_ptr(), R.data_ptr(), p, N, m, i, st),
+        H.data_ptr(), Z.data_ptr(), R.data_ptr(), p, N, m, i, 1, st),
         "sweep_right"), 5)
     _log(f"sweep kernels at p={p} n={n} window [0, {n - 1}]: A {ms_a:.3f} ms, "
          f"B0 {ms_b0:.3f} ms, B {ms_b:.3f} ms; plain sweep {times['plain_sweep']:.1f} "
@@ -278,6 +282,144 @@ def sweep_phase(dev, p, n, report):
                         "replaces": rep, "max_abs_err": err, "ms": ms,
                         "plain_ms": pms, "bound_ms": bounds[name][0],
                         "bound_by": bounds[name][1], "library_ms": None}
+
+
+def mb_generate(lib, st, H, m, i, v0, sig, nb, nbact):
+    """Kernel A-mb straight through its C entry point; returns its log."""
+    import ctypes
+    import torch
+    from periodicschurdecompositions_jl_torch.ops import _cuda
+    p, N, _ = H.shape
+    vals = [float(x) for x in v0] + [float(x) for s3 in sig for x in s3]
+    R = torch.empty((nbact, p, N, 9), dtype=torch.float64, device=H.device)
+    C = torch.empty((p, N, N), dtype=torch.float64, device=H.device)
+    _cuda.check(lib.psd_sweep_generate_mb(H.data_ptr(), C.data_ptr(), R.data_ptr(), p, N, m,
+                                          i, nb, MB_GAP, nbact,
+                                          (ctypes.c_double * len(vals))(*vals), st),
+                "sweep_generate_mb")
+    return R
+
+
+def mb_phase(dev, p, n, report):
+    """Kernels A-mb -> B0 -> B (NB = 4 bulges, GAP = 3) against the plain
+    versions, on two windows the plain version can afford: [0, 127] with
+    four active bulges and [200, 263] with two.
+
+    1. The sweep against chase_sweep_mb_plain (tick order), gated as in
+       sweep_phase at max(1e-12, 10 sens), sens the plain version's own
+       change under a relative 1e-16 input perturbation.
+    2. B0 and B (bulge-major) against apply_log_plain on A-mb's own log:
+       1e-13.
+    3. Backward error <= 1e-13 max|H0|, exact structural zeros, want_z=False
+       leaves H identical.
+    4. Times at the full window [0, n-1] with four bulges: A-mb, and the
+       one-bulge A on the same state; B0 and B with four bulges' logs.
+
+    The trailing bulges' shifts are those the driver takes: the eigenvalues
+    of the trailing 8 x 8 window of the cycle product (pqr_real.window_shifts).
+    Shifts far from the spectrum (random ones of size 0.5 where the window's
+    eigenvalues reach 1e3) make the trailing bulges' chains ill-conditioned: the plain
+    version's own 1e-16 sensitivity then reaches 1e-7 on [0, 127].
+    """
+    import torch
+    from periodicschurdecompositions_jl_torch.ops import _cuda, pqr_real, sweep
+    rng = np.random.default_rng(2027)
+    Hn, Zn, v0 = mk_sweep_problem(p, n, rng)
+    N = n + 1
+    lib = _cuda.load()
+    st = torch.cuda.current_stream().cuda_stream
+    err_a = err_b = 0.0
+    t_plain = None
+    for (m, i, nbact) in ((0, min(127, n - 1), MB_NB), (min(200, n - 64), min(263, n - 1), 2)):
+        H0 = torch.tensor(Hn, device=dev)
+        if m > 0:
+            H0[0, m, m - 1] = 0.0
+        H0[0, i + 1, i] = 0.0
+        Z0 = torch.tensor(Zn, device=dev)
+        sig = pqr_real.window_shifts(H0, i, MB_NB)
+        scale = float(H0.abs().max())
+        Hk, Zk = H0.clone(), Z0.clone()
+        sweep.chase_sweep_mb(Hk, Zk, m, i, v0, sig, nbact, nb=MB_NB, gap=MB_GAP, want_z=True)
+        Hp, Zp = H0.clone(), Z0.clone()
+        tp = wall_ms(lambda: sweep.chase_sweep_mb_plain(Hp, Zp, m, i, v0, sig, nbact, nb=MB_NB,
+                                                        gap=MB_GAP, want_z=True))
+        t_plain = tp if t_plain is None else t_plain
+        pert = torch.tensor(1.0 + 1e-16 * np.random.default_rng(1).standard_normal(
+            Hn.shape), device=dev)
+        Hq, Zq = H0 * pert, Z0.clone()
+        sweep.chase_sweep_mb_plain(Hq, Zq, m, i, v0, sig, nbact, nb=MB_NB, gap=MB_GAP,
+                                   want_z=True)
+        sens_h = float((Hq - Hp).abs().max()) / scale
+        sens_z = float((Zq - Zp).abs().max())
+        dh = float((Hk - Hp).abs().max()) / scale
+        dz = float((Zk - Zp).abs().max())
+        tol_h, tol_z = max(TOL, 10 * sens_h), max(TOL, 10 * sens_z)
+        R = mb_generate(lib, st, H0, m, i, v0, sig, MB_NB, nbact)
+        Hb, Zb = H0.clone(), Z0.clone()
+        _cuda.check(lib.psd_sweep_left(Hb.data_ptr(), R.data_ptr(), p, N, m, i, nbact, st),
+                    "sweep_left")
+        _cuda.check(lib.psd_sweep_right(Hb.data_ptr(), Zb.data_ptr(), R.data_ptr(), p, N, m,
+                                        i, nbact, st), "sweep_right")
+        Ha, Za = H0.clone(), Z0.clone()
+        sweep.apply_log_plain(Ha, Za, R, m, i, want_z=True, nb=nbact)
+        db = max(float((Hb - Ha).abs().max()) / scale, float((Zb - Za).abs().max()))
+        be_k = recon_err(H0, Z0, Hk, Zk)
+        Hnz = H0.clone()
+        sweep.chase_sweep_mb(Hnz, None, m, i, v0, sig, nbact, nb=MB_NB, gap=MB_GAP,
+                             want_z=False)
+        _log(f"mb sweep window [{m}, {i}], {nbact} of {MB_NB} bulges, gap {MB_GAP}: vs "
+             f"chase_sweep_mb_plain max|dH|/max|H| {dh:.3e} max|dZ| {dz:.3e} (plain's own "
+             f"1e-16 sensitivity {sens_h:.3e} / {sens_z:.3e}; tolerance {tol_h:.3e} / "
+             f"{tol_z:.3e}); B0+B vs apply_log_plain {db:.3e}; backward error kernel "
+             f"{be_k:.3e}; plain sweep {tp:.1f} ms")
+        if not (dh <= tol_h and dz <= tol_z):
+            raise AssertionError(f"mb sweep kernels disagree with chase_sweep_mb_plain on "
+                                 f"[{m}, {i}]: {dh:.3e} {dz:.3e}")
+        if not db <= 1e-13:
+            raise AssertionError(f"mb B0/B disagree with apply_log_plain on [{m}, {i}]")
+        if not (torch.equal(Hb, Hk) and torch.equal(Zb, Zk) and torch.equal(Hnz, Hk)):
+            raise AssertionError("the mb wrapper, the direct kernel calls and want_z=False "
+                                 "differ")
+        if not be_k <= 1e-13:
+            raise AssertionError(f"mb sweep backward error {be_k:.3e} on [{m}, {i}]")
+        if not (structure_ok(Hk) and structure_ok(Hp)):
+            raise AssertionError(f"mb sweep [{m}, {i}]: structural zeros not exact")
+        err_a = max(err_a, dh, dz)
+        err_b = max(err_b, db)
+
+    # times at the full window with four bulges, and the one-bulge A there
+    m, i = 0, n - 1
+    H = torch.tensor(Hn, device=dev)
+    Z = torch.tensor(Zn, device=dev)
+    sig = pqr_real.window_shifts(H, i, MB_NB)
+    out = {}
+    ms_mb = event_ms(lambda: out.update(R=mb_generate(lib, st, H, m, i, v0, sig, MB_NB,
+                                                      MB_NB)), 5)
+    R = out["R"]
+    R1 = torch.empty((p, N, 9), dtype=torch.float64, device=dev)
+    C1 = torch.empty((p, N, N), dtype=torch.float64, device=dev)
+    ms_a = event_ms(lambda: _cuda.check(lib.psd_sweep_generate(
+        H.data_ptr(), C1.data_ptr(), R1.data_ptr(), p, N, m, i, float(v0[0]), float(v0[1]),
+        float(v0[2]), st), "sweep_generate"), 5)
+    ms_b0 = event_ms(lambda: _cuda.check(lib.psd_sweep_left(
+        H.data_ptr(), R.data_ptr(), p, N, m, i, MB_NB, st), "sweep_left"), 5)
+    ms_b = event_ms(lambda: _cuda.check(lib.psd_sweep_right(
+        H.data_ptr(), Z.data_ptr(), R.data_ptr(), p, N, m, i, MB_NB, st), "sweep_right"), 5)
+    # bytes and operations, reckoned as kernel A's: the window's rows read
+    # once, NB logs written; NB bulges' 3x3 applications
+    K = i - m
+    steps = sum(N - k for k in range(m, i))
+    bms, bby = bound(8 * p * N * (i + 2 - m) + 8 * 9 * p * K * MB_NB, 15 * p * steps * MB_NB)
+    _log(f"mb kernels at p={p} n={n} window [0, {n - 1}], {MB_NB} bulges: A-mb {ms_mb:.3f} ms "
+         f"(one-bulge A on the same state {ms_a:.3f} ms), B0 {ms_b0:.3f} ms, B {ms_b:.3f} ms "
+         f"({MB_NB} logs each); bound of A-mb {bms * 1e3:.3f} us ({bby}); plain mb sweep "
+         f"{t_plain:.1f} ms on [0, {min(127, n - 1)}]")
+    report["sweep_generate_mb"] = {
+        "name": "sweep_generate_mb", "route": "cuda",
+        "source": "periodicschurdecompositions_jl_torch/csrc/sweep.cu",
+        "replaces": "periodicschurdecompositions_jl_tpu/ops/pallas_sweep.py:548",
+        "max_abs_err": max(err_a, err_b), "ms": ms_mb, "plain_ms": t_plain, "bound_ms": bms,
+        "bound_by": bby, "library_ms": None}
 
 
 def deflate_cases(p, n):
@@ -539,12 +681,24 @@ def backerr(A, T, Z, left=False):
     return worst
 
 
-def e2e_case(dev, p, n, seed, lr):
-    """pschur on a real cycle through the public entry point.  Returns the
-    launch counts and the iteration info with the wall clock and the
-    backward error; kernel G must have launched once per iteration."""
+def eig_dist(w, ref):
+    """Largest distance from an eigenvalue of either set to the nearest of
+    the other (a matching that needs no sort order)."""
+    d = np.abs(w[:, None] - ref[None, :])
+    return float(max(d.min(axis=1).max(), d.min(axis=0).max()))
+
+
+def e2e_case(dev, p, n, seed, lr, nbulges=1, ref_values=None):
+    """The real path on a real cycle: ``pschur`` with one bulge, or
+    ``pschur_real_pipeline(A, lr, cfg=AlgoConfig(nbulges=...))``.  Returns
+    the launch counts and the iteration info with the wall clock, the
+    backward error and the eigenvalues; kernel G must have launched once per
+    iteration, and every sweep went through the one-bulge kernel A or,
+    with nbulges > 1, through A-mb.  ``ref_values``: eigenvalues of the same
+    product from another leg, to agree within 1000 eps max|lambda|."""
     import torch
     import periodicschurdecompositions_jl_torch as pt
+    from periodicschurdecompositions_jl_torch.config import AlgoConfig
     from periodicschurdecompositions_jl_torch.ops import (deflate, glue, hessenberg, pqr_real,
                                                          sweep)
     A = np.random.default_rng(seed).standard_normal((p, n, n))
@@ -554,7 +708,11 @@ def e2e_case(dev, p, n, seed, lr):
         for k in d:
             d[k] = 0
     t0 = time.perf_counter()
-    P = pt.pschur(At, lr)
+    if nbulges == 1:
+        P = pt.pschur(At, lr)
+    else:
+        P = pqr_real.pschur_real_pipeline(At, lr, cfg=AlgoConfig(nbulges=nbulges,
+                                                                bulge_gap=MB_GAP))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: v for d in counters for k, v in d.items()}
@@ -567,11 +725,17 @@ def e2e_case(dev, p, n, seed, lr):
     be = backerr(A, T, Z, left=(lr == "L"))
     orth_bound = 10 * np.finfo(np.float64).eps * n
     vals = P.values.cpu().numpy()
-    _log(f"pschur p={p} n={n} seed={seed} lr={lr}: wall {wall:.3f} s (reduction "
+    tag = "pschur" if nbulges == 1 else f"pschur_real_pipeline nbulges={nbulges}"
+    msg = ""
+    if ref_values is not None:
+        ev = eig_dist(vals, ref_values) / np.abs(ref_values).max()
+        msg = f", eigenvalues vs the nbulges=1 leg {ev:.3e} max|lambda|"
+    _log(f"{tag} p={p} n={n} seed={seed} lr={lr}: wall {wall:.3f} s (reduction "
          f"{info['reduce_s']:.3f} s, iteration {info['iterate_s']:.3f} s), niter "
-         f"{info['niter']}, chase steps {info['sweep_steps']}, backerr {be:.3e}, check_psd ok={ok} "
-         f"orth {rep['orthonormality']:.3e} (bound {orth_bound:.3e}) residual "
-         f"{rep['residual_rel']:.3e}; launches {launches}")
+         f"{info['niter']}, sweeps {info['sweeps']}, bulges {info['bulges']}, chase steps "
+         f"{info['sweep_steps']}, backerr {be:.3e}, check_psd ok={ok} orth "
+         f"{rep['orthonormality']:.3e} (bound {orth_bound:.3e}) residual "
+         f"{rep['residual_rel']:.3e}{msg}; launches {launches}")
     if not ok:
         raise AssertionError(f"check_psd failed: {rep}")
     if not (be <= 1e-12):
@@ -580,13 +744,19 @@ def e2e_case(dev, p, n, seed, lr):
         raise AssertionError("orthonormality above 10 eps n")
     if not (np.all(np.isfinite(vals)) and vals.shape == (n,)):
         raise AssertionError("eigenvalues not finite or of the wrong shape")
+    if ref_values is not None and not ev <= 1000 * np.finfo(np.float64).eps:
+        raise AssertionError(f"eigenvalues differ from the nbulges=1 leg's by {ev:.3e}")
+    unused = "sweep_generate_mb" if nbulges == 1 else "sweep_generate"
     for k, v in launches.items():
-        if v <= 0:
-            raise AssertionError(f"kernel {k} was not launched by the main path")
+        if (v <= 0) != (k == unused):
+            raise AssertionError(f"kernel {k} launched {v} times on the {tag} path")
     if launches["glue"] != info["niter"]:
         raise AssertionError(f"kernel G launched {launches['glue']} times in "
                              f"{info['niter']} iterations")
-    return launches, {**info, "wall_s": wall, "backerr": be}
+    if launches["sweep_left"] != info["sweeps"]:
+        raise AssertionError(f"{launches['sweep_left']} sweeps launched, {info['sweeps']} "
+                             f"counted")
+    return launches, {**info, "wall_s": wall, "backerr": be, "values": vals}
 
 
 class capture_glue_states:
@@ -1320,13 +1490,18 @@ def main() -> int:
     report = {}
     hess_phase(dev, report)
     sweep_phase(dev, P_HEAD, N_HEAD, report)
+    mb_phase(dev, P_HEAD, N_HEAD, report)
     deflate_phase(dev, P_HEAD, N_HEAD, report)
     small_reference_check(dev)
     with capture_glue_states() as cap:
-        launches, _ = e2e_case(dev, P_HEAD, N_HEAD, SEED_HEAD, "R")
+        launches, head = e2e_case(dev, P_HEAD, N_HEAD, SEED_HEAD, "R")
     glue_phase(dev, list(cap.states.values()), report)
     del cap
-    e2e_case(dev, 8, 128, 99, "L")
+    mb_launches, _ = e2e_case(dev, P_HEAD, N_HEAD, SEED_HEAD, "R", nbulges=MB_NB,
+                              ref_values=head["values"])
+    launches["sweep_generate_mb"] = mb_launches["sweep_generate_mb"]
+    _, small = e2e_case(dev, 8, 128, 99, "L")
+    e2e_case(dev, 8, 128, 99, "L", nbulges=2, ref_values=small["values"])
 
     cx_kernel_phase(dev, P_CX, N_CX, report)
     cx_small_check(dev)
@@ -1341,7 +1516,8 @@ def main() -> int:
     rg_iteration_profile(dev, alternating(P_RG), rg_hq)
 
     kernels = []
-    for name in ("sweep_generate", "sweep_left", "sweep_right", "deflate2x2",
+    for name in ("sweep_generate", "sweep_generate_mb", "sweep_left", "sweep_right",
+                 "deflate2x2",
                  "qz_sweep_generate", "qz_sweep_left", "qz_sweep_right", "qz_shift",
                  "rg_sweep_generate", "rg_sweep_left", "rg_sweep_right", "rg_ladder",
                  "hess_reduce", "glue"):

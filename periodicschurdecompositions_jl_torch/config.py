@@ -11,7 +11,13 @@ semantics are those of the JAX package's ``AlgoConfig``:
   (off by default; MB03WD force-zeroes the leftover instead).
 * ``allow_early_qr``: start the double-shift sweep below the window top
   where two consecutive subdiagonals are small (dlahqr's early start; off
-  by default).
+  by default).  Ignored when ``nbulges > 1``: the bulges start at the
+  window top.
+* ``nbulges``: double-shift bulges chased per sweep, each ``bulge_gap``
+  columns behind the one before (``bulge_gap >= 3``).  Their shifts are
+  the eigenvalues of the trailing ``2 nbulges`` window of the cycle
+  product (``ops/smallschur.py``).  1, the default, is the reference's
+  single-bulge Francis sweep.
 """
 from __future__ import annotations
 
@@ -27,6 +33,8 @@ class AlgoConfig:
     at_pwr16: int = 4
     extra_rq: bool = False
     allow_early_qr: bool = False
+    nbulges: int = 1
+    bulge_gap: int = 3
 
     def ulp_x(self, ulp: float) -> float:
         """Tightened Ahues-Tisseur relative threshold ``eps^(1+at_pwr16/16)``."""

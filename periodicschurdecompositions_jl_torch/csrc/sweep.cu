@@ -1,9 +1,10 @@
 // Francis double-shift sweep of the real periodic QR core, in float64.
 //
 // Replaces the Pallas kernels of the JAX package's ops/pallas_sweep.py:
-//   sweep_generate  <- _make_sweep_kernel (kernel A)
-//   sweep_left      <- _make_left_kernel  (kernel B0)
-//   sweep_right     <- _make_apply_kernel (kernel B, with and without Z)
+//   sweep_generate     <- _make_sweep_kernel    (kernel A)
+//   sweep_generate_mb  <- _make_sweep_kernel_mb (kernel A, NB bulges)
+//   sweep_left         <- _make_left_kernel     (kernel B0)
+//   sweep_right        <- _make_apply_kernel    (kernel B, with and without Z)
 // Semantics: chase_step of ops/pqr_real.py (reference
 // src/PeriodicSchurDecompositions.jl:806-886) on the ghost-padded (p, N, N)
 // row-major stacks H and Z, window k = m..i-1.
@@ -19,12 +20,31 @@
 // 3x3 transform F per (factor, step) in R (p, N, 9), row-major:
 //   factor 0: the bulge reflector M3;  factor f >= 1: F = M3b diag(1, M2).
 //
+// sweep_generate_mb chases NB such bulges in one pass, bulge b GAP columns
+// behind bulge b-1 (tick kk puts bulge b at k = kk - b*GAP), the tick-order
+// interleaving of the numpy oracle ref_sweep_np_mb (tests of the JAX
+// package).  Per (tick, factor) the NB generations are independent: NB
+// threads generate them at once, then the block applies them in bulge
+// order.  The serial chain is about one bulge's plus (NB-1)*GAP ticks, so
+// NB double shifts cost about the latency of one.  What differs from the
+// one-bulge kernel: the forced structural columns are written into C (a
+// trailing bulge reads them when it reaches those columns), the band
+// updates reach (NB-1)*GAP rows further up (a trailing bulge's left
+// transform mixes its rows across the leading bulges' columns), and a
+// trailing bulge's first column comes from the leading 3x3 of the cycle
+// product at its introduction tick (unscaled: the port's band is float64,
+// so the JAX kernel's power-of-two scale schedule is identically 1 here).
+// Logs: R (NB, p, N, 9), bulge b's slice laid out as the one-bulge log.
+//
 // sweep_left and sweep_right apply the log to H (and Z) with full
 // parallelism; they are bound by memory traffic over p N^2 float64 (each
 // thread walks one column or one row through all steps, keeping two of the
-// three live entries in registers).  Deferring the left and right products
-// past the generation is exact because left and right multiplications
-// commute; the reference's forced zeros re-emerge as roundoff below the
+// three live entries in registers), bulge-major for NB > 1: bulge 0's
+// whole log, then bulge 1's.  Deferring the left and right products past
+// the generation is exact because left and right multiplications commute,
+// and bulge-major order is exact because with GAP >= 3 a transform of
+// bulge b commutes with every later transform of the bulges ahead of it;
+// the reference's forced zeros re-emerge as roundoff below the
 // (sub)diagonal, and sweep_right writes them as exact zeros.
 #include <cuda_runtime.h>
 
@@ -34,6 +54,14 @@ namespace {
 
 constexpr int kGenThreads = 512;
 constexpr int kApplyThreads = 128;
+constexpr int kMaxNb = 4;  // bulges of sweep_generate_mb (shift window 2 NB <= 8)
+
+// v0 of the leading bulge and the shifts (rt1r, rt1i, rt2r) of the others,
+// passed by value
+struct MbShifts {
+  double v0[3];
+  double sig[3 * kMaxNb];
+};
 
 // out_r = sum_s F[s][r] * x_s   (F^T applied to a 3-vector)
 __device__ __forceinline__ void apply_ft(const double* F, double x0, double x1,
@@ -180,44 +208,275 @@ sweep_generate_kernel(double* __restrict__ C, double* __restrict__ R, int p,
   }
 }
 
-// B0: rows k..k+2 of every H[f] <- F[f,k]^T rows, for k = m..i-1.  One
-// thread per (factor, column >= m-1).  Column m-1 of factor 0 keeps its
-// value at k == m (the window-boundary subdiagonal, reference rowsk lo=k).
+// Shifted first column of a trailing bulge, introduced at the window top m:
+// from the leading 3x3 of the cycle product C[0] C[1] ... C[p-1] at rows and
+// columns m..m+2 and the bulge's shifts sg = (rt1r, rt1i, rt2r), normalized
+// by its 1-norm (the JAX kernel's _lead_v0; unscaled, see the header).
+__device__ void lead_v0(const double* C, int p, int N, int m, const double* sg,
+                        double& x0, double& x1, double& x2) {
+  const size_t NN = (size_t)N * N;
+  double T[9] = {1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0};
+  for (int f = 1; f < p; ++f) {
+    const double* B = C + f * NN + (size_t)m * N + m;
+    double Tn[9];
+#pragma unroll
+    for (int r = 0; r < 3; ++r)
+#pragma unroll
+      for (int c = 0; c < 3; ++c)
+        Tn[r * 3 + c] = T[r * 3] * B[c] + T[r * 3 + 1] * B[N + c] +
+                        T[r * 3 + 2] * B[2 * N + c];
+#pragma unroll
+    for (int q = 0; q < 9; ++q) T[q] = Tn[q];
+  }
+  const double* A = C + (size_t)m * N + m;
+  double P[6];  // rows 0..2, columns 0..1 of A T
+#pragma unroll
+  for (int r = 0; r < 3; ++r)
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+      P[r * 2 + c] = A[r * N] * T[c] + A[r * N + 1] * T[3 + c] +
+                     A[r * N + 2] * T[6 + c];
+  const double h11 = P[0], h12 = P[1], h21 = P[2], h22 = P[3], h32 = P[5];
+  const double rt1r = sg[0], rt1i = sg[1], rt2r = sg[2];
+  const double sv = fabs(h11 - rt2r) + fabs(rt1i) + fabs(h21);
+  const double svs = (sv == 0.0) ? 1.0 : sv;
+  const double h21s = h21 / svs;
+  double v1 = h21s * h12 + (h11 - rt1r) * ((h11 - rt2r) / svs);
+  v1 = v1 + rt1i * (rt1i / svs);
+  const double v2 = h21s * (((h11 + h22) - rt1r) - rt2r);
+  const double v3 = h21s * h32;
+  const double sn = fabs(v1) + fabs(v2) + fabs(v3);
+  const double sns = (sn == 0.0) ? 1.0 : sn;
+  x0 = v1 / sns;
+  x1 = v2 / sns;
+  x2 = v3 / sns;
+}
+
+// Right update of columns k..k+2 of one factor of the working copy by the
+// transforms F[b] of bulges g0..g1-1 (bulge b at k = kk - b*gap), rows
+// max(m, k - lowext)..min(k+3, i): W = lowext + 4 rows per bulge at most.
+__device__ __forceinline__ void band_right_mb(double* Cg, int N, int m, int i,
+                                              int kk, int gap, int g0, int g1,
+                                              int lowext,
+                                              double (*F)[9]) {
+  const int W = lowext + 4;
+  for (int idx = threadIdx.x; idx < (g1 - g0) * W; idx += blockDim.x) {
+    const int b = g0 + idx / W;
+    const int k = kk - b * gap;
+    if (k < m || k >= i) continue;
+    const int r = max(m, k - lowext) + idx % W;
+    if (r > min(k + 3, i)) continue;
+    double* row = Cg + (size_t)r * N + k;
+    const double* Fb = F[b];
+    const double o0 = row[0] * Fb[0] + row[1] * Fb[3] + row[2] * Fb[6];
+    const double o1 = row[0] * Fb[1] + row[1] * Fb[4] + row[2] * Fb[7];
+    const double o2 = row[0] * Fb[2] + row[1] * Fb[5] + row[2] * Fb[8];
+    row[0] = o0;
+    row[1] = o1;
+    row[2] = o2;
+  }
+}
+
+__global__ void __launch_bounds__(kGenThreads)
+sweep_generate_mb_kernel(double* __restrict__ C, double* __restrict__ R, int p,
+                         int N, int m, int i, int nb, int gap, int nbact,
+                         MbShifts sh) {
+  __shared__ double F[kMaxNb][9];
+  __shared__ double beta_s[kMaxNb];
+  __shared__ double betab_s[kMaxNb];
+  const size_t NN = (size_t)N * N;
+  const size_t RB = (size_t)p * N * 9;  // one bulge's log
+  const int tid = threadIdx.x;
+  const int tgt0 = (p > 1) ? p - 1 : 0;
+  const int lowext = (nb - 1) * gap;
+  // p == 1: a bulge's band update lands on the factor whose rows the next
+  // bulge's left update reads, so the bulges go one at a time, in bulge
+  // order; for p > 1 their rows and columns are disjoint: all at once
+  const int grp = (p > 1) ? nbact : 1;
+
+  for (int kk = m; kk < i + (nbact - 1) * gap; ++kk) {
+    // ---- factor 0: one generating thread per bulge -------------------
+    if (tid < nbact) {
+      const int b = tid, k = kk - b * gap;
+      if (k >= m && k < i) {
+        const bool nr3 = (i - k + 1) >= 3;
+        double x0, x1, x2, keep = 0.0;
+        if (k > m) {
+          const double* c0 = C + (size_t)k * N + (k - 1);
+          x0 = c0[0];
+          x1 = c0[N];
+          x2 = c0[2 * N];
+          if (k == i - 1) keep = x2;
+        } else if (b == 0) {
+          x0 = sh.v0[0];
+          x1 = sh.v0[1];
+          x2 = sh.v0[2];
+        } else {
+          lead_v0(C, p, N, m, sh.sig + 3 * b, x0, x1, x2);
+        }
+        if (!nr3) x2 = 0.0;
+        double tau, beta, w1, w2;
+        psd::gen_reflector(x0, x1, x2, tau, beta, w1, w2);
+        double M[9];
+        psd::refl_mat3(tau, w1, w2, M);
+        double* Rk = R + b * RB + (size_t)k * 9;
+#pragma unroll
+        for (int q = 0; q < 9; ++q) {
+          F[b][q] = M[q];
+          Rk[q] = M[q];
+        }
+        if (k > m) {  // the forced bulge column, read by the next bulge
+          double* c0 = C + (size_t)k * N + (k - 1);
+          c0[0] = beta;
+          c0[N] = 0.0;
+          c0[2 * N] = keep;
+        }
+      }
+    }
+    __syncthreads();
+    for (int g0 = 0; g0 < nbact; g0 += grp) {
+      const int g1 = min(g0 + grp, nbact);
+      // left: rows k..k+2 of C[0], columns >= k
+      for (int b = g0; b < g1; ++b) {
+        const int k = kk - b * gap;
+        if (k < m || k >= i) continue;
+        double* r0 = C + (size_t)k * N;
+        for (int c = k + tid; c < N; c += blockDim.x) {
+          double o0, o1, o2;
+          apply_ft(F[b], r0[c], r0[c + N], r0[c + 2 * N], o0, o1, o2);
+          r0[c] = o0;
+          r0[c + N] = o1;
+          r0[c + 2 * N] = o2;
+        }
+      }
+      __syncthreads();
+      band_right_mb(C + (size_t)tgt0 * NN, N, m, i, kk, gap, g0, g1, lowext, F);
+      __syncthreads();
+    }
+
+    // ---- factors p-1..1: 3-reflector + 2-reflector, fused, all bulges --
+    for (int f = p - 1; f >= 1; --f) {
+      double* Cf = C + (size_t)f * NN;
+      if (tid < nbact) {
+        const int b = tid, k = kk - b * gap;
+        if (k >= m && k < i) {
+          const bool nr3 = (i - k + 1) >= 3;
+          const double* ck = Cf + (size_t)k * N + k;
+          double tau, beta, w1, w2;
+          psd::gen_reflector(ck[0], ck[N], nr3 ? ck[2 * N] : 0.0, tau, beta,
+                             w1, w2);
+          double M3[9];
+          psd::refl_mat3(tau, w1, w2, M3);
+          double M2[4] = {1.0, 0.0, 0.0, 1.0};
+          double betab = 0.0;
+          if (nr3) {
+            const double b0 = ck[1], b1 = ck[N + 1], b2 = ck[2 * N + 1];
+            const double y1 = M3[3] * b0 + M3[4] * b1 + M3[5] * b2;
+            const double y2 = M3[6] * b0 + M3[7] * b1 + M3[8] * b2;
+            double t2, u1, u2;
+            psd::gen_reflector(y1, y2, 0.0, t2, betab, u1, u2);
+            M2[0] = 1.0 - t2 * (1.0 * 1.0);
+            M2[1] = -t2 * (1.0 * u1);
+            M2[2] = -t2 * (u1 * 1.0);
+            M2[3] = 1.0 - t2 * (u1 * u1);
+          }
+          double* Rk = R + b * RB + ((size_t)f * N + k) * 9;
+#pragma unroll
+          for (int r = 0; r < 3; ++r) {
+            const double e0 = M3[r * 3 + 0];
+            const double e1 = M3[r * 3 + 1] * M2[0] + M3[r * 3 + 2] * M2[2];
+            const double e2 = M3[r * 3 + 1] * M2[1] + M3[r * 3 + 2] * M2[3];
+            F[b][r * 3 + 0] = e0;
+            F[b][r * 3 + 1] = e1;
+            F[b][r * 3 + 2] = e2;
+            Rk[r * 3 + 0] = e0;
+            Rk[r * 3 + 1] = e1;
+            Rk[r * 3 + 2] = e2;
+          }
+          beta_s[b] = beta;
+          betab_s[b] = betab;
+        }
+      }
+      __syncthreads();
+      // left: F^T on rows k..k+2 of C[f], columns > k; column k takes its
+      // exact image (beta, 0, 0) and, when nr3, column k+1's rows k+1..k+2
+      // the second reflector's (betab, 0)
+      for (int b = 0; b < nbact; ++b) {
+        const int k = kk - b * gap;
+        if (k < m || k >= i) continue;
+        const bool nr3 = (i - k + 1) >= 3;
+        double* r0 = Cf + (size_t)k * N;
+        for (int c = k + tid; c < N; c += blockDim.x) {
+          double o0, o1, o2;
+          if (c == k) {
+            o0 = beta_s[b];
+            o1 = 0.0;
+            o2 = 0.0;
+          } else {
+            apply_ft(F[b], r0[c], r0[c + N], r0[c + 2 * N], o0, o1, o2);
+            if (nr3 && c == k + 1) {
+              o1 = betab_s[b];
+              o2 = 0.0;
+            }
+          }
+          r0[c] = o0;
+          r0[c + N] = o1;
+          r0[c + 2 * N] = o2;
+        }
+      }
+      __syncthreads();
+      band_right_mb(C + (size_t)(f - 1) * NN, N, m, i, kk, gap, 0, nbact, lowext,
+                    F);
+      __syncthreads();
+    }
+  }
+}
+
+// B0: rows k..k+2 of every H[f] <- F[f,k]^T rows, for k = m..i-1, for the
+// logs of bulges 0..nb-1 in turn (log stride p N 9).  One thread per
+// (factor, column >= m-1).  Column m-1 of factor 0 keeps its value at k == m
+// (the window-boundary subdiagonal, reference rowsk lo=k).
 __global__ void __launch_bounds__(kApplyThreads)
-sweep_left_kernel(double* __restrict__ H, const double* __restrict__ R, int N,
-                  int m, int i) {
+sweep_left_kernel(double* __restrict__ H, const double* __restrict__ R, int p,
+                  int N, int m, int i, int nb) {
   const int f = blockIdx.y;
   const int c0 = max(m - 1, 0);
   const int c = c0 + blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= N) return;
   double* col = H + (size_t)f * N * N + c;
-  const double* Rf = R + (size_t)f * N * 9;
-  double x0 = col[(size_t)m * N];
-  double x1 = col[(size_t)(m + 1) * N];
-  for (int k = m; k < i; ++k) {
-    const double x2 = col[(size_t)(k + 2) * N];
-    const double* Fk = Rf + (size_t)k * 9;
-    double F[9];
+  for (int b = 0; b < nb; ++b) {
+    const double* Rf = R + ((size_t)b * p + f) * N * 9;
+    double x0 = col[(size_t)m * N];
+    double x1 = col[(size_t)(m + 1) * N];
+    for (int k = m; k < i; ++k) {
+      const double x2 = col[(size_t)(k + 2) * N];
+      const double* Fk = Rf + (size_t)k * 9;
+      double F[9];
 #pragma unroll
-    for (int q = 0; q < 9; ++q) F[q] = __ldg(Fk + q);
-    double o0, o1, o2;
-    apply_ft(F, x0, x1, x2, o0, o1, o2);
-    if (f == 0 && k == m && c == m - 1) {
-      o0 = x0;
-      o1 = x1;
-      o2 = x2;
+      for (int q = 0; q < 9; ++q) F[q] = __ldg(Fk + q);
+      double o0, o1, o2;
+      apply_ft(F, x0, x1, x2, o0, o1, o2);
+      if (f == 0 && k == m && c == m - 1) {
+        o0 = x0;
+        o1 = x1;
+        o2 = x2;
+      }
+      col[(size_t)k * N] = o0;
+      x0 = o1;
+      x1 = o2;
     }
-    col[(size_t)k * N] = o0;
-    x0 = o1;
-    x1 = o2;
+    col[(size_t)i * N] = x0;
+    col[(size_t)(i + 1) * N] = x1;
   }
-  col[(size_t)i * N] = x0;
-  col[(size_t)(i + 1) * N] = x1;
 }
 
-// B: columns k..k+2 <- columns F for k = m..i-1.  blockIdx.z == 0: H[g]
-// rows 0..i with the log of factor (g+1) mod p, then the structural zeros
-// of rows m..i written exactly; blockIdx.z == 1: Z[g], all rows, own log.
+// B: columns k..k+2 <- columns F for k = m..i-1, for the logs of bulges
+// 0..kNb-1 in turn.  blockIdx.z == 0: H[g] rows 0..i with the log of factor
+// (g+1) mod p, then the structural zeros of rows m..i written exactly;
+// blockIdx.z == 1: Z[g], all rows, own log.  The bulge count is a template
+// argument: with a run-time count nvcc compiles the row walk into code that
+// ran 3x slower on an H100, with or without an unroll pragma on the walk.
+template <int kNb>
 __global__ void __launch_bounds__(kApplyThreads)
 sweep_right_kernel(double* __restrict__ H, double* __restrict__ Z,
                    const double* __restrict__ R, int p, int N, int m, int i) {
@@ -228,23 +487,26 @@ sweep_right_kernel(double* __restrict__ H, double* __restrict__ Z,
   if (r >= nrows) return;
   const int src = isz ? g : (g + 1) % p;
   double* row = (isz ? Z : H) + (size_t)g * N * N + (size_t)r * N;
-  const double* Rs = R + (size_t)src * N * 9;
-  double x0 = row[m];
-  double x1 = row[m + 1];
-  for (int k = m; k < i; ++k) {
-    const double x2 = row[k + 2];
-    const double* Fk = Rs + (size_t)k * 9;
-    double F[9];
 #pragma unroll
-    for (int q = 0; q < 9; ++q) F[q] = __ldg(Fk + q);
-    row[k] = x0 * F[0] + x1 * F[3] + x2 * F[6];
-    const double n1 = x0 * F[1] + x1 * F[4] + x2 * F[7];
-    const double n2 = x0 * F[2] + x1 * F[5] + x2 * F[8];
-    x0 = n1;
-    x1 = n2;
+  for (int b = 0; b < kNb; ++b) {
+    const double* Rs = R + ((size_t)b * p + src) * N * 9;
+    double x0 = row[m];
+    double x1 = row[m + 1];
+    for (int k = m; k < i; ++k) {
+      const double x2 = row[k + 2];
+      const double* Fk = Rs + (size_t)k * 9;
+      double F[9];
+#pragma unroll
+      for (int q = 0; q < 9; ++q) F[q] = __ldg(Fk + q);
+      row[k] = x0 * F[0] + x1 * F[3] + x2 * F[6];
+      const double n1 = x0 * F[1] + x1 * F[4] + x2 * F[7];
+      const double n2 = x0 * F[2] + x1 * F[5] + x2 * F[8];
+      x0 = n1;
+      x1 = n2;
+    }
+    row[i] = x0;
+    row[i + 1] = x1;
   }
-  row[i] = x0;
-  row[i + 1] = x1;
   if (!isz && r > m) {
     // below the subdiagonal of H[0] / the diagonal of H[1..p-1]
     const int cend = (g == 0) ? r - 1 : r;
@@ -277,22 +539,52 @@ int psd_sweep_generate(const double* H, double* C, double* R, int p, int N,
   return (int)cudaGetLastError();
 }
 
-// Kernel B0, in place on H.
-int psd_sweep_left(double* H, const double* R, int p, int N, int m, int i,
-                   void* stream) {
-  const int ncols = N - max(m - 1, 0);
-  dim3 grid((ncols + kApplyThreads - 1) / kApplyThreads, p);
-  sweep_left_kernel<<<grid, kApplyThreads, 0, (cudaStream_t)stream>>>(H, R, N,
-                                                                     m, i);
+// Kernel A for NB bulges.  shifts (host memory): v0 of bulge 0, then
+// (rt1r, rt1i, rt2r) of each of the nb bulges (bulge 0's unused).  R:
+// (nb, p, N, 9) output log, slices 0..nbact-1 written.
+int psd_sweep_generate_mb(const double* H, double* C, double* R, int p, int N,
+                          int m, int i, int nb, int gap, int nbact,
+                          const double* shifts, void* stream) {
+  if (nb < 1 || nb > kMaxNb || gap < 3 || nbact < 1 || nbact > nb)
+    return (int)cudaErrorInvalidValue;
+  MbShifts sh;
+  for (int q = 0; q < 3; ++q) sh.v0[q] = shifts[q];
+  for (int q = 0; q < 3 * kMaxNb; ++q) sh.sig[q] = (q < 3 * nb) ? shifts[3 + q] : 0.0;
+  cudaStream_t st = (cudaStream_t)stream;
+  const size_t pitch = (size_t)N * N * sizeof(double);
+  cudaError_t e = cudaMemcpy2DAsync(C + (size_t)m * N, pitch, H + (size_t)m * N,
+                                    pitch, (size_t)(i + 2 - m) * N * sizeof(double),
+                                    p, cudaMemcpyDeviceToDevice, st);
+  if (e != cudaSuccess) return (int)e;
+  sweep_generate_mb_kernel<<<1, kGenThreads, 0, st>>>(C, R, p, N, m, i, nb, gap,
+                                                      nbact, sh);
   return (int)cudaGetLastError();
 }
 
-// Kernel B, in place on H and (when Z != NULL) Z.
+// Kernel B0, in place on H: the logs of bulges 0..nb-1 (stride p N 9).
+int psd_sweep_left(double* H, const double* R, int p, int N, int m, int i,
+                   int nb, void* stream) {
+  const int ncols = N - max(m - 1, 0);
+  dim3 grid((ncols + kApplyThreads - 1) / kApplyThreads, p);
+  sweep_left_kernel<<<grid, kApplyThreads, 0, (cudaStream_t)stream>>>(H, R, p, N,
+                                                                     m, i, nb);
+  return (int)cudaGetLastError();
+}
+
+// Kernel B, in place on H and (when Z != NULL) Z: the logs of bulges
+// 0..nb-1.
 int psd_sweep_right(double* H, double* Z, const double* R, int p, int N, int m,
-                    int i, void* stream) {
+                    int i, int nb, void* stream) {
   dim3 grid((N + kApplyThreads - 1) / kApplyThreads, p, Z ? 2 : 1);
-  sweep_right_kernel<<<grid, kApplyThreads, 0, (cudaStream_t)stream>>>(
-      H, Z, R, p, N, m, i);
+  cudaStream_t st = (cudaStream_t)stream;
+  static_assert(kMaxNb == 4, "one instantiation of sweep_right_kernel per bulge count");
+  switch (nb) {
+    case 1: sweep_right_kernel<1><<<grid, kApplyThreads, 0, st>>>(H, Z, R, p, N, m, i); break;
+    case 2: sweep_right_kernel<2><<<grid, kApplyThreads, 0, st>>>(H, Z, R, p, N, m, i); break;
+    case 3: sweep_right_kernel<3><<<grid, kApplyThreads, 0, st>>>(H, Z, R, p, N, m, i); break;
+    case 4: sweep_right_kernel<4><<<grid, kApplyThreads, 0, st>>>(H, Z, R, p, N, m, i); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
   return (int)cudaGetLastError();
 }
 

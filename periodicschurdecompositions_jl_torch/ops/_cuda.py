@@ -64,8 +64,10 @@ def _declare(lib):
     vp, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     lib.psd_sweep_generate.argtypes = [vp, vp, vp, i32, i32, i32, i32,
                                        f64, f64, f64, vp]
-    lib.psd_sweep_left.argtypes = [vp, vp, i32, i32, i32, i32, vp]
-    lib.psd_sweep_right.argtypes = [vp, vp, vp, i32, i32, i32, i32, vp]
+    lib.psd_sweep_generate_mb.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, i32,
+                                          i32, ctypes.POINTER(f64), vp]
+    lib.psd_sweep_left.argtypes = [vp, vp, i32, i32, i32, i32, i32, vp]
+    lib.psd_sweep_right.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, vp]
     lib.psd_deflate2x2.argtypes = [vp, vp, i32, i32, i32, i32, i32, i32, i32,
                                    f64, f64, f64, vp]
     lib.psd_qz_sweep_generate.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32,
@@ -81,7 +83,7 @@ def _declare(lib):
     lib.psd_hess_reduce.argtypes = [vp, vp, vp, i32, i32, ctypes.POINTER(i32), vp]
     lib.psd_glue.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, i32, i32,
                              f64, f64, f64, vp]
-    for fn in (lib.psd_sweep_generate, lib.psd_sweep_left,
+    for fn in (lib.psd_sweep_generate, lib.psd_sweep_generate_mb, lib.psd_sweep_left,
                lib.psd_sweep_right, lib.psd_deflate2x2,
                lib.psd_qz_sweep_generate, lib.psd_qz_sweep_left,
                lib.psd_qz_sweep_right, lib.psd_qz_shift,

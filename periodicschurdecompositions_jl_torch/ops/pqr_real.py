@@ -19,7 +19,15 @@ Division of labour:
   early-QR start and lanv2 are numpy/float host code;
 * the sweep runs through ``ops.sweep.chase_sweep`` and the 2x2 deflation
   through ``ops.deflate.deflate2x2`` (CUDA kernels on a CUDA device); the
-  rare repair chain runs as torch ops on the device.
+  rare repair chain runs as torch ops on the device;
+* with ``cfg.nbulges > 1`` (the JAX package's multi-bulge driver,
+  ``ops/pqr_ff.py``) a sweeping iteration chases up to ``nbulges`` bulges
+  through ``ops.sweep.chase_sweep_mb``.  Their shifts are the eigenvalues
+  of the trailing ``2 nbulges`` window of the cycle product: the window of
+  every factor comes to the host in one gather and one copy, and the
+  product and ``ops.smallschur.hess_eigs_small`` run in numpy.  The JAX ds
+  driver scales that product by its band's power-of-two schedule; kernel
+  G's band is unscaled float64, so here the product is unscaled too.
 
 The eigenvalue-order check after a 2x2 deflation reads diagonal entries
 that no later iteration touches, so it is evaluated once at the end from
@@ -45,7 +53,8 @@ from .glue import glue_products_scan_shift
 from .householder import reflector_small
 from .lanv2 import lanv2
 from .rotations import colsk, rowsk
-from .sweep import chase_sweep
+from .smallschur import hess_eigs_small
+from .sweep import chase_sweep, chase_sweep_mb, check_mb, normalized, pair_column
 
 # wall-clock split and iteration count of the last pschur_real_pipeline call
 last_info: dict = {}
@@ -108,6 +117,31 @@ def _repair(Hp, Zp, i, lnew, p, cfg, want_z):
         Hp[p - 1, lnew, lnew - 1] = 0.0
 
 
+def _at(v, q, n):
+    """v[q] with q clamped to [0, n-1] (the JAX driver's ``el``)."""
+    return v[min(max(q, 0), n - 1)]
+
+
+def _francis_pair(hdiag, hsub, hsup, j, n):
+    """Shift triple (rt1r, rt1i, rt2r) of the 2x2 product block at rows
+    j-1, j of the band (dlahqr's standardization, reference :739-766;
+    indices clamped)."""
+    a44, a33, a43, a34 = (_at(hdiag, j, n), _at(hdiag, j - 1, n), _at(hsub, j, n),
+                          _at(hsup, j - 1, n))
+    s4 = abs(a33) + abs(a34) + abs(a43) + abs(a44)
+    s4s = 1.0 if s4 == 0 else s4
+    a33n, a44n, a34n, a43n = a33 / s4s, a44 / s4s, a34 / s4s, a43 / s4s
+    tc = (a33n + a44n) * 0.5
+    dc = (a33n - tc) * (a44n - tc) - a34n * a43n
+    rtd = np.sqrt(abs(dc))
+    q1, q2 = tc + rtd, tc - rtd
+    pk = q1 if abs(q1 - a44n) <= abs(q2 - a44n) else q2
+    if s4 == 0:
+        return 0.0, 0.0, 0.0
+    b1r = tc * s4 if dc >= 0 else pk * s4
+    return b1r, (rtd * s4 if dc >= 0 else 0.0), b1r
+
+
 def _shift_v0(hdiag, hsub, hsup, lnew, i, its, n, cfg, ulp):
     """Double-shift first column at the window head (reference :681-801),
     on the host from kernel G's band: the route of ``cfg.allow_early_qr``
@@ -130,25 +164,7 @@ def _shift_v0(hdiag, hsub, hsup, lnew, i, its, n, cfg, ulp):
     h44E = dat1 * sE + (hdiag[lnew] if exc1 else hdiag[i])
     h33E = h44E
     h43h34E = dat2 * sE * sE
-    h44 = hdiag[i]
-    h33 = hdiag[cl(i - 1)]
-    h43 = hsub[i]
-    h34 = hsup[cl(i - 1)]
-    ssh = abs(h33) + abs(h34) + abs(h43) + abs(h44)
-    sshs = 1.0 if ssh == 0 else ssh
-    h33n, h44n, h34n, h43n = h33 / sshs, h44 / sshs, h34 / sshs, h43 / sshs
-    trc = (h33n + h44n) * 0.5
-    disc = (h33n - trc) * (h44n - trc) - h34n * h43n
-    rtdisc = math.sqrt(abs(disc))
-    if ssh == 0:
-        rt1r = rt1i = 0.0
-    elif disc >= 0:
-        rt1r, rt1i = trc * ssh, rtdisc * ssh
-    else:
-        r1, r2 = trc + rtdisc, trc - rtdisc
-        rt1r = (r1 if abs(r1 - h44n) <= abs(r2 - h44n) else r2) * ssh
-        rt1i = 0.0
-    rt2r, rt2i = rt1r, -rt1i
+    rt1r, rt1i, rt2r = _francis_pair(hdiag, hsub, hsup, i, n)
     use_exc = exc or cfg.slicot_shifts
 
     def first_col(h11, h12, h21, h22, h32):
@@ -158,22 +174,11 @@ def _shift_v0(hdiag, hsub, hsup, lnew, i, its, n, cfg, ulp):
             h21s_ = 1.0 if h21 == 0 else h21
             return ((h33s * h44s - h43h34E) / h21s_ + h12,
                     h22 - h11 - h33s - h44s, h32)
-        sv = abs(h11 - rt2r) + abs(rt2i) + abs(h21)
-        svs = 1.0 if sv == 0 else sv
-        h21s = h21 / svs
-        return (h21s * h12 + (h11 - rt1r) * ((h11 - rt2r) / svs)
-                - rt1i * (rt2i / svs),
-                h21s * (h11 + h22 - rt1r - rt2r),
-                h21s * h32)
-
-    def normalized(v):
-        s = abs(v[0]) + abs(v[1]) + abs(v[2])
-        s = 1.0 if s == 0 else s
-        return [v[0] / s, v[1] / s, v[2] / s]
+        return pair_column(h11, h12, h21, h22, h32, rt1r, rt1i, rt2r)
 
     m = lnew
     v0 = normalized(first_col(hdiag[m], hsup[m], hsub[cl(m + 1)],
-                              hdiag[cl(m + 1)], hsub[cl(m + 2)]))
+                               hdiag[cl(m + 1)], hsub[cl(m + 2)]))
     early = False
     if cfg.allow_early_qr:
         # largest m in [lnew+1, i-2] where starting the double shift leaves
@@ -188,6 +193,66 @@ def _shift_v0(hdiag, hsub, hsup, lnew, i, its, n, cfg, ulp):
                 m, v0, early = mm, normalized(v), True
                 break
     return m, v0, early
+
+
+def window_shifts(Hp, i: int, nb: int):
+    """Shift triples (rt1r, rt1i, rt2r) of nb bulges: the eigenvalues of the
+    trailing 2 nb x 2 nb window of the cycle product ending at row i
+    (i >= 2 nb), in pairs from the bottom.  The window of every factor
+    comes to the host in one gather and one copy."""
+    Mwin = 2 * nb
+    # trailing (Mwin+1) window of every factor; the product's trailing
+    # Mwin x Mwin block is exact (the extra row and column carry H[0]'s
+    # coupling; the triangular windows multiply exactly)
+    s0 = i - Mwin
+    W = Hp[:, s0:s0 + Mwin + 1, s0:s0 + Mwin + 1].cpu().numpy()
+    Wp = W[0]
+    if W.shape[0] > 1:
+        Wr = W[1]
+        for lf in range(2, W.shape[0]):
+            Wr = Wr @ W[lf]
+        Wp = Wp @ Wr
+    wr, wi = hess_eigs_small(Wp[1:, 1:], niter=5 * Mwin)
+
+    def win_pair(b):
+        j1, j2 = Mwin - 1 - 2 * b, Mwin - 2 - 2 * b
+        e1r, e1i, e2r, e2i = wr[j1], wi[j1], wr[j2], wi[j2]
+        # only a genuine conjugate pair (one block) forms a real first
+        # column; complex values of two blocks give two real shifts
+        mag = abs(e1i) + abs(e1r) + 1e-300
+        conj = (e1i != 0.0 and e2i != 0.0 and abs(e1i + e2i) <= 1e-8 * mag
+                and abs(e1r - e2r) <= 1e-8 * mag)
+        return e1r, (abs(e1i) if conj else 0.0), e2r
+
+    return [win_pair(b) for b in range(nb)]
+
+
+def _mb_shifts(Hp, hdiag, hsub, hsup, v0, m, i, its, n, cfg):
+    """Shifts of one multi-bulge sweep at the window [m, i] (the JAX
+    package's ``ops/pqr_ff.py:909-1012``).
+
+    Returns (v0, sig, nbact): the leading bulge's first column, the
+    ``cfg.nbulges`` shift triples (rt1r, rt1i, rt2r) and the number of
+    bulges to chase (1 on an exceptional-shift iteration, else as many as
+    fit the window).  When the trailing 2 NB window fits below row i, the
+    triples are the window eigenvalues of the cycle product, in pairs from
+    the bottom, and (unless the shift is exceptional or SLICOT's) the
+    leading bulge's column is rebuilt from the bottom pair; otherwise they
+    are the 2x2 blocks' shifts of the band at rows i-2b-1, i-2b.
+    """
+    NB, GAP = cfg.nbulges, cfg.bulge_gap
+    exc = its == 10 or its % 10 == 0
+    Lw = i - m + 1
+    nb_fit = min((Lw - 2) // GAP + 1, Lw // 2)
+    nbact = min(max(1 if exc else min(nb_fit, NB), 1), NB)
+    if not (n >= 2 * NB + 1 and i >= 2 * NB):
+        return v0, [_francis_pair(hdiag, hsub, hsup, i - 2 * b, n) for b in range(NB)], nbact
+    sig = window_shifts(Hp, i, NB)
+    if not (exc or cfg.slicot_shifts):
+        # the leading bulge's column from the bottom window pair
+        v0 = normalized(pair_column(_at(hdiag, m, n), _at(hsup, m, n), _at(hsub, m + 1, n),
+                                    _at(hdiag, m + 1, n), _at(hsub, m + 2, n), *sig[0]))
+    return v0, sig, nbact
 
 
 def pqr_real_core(H: torch.Tensor, Z: Optional[torch.Tensor] = None,
@@ -205,13 +270,17 @@ def pqr_real_core(H: torch.Tensor, Z: Optional[torch.Tensor] = None,
 
     Returns:
       (T, Z, wr, wi, ok) — wr, wi host float64 arrays, ok a bool — plus an
-      info dict ({"niter", "maxit", "sweep_steps"}) when ``with_info``.
+      info dict ({"niter", "maxit", "sweep_steps", "sweeps", "bulges"}:
+      chase steps i - m summed over the sweeps, sweeps, and bulges chased)
+      when ``with_info``.
     """
     if not want_t:
         raise PSDNotImplemented(
             "want_t=False windowing is not ported yet (ROADMAP queue 1, item 4)")
     if H.dtype != torch.float64:
         raise ValueError("pqr_real_core: H must be float64")
+    if cfg.nbulges > 1:
+        check_mb(cfg.nbulges, cfg.bulge_gap)
     p, n, _ = H.shape
     dev = H.device
     ulp = float(np.finfo(np.float64).eps)
@@ -226,8 +295,8 @@ def pqr_real_core(H: torch.Tensor, Z: Optional[torch.Tensor] = None,
             Zo = (torch.ones((p, 1, 1), dtype=H.dtype, device=dev)
                   if Z is None else Z.clone())
         out = (H.clone(), Zo, np.array([lam]), np.zeros(1), True)
-        return out + ({"niter": 0, "maxit": maxit, "sweep_steps": 0},) \
-            if with_info else out
+        return out + ({"niter": 0, "maxit": maxit, "sweep_steps": 0, "sweeps": 0,
+                       "bulges": 0},) if with_info else out
 
     # deflation thresholds for the triangular-factor diagonals
     hnorms = (ulp * n * torch.amax(torch.sum(torch.abs(H), dim=1), dim=1)).cpu().numpy()
@@ -248,7 +317,7 @@ def pqr_real_core(H: torch.Tensor, Z: Optional[torch.Tensor] = None,
     swaps = []  # (i, w1r, w2r) of real 2x2 deflations, checked at the end
 
     i, l, its, jiter = n - 1, 0, 1, 0
-    steps = 0  # chase steps over all sweeps (sum of i - m)
+    steps = sweeps = bulges = 0  # chase steps (sum of i - m), sweeps, bulges
     while i >= 0 and jiter < maxit:
         # kernel G: band, scan, v0 and the factor entries read below
         g = glue_products_scan_shift(Hp, n, l, i, its, cfg)
@@ -268,12 +337,21 @@ def pqr_real_core(H: torch.Tensor, Z: Optional[torch.Tensor] = None,
 
         splitting = lnew >= i - 1
         if not splitting:
-            if cfg.allow_early_qr:
-                m, v0, early = _shift_v0(hdiag, hsub, hsup, lnew, i, its, n, cfg, ulp)
+            if cfg.nbulges > 1:
+                m = lnew
+                v0, sig, nbact = _mb_shifts(Hp, hdiag, hsub, hsup, g.v0, m, i, its, n, cfg)
+                chase_sweep_mb(Hp, Zp, m, i, v0, sig, nbact, nb=cfg.nbulges,
+                               gap=cfg.bulge_gap, want_z=want_z)
             else:
-                m, v0, early = lnew, g.v0, False
-            chase_sweep(Hp, Zp, m, i, v0, want_z=want_z, early=early)
+                if cfg.allow_early_qr:
+                    m, v0, early = _shift_v0(hdiag, hsub, hsup, lnew, i, its, n, cfg, ulp)
+                else:
+                    m, v0, early = lnew, g.v0, False
+                chase_sweep(Hp, Zp, m, i, v0, want_z=want_z, early=early)
+                nbact = 1
             steps += i - m
+            sweeps += 1
+            bulges += nbact
         elif lnew == i:
             wr[i] = hdiag[i]
             wi[i] = 0.0
@@ -311,7 +389,8 @@ def pqr_real_core(H: torch.Tensor, Z: Optional[torch.Tensor] = None,
                 wr[ii - 1], wr[ii] = wr[ii], wr[ii - 1]
     out = (T, Zo, wr, wi, ok)
     if with_info:
-        return out + ({"niter": jiter, "maxit": maxit, "sweep_steps": steps},)
+        return out + ({"niter": jiter, "maxit": maxit, "sweep_steps": steps,
+                       "sweeps": sweeps, "bulges": bulges},)
     return out
 
 

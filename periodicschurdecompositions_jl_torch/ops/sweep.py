@@ -1,33 +1,46 @@
-"""One Francis double-shift sweep of the real periodic QR core.
+"""Francis double-shift sweeps of the real periodic QR core.
 
 ``chase_sweep`` chases the bulge of one double-shift step down the active
 window ``[m, i]`` of a ghost-padded ``(p, N, N)`` cycle (N = n + 1), in
 place on H (and Z).  Semantics: ``chase_step`` of the JAX package's
 ``ops/pqr_real.py`` (reference src/PeriodicSchurDecompositions.jl:806-886).
+``chase_sweep_mb`` chases NB such bulges in one pass, bulge b ``gap``
+columns behind bulge b-1 (``AlgoConfig.nbulges > 1``; the JAX package's
+``chase_sweep_ff_mb``).
 
-* On a CUDA tensor it launches the three hand-written kernels of
-  ``csrc/sweep.cu`` (they replace the Pallas kernels A, B0 and B of the JAX
-  package's ``ops/pallas_sweep.py``):
+* On a CUDA tensor they launch the hand-written kernels of
+  ``csrc/sweep.cu`` (they replace the Pallas kernels A, A-mb, B0 and B of
+  the JAX package's ``ops/pallas_sweep.py``):
 
   - ``sweep_generate`` walks k = m..i-1 and generates, in the reference
     order, the bulge reflector of H[0] and the fused 3x3 transform
     F = M3b @ diag(1, M2) of every factor p-1..1, on a working copy of H;
     it writes the log R (p, N, 9);
+  - ``sweep_generate_mb`` does the same for NB bulges, tick by tick (at
+    tick kk bulge b is at k = kk - b*gap), generating the NB bulges'
+    transforms of a (tick, factor) at once; a trailing bulge's first
+    column comes from the leading 3x3 of the cycle product when it enters
+    the window; it writes the log R (NB, p, N, 9);
   - ``sweep_left`` applies the logged F^T to rows k..k+2 of every H[f];
   - ``sweep_right`` applies the logged F to columns k..k+2 of H[f-1]
     (rows 0..i; H[p-1] takes factor 0's log) and of Z[f], and writes the
-    structural zeros below the (sub)diagonal exactly.
+    structural zeros below the (sub)diagonal exactly.  Both take the
+    bulges' logs one after the other (bulge-major).
 
   Deferring the left and right applications is exact because left and
-  right products commute; the reference's forced zeros re-emerge as
-  roundoff, which ``sweep_right`` replaces by exact zeros.
-* On a CPU tensor it runs ``chase_sweep_plain``, an eager torch port of
-  ``chase_step`` (the reference order, with its forced writes).  Any other
-  device raises.
+  right products commute (and, for NB bulges with gap >= 3, because a
+  bulge's transform commutes with the later transforms of the bulges
+  ahead of it); the reference's forced zeros re-emerge as roundoff, which
+  ``sweep_right`` replaces by exact zeros.
+* On a CPU tensor they run ``chase_sweep_plain`` / ``chase_sweep_mb_plain``,
+  eager torch ports of ``chase_step`` (the reference order, with its forced
+  writes; the multi-bulge one in tick order).  Any other device raises.
 
 ``launches`` counts the launches of each kernel.
 """
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -35,7 +48,73 @@ from . import _cuda
 from .householder import refl_mat, reflector_small
 from .rotations import colsk, rowsk
 
-launches = {"sweep_generate": 0, "sweep_left": 0, "sweep_right": 0}
+launches = {"sweep_generate": 0, "sweep_generate_mb": 0, "sweep_left": 0,
+            "sweep_right": 0}
+
+MAX_NB = 4  # bulges per multi-bulge sweep (csrc/sweep.cu kMaxNb)
+
+
+def _step(H, Z, k: int, i: int, v, *, want_z: bool, early: bool, log, cst):
+    """One chase step at k in the reference order (in place): the bulge
+    reflector of H[0], from ``v`` at the bulge's first step (v is None
+    after it: column k-1), then the 3- and 2-reflectors of factors p-1..1.
+    ``log``: None or a (p, N, 9) tensor that receives the transforms."""
+    mask3, zero = cst
+    p = H.shape[0]
+    tgt = p - 1 if p > 1 else 0
+    nr3 = (i - k + 1) >= 3
+    hi_r = min(k + 3, i) + 1
+    if v is None:
+        col = H[0, k:k + 3, k - 1].clone()
+        vk = col
+    else:
+        vk = v
+    if not nr3:
+        vk = vk * mask3
+    w, tau, beta = reflector_small(vk)
+    M3 = refl_mat(w, tau)
+    if v is None:
+        H[0, k:k + 3, k - 1] = torch.stack(
+            [beta, zero, col[2] if k == i - 1 else zero])
+    elif early:
+        H[0, k, k - 1] *= 1.0 - tau
+    rowsk(H[0], k, M3, lo=k)
+    colsk(H[tgt], k, M3, hi=hi_r)
+    if want_z:
+        colsk(Z[0], k, M3)
+    if log is not None:
+        log[0, k] = M3.reshape(9)
+    for f in range(p - 1, 0, -1):
+        colv = H[f, k:k + 3, k].clone()
+        if not nr3:
+            colv = colv * mask3
+        w2, tau2, beta2 = reflector_small(colv)
+        M3b = refl_mat(w2, tau2)
+        H[f, k:k + 3, k] = torch.stack([beta2, zero, zero])
+        rowsk(H[f], k, M3b, lo=k + 1)
+        colsk(H[f - 1], k, M3b, hi=hi_r)
+        if want_z:
+            colsk(Z[f], k, M3b)
+        F = M3b
+        if nr3:
+            xc = H[f, k + 1:k + 3, k + 1].clone()
+            wb, taub, betab = reflector_small(xc)
+            M2 = refl_mat(wb, taub)
+            H[f, k + 1:k + 3, k + 1] = torch.stack([betab, zero])
+            rowsk(H[f], k + 1, M2, lo=k + 2)
+            colsk(H[f - 1], k + 1, M2, hi=hi_r)
+            if want_z:
+                colsk(Z[f], k + 1, M2)
+            F = M3b.clone()
+            F[:, 1:] = M3b[:, 1:] @ M2
+        if log is not None:
+            log[f, k] = F.reshape(9)
+
+
+def _consts(H):
+    dt, dev = H.dtype, H.device
+    return (torch.tensor([1.0, 1.0, 0.0], dtype=dt, device=dev),
+            torch.zeros((), dtype=dt, device=dev))
 
 
 def chase_sweep_plain(H, Z, m: int, i: int, v0, *, want_z: bool,
@@ -47,83 +126,95 @@ def chase_sweep_plain(H, Z, m: int, i: int, v0, *, want_z: bool,
     ``log``: optional (p, N, 9) tensor that receives the transforms in
     ``sweep_generate``'s layout (factor 0: M3; factor f: M3b @ diag(1, M2)).
     """
-    p = H.shape[0]
-    dt, dev = H.dtype, H.device
-    v0 = torch.as_tensor(v0, dtype=dt, device=dev)
-    mask3 = torch.tensor([1.0, 1.0, 0.0], dtype=dt, device=dev)
-    zero = torch.zeros((), dtype=dt, device=dev)
-    tgt = p - 1 if p > 1 else 0
+    cst = _consts(H)
+    v0 = torch.as_tensor(v0, dtype=H.dtype, device=H.device)
     for k in range(m, i):
-        nr3 = (i - k + 1) >= 3
-        hi_r = min(k + 3, i) + 1
-        if k > m:
-            col = H[0, k:k + 3, k - 1].clone()
-            vk = col
-        else:
-            vk = v0
-        if not nr3:
-            vk = vk * mask3
-        w, tau, beta = reflector_small(vk)
-        M3 = refl_mat(w, tau)
-        if k > m:
-            H[0, k:k + 3, k - 1] = torch.stack(
-                [beta, zero, col[2] if k == i - 1 else zero])
-        elif early:
-            H[0, k, k - 1] *= 1.0 - tau
-        rowsk(H[0], k, M3, lo=k)
-        colsk(H[tgt], k, M3, hi=hi_r)
-        if want_z:
-            colsk(Z[0], k, M3)
-        if log is not None:
-            log[0, k] = M3.reshape(9)
-        for f in range(p - 1, 0, -1):
-            colv = H[f, k:k + 3, k].clone()
-            if not nr3:
-                colv = colv * mask3
-            w2, tau2, beta2 = reflector_small(colv)
-            M3b = refl_mat(w2, tau2)
-            H[f, k:k + 3, k] = torch.stack([beta2, zero, zero])
-            rowsk(H[f], k, M3b, lo=k + 1)
-            colsk(H[f - 1], k, M3b, hi=hi_r)
-            if want_z:
-                colsk(Z[f], k, M3b)
-            F = M3b
-            if nr3:
-                xc = H[f, k + 1:k + 3, k + 1].clone()
-                wb, taub, betab = reflector_small(xc)
-                M2 = refl_mat(wb, taub)
-                H[f, k + 1:k + 3, k + 1] = torch.stack([betab, zero])
-                rowsk(H[f], k + 1, M2, lo=k + 2)
-                colsk(H[f - 1], k + 1, M2, hi=hi_r)
-                if want_z:
-                    colsk(Z[f], k + 1, M2)
-                F = M3b.clone()
-                F[:, 1:] = M3b[:, 1:] @ M2
-            if log is not None:
-                log[f, k] = F.reshape(9)
+        _step(H, Z, k, i, v0 if k == m else None, want_z=want_z, early=early,
+              log=log, cst=cst)
     return H, Z
 
 
-def apply_log_plain(H, Z, R, m: int, i: int, *, want_z: bool):
-    """Plain torch version of ``sweep_left`` + ``sweep_right``: apply a
-    (p, N, 9) transform log to H (and Z) in place, left products first,
-    then the right products, then the exact structural zeros."""
+def pair_column(h11, h12, h21, h22, h32, rt1r, rt1i, rt2r):
+    """First column of (H - s1)(H - s2) e_m at rows m..m+2, scaled as
+    dlahqr does (not normalized), for the shifts rt1r +- i rt1i (rt2r =
+    rt1r) or the real pair rt1r, rt2r (rt1i = 0)."""
+    sv = abs(h11 - rt2r) + abs(rt1i) + abs(h21)
+    svs = 1.0 if sv == 0 else sv
+    h21s = h21 / svs
+    return (h21s * h12 + (h11 - rt1r) * ((h11 - rt2r) / svs) + rt1i * (rt1i / svs),
+            h21s * (h11 + h22 - rt1r - rt2r), h21s * h32)
+
+
+def normalized(v):
+    """v / ||v||_1 (v itself when it is zero)."""
+    s = abs(v[0]) + abs(v[1]) + abs(v[2])
+    s = 1.0 if s == 0 else s
+    return [v[0] / s, v[1] / s, v[2] / s]
+
+
+def lead_v0_plain(H, m: int, sig3):
+    """Shifted first column of a trailing bulge entering the window at m:
+    from the leading 3x3 of the cycle product H[0] H[1] ... H[p-1] (rows and
+    columns m..m+2) and the bulge's shifts ``sig3`` = (rt1r, rt1i, rt2r),
+    normalized by its 1-norm (the JAX kernel's ``_lead_v0``, unscaled)."""
+    T = torch.eye(3, dtype=H.dtype, device=H.device)
+    for f in range(1, H.shape[0]):
+        T = T @ H[f, m:m + 3, m:m + 3]
+    P = (H[0, m:m + 3, m:m + 3] @ T).tolist()
+    v = pair_column(P[0][0], P[0][1], P[1][0], P[1][1], P[2][1], *(float(x) for x in sig3))
+    return torch.tensor(normalized(v), dtype=H.dtype, device=H.device)
+
+
+def chase_sweep_mb_plain(H, Z, m: int, i: int, v0, sig, nbact: int, *, nb: int,
+                         gap: int, want_z: bool, log=None):
+    """Eager torch multi-bulge sweep in tick order (in place on H and Z):
+    at tick kk = m .. i + (nbact-1) gap - 1, bulges b = 0..nbact-1 in turn
+    take their step at k = kk - b gap when m <= k <= i-1.  Bulge 0 starts
+    from ``v0``, bulge b >= 1 from ``lead_v0_plain(H, m, sig[b])`` at its
+    first step.  ``sig``: nb shift triples (rt1r, rt1i, rt2r); ``log``:
+    optional (nb, p, N, 9) tensor (``sweep_generate_mb``'s layout)."""
+    check_mb(nb, gap, nbact)
+    cst = _consts(H)
+    v0 = torch.as_tensor(v0, dtype=H.dtype, device=H.device)
+    for kk in range(m, i + (nbact - 1) * gap):
+        for b in range(nbact):
+            k = kk - b * gap
+            if not m <= k <= i - 1:
+                continue
+            v = None
+            if k == m:
+                v = v0 if b == 0 else lead_v0_plain(H, m, sig[b])
+            _step(H, Z, k, i, v, want_z=want_z, early=False,
+                  log=None if log is None else log[b], cst=cst)
+    return H, Z
+
+
+def apply_log_plain(H, Z, R, m: int, i: int, *, want_z: bool, nb: int = 1):
+    """Plain torch version of ``sweep_left`` + ``sweep_right``: apply the
+    transform logs of bulges 0..nb-1 (R: (p, N, 9), or (NB, p, N, 9) with
+    NB >= nb) to H (and Z) in place: the left products of each bulge in
+    turn, then the right products of each bulge in turn, then the exact
+    structural zeros."""
     p, N, _ = H.shape
-    F = R.view(p, N, 3, 3)
+    Rb = R.reshape(-1, p, N, 3, 3)
     c0 = max(m - 1, 0)
-    for k in range(m, i):
-        rows = H[:, k:k + 3, c0:]
-        new = F[:, k].transpose(1, 2) @ rows
-        if k == m and m >= 1:
-            new[0, :, 0] = rows[0, :, 0]  # window-boundary column m-1
-        rows.copy_(new)
-    Fr = torch.roll(F, -1, dims=0)  # H[g] takes the log of factor (g+1) % p
-    for k in range(m, i):
-        cols = H[:, :i + 1, k:k + 3]
-        cols.copy_(cols @ Fr[:, k])
-        if want_z:
-            zc = Z[:, :, k:k + 3]
-            zc.copy_(zc @ F[:, k])
+    for b in range(nb):
+        F = Rb[b]
+        for k in range(m, i):
+            rows = H[:, k:k + 3, c0:]
+            new = F[:, k].transpose(1, 2) @ rows
+            if k == m and m >= 1:
+                new[0, :, 0] = rows[0, :, 0]  # window-boundary column m-1
+            rows.copy_(new)
+    for b in range(nb):
+        F = Rb[b]
+        Fr = torch.roll(F, -1, dims=0)  # H[g] takes the log of factor (g+1) % p
+        for k in range(m, i):
+            cols = H[:, :i + 1, k:k + 3]
+            cols.copy_(cols @ Fr[:, k])
+            if want_z:
+                zc = Z[:, :, k:k + 3]
+                zc.copy_(zc @ F[:, k])
     for r in range(m + 1, i + 1):
         H[0, r, c0:r - 1] = 0.0
         H[1:, r, m:r] = 0.0
@@ -154,18 +245,10 @@ def chase_sweep(H, Z, m: int, i: int, v0, *, want_z: bool, early: bool = False):
     """
     if H.device.type == "cpu":
         return chase_sweep_plain(H, Z, m, i, v0, want_z=want_z, early=early)
-    if H.device.type != "cuda":
-        raise ValueError(f"chase_sweep: unsupported device {H.device}")
-    p, N, _ = H.shape
-    _check("H", H, (p, N, N))
-    if want_z:
-        _check("Z", Z, (p, N, N))
-        if Z.device != H.device:
-            raise ValueError("chase_sweep: H and Z on different devices")
-    if not (0 <= m <= i <= N - 2):
-        raise ValueError(f"chase_sweep: bad window m={m} i={i} for N={N}")
+    _check_card_args("chase_sweep", H, Z, m, i, want_z)
     if i == m:
         return H, Z
+    p, N, _ = H.shape
     lib = _cuda.load()
     st = _cuda.stream_ptr(H)
     v = [float(x) for x in v0]
@@ -179,12 +262,83 @@ def chase_sweep(H, Z, m: int, i: int, v0, *, want_z: bool, early: bool = False):
         # the first reflector's leading row on column m-1: R[0, m, 0] is
         # exactly 1 - tau (w[0] = 1)
         H[0, m, m - 1] *= R[0, m, 0]
-    _cuda.check(lib.psd_sweep_left(H.data_ptr(), R.data_ptr(), p, N, m, i, st),
+    _apply_log(lib, st, H, Z, R, m, i, 1, want_z)
+    return H, Z
+
+
+def _check_card_args(name, H, Z, m, i, want_z):
+    """Raise ValueError unless H (and Z) are float64 (p, N, N) stacks on
+    one CUDA device and [m, i] is a window of them."""
+    if H.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {H.device}")
+    p, N, _ = H.shape
+    _check("H", H, (p, N, N))
+    if want_z:
+        _check("Z", Z, (p, N, N))
+        if Z.device != H.device:
+            raise ValueError(f"{name}: H and Z on different devices")
+    if not (0 <= m <= i <= N - 2):
+        raise ValueError(f"{name}: bad window m={m} i={i} for N={N}")
+
+
+def _apply_log(lib, st, H, Z, R, m, i, nb, want_z):
+    p, N, _ = H.shape
+    _cuda.check(lib.psd_sweep_left(H.data_ptr(), R.data_ptr(), p, N, m, i, nb, st),
                 "sweep_left")
     launches["sweep_left"] += 1
     _cuda.check(lib.psd_sweep_right(H.data_ptr(),
                                     Z.data_ptr() if want_z else None,
-                                    R.data_ptr(), p, N, m, i, st),
+                                    R.data_ptr(), p, N, m, i, nb, st),
                 "sweep_right")
     launches["sweep_right"] += 1
+
+
+def check_mb(nb: int, gap: int, nbact: int = 1) -> None:
+    """Raise ValueError for a multi-bulge configuration the kernels do not
+    take: nb in [1, MAX_NB], gap >= 3 (bulge-major deferred application is
+    exact only then), 1 <= nbact <= nb."""
+    if not 1 <= nb <= MAX_NB:
+        raise ValueError(f"nbulges={nb}: the multi-bulge sweep takes 1..{MAX_NB} bulges")
+    if gap < 3:
+        raise ValueError(f"bulge_gap={gap}: bulges must be at least 3 columns apart")
+    if not 1 <= nbact <= nb:
+        raise ValueError(f"nbact={nbact} active bulges of nb={nb}")
+
+
+def chase_sweep_mb(H, Z, m: int, i: int, v0, sig, nbact: int, *, nb: int, gap: int,
+                   want_z: bool):
+    """One multi-bulge sweep over the window [m, i], in place.
+
+    Args beyond ``chase_sweep``:
+      sig: nb shift triples (rt1r, rt1i, rt2r) in the band's (unscaled)
+        domain; bulge 0's is unused (its first column is ``v0``).
+      nbact: bulges actually chased, in [1, nb].
+      nb: the configured bulge count (``AlgoConfig.nbulges``, <= MAX_NB).
+      gap: columns between consecutive bulges (``AlgoConfig.bulge_gap``, >= 3).
+
+    Returns (H, Z), with exact structural zeros as ``chase_sweep``.
+    """
+    check_mb(nb, gap, nbact)
+    if H.device.type == "cpu":
+        return chase_sweep_mb_plain(H, Z, m, i, v0, sig, nbact, nb=nb, gap=gap,
+                                    want_z=want_z)
+    _check_card_args("chase_sweep_mb", H, Z, m, i, want_z)
+    if len(sig) < nbact:
+        raise ValueError(f"chase_sweep_mb: {len(sig)} shift triples for {nbact} bulges")
+    if i == m:
+        return H, Z
+    p, N, _ = H.shape
+    lib = _cuda.load()
+    st = _cuda.stream_ptr(H)
+    vals = [float(x) for x in v0]
+    for b in range(nb):
+        vals += [float(x) for x in sig[b]] if b < len(sig) else [0.0] * 3
+    shifts = (ctypes.c_double * len(vals))(*vals)
+    R = torch.empty((nbact, p, N, 9), dtype=torch.float64, device=H.device)
+    C = torch.empty((p, N, N), dtype=torch.float64, device=H.device)
+    _cuda.check(lib.psd_sweep_generate_mb(H.data_ptr(), C.data_ptr(), R.data_ptr(),
+                                          p, N, m, i, nb, gap, nbact, shifts, st),
+                "sweep_generate_mb")
+    launches["sweep_generate_mb"] += 1
+    _apply_log(lib, st, H, Z, R, m, i, nbact, want_z)
     return H, Z

@@ -6,8 +6,8 @@ without JAX it runs as
 ``python -m pytest --noconftest tests/test_torch_cuda.py`` from the
 repository root (tests/conftest.py imports JAX).
 
-Tolerances: 1e-12 relative to max|H| (1e-12 for Z).  The windows here are
-short (n <= 40), where the sweep's generation chain amplifies rounding far
+Tolerances: 1e-12 relative to max|H| (1e-12 for Z), for the one- and the
+multi-bulge sweep.  The windows here are short (n <= 40), where the sweep's generation chain amplifies rounding far
 less than at n=512 (see chip_smoke.py for the long-window check).  The
 complex shift kernel: 1e-14 relative to the plain version's |s|.  The real
 generalized chase and ladders: 1e-12 on cycles whose triangular factors
@@ -79,6 +79,91 @@ def test_sweep_kernels_match_plain(cuda, p, n, m, i, early):
     Hz = H0.clone()
     sweep.chase_sweep(Hz, None, m, i, v0, want_z=False, early=early)
     assert torch.equal(Hz, Hk)
+
+
+def _mb_generate(H, m, i, v0, sig, nb, nbact):
+    """The multi-bulge kernels straight through the C entry points; returns
+    A-mb's log."""
+    import ctypes
+    p, N, _ = H.shape
+    lib = _cuda.load()
+    st = torch.cuda.current_stream().cuda_stream
+    vals = [float(x) for x in v0] + [float(x) for s3 in sig for x in s3]
+    R = torch.empty((nbact, p, N, 9), dtype=torch.float64, device=H.device)
+    C = torch.empty((p, N, N), dtype=torch.float64, device=H.device)
+    _cuda.check(lib.psd_sweep_generate_mb(H.data_ptr(), C.data_ptr(), R.data_ptr(), p, N,
+                                          m, i, nb, 3, nbact,
+                                          (ctypes.c_double * len(vals))(*vals), st), "mb")
+    return R
+
+
+@pytest.mark.parametrize("p,n,m,i,nb,nbact", [
+    (1, 20, 0, 19, 2, 2), (3, 40, 3, 37, 4, 4), (4, 24, 1, 22, 3, 2), (2, 30, 5, 26, 4, 4)])
+def test_mb_sweep_kernels_match_plain(cuda, p, n, m, i, nb, nbact):
+    Hn, Zn, v0 = _problem(p, n, p * 100 + n + nb)
+    sig = [tuple(0.5 * np.random.default_rng(b).standard_normal(3)) for b in range(nb)]
+    if m > 0:
+        Hn[0, m, m - 1] = 0.0
+    H0, Z0 = torch.tensor(Hn, device=cuda), torch.tensor(Zn, device=cuda)
+    before = sweep.launches["sweep_generate_mb"]
+    Hk, Zk = H0.clone(), Z0.clone()
+    sweep.chase_sweep_mb(Hk, Zk, m, i, v0, sig, nbact, nb=nb, gap=3, want_z=True)
+    assert sweep.launches["sweep_generate_mb"] == before + 1
+    Hp, Zp = H0.clone(), Z0.clone()
+    sweep.chase_sweep_mb_plain(Hp, Zp, m, i, v0, sig, nbact, nb=nb, gap=3, want_z=True)
+    torch.cuda.synchronize()
+    scale = float(H0.abs().max())
+    assert float((Hk - Hp).abs().max()) <= 1e-12 * scale
+    assert float((Zk - Zp).abs().max()) <= 1e-12
+    _structure_exact(Hk)
+    Hz = H0.clone()
+    sweep.chase_sweep_mb(Hz, None, m, i, v0, sig, nbact, nb=nb, gap=3, want_z=False)
+    assert torch.equal(Hz, Hk)
+    # B0 + B (bulge-major) on A-mb's own log against apply_log_plain
+    R = _mb_generate(H0, m, i, v0, sig, nb, nbact)
+    lib = _cuda.load()
+    st = torch.cuda.current_stream().cuda_stream
+    Hb, Zb = H0.clone(), Z0.clone()
+    N = n + 1
+    _cuda.check(lib.psd_sweep_left(Hb.data_ptr(), R.data_ptr(), p, N, m, i, nbact, st), "left")
+    _cuda.check(lib.psd_sweep_right(Hb.data_ptr(), Zb.data_ptr(), R.data_ptr(), p, N, m, i,
+                                    nbact, st), "right")
+    Ha, Za = H0.clone(), Z0.clone()
+    sweep.apply_log_plain(Ha, Za, R, m, i, want_z=True, nb=nbact)
+    torch.cuda.synchronize()
+    assert float((Hb - Ha).abs().max()) <= 1e-13 * scale
+    assert float((Zb - Za).abs().max()) <= 1e-13
+    assert torch.equal(Hb, Hk) and torch.equal(Zb, Zk)
+
+
+@pytest.mark.parametrize("p,n,m,i", [(1, 20, 0, 19), (3, 24, 5, 20)])
+def test_mb_kernels_with_one_bulge_are_the_single_sweep(cuda, p, n, m, i):
+    Hn, Zn, v0 = _problem(p, n, p * 100 + n)
+    H0, Z0 = torch.tensor(Hn, device=cuda), torch.tensor(Zn, device=cuda)
+    H1, Z1 = H0.clone(), Z0.clone()
+    sweep.chase_sweep(H1, Z1, m, i, v0, want_z=True)
+    H2, Z2 = H0.clone(), Z0.clone()
+    sweep.chase_sweep_mb(H2, Z2, m, i, v0, [(0.0, 0.0, 0.0)], 1, nb=1, gap=3, want_z=True)
+    torch.cuda.synchronize()
+    assert torch.equal(H1, H2) and torch.equal(Z1, Z2)
+
+
+def test_mb_pipeline_on_the_card(cuda):
+    p, n = 4, 64
+    A = np.random.default_rng(p + n).standard_normal((p, n, n))
+    for k in sweep.launches:
+        sweep.launches[k] = 0
+    cfg = AlgoConfig(nbulges=4)
+    P = pqr_real.pschur_real_pipeline(torch.tensor(A, device=cuda), "R", cfg=cfg)
+    info = dict(pqr_real.last_info)
+    assert sweep.launches["sweep_generate_mb"] == info["sweeps"] > 0
+    assert sweep.launches["sweep_generate"] == 0 and info["bulges"] > info["sweeps"]
+    ok, rep = pt.check_psd(P, A)  # n=64: one bulge also needs ~50 eps of the residual
+    assert ok, rep
+    Pc = pqr_real.pschur_real_pipeline(torch.tensor(A), "R", cfg=cfg)
+    w = np.sort_complex(P.values.cpu().numpy())
+    wc = np.sort_complex(Pc.values.numpy())
+    assert np.abs(w - wc).max() <= 1e-10 * np.abs(wc).max()
 
 
 @pytest.mark.parametrize("case", ["chainA", "chainB", "chainB-jmax"])

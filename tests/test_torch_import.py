@@ -25,6 +25,7 @@ import periodicschurdecompositions_jl_torch.ops.pqz_complex
 import periodicschurdecompositions_jl_torch.ops.pqz_deflate
 import periodicschurdecompositions_jl_torch.ops.pqz_real
 import periodicschurdecompositions_jl_torch.ops.rgopen
+import periodicschurdecompositions_jl_torch.ops.smallschur
 import periodicschurdecompositions_jl_torch.ops.sweep
 import periodicschurdecompositions_jl_torch.ops.sweep_cx
 import periodicschurdecompositions_jl_torch.ops.sweep_rg
@@ -32,7 +33,8 @@ import periodicschurdecompositions_jl_torch.utils.interop
 import periodicschurdecompositions_jl_torch.utils.safeprod
 assert not any(m.startswith('periodicschurdecompositions_jl_tpu') for m in sys.modules)
 assert sys.modules['jax'] is None
-print(pt.pschur.__name__, pt.check_psd.__name__)
+from periodicschurdecompositions_jl_torch.ops.sweep import chase_sweep_mb
+print(pt.pschur.__name__, pt.check_psd.__name__, chase_sweep_mb.__name__)
 """
 
 
@@ -42,7 +44,7 @@ def test_port_imports_with_jax_blocked():
     res = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert "pschur check_psd" in res.stdout
+    assert "pschur check_psd chase_sweep_mb" in res.stdout
 
 
 def test_cuda_loader_raises_without_nvcc(monkeypatch, tmp_path):
@@ -57,14 +59,17 @@ def test_cuda_loader_raises_without_nvcc(monkeypatch, tmp_path):
     assert _cuda._lib is None
 
 
-@pytest.mark.parametrize("fn", ["sweep", "deflate", "qz_sweep", "qz_shift", "rg_chase",
-                                "rg_ladder", "hess", "glue"])
+@pytest.mark.parametrize("fn", ["sweep", "sweep_mb", "deflate", "qz_sweep", "qz_shift",
+                                "rg_chase", "rg_ladder", "hess", "glue"])
 def test_wrappers_refuse_other_devices(fn):
     H = torch.zeros((2, 5, 5), dtype=torch.float64, device="meta")
     Hc = torch.zeros((2, 5, 5), dtype=torch.complex128, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         if fn == "sweep":
             sweep.chase_sweep(H, None, 0, 3, [1.0, 0.0, 0.0], want_z=False)
+        elif fn == "sweep_mb":
+            sweep.chase_sweep_mb(H, None, 0, 3, [1.0, 0.0, 0.0], [(0.0, 0.0, 0.0)] * 2, 2,
+                                 nb=2, gap=3, want_z=False)
         elif fn == "deflate":
             deflate.deflate2x2(H, None, 2, -1, -1, 1.0, 0.0, False, False,
                                1e-300, want_z=False)
