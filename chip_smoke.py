@@ -179,6 +179,7 @@ def sweep_phase(dev, p, n, report):
             H0[0, m, m - 1] = 0.0
         H0[0, i + 1, i] = 0.0
         Z0 = torch.tensor(Zn, device=dev)
+        H0c = H0.clone()
         scale = float(H0.abs().max())
         Hk, Zk = H0.clone(), Z0.clone()
         sweep.chase_sweep(Hk, Zk, m, i, v0, want_z=True)
@@ -193,12 +194,10 @@ def sweep_phase(dev, p, n, report):
         dh = float((Hk - Hp).abs().max()) / scale
         dz = float((Zk - Zp).abs().max())
         tol_h, tol_z = max(TOL, 10 * sens_h), max(TOL, 10 * sens_z)
-        # 2. the apply kernels on kernel A's own log
-        R = torch.empty((p, N, 9), dtype=torch.float64, device=dev)
-        C = torch.empty((p, N, N), dtype=torch.float64, device=dev)
-        _cuda.check(lib.psd_sweep_generate(H0.data_ptr(), C.data_ptr(), R.data_ptr(),
-                                           p, N, m, i, float(v0[0]), float(v0[1]),
-                                           float(v0[2]), st), "sweep_generate")
+        # 2. the apply kernels on kernel A's own log (A reads H0 only)
+        R = sweep.sweep_generate(H0, m, i, v0)
+        if not torch.equal(H0, H0c):
+            raise AssertionError("kernel A wrote its input")
         Hb, Zb = H0.clone(), Z0.clone()
         _cuda.check(lib.psd_sweep_left(Hb.data_ptr(), R.data_ptr(), p, N, m, i, 1, st),
                     "sweep_left")
@@ -241,29 +240,32 @@ def sweep_phase(dev, p, n, report):
     m, i = windows[0]
     H = torch.tensor(Hn, device=dev)
     Z = torch.tensor(Zn, device=dev)
-    R = torch.empty((p, N, 9), dtype=torch.float64, device=dev)
-    C = torch.empty((p, N, N), dtype=torch.float64, device=dev)
-    ms_a = event_ms(lambda: _cuda.check(lib.psd_sweep_generate(
-        H.data_ptr(), C.data_ptr(), R.data_ptr(), p, N, m, i,
-        float(v0[0]), float(v0[1]), float(v0[2]), st), "sweep_generate"), 5)
+    out = {}
+    ms_a = event_ms(lambda: out.update(R=sweep.sweep_generate(H, m, i, v0)), 5)
+    R = out["R"]
     ms_b0 = event_ms(lambda: _cuda.check(lib.psd_sweep_left(
         H.data_ptr(), R.data_ptr(), p, N, m, i, 1, st), "sweep_left"), 5)
     ms_b = event_ms(lambda: _cuda.check(lib.psd_sweep_right(
         H.data_ptr(), Z.data_ptr(), R.data_ptr(), p, N, m, i, 1, st),
         "sweep_right"), 5)
-    _log(f"sweep kernels at p={p} n={n} window [0, {n - 1}]: A {ms_a:.3f} ms, "
-         f"B0 {ms_b0:.3f} ms, B {ms_b:.3f} ms; plain sweep {times['plain_sweep']:.1f} "
-         f"ms, plain apply (B0+B) {times['plain_apply']:.1f} ms")
+    _log(f"sweep kernels at p={p} n={n} window [0, {n - 1}]: A {ms_a:.3f} ms "
+         f"({ms_a * 1e3 / ((i - m) * p):.4f} us per (step, factor)), B0 {ms_b0:.3f} ms, "
+         f"B {ms_b:.3f} ms; plain sweep {times['plain_sweep']:.1f} ms, plain apply (B0+B) "
+         f"{times['plain_apply']:.1f} ms")
+    headline_profile(dev)
     src = "periodicschurdecompositions_jl_torch/csrc/sweep.cu"
-    # bytes and operations of the window [0, n-1] (K steps): A reads the
-    # window's rows once and writes the log; B0 reads and writes rows k..k+2
-    # of every column; B those of H's rows 0..i and all of Z; a 3x3
-    # application is 15 flops per entry triple
+    # bytes and operations of the window [0, n-1] (K steps): A reads what
+    # its generations depend on once, the rows m..i+1 and columns up to i+1
+    # on and above the subdiagonal of H[0] and the diagonal of H[1:], and
+    # writes the log; B0 reads and writes rows k..k+2 of every column; B
+    # those of H's rows 0..i and all of Z; a 3x3 application is 15 flops
+    # per entry triple
     K = i - m
-    steps = sum(N - k for k in range(m, i))
+    upper = sum(i + 2 - max(r - 1, m) for r in range(m, i + 2)) + \
+        (p - 1) * sum(i + 2 - max(r, m) for r in range(m, i + 2))
     bounds = {
-        "sweep_generate": bound(8 * p * N * (i + 2 - m) + 8 * 9 * p * K,
-                                15 * p * steps),
+        "sweep_generate": bound(8 * upper + 8 * 9 * p * K,
+                                15 * p * sum(i + 2 - k for k in range(m, i))),
         "sweep_left": bound(2 * 8 * p * (i + 2 - m) * (N - max(m - 1, 0))
                             + 8 * 9 * p * K, 15 * p * (N - max(m - 1, 0)) * K),
         "sweep_right": bound(2 * 8 * p * (i + 1 + N) * (K + 2) + 8 * 9 * p * K,
@@ -282,6 +284,31 @@ def sweep_phase(dev, p, n, report):
                         "replaces": rep, "max_abs_err": err, "ms": ms,
                         "plain_ms": pms, "bound_ms": bounds[name][0],
                         "bound_by": bounds[name][1], "library_ms": None}
+
+
+def headline_profile(dev):
+    """torch.profiler over one real headline ``pschur`` (p=16 n=512, seed
+    12345): wall, device busy time and idle share, kernel A's share of the
+    device time and its time per (step, factor) on the leg's windows."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    import periodicschurdecompositions_jl_torch as pt
+    from periodicschurdecompositions_jl_torch.ops import pqr_real
+    A = torch.tensor(np.random.default_rng(SEED_HEAD).standard_normal(
+        (P_HEAD, N_HEAD, N_HEAD)), device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pt.pschur(A, "R")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ev = [e for e in prof.key_averages() if "CUDA" in str(e.device_type) and dev_us(e) > 0]
+    busy = sum(dev_us(e) for e in ev)
+    a_us = sum(dev_us(e) for e in ev if "sweep_generate_kernel" in e.key)
+    steps = pqr_real.last_info["sweep_steps"]
+    _log(f"profile of one headline pschur: kernel A {a_us / 1e3:.1f} ms, "
+         f"{a_us / busy:.1%} of device time, {a_us / (steps * P_HEAD):.4f} us per (step, "
+         f"factor) over {steps} steps; {profile_line(prof, wall)}")
 
 
 def mb_generate(lib, st, H, m, i, v0, sig, nb, nbact):
@@ -396,11 +423,7 @@ def mb_phase(dev, p, n, report):
     ms_mb = event_ms(lambda: out.update(R=mb_generate(lib, st, H, m, i, v0, sig, MB_NB,
                                                       MB_NB)), 5)
     R = out["R"]
-    R1 = torch.empty((p, N, 9), dtype=torch.float64, device=dev)
-    C1 = torch.empty((p, N, N), dtype=torch.float64, device=dev)
-    ms_a = event_ms(lambda: _cuda.check(lib.psd_sweep_generate(
-        H.data_ptr(), C1.data_ptr(), R1.data_ptr(), p, N, m, i, float(v0[0]), float(v0[1]),
-        float(v0[2]), st), "sweep_generate"), 5)
+    ms_a = event_ms(lambda: sweep.sweep_generate(H, m, i, v0), 5)
     ms_b0 = event_ms(lambda: _cuda.check(lib.psd_sweep_left(
         H.data_ptr(), R.data_ptr(), p, N, m, i, MB_NB, st), "sweep_left"), 5)
     ms_b = event_ms(lambda: _cuda.check(lib.psd_sweep_right(

@@ -10,17 +10,46 @@
 // row-major stacks H and Z, window k = m..i-1.
 //
 // sweep_generate is a serial latency chain: (i-m)*p reflector generations,
-// each depending on the previous one through the matrix entries.  It runs
-// in ONE block: one thread generates, all threads then apply the transform
-// to the three rows of a working copy C of H (the generations of later
-// steps depend on the whole rows to the right of the bulge), and a few
-// threads apply it to the 3..4 rows x 3 columns of the band that later
-// generations read.  C lives in global memory (L2-resident at p=16,
-// N=513); per step the block touches O(p N) entries.  It logs one fused
-// 3x3 transform F per (factor, step) in R (p, N, 9), row-major:
+// each depending on the previous one through the matrix entries.  It logs
+// one fused 3x3 transform F per (factor, step) in R (p, N, 9), row-major:
 //   factor 0: the bulge reflector M3;  factor f >= 1: F = M3b diag(1, M2).
+// It reads H only (B0 and B apply the log to H afterwards) and runs in ONE
+// block, in batches of L steps (L <= 30, set from p by the shared memory a
+// block may take):
+// * the look-ahead window: for a batch k0..k1-1 each factor keeps rows
+//   k0..k0+L+2 and columns k0-1..k0+L+1 (both cut at i+1) of its working
+//   state in dynamic shared memory: every entry the batch's generations
+//   read or its transforms write on the way there;
+// * serial phase: one warp runs the batch's L steps x p factors in the
+//   reference order on the windows only: lane 0 generates, the lanes apply
+//   F^T to rows k..k+2 of the window's columns (lanes as columns) and F to
+//   the band of the next factor (lanes as rows), with __syncwarp between;
+// * update phase: the columns right of the window receive no right
+//   transform in the batch, only left ones, so the whole block applies the
+//   batch's L left transforms of each factor to them at its end, in step
+//   order.  Each thread walks one (factor, column) with a three-row
+//   register window, as B0 does: the two rows still in flux come from a
+//   2 p N scratch (or from H at the first batch) and go back there, or into
+//   the next window when the column enters it; the rows below come fresh
+//   from H, which no transform has touched there yet.  Columns right of
+//   i+1 are never read by a generation and are not visited.
+// Every entry therefore receives the same operations in the same order as
+// in the reference order on a full working copy (tests/torch_window_host.py
+// models both schedules and checks that their logs agree bit for bit), and
+// the chain waits on no global memory and no block barrier: one
+// __syncthreads pair per batch.  Where even L = 1 does not fit in shared
+// memory (p above about 850), the same kernel keeps the windows in a
+// global scratch.  What bounds it on an H100: the generation itself.
+// Measured with clock64 at p=16, n=512 (scripts/profile_sweep_generate.py):
+// 3530 cycles per (step, factor), 2971 of them lane 0's generation, whose
+// float64 divisions (~124 cycles each) and square roots (~91) run one
+// after the other; the update phases took 6% of the kernel.  Spreading a
+// reflector's independent divisions over lanes (shuffles) was slower.
 //
-// sweep_generate_mb chases NB such bulges in one pass, bulge b GAP columns
+// sweep_generate_mb keeps the design before the look-ahead window: a
+// working copy C (p, N, N) of rows m..i+1 in global memory, copied from H
+// per sweep, updated by the whole block behind __syncthreads per (tick,
+// factor).  It chases NB such bulges in one pass, bulge b GAP columns
 // behind bulge b-1 (tick kk puts bulge b at k = kk - b*GAP), the tick-order
 // interleaving of the numpy oracle ref_sweep_np_mb (tests of the JAX
 // package).  Per (tick, factor) the NB generations are independent: NB
@@ -53,6 +82,7 @@
 namespace {
 
 constexpr int kGenThreads = 512;
+constexpr int kMaxBatch = 30;  // kernel A: L + 2 <= 32 window columns, one per lane
 constexpr int kApplyThreads = 128;
 constexpr int kMaxNb = 4;  // bulges of sweep_generate_mb (shift window 2 NB <= 8)
 
@@ -72,139 +102,217 @@ __device__ __forceinline__ void apply_ft(const double* F, double x0, double x1,
   o2 = F[2] * x0 + F[5] * x1 + F[8] * x2;
 }
 
-// Right update of columns k..k+2 of one factor of the working copy, rows
-// k..rhi (the rows later generations and left updates read).
-__device__ __forceinline__ void band_right(double* Cg, int N, int k, int rhi,
-                                           const double* F) {
-  const int r = k + threadIdx.x;
-  if (r <= rhi) {
-    double* row = Cg + (size_t)r * N + k;
-    // (x F)_c = sum_s x_s F[s][c]
-    const double o0 = row[0] * F[0] + row[1] * F[3] + row[2] * F[6];
-    const double o1 = row[0] * F[1] + row[1] * F[4] + row[2] * F[7];
-    const double o2 = row[0] * F[2] + row[1] * F[5] + row[2] * F[8];
-    row[0] = o0;
-    row[1] = o1;
-    row[2] = o2;
+// F applied to a row's entries in columns k..k+2: out_c = sum_s y_s F[s][c]
+__device__ __forceinline__ void apply_f(const double* F, double y0, double y1,
+                                        double y2, double& o0, double& o1,
+                                        double& o2) {
+  o0 = y0 * F[0] + y1 * F[3] + y2 * F[6];
+  o1 = y0 * F[1] + y1 * F[4] + y2 * F[7];
+  o2 = y0 * F[2] + y1 * F[5] + y2 * F[8];
+}
+
+// Factor 0's bulge reflector M3 from (x0, x1, x2) (x2 dropped unless nr3).
+__device__ __forceinline__ void gen_bulge(double x0, double x1, double x2,
+                                          bool nr3, double* M, double& beta) {
+  double tau, w1, w2;
+  psd::gen_reflector(x0, x1, nr3 ? x2 : 0.0, tau, beta, w1, w2);
+  psd::refl_mat3(tau, w1, w2, M);
+}
+
+// Factor f >= 1 at step k: the 3-reflector of column k (a0..a2, rows
+// k..k+2) and, when nr3, the 2-reflector of column k+1 (b0..b2) after it,
+// fused: F = M3b diag(1, M2).  beta, betab: the images (beta, 0, 0) of
+// column k and (betab, 0) of column k+1's rows k+1..k+2.
+__device__ __forceinline__ void gen_fused(double a0, double a1, double a2,
+                                          double b0, double b1, double b2,
+                                          bool nr3, double* F, double& beta,
+                                          double& betab) {
+  double M3[9];
+  gen_bulge(a0, a1, a2, nr3, M3, beta);
+  double M2[4] = {1.0, 0.0, 0.0, 1.0};
+  betab = 0.0;
+  if (nr3) {
+    const double y1 = M3[3] * b0 + M3[4] * b1 + M3[5] * b2;
+    const double y2 = M3[6] * b0 + M3[7] * b1 + M3[8] * b2;
+    double t2, u1, u2;
+    psd::gen_reflector(y1, y2, 0.0, t2, betab, u1, u2);
+    M2[0] = 1.0 - t2 * (1.0 * 1.0);
+    M2[1] = -t2 * (1.0 * u1);
+    M2[2] = -t2 * (u1 * 1.0);
+    M2[3] = __fma_rn(-t2, __dmul_rn(u1, u1), 1.0);
+  }
+  // M2[3] and the fused columns with their multiply-adds written out: the
+  // forms nvcc chose for them in the kernels before the look-ahead window
+  // (the logs agree bit for bit with those kernels'); left to contraction,
+  // the choice changed with the inlining context
+#pragma unroll
+  for (int r = 0; r < 3; ++r) {
+    F[r * 3 + 0] = M3[r * 3 + 0];
+    F[r * 3 + 1] = __fma_rn(M3[r * 3 + 1], M2[0], __dmul_rn(M3[r * 3 + 2], M2[2]));
+    F[r * 3 + 2] = __fma_rn(M3[r * 3 + 2], M2[3], __dmul_rn(M3[r * 3 + 1], M2[1]));
+  }
+}
+
+// Kernel A's working set for batch length L, in doubles: per factor the
+// (L+3) x (L+3) window, the batch's L transforms and the 3x3 corner handed
+// to the next batch.
+inline size_t gen_window_doubles(int p, int L) {
+  return (size_t)p * ((size_t)(L + 3) * (L + 3) + 9 * (size_t)L + 9);
+}
+
+// Serial phase of the batch k0..k1-1, on warp 0.  win: the p windows
+// (factor f's entry (r, c) at win[(f S + r - k0) S + c - k0 + 1], S = L+3);
+// fs: the batch's transforms (factor f, step k0+s at fs[(f L + s) 9]);
+// stage: the next batch's corners.  Warp-synchronous: __syncwarp only.
+__device__ void gen_serial(double* win, double* fs, double* stage,
+                           double* __restrict__ R, int p, int N, int m, int i,
+                           int L, int k0, int k1, double v00, double v01,
+                           double v02) {
+  const int lane = threadIdx.x & 31;
+  const int S = L + 3;
+  const size_t SS = (size_t)S * S;
+  const int bmax = min(k0 + L + 1, i + 1) - k0 + 1;  // the last window column
+  const int tgt0 = (p > 1) ? p - 1 : 0;
+  for (int k = k0; k < k1; ++k) {
+    const int s = k - k0;
+    const bool nr3 = (i - k + 1) >= 3;
+    const int nrow = min(k + 3, i) - k + 1;  // band rows k..min(k+3, i)
+    for (int q = 0; q < p; ++q) {
+      const int f = (q == 0) ? 0 : p - q;  // factor 0, then p-1..1
+      double* Wf = win + f * SS;
+      double* F = fs + ((size_t)f * L + s) * 9;
+      double betab = 0.0;
+      if (lane == 0) {  // lane 0 generates; F goes to the log and to fs
+        double M[9], beta;
+        if (f == 0) {
+          double x0 = v00, x1 = v01, x2 = v02;
+          if (k > m) {  // column k-1, rows k..k+2
+            x0 = Wf[s * S + s];
+            x1 = Wf[(s + 1) * S + s];
+            x2 = Wf[(s + 2) * S + s];
+          }
+          gen_bulge(x0, x1, x2, nr3, M, beta);
+        } else {
+          const double* ck = Wf + s * S + s + 1;  // column k, rows k..k+2
+          gen_fused(ck[0], ck[S], ck[2 * S], ck[1], ck[S + 1], ck[2 * S + 1], nr3,
+                    M, beta, betab);
+        }
+        double* Rk = R + ((size_t)f * N + k) * 9;
+#pragma unroll
+        for (int t = 0; t < 9; ++t) {
+          F[t] = M[t];
+          Rk[t] = M[t];
+        }
+      }
+      __syncwarp();
+      betab = __shfl_sync(0xffffffffu, betab, 0);
+      // left: F^T on rows k..k+2 of the window's columns >= k (factor 0) or
+      // >= k+1; the second reflector's column k+1 takes its exact image
+      const int bl = (f == 0) ? s + 1 : s + 2;
+      for (int b = bl + lane; b <= bmax; b += 32) {
+        double* x = Wf + s * S + b;
+        double o0, o1, o2;
+        apply_ft(F, x[0], x[S], x[2 * S], o0, o1, o2);
+        if (f > 0 && nr3 && b == s + 2) {
+          o1 = betab;
+          o2 = 0.0;
+        }
+        x[0] = o0;
+        x[S] = o1;
+        x[2 * S] = o2;
+      }
+      // right: F on columns k..k+2 of the next factor's band rows (the same
+      // window when p == 1, after the left update)
+      if (p == 1) __syncwarp();
+      if (lane < nrow) {
+        double* y = win + (f == 0 ? tgt0 : f - 1) * SS + (s + lane) * S + s + 1;
+        double o0, o1, o2;
+        apply_f(F, y[0], y[1], y[2], o0, o1, o2);
+        y[0] = o0;
+        y[1] = o1;
+        y[2] = o2;
+      }
+      __syncwarp();
+    }
+  }
+  if (k1 < i) {  // rows k1..k1+2 x columns k1-1..k1+1: the next corners
+    for (int t = lane; t < p * 9; t += 32) {
+      const int f = t / 9, a = L + (t % 9) / 3, b = L + t % 3;
+      stage[t] = win[f * SS + (size_t)a * S + b];
+    }
+  }
+}
+
+// Window entries (a, b) (row k0+a, column k0-1+b, up to rlast and clast)
+// from H, whole block: with first, every entry of columns >= k0 (the first
+// batch); else those below the corner (b <= 2, a >= 3) and below the two
+// carried rows (b >= 3, a >= 2).
+__device__ void fill_from_h(const double* __restrict__ H, double* win, int p,
+                            int N, int L, int k0, int rlast, int clast,
+                            bool first) {
+  const int S = L + 3;
+  const int na = rlast - k0 + 1, nb = clast - k0 + 2, per = na * nb;
+  for (int t = threadIdx.x; t < p * per; t += blockDim.x) {
+    const int f = t / per, a = (t % per) / nb, b = t % nb;
+    if (first ? b == 0 : a < ((b <= 2) ? 3 : 2)) continue;
+    win[((size_t)f * S + a) * S + b] = H[((size_t)f * N + k0 + a) * N + k0 - 1 + b];
   }
 }
 
 __global__ void __launch_bounds__(kGenThreads)
-sweep_generate_kernel(double* __restrict__ C, double* __restrict__ R, int p,
-                      int N, int m, int i, double v00, double v01, double v02) {
-  __shared__ double F[9];
-  __shared__ double betab_s;
-  const size_t NN = (size_t)N * N;
-  const int tid = threadIdx.x;
-  const int tgt0 = (p > 1) ? p - 1 : 0;
-
-  for (int k = m; k < i; ++k) {
-    const bool nr3 = (i - k + 1) >= 3;
-    const int rhi = min(k + 3, i);
-
-    // ---- factor 0: bulge reflector from v0 (k == m) or column k-1 ----
-    if (tid == 0) {
-      double x0, x1, x2;
-      if (k == m) {
-        x0 = v00;
-        x1 = v01;
-        x2 = v02;
-      } else {
-        const double* c0 = C + (size_t)k * N + (k - 1);
-        x0 = c0[0];
-        x1 = c0[N];
-        x2 = c0[2 * N];
-      }
-      if (!nr3) x2 = 0.0;
-      double tau, beta, w1, w2;
-      psd::gen_reflector(x0, x1, x2, tau, beta, w1, w2);
-      double M[9];
-      psd::refl_mat3(tau, w1, w2, M);
-      double* Rk = R + (size_t)k * 9;
-#pragma unroll
-      for (int q = 0; q < 9; ++q) {
-        F[q] = M[q];
-        Rk[q] = M[q];
-      }
-    }
+sweep_generate_kernel(const double* __restrict__ H, double* __restrict__ carry,
+                      double* __restrict__ gwin, double* __restrict__ R, int p,
+                      int N, int m, int i, int L, double v00, double v01,
+                      double v02) {
+  extern __shared__ double smem[];
+  double* win = gwin ? gwin : smem;
+  const int S = L + 3;
+  double* fs = win + (size_t)p * S * S;
+  double* stage = fs + (size_t)p * L * 9;
+  int k0 = m;
+  fill_from_h(H, win, p, N, L, k0, min(k0 + L + 2, i + 1), min(k0 + L + 1, i + 1),
+              true);
+  __syncthreads();
+  for (;;) {
+    const int k1 = min(k0 + L, i);
+    if (threadIdx.x < 32)
+      gen_serial(win, fs, stage, R, p, N, m, i, L, k0, k1, v00, v01, v02);
+    if (k1 == i) break;
     __syncthreads();
-    // left: rows k..k+2 of C[0], columns >= k (column k-1 is never read
-    // again; the reference's forced bulge column is written by sweep_left
-    // as roundoff and scrubbed by sweep_right)
-    {
-      double* r0 = C + (size_t)k * N;
-      for (int c = k + tid; c < N; c += blockDim.x) {
+    // update phase: the batch's L left transforms on columns k0+L+2..i+1
+    // of every factor, one thread per (factor, column): rows k0, k0+1
+    // carried (from H at the first batch), rows k0+2..k1+1 fresh from H;
+    // rows k1, k1+1 go into the next window or back to the carry
+    const int clast = min(k1 + L + 1, i + 1);
+    const int c0 = k0 + L + 2, nc = i + 2 - c0;
+    for (int t = threadIdx.x; t < p * max(nc, 0); t += blockDim.x) {
+      const int f = t / nc, c = c0 + t % nc;
+      const double* Hc = H + (size_t)f * N * N + c;
+      double* cy = carry + (size_t)f * 2 * N + c;
+      double x0 = (k0 == m) ? Hc[(size_t)k0 * N] : cy[0];
+      double x1 = (k0 == m) ? Hc[(size_t)(k0 + 1) * N] : cy[N];
+      const double* Ff = fs + (size_t)f * L * 9;
+      for (int q = 0; q < L; ++q) {
         double o0, o1, o2;
-        apply_ft(F, r0[c], r0[c + N], r0[c + 2 * N], o0, o1, o2);
-        r0[c] = o0;
-        r0[c + N] = o1;
-        r0[c + 2 * N] = o2;
+        apply_ft(Ff + q * 9, x0, x1, Hc[(size_t)(k0 + q + 2) * N], o0, o1, o2);
+        x0 = o1;
+        x1 = o2;
+      }
+      if (c <= clast) {
+        double* w = win + (size_t)f * S * S + c - k1 + 1;
+        w[0] = x0;
+        w[S] = x1;
+      } else {
+        cy[0] = x0;
+        cy[N] = x1;
       }
     }
+    // the rest of the next windows: the corners, then fresh rows of H
+    for (int t = threadIdx.x; t < p * 9; t += blockDim.x)
+      win[((size_t)(t / 9) * S + (t % 9) / 3) * S + t % 3] = stage[t];
+    fill_from_h(H, win, p, N, L, k1, min(k1 + L + 2, i + 1), clast, false);
     __syncthreads();
-    band_right(C + (size_t)tgt0 * NN, N, k, rhi, F);
-    __syncthreads();
-
-    // ---- factors p-1..1: 3-reflector + 2-reflector, fused ----------------
-    for (int f = p - 1; f >= 1; --f) {
-      double* Cf = C + (size_t)f * NN;
-      if (tid == 0) {
-        const double* ck = Cf + (size_t)k * N + k;
-        double tau, beta, w1, w2;
-        psd::gen_reflector(ck[0], ck[N], nr3 ? ck[2 * N] : 0.0, tau, beta, w1,
-                           w2);
-        double M3[9];
-        psd::refl_mat3(tau, w1, w2, M3);
-        double M2[4] = {1.0, 0.0, 0.0, 1.0};
-        double betab = 0.0;
-        if (nr3) {
-          // column k+1 after M3b, rows k+1..k+2
-          const double b0 = ck[1], b1 = ck[N + 1], b2 = ck[2 * N + 1];
-          const double y1 = M3[3] * b0 + M3[4] * b1 + M3[5] * b2;
-          const double y2 = M3[6] * b0 + M3[7] * b1 + M3[8] * b2;
-          double t2, u1, u2;
-          psd::gen_reflector(y1, y2, 0.0, t2, betab, u1, u2);
-          M2[0] = 1.0 - t2 * (1.0 * 1.0);
-          M2[1] = -t2 * (1.0 * u1);
-          M2[2] = -t2 * (u1 * 1.0);
-          M2[3] = 1.0 - t2 * (u1 * u1);
-        }
-        double* Rk = R + ((size_t)f * N + k) * 9;
-#pragma unroll
-        for (int r = 0; r < 3; ++r) {
-          const double e0 = M3[r * 3 + 0];
-          const double e1 = M3[r * 3 + 1] * M2[0] + M3[r * 3 + 2] * M2[2];
-          const double e2 = M3[r * 3 + 1] * M2[1] + M3[r * 3 + 2] * M2[3];
-          F[r * 3 + 0] = e0;
-          F[r * 3 + 1] = e1;
-          F[r * 3 + 2] = e2;
-          Rk[r * 3 + 0] = e0;
-          Rk[r * 3 + 1] = e1;
-          Rk[r * 3 + 2] = e2;
-        }
-        betab_s = betab;
-      }
-      __syncthreads();
-      // left: F^T on rows k..k+2 of C[f], columns >= k+1; the second
-      // reflector's column k+1 takes its exact image (betab, 0)
-      {
-        double* r0 = Cf + (size_t)k * N;
-        for (int c = k + 1 + tid; c < N; c += blockDim.x) {
-          double o0, o1, o2;
-          apply_ft(F, r0[c], r0[c + N], r0[c + 2 * N], o0, o1, o2);
-          if (nr3 && c == k + 1) {
-            o1 = betab_s;
-            o2 = 0.0;
-          }
-          r0[c] = o0;
-          r0[c + N] = o1;
-          r0[c + 2 * N] = o2;
-        }
-      }
-      __syncthreads();
-      band_right(C + (size_t)(f - 1) * NN, N, k, rhi, F);
-      __syncthreads();
-    }
+    k0 = k1;
   }
 }
 
@@ -267,10 +375,8 @@ __device__ __forceinline__ void band_right_mb(double* Cg, int N, int m, int i,
     const int r = max(m, k - lowext) + idx % W;
     if (r > min(k + 3, i)) continue;
     double* row = Cg + (size_t)r * N + k;
-    const double* Fb = F[b];
-    const double o0 = row[0] * Fb[0] + row[1] * Fb[3] + row[2] * Fb[6];
-    const double o1 = row[0] * Fb[1] + row[1] * Fb[4] + row[2] * Fb[7];
-    const double o2 = row[0] * Fb[2] + row[1] * Fb[5] + row[2] * Fb[8];
+    double o0, o1, o2;
+    apply_f(F[b], row[0], row[1], row[2], o0, o1, o2);
     row[0] = o0;
     row[1] = o1;
     row[2] = o2;
@@ -314,11 +420,8 @@ sweep_generate_mb_kernel(double* __restrict__ C, double* __restrict__ R, int p,
         } else {
           lead_v0(C, p, N, m, sh.sig + 3 * b, x0, x1, x2);
         }
-        if (!nr3) x2 = 0.0;
-        double tau, beta, w1, w2;
-        psd::gen_reflector(x0, x1, x2, tau, beta, w1, w2);
-        double M[9];
-        psd::refl_mat3(tau, w1, w2, M);
+        double M[9], beta;
+        gen_bulge(x0, x1, x2, nr3, M, beta);
         double* Rk = R + b * RB + (size_t)k * 9;
 #pragma unroll
         for (int q = 0; q < 9; ++q) {
@@ -362,37 +465,12 @@ sweep_generate_mb_kernel(double* __restrict__ C, double* __restrict__ R, int p,
         if (k >= m && k < i) {
           const bool nr3 = (i - k + 1) >= 3;
           const double* ck = Cf + (size_t)k * N + k;
-          double tau, beta, w1, w2;
-          psd::gen_reflector(ck[0], ck[N], nr3 ? ck[2 * N] : 0.0, tau, beta,
-                             w1, w2);
-          double M3[9];
-          psd::refl_mat3(tau, w1, w2, M3);
-          double M2[4] = {1.0, 0.0, 0.0, 1.0};
-          double betab = 0.0;
-          if (nr3) {
-            const double b0 = ck[1], b1 = ck[N + 1], b2 = ck[2 * N + 1];
-            const double y1 = M3[3] * b0 + M3[4] * b1 + M3[5] * b2;
-            const double y2 = M3[6] * b0 + M3[7] * b1 + M3[8] * b2;
-            double t2, u1, u2;
-            psd::gen_reflector(y1, y2, 0.0, t2, betab, u1, u2);
-            M2[0] = 1.0 - t2 * (1.0 * 1.0);
-            M2[1] = -t2 * (1.0 * u1);
-            M2[2] = -t2 * (u1 * 1.0);
-            M2[3] = 1.0 - t2 * (u1 * u1);
-          }
+          double beta, betab;
+          gen_fused(ck[0], ck[N], ck[2 * N], ck[1], ck[N + 1], ck[2 * N + 1], nr3,
+                    F[b], beta, betab);
           double* Rk = R + b * RB + ((size_t)f * N + k) * 9;
 #pragma unroll
-          for (int r = 0; r < 3; ++r) {
-            const double e0 = M3[r * 3 + 0];
-            const double e1 = M3[r * 3 + 1] * M2[0] + M3[r * 3 + 2] * M2[2];
-            const double e2 = M3[r * 3 + 1] * M2[1] + M3[r * 3 + 2] * M2[3];
-            F[b][r * 3 + 0] = e0;
-            F[b][r * 3 + 1] = e1;
-            F[b][r * 3 + 2] = e2;
-            Rk[r * 3 + 0] = e0;
-            Rk[r * 3 + 1] = e1;
-            Rk[r * 3 + 2] = e2;
-          }
+          for (int q = 0; q < 9; ++q) Rk[q] = F[b][q];
           beta_s[b] = beta;
           betab_s[b] = betab;
         }
@@ -514,6 +592,30 @@ sweep_right_kernel(double* __restrict__ H, double* __restrict__ Z,
   }
 }
 
+struct GenPlan {
+  int L;        // batch length
+  bool global;  // windows in the global scratch (p too large for shared memory)
+};
+
+// The longest batch (at most kMaxBatch) whose windows fit the shared memory
+// a block of this device may take; where even L = 1 does not fit, kMaxBatch
+// with the windows in global memory.
+cudaError_t gen_plan(int p, GenPlan& plan) {
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return e;
+  for (int L = kMaxBatch; L >= 1; --L) {
+    if (gen_window_doubles(p, L) * sizeof(double) <= (size_t)optin) {
+      plan = {L, false};
+      return cudaSuccess;
+    }
+  }
+  plan = {kMaxBatch, true};
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
@@ -522,20 +624,30 @@ const char* psd_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// Kernel A.  H: (p, N, N) input (read only); C: (p, N, N) scratch working
-// copy; R: (p, N, 9) output log.
-int psd_sweep_generate(const double* H, double* C, double* R, int p, int N,
+// Doubles of the scratch kernel A takes (psd_sweep_generate's work): the
+// carried rows, 2 p N, and the windows when they do not fit in shared
+// memory; -1 on a CUDA error.
+long long psd_sweep_generate_scratch(int p, int N) {
+  GenPlan plan;
+  if (gen_plan(p, plan) != cudaSuccess) return -1;
+  return 2LL * p * N + (plan.global ? (long long)gen_window_doubles(p, plan.L) : 0);
+}
+
+// Kernel A.  H: (p, N, N) input (read only); work: psd_sweep_generate_scratch
+// (p, N) doubles of scratch; R: (p, N, 9) output log (rows m..i-1 written).
+int psd_sweep_generate(const double* H, double* work, double* R, int p, int N,
                        int m, int i, double v00, double v01, double v02,
                        void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const size_t pitch = (size_t)N * N * sizeof(double);
-  // rows m..i+1 of every factor: everything the generation chain reads
-  cudaError_t e = cudaMemcpy2DAsync(C + (size_t)m * N, pitch, H + (size_t)m * N,
-                                    pitch, (size_t)(i + 2 - m) * N * sizeof(double),
-                                    p, cudaMemcpyDeviceToDevice, st);
+  GenPlan plan;
+  cudaError_t e = gen_plan(p, plan);
   if (e != cudaSuccess) return (int)e;
-  sweep_generate_kernel<<<1, kGenThreads, 0, st>>>(C, R, p, N, m, i, v00, v01,
-                                                   v02);
+  const size_t smem = plan.global ? 0 : gen_window_doubles(p, plan.L) * sizeof(double);
+  e = cudaFuncSetAttribute(sweep_generate_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  double* gwin = plan.global ? work + 2 * (size_t)p * N : nullptr;
+  sweep_generate_kernel<<<1, kGenThreads, smem, (cudaStream_t)stream>>>(
+      H, work, gwin, R, p, N, m, i, plan.L, v00, v01, v02);
   return (int)cudaGetLastError();
 }
 

@@ -62,6 +62,23 @@ def _char_lr(lr) -> str:
     return s
 
 
+BACKENDS = ("auto", "f64", "complex")  # the port's one route
+TPU_BACKENDS = ("ff", "split")  # the JAX package's tiers for a TPU without f64
+
+
+def _check_backend(backend):
+    if backend in BACKENDS:
+        return
+    if backend in TPU_BACKENDS:
+        raise ValueError(
+            f"backend={backend!r}: the float-float ('ff') and split-complex "
+            f"('split') tiers exist only in the JAX package, for a TPU without "
+            f"float64 or complex types; the port computes in float64 / complex128 "
+            f"(backend='auto', 'f64' or 'complex')")
+    raise ValueError(f"unknown backend {backend!r}; expected one of "
+                     f"{BACKENDS + TPU_BACKENDS}")
+
+
 def phessenberg(A, S: Optional[Sequence[bool]] = None, want_q: bool = True, *,
                 device=None):
     """Periodic Hessenberg(-triangular) reduction of a real or complex cycle.
@@ -79,7 +96,8 @@ def phessenberg(A, S: Optional[Sequence[bool]] = None, want_q: bool = True, *,
 
 def pschur(A, lr="R", S: Optional[Sequence[bool]] = None, *,
            want_t: bool = True, want_z: bool = True,
-           maxitfac: Optional[int] = None, aggressive: bool = False, device=None):
+           maxitfac: Optional[int] = None, aggressive: bool = False,
+           backend: str = "auto", device=None):
     """Periodic (generalized) Schur decomposition of a matrix cycle.
 
     Args:
@@ -100,10 +118,15 @@ def pschur(A, lr="R", S: Optional[Sequence[bool]] = None, *,
           ``S``, else 30).
       aggressive: fixed per-factor deflation thresholds (the real
           generalized decomposition only; ValueError otherwise).
+      backend: the JAX package's routing keyword.  "auto", "f64" and
+          "complex" all take the port's one route (float64 / complex128);
+          "ff" and "split", the JAX package's float-float and split-complex
+          tiers for a TPU without f64 or complex types, raise ValueError.
 
     Returns:
       PeriodicSchur (S is None) or GeneralizedPeriodicSchur (S given).
     """
+    _check_backend(backend)
     A = _stack(A, device)
     orient = _char_lr(lr)
     mif = 30 if maxitfac is None else int(maxitfac)

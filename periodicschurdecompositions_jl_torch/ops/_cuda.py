@@ -64,6 +64,8 @@ def _declare(lib):
     vp, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     lib.psd_sweep_generate.argtypes = [vp, vp, vp, i32, i32, i32, i32,
                                        f64, f64, f64, vp]
+    lib.psd_sweep_generate_scratch.argtypes = [i32, i32]
+    lib.psd_sweep_generate_scratch.restype = ctypes.c_longlong
     lib.psd_sweep_generate_mb.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, i32,
                                           i32, ctypes.POINTER(f64), vp]
     lib.psd_sweep_left.argtypes = [vp, vp, i32, i32, i32, i32, i32, vp]

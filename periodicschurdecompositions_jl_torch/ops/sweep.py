@@ -14,8 +14,10 @@ columns behind bulge b-1 (``AlgoConfig.nbulges > 1``; the JAX package's
 
   - ``sweep_generate`` walks k = m..i-1 and generates, in the reference
     order, the bulge reflector of H[0] and the fused 3x3 transform
-    F = M3b @ diag(1, M2) of every factor p-1..1, on a working copy of H;
-    it writes the log R (p, N, 9);
+    F = M3b @ diag(1, M2) of every factor p-1..1; it reads H only, keeps
+    a small look-ahead window of each factor in shared memory and applies
+    the left transforms right of the window in batches (see the header of
+    ``csrc/sweep.cu``); it writes the log R (p, N, 9);
   - ``sweep_generate_mb`` does the same for NB bulges, tick by tick (at
     tick kk bulge b is at k = kk - b*gap), generating the NB bulges'
     transforms of a (tick, factor) at once; a trailing bulge's first
@@ -248,22 +250,37 @@ def chase_sweep(H, Z, m: int, i: int, v0, *, want_z: bool, early: bool = False):
     _check_card_args("chase_sweep", H, Z, m, i, want_z)
     if i == m:
         return H, Z
-    p, N, _ = H.shape
-    lib = _cuda.load()
-    st = _cuda.stream_ptr(H)
-    v = [float(x) for x in v0]
-    R = torch.empty((p, N, 9), dtype=torch.float64, device=H.device)
-    C = torch.empty((p, N, N), dtype=torch.float64, device=H.device)
-    _cuda.check(lib.psd_sweep_generate(H.data_ptr(), C.data_ptr(), R.data_ptr(),
-                                       p, N, m, i, v[0], v[1], v[2], st),
-                "sweep_generate")
-    launches["sweep_generate"] += 1
+    R = sweep_generate(H, m, i, v0)
     if early:
         # the first reflector's leading row on column m-1: R[0, m, 0] is
         # exactly 1 - tau (w[0] = 1)
         H[0, m, m - 1] *= R[0, m, 0]
-    _apply_log(lib, st, H, Z, R, m, i, 1, want_z)
+    _apply_log(_cuda.load(), _cuda.stream_ptr(H), H, Z, R, m, i, 1, want_z)
     return H, Z
+
+
+def sweep_generate(H, m: int, i: int, v0):
+    """Kernel A alone: the transform log R (p, N, 9) of the sweep over
+    [m, i] on the CUDA stack H (read only; rows m..i-1 of R are written).
+    Its scratch is the carried rows (2 p N doubles), plus the windows when
+    p is too large for them to fit in shared memory."""
+    _check_card_args("sweep_generate", H, None, m, i, False)
+    if i == m:
+        raise ValueError("sweep_generate: empty window")
+    p, N, _ = H.shape
+    lib = _cuda.load()
+    nwork = lib.psd_sweep_generate_scratch(p, N)
+    if nwork < 0:
+        raise RuntimeError("sweep_generate: CUDA error reading the card's shared "
+                           "memory limit")
+    work = torch.empty(nwork, dtype=torch.float64, device=H.device)
+    R = torch.empty((p, N, 9), dtype=torch.float64, device=H.device)
+    v = [float(x) for x in v0]
+    _cuda.check(lib.psd_sweep_generate(H.data_ptr(), work.data_ptr(), R.data_ptr(),
+                                       p, N, m, i, v[0], v[1], v[2],
+                                       _cuda.stream_ptr(H)), "sweep_generate")
+    launches["sweep_generate"] += 1
+    return R
 
 
 def _check_card_args(name, H, Z, m, i, want_z):

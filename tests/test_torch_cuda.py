@@ -7,14 +7,16 @@ without JAX it runs as
 repository root (tests/conftest.py imports JAX).
 
 Tolerances: 1e-12 relative to max|H| (1e-12 for Z), for the one- and the
-multi-bulge sweep.  The windows here are short (n <= 40), where the sweep's generation chain amplifies rounding far
-less than at n=512 (see chip_smoke.py for the long-window check).  The
-complex shift kernel: 1e-14 relative to the plain version's |s|.  The real
-generalized chase and ladders: 1e-12 on cycles whose triangular factors
-have diagonals of modulus in [1, 2).  The reduction kernel: 1e-12 relative
-to max|A| (n <= 128), similarity residual 2e-13 max|A|, orthonormality
-10 eps n.  Kernel G: bit for bit with its plain version and with the
-numpy host glue (it is written without FMA, in numpy's order).
+multi-bulge sweep; kernel A's log against the plain version's: 1e-12.  The
+windows here are short (n <= 70), where the sweep's generation chain
+amplifies rounding far less than at n=512 (see chip_smoke.py for the
+long-window check).  The complex shift kernel: 1e-14 relative to the plain
+version's |s|.  The real generalized chase and ladders: 1e-12 on cycles
+whose triangular factors have diagonals of modulus in [1, 2).  The
+reduction kernel: 1e-12 relative to max|A| (n <= 128), similarity residual
+2e-13 max|A|, orthonormality 10 eps n.  Kernel G: bit for bit with its
+plain version and with the numpy host glue (it is written without FMA, in
+numpy's order).
 """
 import numpy as np
 import pytest
@@ -61,14 +63,19 @@ def _structure_exact(H):
 
 @pytest.mark.parametrize("p,n,m,i,early", [
     (1, 20, 0, 19, False), (2, 20, 3, 17, False), (4, 40, 3, 37, False),
-    (3, 12, 4, 6, False), (3, 24, 5, 20, True)])
+    (3, 12, 4, 6, False), (3, 24, 5, 20, True),
+    (1, 70, 2, 66, False),     # p = 1: 64 steps, batches of 30 end mid-batch
+    (16, 48, 5, 44, True)])    # p = 16: 39 steps, a 30-step batch then 9
 def test_sweep_kernels_match_plain(cuda, p, n, m, i, early):
     Hn, Zn, v0 = _problem(p, n, p * 100 + n)
     if m > 0:
         Hn[0, m, m - 1] = 1e-3 if early else 0.0
     H0, Z0 = torch.tensor(Hn, device=cuda), torch.tensor(Zn, device=cuda)
+    before = sweep.launches["sweep_generate"]
     Hk, Zk = H0.clone(), Z0.clone()
     sweep.chase_sweep(Hk, Zk, m, i, v0, want_z=True, early=early)
+    assert sweep.launches["sweep_generate"] == before + 1
+    assert torch.equal(H0, torch.tensor(Hn, device=cuda))
     Hp, Zp = H0.clone(), Z0.clone()
     sweep.chase_sweep_plain(Hp, Zp, m, i, v0, want_z=True, early=early)
     torch.cuda.synchronize()
@@ -79,6 +86,37 @@ def test_sweep_kernels_match_plain(cuda, p, n, m, i, early):
     Hz = H0.clone()
     sweep.chase_sweep(Hz, None, m, i, v0, want_z=False, early=early)
     assert torch.equal(Hz, Hk)
+    # kernel A reads H only; its log against the plain version's
+    R = sweep.sweep_generate(H0, m, i, v0)
+    Rp = torch.zeros_like(R)
+    sweep.chase_sweep_plain(H0.clone(), None, m, i, v0, want_z=False, early=early, log=Rp)
+    assert torch.equal(H0, torch.tensor(Hn, device=cuda))
+    assert float((R[:, m:i] - Rp[:, m:i]).abs().max()) <= 1e-12
+
+
+def test_sweep_kernel_global_windows(cuda):
+    # p = 1500: even one step's windows exceed a block's shared memory, so
+    # kernel A keeps them in its global scratch.  5 x 1500 chained
+    # generations amplify rounding, so the gate is chip_smoke.py's: 10x the
+    # plain version's own change under a relative 1e-16 input perturbation,
+    # and at least 1e-12
+    p, n, m, i = 1500, 6, 0, 5
+    Hn, Zn, v0 = _problem(p, n, 7)
+    H0, Z0 = torch.tensor(Hn, device=cuda), torch.tensor(Zn, device=cuda)
+    Hk, Zk = H0.clone(), Z0.clone()
+    sweep.chase_sweep(Hk, Zk, m, i, v0, want_z=True)
+    Hp, Zp = H0.clone(), Z0.clone()
+    sweep.chase_sweep_plain(Hp, Zp, m, i, v0, want_z=True)
+    pert = torch.tensor(1.0 + 1e-16 * np.random.default_rng(1).standard_normal(Hn.shape),
+                        device=cuda)
+    Hq, Zq = H0 * pert, Z0.clone()
+    sweep.chase_sweep_plain(Hq, Zq, m, i, v0, want_z=True)
+    scale = float(H0.abs().max())
+    tol_h = max(1e-12, 10 * float((Hq - Hp).abs().max()) / scale)
+    tol_z = max(1e-12, 10 * float((Zq - Zp).abs().max()))
+    assert float((Hk - Hp).abs().max()) <= tol_h * scale
+    assert float((Zk - Zp).abs().max()) <= tol_z
+    _structure_exact(Hk)
 
 
 def _mb_generate(H, m, i, v0, sig, nb, nbact):

@@ -150,3 +150,23 @@ def test_unported_routes_raise(route):
             pt.pschur(A, want_t=False, device="cpu")
         else:
             pt.gpschur([A[0]], [A[1]], want_t=False, device="cpu")
+
+
+@pytest.mark.parametrize("backend", ["auto", "f64", "complex"])
+def test_backend_keyword_takes_the_one_route(backend):
+    # the JAX package's routing keyword: every f64 / c128 name is the port's route
+    A = np.random.default_rng(41).standard_normal((3, 8, 8))
+    P0 = pt.pschur(torch.tensor(A))
+    P = pt.pschur(torch.tensor(A), backend=backend)
+    assert torch.equal(P.Ts, P0.Ts) and torch.equal(P.Zs, P0.Zs)
+    G = pt.gpschur([A[0]], [A[1]], backend=backend, device="cpu")
+    assert G.Ts.shape == (2, 8, 8)
+
+
+@pytest.mark.parametrize("backend", ["ff", "split"])
+def test_tpu_only_backends_raise(backend):
+    A = np.random.default_rng(42).standard_normal((2, 4, 4))
+    with pytest.raises(ValueError, match="JAX package"):
+        pt.pschur(A, backend=backend, device="cpu")
+    with pytest.raises(ValueError, match="JAX package"):
+        pt.gpschur([A[0]], [A[1]], backend=backend, device="cpu")
