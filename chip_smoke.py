@@ -895,7 +895,6 @@ def cx_kernel_phase(dev, p, n, report):
     lib = _cuda.load()
     st = torch.cuda.current_stream().cuda_stream
     cs = torch.tensor(csn, device=dev)
-    Sd = torch.tensor([int(x) for x in S], dtype=torch.int32, device=dev)
     err_a = err_b = 0.0
     times = {}
     for (m, i) in windows:
@@ -920,13 +919,11 @@ def cx_kernel_phase(dev, p, n, report):
         dh = float((Hk - Hp).abs().max()) / scale
         dz = float((Zk - Zp).abs().max())
         tol_h, tol_z = max(TOL, 10 * sens_h), max(TOL, 10 * sens_z)
-        # 2. the apply kernels on kernel A's own log
-        log = torch.empty((p, n, sweep_cx.LOG), dtype=torch.complex128, device=dev)
-        C = torch.empty((p, n, n), dtype=torch.complex128, device=dev)
-        _cuda.check(lib.psd_qz_sweep_generate(H0.data_ptr(), C.data_ptr(),
-                                              log.data_ptr(), cs.data_ptr(),
-                                              Sd.data_ptr(), p, n, m, i, st),
-                    "qz_sweep_generate")
+        # 2. the apply kernels on kernel A's own log (A reads H0 only)
+        H0c = H0.clone()
+        log = sweep_cx.qz_sweep_generate(H0, m, i, cs, S)
+        if not torch.equal(H0, H0c):
+            raise AssertionError("cx kernel A wrote its input")
         Hb, Zb = H0.clone(), Z0.clone()
         _cuda.check(lib.psd_qz_sweep_left(Hb.data_ptr(), log.data_ptr(), p, n, m, i,
                                           st), "qz_sweep_left")
@@ -989,27 +986,31 @@ def cx_kernel_phase(dev, p, n, report):
 
     # per-kernel times at the full window [0, n-1]
     Z = torch.tensor(Zn, device=dev)
-    log = torch.empty((p, n, sweep_cx.LOG), dtype=torch.complex128, device=dev)
-    C = torch.empty((p, n, n), dtype=torch.complex128, device=dev)
-    ms_a = event_ms(lambda: _cuda.check(lib.psd_qz_sweep_generate(
-        H.data_ptr(), C.data_ptr(), log.data_ptr(), cs.data_ptr(), Sd.data_ptr(),
-        p, n, m, i, st), "qz_sweep_generate"), 5)
+    got = {}
+    ms_a = event_ms(lambda: got.update(log=sweep_cx.qz_sweep_generate(H, m, i, cs, S)), 5)
+    log = got["log"]
     ms_b0 = event_ms(lambda: _cuda.check(lib.psd_qz_sweep_left(
         H.data_ptr(), log.data_ptr(), p, n, m, i, st), "qz_sweep_left"), 5)
     ms_b = event_ms(lambda: _cuda.check(lib.psd_qz_sweep_right(
         H.data_ptr(), Z.data_ptr(), log.data_ptr(), p, n, m, i, st),
         "qz_sweep_right"), 5)
-    _log(f"cx kernels at p={p} n={n} window [0, {n - 1}]: A {ms_a:.3f} ms, B0 "
+    _log(f"cx kernels at p={p} n={n} window [0, {n - 1}]: A {ms_a:.3f} ms "
+         f"({ms_a * 1e3 / ((i - m) * p):.4f} us per (step, factor)), B0 "
          f"{ms_b0:.3f} ms, B {ms_b:.3f} ms, S {ms_s:.4f} ms; plain sweep "
          f"{times['plain_sweep']:.1f} ms, plain apply (B0+B) {times['plain_apply']:.1f} "
          f"ms, plain shift {t_shift_plain:.2f} ms")
     # bytes and operations of the window [0, n-1] (K steps), complex128
-    # (16 B); a complex 2x2 application is 28 flops per entry pair
+    # (16 B); a complex 2x2 application is 28 flops per entry pair.  A reads
+    # what its generations depend on once, rows m..i and columns up to i on
+    # and above the subdiagonal of H[0] and the diagonal of H[1:], and
+    # writes 12 log entries per (factor, step) and r of factor 0; its left
+    # rotations reach column i
     K = i - m
-    steps = sum(n - k for k in range(m, i))
+    upper = sum(i + 1 - max(r - 1, m) for r in range(m, i + 1)) + \
+        (p - 1) * sum(i + 1 - r for r in range(m, i + 1))
     bounds = {
-        "qz_sweep_generate": bound(16 * p * n * (min(i + 1, n - 1) + 1 - m)
-                                   + 16 * 13 * p * K, 28 * p * steps),
+        "qz_sweep_generate": bound(16 * upper + 16 * (12 * p + 1) * K,
+                                   28 * p * sum(i + 1 - k for k in range(m, i))),
         "qz_sweep_left": bound(2 * 16 * p * (K + 1) * (n - m) + 16 * 4 * p * K,
                                28 * p * (n - m) * K),
         "qz_sweep_right": bound(2 * 16 * p * (i + 1 + n) * (K + 1) + 16 * 8 * p * K,

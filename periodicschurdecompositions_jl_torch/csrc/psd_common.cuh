@@ -11,6 +11,21 @@
 
 namespace psd {
 
+// Host: the longest batch length L <= max_batch whose working set bytes(L)
+// fits the shared memory a block of the current device may take; L = 0
+// when not even L = 1 fits.
+template <class Bytes>
+inline cudaError_t longest_batch(int max_batch, Bytes bytes, int& L) {
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (e != cudaSuccess) return e;
+  for (L = max_batch; L >= 1 && bytes(L) > (size_t)optin; --L) {
+  }
+  return cudaSuccess;
+}
+
 // sqrt(x^2 + z^2) by max-scaling (the JAX package's hyp3 with y == 0).
 __device__ __forceinline__ double hyp2(double x, double z) {
   const double m = fmax(fabs(x), fabs(z));

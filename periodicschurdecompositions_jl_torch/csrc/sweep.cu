@@ -601,19 +601,11 @@ struct GenPlan {
 // a block of this device may take; where even L = 1 does not fit, kMaxBatch
 // with the windows in global memory.
 cudaError_t gen_plan(int p, GenPlan& plan) {
-  int dev = 0, optin = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e != cudaSuccess) return e;
-  for (int L = kMaxBatch; L >= 1; --L) {
-    if (gen_window_doubles(p, L) * sizeof(double) <= (size_t)optin) {
-      plan = {L, false};
-      return cudaSuccess;
-    }
-  }
-  plan = {kMaxBatch, true};
-  return cudaSuccess;
+  int L = 0;
+  const cudaError_t e = psd::longest_batch(
+      kMaxBatch, [p](int l) { return gen_window_doubles(p, l) * sizeof(double); }, L);
+  plan = {L > 0 ? L : kMaxBatch, L == 0};
+  return e;
 }
 
 }  // namespace

@@ -19,13 +19,44 @@
 //
 // What bounds each kernel on the H100, and what the design does about it:
 // * qz_sweep_generate is a serial latency chain of (i-m)*p Givens
-//   generations, each reading entries the previous one wrote.  It runs in
-//   ONE block: thread 0 generates (and applies the 2x2 band updates that
-//   later generations read), then all threads apply the left rotation to
-//   the two rows of a working copy C of H across the columns to the right.
-//   C lives in global memory, L2-resident at p=8 n=256 (8.4 MB).  Two block
-//   barriers per (factor, step); nothing leaves the chip between kernel S
-//   and this kernel: the shift rotation is read from a device buffer.
+//   generations, each reading entries the previous one wrote.  It reads H
+//   only (B0 and B apply the log to H afterwards) and runs in ONE block, in
+//   batches of L steps (L <= 30, set from p by the shared memory a block
+//   may take):
+//   - the look-ahead window: for a batch k0..k1-1 each factor keeps rows
+//     k0..k1+1 (cut at n-1) and columns k0-1..k1 of its working state in
+//     dynamic shared memory, (L+2)^2 entries: every entry the batch's
+//     generations read or its band updates write on the way there;
+//   - serial phase: one warp runs the batch's L steps x p factors in the
+//     reference order on the windows only: the whole warp generates
+//     (givens_cx_warp: psd::givens_cx with its independent divisions and
+//     square roots on different lanes at once), the band updates take one
+//     lane per row, and the lanes apply each left rotation to the window's
+//     two rows (lanes as columns), with __syncwarp between;
+//   - update phase: the columns right of the window receive no right
+//     rotation in the batch, only left ones, so the whole block applies
+//     the batch's L left rotations of each factor to them at its end, in
+//     step order.  Each thread walks one (factor, column): the row still in
+//     flux comes from a p n scratch (or from H at the first batch) and goes
+//     back there, or into the next window when the column enters it; the
+//     row below comes fresh from H, which no rotation has touched there.
+//     Columns right of i are never read by a generation and are not
+//     visited.
+//   Every entry therefore receives the same operations in the same order as
+//   in the reference order on a full working copy (tests/torch_cx_window_host.py
+//   models both schedules and checks that their logs agree bit for bit),
+//   and the chain waits on no global memory and no block barrier: one
+//   __syncthreads pair per batch.  Where even L = 1 does not fit in shared
+//   memory (p above about 1000), the same kernel keeps the windows in a
+//   global scratch.  Nothing leaves the chip between kernel S and this
+//   kernel: the shift rotation is read from a device buffer.  What bounds
+//   it: the generation, four rounds of float64 divisions and square roots
+//   (~124 and ~88 cycles each) with shuffles between, and about as much
+//   again in shared-memory round trips and __syncwarp per (step, factor)
+//   (scripts/profile_sweep_generate.py --cx: 1692 cycles per (step,
+//   factor), 959 of them the generation, at p=8 n=256 on an H100).
+//   Handing the generation's operands over by shuffles instead of shared
+//   memory, and spreading the log stores over lanes, made it slower.
 // * qz_sweep_left / qz_sweep_right apply the logged rotations with full
 //   parallelism (one thread per (factor, column) or (factor, row), each
 //   walking all steps with one live entry in a register).  They are bound
@@ -50,7 +81,8 @@ using psd::cmul;
 using psd::cneg;
 using psd::rmul;
 
-constexpr int kGenThreads = 256;
+constexpr int kGenThreads = 512;
+constexpr int kMaxBatch = 30;  // kernel A: L + 2 <= 32 window columns, one per lane
 constexpr int kApplyThreads = 128;
 constexpr int kLog = 16;
 
@@ -90,121 +122,265 @@ __device__ __forceinline__ void right2(const double2* M, double2& x0,
   x1 = y1;
 }
 
-// rows k, k+1 of one factor of C, columns c0..n-1 <- lmat(c, s) rows
-__device__ __forceinline__ void rows_left(double2* Cl, int n, int k, int c0,
-                                          double c, double2 s) {
-  double2 M[4];
-  put_lmat(M, c, s);
-  double2* r0 = Cl + (size_t)k * n;
-  for (int col = c0 + threadIdx.x; col < n; col += blockDim.x) {
-    double2 x0 = r0[col], x1 = r0[col + n];
-    left2(M, x0, x1);
-    r0[col] = x0;
-    r0[col + n] = x1;
+// Kernel A's working set for batch length L, in bytes: per factor the
+// (L+2) x (L+2) window, the 2x2 corner handed to the next batch and the
+// batch's L left rotations (c, s).
+inline size_t window_bytes(int p, int L) {
+  return (size_t)p * (((size_t)(L + 2) * (L + 2) + 4 + L) * sizeof(double2) +
+                      (size_t)L * sizeof(double));
+}
+
+// Kernel A's complex products and sums, written out: each part fuses its
+// first product (a.x b.x - a.y b.y, a.x b.y + a.y b.x), the form nvcc gave
+// every rotation of the kernel before the look-ahead window (its log is
+// this kernel's, bit for bit).  Left to contraction the form changed with
+// the inlining context: the update phase fused the other product of one
+// part, and the log moved by an ulp in a few steps.
+__device__ __forceinline__ double2 cmul_a(double2 a, double2 b) {
+  return make_double2(__fma_rn(a.x, b.x, -__dmul_rn(a.y, b.y)),
+                      __fma_rn(a.x, b.y, __dmul_rn(a.y, b.x)));
+}
+
+__device__ __forceinline__ double2 cadd_a(double2 a, double2 b) {
+  return make_double2(__dadd_rn(a.x, b.x), __dadd_rn(a.y, b.y));
+}
+
+__device__ __forceinline__ double shfl(double v, int lane) {
+  return __shfl_sync(0xffffffffu, v, lane);
+}
+
+// psd::givens_cx on warp 0, every lane taking part and receiving (c, s, r):
+// the independent divisions and square roots run on different lanes at
+// once.  The same operations, each rounded as there (products and sums in
+// the forms nvcc gave psd::givens_cx in the kernel before the look-ahead
+// window).
+__device__ void givens_cx_warp(double2 f, double2 g, double& c, double2& s,
+                               double2& r) {
+  const int lane = threadIdx.x & 31;
+  const double scale =
+      fmax(fmax(fabs(f.x), fabs(f.y)), fmax(fabs(g.x), fabs(g.y)));
+  const double sc = (scale == 0.0) ? 1.0 : scale;
+  const int q4 = lane & 3;  // lanes 0..3: f.x, f.y, g.x, g.y over sc
+  const double qs = (q4 == 0 ? f.x : q4 == 1 ? f.y : q4 == 2 ? g.x : g.y) / sc;
+  const double fsr = shfl(qs, 0), fsi = shfl(qs, 1), gsr = shfl(qs, 2),
+               gsi = shfl(qs, 3);
+  const double f2 = __fma_rn(fsr, fsr, __dmul_rn(fsi, fsi));
+  const double g2 = __fma_rn(gsr, gsr, __dmul_rn(gsi, gsi));
+  if (g.x == 0.0 && g.y == 0.0) {
+    c = 1.0;
+    s = czero();
+    r = f;
+  } else if (f.x == 0.0 && f.y == 0.0) {
+    const double ag = sqrt(g2);
+    const double agsafe = (ag == 0.0) ? 1.0 : ag;
+    c = 0.0;
+    s = make_double2(gsr / agsafe, -(gsi / agsafe));
+    r = make_double2(__dmul_rn(ag, sc), 0.0);
+  } else {
+    const double rt = sqrt((lane & 1) ? __dadd_rn(g2, f2) : f2);  // af, d
+    const double af = shfl(rt, 0), d = shfl(rt, 1);
+    const double dsafe = (d == 0.0) ? 1.0 : d;
+    const double afsafe = (af == 0.0) ? 1.0 : af;
+    const int q3 = lane % 3;  // lanes 0..2: c, fgr, fgi
+    const double qc = (q3 == 0 ? af : q3 == 1 ? fsr : fsi) / (q3 == 0 ? dsafe : afsafe);
+    c = shfl(qc, 0);
+    const double fgr = shfl(qc, 1), fgi = shfl(qc, 2);
+    r = make_double2(__dmul_rn(__dmul_rn(fgr, d), sc), __dmul_rn(__dmul_rn(fgi, d), sc));
+    const double nr = __fma_rn(fgr, gsr, __dmul_rn(fgi, gsi));
+    const double ni = __fma_rn(fgi, gsr, -__dmul_rn(fgr, gsi));
+    const double qn = ((lane & 1) ? ni : nr) / dsafe;  // lanes 0, 1: s
+    s = make_double2(shfl(qn, 0), shfl(qn, 1));
   }
 }
 
-// rows r0..r1 of one factor of C, columns k, k+1 <- (...) M  (thread 0)
-__device__ __forceinline__ void band_right(double2* Cl, int n, int k, int r0,
-                                           int r1, const double2* M) {
-  for (int r = r0; r <= r1; ++r) {
-    double2* row = Cl + (size_t)r * n + k;
-    double2 x0 = row[0], x1 = row[1];
-    right2(M, x0, x1);
-    row[0] = x0;
-    row[1] = x1;
+// rows a, a+1 of a window, columns b0..b1 <- M rows (lanes as columns)
+__device__ __forceinline__ void win_left(double2* Wf, int SW, int a, int b0,
+                                         int b1, const double2* M) {
+  for (int b = b0 + (threadIdx.x & 31); b <= b1; b += 32) {
+    double2* x = Wf + a * SW + b;
+    const double2 x0 = x[0], x1 = x[SW];
+    x[0] = cadd_a(cmul_a(M[0], x0), cmul_a(M[1], x1));
+    x[SW] = cadd_a(cmul_a(M[2], x0), cmul_a(M[3], x1));
+  }
+}
+
+// row a of a window, columns b, b+1 <- (...) M
+__device__ __forceinline__ void win_right(double2* Wf, int SW, int a, int b,
+                                          const double2* M) {
+  double2* y = Wf + a * SW + b;
+  const double2 x0 = y[0], x1 = y[1];
+  y[0] = cadd_a(cmul_a(x0, M[0]), cmul_a(x1, M[2]));
+  y[1] = cadd_a(cmul_a(x0, M[1]), cmul_a(x1, M[3]));
+}
+
+// Serial phase of the batch k0..k1-1, on warp 0.  win: the p windows
+// (factor f's entry (r, c) at win[f SW^2 + (r - k0) SW + c - k0 + 1],
+// SW = L+2); rc, rs: the batch's left rotations (factor f, step k0+s at
+// f L + s), for the update phase; stage: the next batch's corners.  Every
+// lane holds the rotation handed from factor to factor; lane 0 writes the
+// generated entries and the log.  Warp-synchronous: __syncwarp only.
+__device__ void gen_serial(double2* win, double2* stage, double* rc, double2* rs,
+                           double2* __restrict__ Lg, const double2* __restrict__ cs,
+                           const int* __restrict__ S, int p, int n, int m, int i,
+                           int L, int k0, int k1) {
+  const int lane = threadIdx.x & 31;
+  const int SW = L + 2;
+  const size_t SS = (size_t)SW * SW;
+  const int bmax = k1 - k0 + 1;  // the window column of k1
+  double hc = 0.0;               // the rotation handed on (c, s)
+  double2 hs = czero();
+  double2 M[4];
+  for (int k = k0; k < k1; ++k) {
+    const int s = k - k0;
+    for (int q = 0; q < p; ++q) {
+      const int f = (q == 0) ? 0 : p - q;  // factor 0, then p-1..1
+      double2* Wf = win + f * SS;
+      double2* E = Lg + ((size_t)f * n + k) * kLog;
+      const size_t rk = (size_t)f * L + s;
+      double2 r;
+      if (f == 0 || __ldg(S + f)) {
+        if (f > 0) {
+          // incoming right rotation on columns k, k+1 (band rows k, k+1,
+          // one per lane), then re-triangularize column k
+          put_rmat_adj(M, hc, hs);
+          if (lane == 0) put_rmat_adj(E + 4, hc, hs);
+          if (lane < 2) win_right(Wf, SW, s + lane, s + 1, M);
+          __syncwarp();
+          givens_cx_warp(Wf[s * SW + s + 1], Wf[(s + 1) * SW + s + 1], hc, hs, r);
+          __syncwarp();
+          if (lane == 0) {
+            Wf[s * SW + s + 1] = r;
+            Wf[(s + 1) * SW + s + 1] = czero();
+          }
+        } else if (k == m) {  // the shift rotation
+          hc = cs[0].x;
+          hs = cs[1];
+          r = czero();
+        } else {  // regenerate H[0][k, k-1] from column k-1, rows k, k+1
+          givens_cx_warp(Wf[s * SW + s], Wf[(s + 1) * SW + s], hc, hs, r);
+          __syncwarp();
+          if (lane == 0) {
+            Wf[s * SW + s] = r;
+            Wf[(s + 1) * SW + s] = czero();
+          }
+        }
+        if (lane == 0) {
+          put_lmat(E, hc, hs);
+          put_rmat_adj(E + 8, hc, hs);
+          if (f == 0) E[12] = r;
+          rc[rk] = hc;
+          rs[rk] = hs;
+        }
+        // left: rows k, k+1 from column k (factor 0) or k+1
+        put_lmat(M, hc, hs);
+        win_left(Wf, SW, s, (f == 0) ? s + 1 : s + 2, bmax, M);
+      } else {
+        // incoming rotation from the left on rows k, k+1 from column k,
+        // then re-triangularize row k+1; (cn, -sn) is handed on
+        put_lmat(M, hc, hs);
+        if (lane == 0) {
+          put_lmat(E, hc, hs);
+          rc[rk] = hc;
+          rs[rk] = hs;
+        }
+        win_left(Wf, SW, s, s + 1, bmax, M);
+        __syncwarp();
+        double cn;
+        double2 sg;
+        givens_cx_warp(Wf[(s + 1) * SW + s + 2], Wf[(s + 1) * SW + s + 1], cn, sg, r);
+        __syncwarp();
+        put_lmat(M, cn, sg);
+        hc = cn;
+        hs = cneg(sg);
+        if (lane == 0) {
+          Wf[(s + 1) * SW + s + 1] = czero();
+          Wf[(s + 1) * SW + s + 2] = r;
+          put_lmat(E + 4, cn, sg);
+          win_right(Wf, SW, s, s + 1, M);
+          put_rmat_adj(E + 8, hc, hs);
+        }
+      }
+    }  // factors
+    // ring close on factor 0: columns k, k+1, band rows k..k+2 (cut at
+    // n-1), one per lane
+    __syncwarp();
+    put_rmat_adj(M, hc, hs);
+    if (lane == 0) put_rmat_adj(Lg + (size_t)k * kLog + 4, hc, hs);
+    if (lane < 3 && k + lane <= n - 1) win_right(win, SW, s + lane, s + 1, M);
+    __syncwarp();
+  }
+  if (k1 < i) {  // rows k1, k1+1 x columns k1-1, k1: the next corners
+    for (int t = lane; t < p * 4; t += 32) {
+      const int f = t / 4, a = L + (t % 4) / 2, b = L + t % 2;
+      stage[t] = win[f * SS + (size_t)a * SW + b];
+    }
+  }
+}
+
+// Window entries (a, b) (row k0+a, column k0-1+b, up to rlast and clast)
+// from H, whole block: with first, every entry of columns >= k0 (the first
+// batch); else all but the corner (a, b <= 1) and the carried row (a == 0).
+__device__ void fill_from_h(const double2* __restrict__ H, double2* win, int p,
+                            int n, int L, int k0, int rlast, int clast,
+                            bool first) {
+  const int SW = L + 2;
+  const int na = rlast - k0 + 1, nb = clast - k0 + 2, per = na * nb;
+  for (int t = threadIdx.x; t < p * per; t += blockDim.x) {
+    const int f = t / per, a = (t % per) / nb, b = t % nb;
+    if (first ? b == 0 : (a == 0 || (a == 1 && b <= 1))) continue;
+    win[((size_t)f * SW + a) * SW + b] = H[((size_t)f * n + k0 + a) * n + k0 - 1 + b];
   }
 }
 
 __global__ void __launch_bounds__(kGenThreads)
-qz_generate_kernel(double2* __restrict__ C, double2* __restrict__ Lg,
+qz_generate_kernel(const double2* __restrict__ H, double2* __restrict__ carry,
+                   double2* __restrict__ gwin, double2* __restrict__ Lg,
                    const double2* __restrict__ cs, const int* __restrict__ S,
-                   int p, int n, int m, int i) {
-  __shared__ double sh_c;
-  __shared__ double2 sh_s;
-  const size_t nn = (size_t)n * n;
-  const int tid = threadIdx.x;
-
-  for (int k = m; k < i; ++k) {
-    // ---- factor 0: the shift rotation (k == m) or regeneration ----------
-    if (tid == 0) {
-      double2* E = Lg + ((size_t)k) * kLog;
-      double c;
-      double2 s, r;
-      if (k == m) {
-        c = cs[0].x;
-        s = cs[1];
-        r = czero();
-      } else {
-        psd::givens_cx(C[(size_t)k * n + k - 1], C[(size_t)(k + 1) * n + k - 1],
-                       c, s, r);
-        C[(size_t)k * n + k - 1] = r;
-        C[(size_t)(k + 1) * n + k - 1] = czero();
+                   int p, int n, int m, int i, int L) {
+  extern __shared__ double2 smem[];
+  double2* win = gwin ? gwin : smem;
+  const int SW = L + 2;
+  double2* stage = win + (size_t)p * SW * SW;
+  double2* rs = stage + 4 * (size_t)p;
+  double* rc = (double*)(rs + (size_t)p * L);
+  int k0 = m, k1 = min(m + L, i);
+  fill_from_h(H, win, p, n, L, k0, min(k1 + 1, n - 1), k1, true);
+  __syncthreads();
+  for (;;) {
+    if (threadIdx.x < 32)
+      gen_serial(win, stage, rc, rs, Lg, cs, S, p, n, m, i, L, k0, k1);
+    if (k1 == i) break;
+    __syncthreads();
+    // update phase: the batch's L left rotations on columns k1+1..i of
+    // every factor, one thread per (factor, column): row k0 carried (from H
+    // at the first batch), rows k0+1..k1 fresh from H; row k1 goes into the
+    // next window or back to the carry.  Only the second row of each
+    // rotation is still needed: the first is final.
+    const int k2 = min(k1 + L, i);
+    const int nc = i - k1;
+    for (int t = threadIdx.x; t < p * nc; t += blockDim.x) {
+      const int f = t / nc, c = k1 + 1 + t % nc;
+      const double2* Hc = H + (size_t)f * n * n + c;
+      double2* cy = carry + (size_t)f * n + c;
+      double2 x0 = (k0 == m) ? Hc[(size_t)k0 * n] : *cy;
+      for (int q = 0; q < L; ++q) {
+        double2 M[4];
+        put_lmat(M, rc[f * L + q], rs[f * L + q]);
+        const double2 x1 = Hc[(size_t)(k0 + q + 1) * n];
+        x0 = cadd_a(cmul_a(M[2], x0), cmul_a(M[3], x1));
       }
-      put_lmat(E, c, s);
-      put_rmat_adj(E + 8, c, s);
-      E[12] = r;
-      sh_c = c;
-      sh_s = s;
+      if (c <= k2)
+        win[(size_t)f * SW * SW + c - k1 + 1] = x0;
+      else
+        *cy = x0;
     }
+    // the rest of the next windows: the corners, then fresh rows of H
+    for (int t = threadIdx.x; t < p * 4; t += blockDim.x)
+      win[((size_t)(t / 4) * SW + (t % 4) / 2) * SW + t % 2] = stage[t];
+    fill_from_h(H, win, p, n, L, k1, min(k2 + 1, n - 1), k2, false);
     __syncthreads();
-    rows_left(C, n, k, k, sh_c, sh_s);
-    __syncthreads();
-
-    // ---- factors p-1..1 ---------------------------------------------------
-    for (int l = p - 1; l >= 1; --l) {
-      double2* Cl = C + (size_t)l * nn;
-      double2* E = Lg + ((size_t)l * n + k) * kLog;
-      if (S[l]) {
-        if (tid == 0) {
-          // incoming right rotation on columns k, k+1 (band rows k, k+1),
-          // then re-triangularize column k
-          put_rmat_adj(E + 4, sh_c, sh_s);
-          band_right(Cl, n, k, k, k + 1, E + 4);
-          double cn;
-          double2 sn, r;
-          psd::givens_cx(Cl[(size_t)k * n + k], Cl[(size_t)(k + 1) * n + k],
-                         cn, sn, r);
-          Cl[(size_t)k * n + k] = r;
-          Cl[(size_t)(k + 1) * n + k] = czero();
-          put_lmat(E, cn, sn);
-          put_rmat_adj(E + 8, cn, sn);
-          sh_c = cn;
-          sh_s = sn;
-        }
-        __syncthreads();
-        rows_left(Cl, n, k, k + 1, sh_c, sh_s);
-        __syncthreads();
-      } else {
-        // incoming rotation from the left, then re-triangularize row k+1
-        rows_left(Cl, n, k, k, sh_c, sh_s);
-        __syncthreads();
-        if (tid == 0) {
-          put_lmat(E, sh_c, sh_s);
-          double cn;
-          double2 sn, r;
-          psd::givens_cx(Cl[(size_t)(k + 1) * n + k + 1],
-                         Cl[(size_t)(k + 1) * n + k], cn, sn, r);
-          Cl[(size_t)(k + 1) * n + k] = czero();
-          Cl[(size_t)(k + 1) * n + k + 1] = r;
-          put_lmat(E + 4, cn, sn);
-          band_right(Cl, n, k, k, k, E + 4);
-          const double2 sneg = cneg(sn);
-          put_rmat_adj(E + 8, cn, sneg);
-          sh_c = cn;
-          sh_s = sneg;
-        }
-        __syncthreads();
-      }
-    }
-
-    // ---- ring close on factor 0: columns k, k+1, band rows k..k+2 --------
-    if (tid == 0) {
-      double2* E = Lg + ((size_t)k) * kLog;
-      put_rmat_adj(E + 4, sh_c, sh_s);
-      band_right(C, n, k, k, min(k + 2, n - 1), E + 4);
-    }
-    __syncthreads();
+    k0 = k1;
+    k1 = k2;
   }
 }
 
@@ -301,26 +477,55 @@ __global__ void qz_shift_kernel(const double2* __restrict__ H,
   cs[1] = s;
 }
 
+struct GenPlan {
+  int L;        // batch length
+  bool global;  // windows in the global scratch (p too large for shared memory)
+};
+
+// The longest batch (at most kMaxBatch) whose working set fits the shared
+// memory a block of this device may take; where even L = 1 does not fit,
+// kMaxBatch with the windows in global memory.
+cudaError_t gen_plan(int p, GenPlan& plan) {
+  int L = 0;
+  const cudaError_t e =
+      psd::longest_batch(kMaxBatch, [p](int l) { return window_bytes(p, l); }, L);
+  plan = {L > 0 ? L : kMaxBatch, L == 0};
+  return e;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Kernel A.  H: (p, n, n) input (read only); C: (p, n, n) scratch working
-// copy; Lg: (p, n, 16) output log; cs: the shift rotation (c, s) on the
-// device; S: (p,) int signature on the device.
-int psd_qz_sweep_generate(const void* H, void* C, void* Lg, const void* cs,
+// Complex128 entries of the scratch kernel A takes: the carried
+// row, p n, and the windows when they do not fit in shared memory; -1 on a
+// CUDA error.
+long long psd_qz_sweep_generate_scratch(int p, int n) {
+  GenPlan plan;
+  if (gen_plan(p, plan) != cudaSuccess) return -1;
+  const long long win = (long long)(window_bytes(p, plan.L) + sizeof(double2) - 1) /
+                        (long long)sizeof(double2);
+  return (long long)p * n + (plan.global ? win : 0);
+}
+
+// Kernel A.  H: (p, n, n) input (read only); work:
+// psd_qz_sweep_generate_scratch(p, n) complex128 entries of scratch; Lg:
+// (p, n, 16) output log (steps m..i-1 written); cs: the shift rotation
+// (c, s) on the device; S: (p,) int signature on the device.
+int psd_qz_sweep_generate(const void* H, void* work, void* Lg, const void* cs,
                           const int* S, int p, int n, int m, int i,
                           void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const size_t pitch = (size_t)n * n * sizeof(double2);
-  const int r1 = min(i + 1, n - 1);  // rows m..i+1: what the chain reads
-  cudaError_t e = cudaMemcpy2DAsync(
-      (double2*)C + (size_t)m * n, pitch, (const double2*)H + (size_t)m * n,
-      pitch, (size_t)(r1 + 1 - m) * n * sizeof(double2), p,
-      cudaMemcpyDeviceToDevice, st);
+  GenPlan plan;
+  cudaError_t e = gen_plan(p, plan);
   if (e != cudaSuccess) return (int)e;
-  qz_generate_kernel<<<1, kGenThreads, 0, st>>>(
-      (double2*)C, (double2*)Lg, (const double2*)cs, S, p, n, m, i);
+  const size_t smem = plan.global ? 0 : window_bytes(p, plan.L);
+  e = cudaFuncSetAttribute(qz_generate_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  double2* gwin = plan.global ? (double2*)work + (size_t)p * n : nullptr;
+  qz_generate_kernel<<<1, kGenThreads, smem, (cudaStream_t)stream>>>(
+      (const double2*)H, (double2*)work, gwin, (double2*)Lg, (const double2*)cs, S, p,
+      n, m, i, plan.L);
   return (int)cudaGetLastError();
 }
 

@@ -74,6 +74,8 @@ def _declare(lib):
                                    f64, f64, f64, vp]
     lib.psd_qz_sweep_generate.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32,
                                           i32, vp]
+    lib.psd_qz_sweep_generate_scratch.argtypes = [i32, i32]
+    lib.psd_qz_sweep_generate_scratch.restype = ctypes.c_longlong
     lib.psd_qz_sweep_left.argtypes = [vp, vp, i32, i32, i32, i32, vp]
     lib.psd_qz_sweep_right.argtypes = [vp, vp, vp, i32, i32, i32, i32, vp]
     lib.psd_qz_shift.argtypes = [vp, vp, vp, i32, i32, i32, i32, vp]

@@ -12,9 +12,10 @@ place on H (and Z).  ``qz_shift`` computes the sweep's shift rotation
 
   - ``qz_sweep_generate`` walks k = m..i-1 and generates, in the reference
     order, the chase rotation of H[0] and the re-triangularizing rotation
-    of every factor p-1..1 on a working copy of H; it writes the log
-    (p, n, 16): per (factor, step) the left 2x2 L, the right 2x2 R, the Z
-    update ZR, and for factor 0 the regenerated subdiagonal entry r;
+    of every factor p-1..1; it reads H only (look-ahead windows in shared
+    memory, a p n scratch) and writes the log (p, n, 16): per (factor,
+    step) the left 2x2 L, the right 2x2 R, the Z update ZR, and for factor
+    0 the regenerated subdiagonal entry r;
   - ``qz_sweep_left`` applies every logged L to rows k, k+1 of H[l];
   - ``qz_sweep_right`` applies every logged R to columns k, k+1 of H[l]
     (rows 0..i) and ZR to Z[l], then writes the structural zeros and the
@@ -22,8 +23,9 @@ place on H (and Z).  ``qz_shift`` computes the sweep's shift rotation
   - ``qz_shift`` computes (c, s) into a device buffer that
     ``qz_sweep_generate`` reads, so no host read sits between them.
 * On a CPU tensor they run the plain versions ``qz_sweep_plain`` (the
-  interleaved reference order) and ``qz_shift_plain``.  Any other device
-  raises.
+  interleaved reference order; with ``log=`` it is kernel A's plain
+  version) and ``qz_shift_plain``.  Any other device raises.
+  ``qz_sweep_generate`` runs kernel A alone and returns its log.
 
 ``qz_apply_log_plain`` is the plain version of kernels B0 + B: it replays
 a log in their deferred order.  ``launches`` counts the launches of each
@@ -191,31 +193,13 @@ def qz_sweep(H, Z, m: int, i: int, cs, S: Sequence[bool], *, want_z: bool):
     """
     if _device_kind(H, "qz_sweep") == "cpu":
         return qz_sweep_plain(H, Z, m, i, cs, S, want_z=want_z)
-    p, n, _ = H.shape
-    _check("H", H, (p, n, n))
-    _check("cs", cs, (2,))
-    if want_z:
-        _check("Z", Z, (p, n, n))
-        if Z.device != H.device:
-            raise ValueError("qz_sweep: H and Z on different devices")
-    if cs.device != H.device:
-        raise ValueError("qz_sweep: cs must lie on H's device")
-    if len(S) != p or not S[0]:
-        raise ValueError("qz_sweep: one signature entry per factor, S[0] True")
-    if not (0 <= m <= i <= n - 1):
-        raise ValueError(f"qz_sweep: bad window m={m} i={i} for n={n}")
+    _check_card_args("qz_sweep", H, Z, m, i, cs, S, want_z)
     if i == m:
         return H, Z
+    p, n, _ = H.shape
     lib = _cuda.load()
     st = _cuda.stream_ptr(H)
-    Sd = _signature(S, H.device)
-    log = torch.empty((p, n, LOG), dtype=torch.complex128, device=H.device)
-    C = torch.empty((p, n, n), dtype=torch.complex128, device=H.device)
-    _cuda.check(lib.psd_qz_sweep_generate(H.data_ptr(), C.data_ptr(),
-                                          log.data_ptr(), cs.data_ptr(),
-                                          Sd.data_ptr(), p, n, m, i, st),
-                "qz_sweep_generate")
-    launches["qz_sweep_generate"] += 1
+    log = _generate(lib, st, H, m, i, cs, S)
     _cuda.check(lib.psd_qz_sweep_left(H.data_ptr(), log.data_ptr(), p, n, m, i,
                                       st), "qz_sweep_left")
     launches["qz_sweep_left"] += 1
@@ -225,6 +209,56 @@ def qz_sweep(H, Z, m: int, i: int, cs, S: Sequence[bool], *, want_z: bool):
                 "qz_sweep_right")
     launches["qz_sweep_right"] += 1
     return H, Z
+
+
+def _check_card_args(name, H, Z, m, i, cs, S, want_z):
+    """Raise ValueError unless H (and Z, cs) are complex128 stacks on H's
+    CUDA device, S a signature of them and [m, i] a window."""
+    p, n, _ = H.shape
+    _check("H", H, (p, n, n))
+    _check("cs", cs, (2,))
+    if want_z:
+        _check("Z", Z, (p, n, n))
+        if Z.device != H.device:
+            raise ValueError(f"{name}: H and Z on different devices")
+    if cs.device != H.device:
+        raise ValueError(f"{name}: cs must lie on H's device")
+    if len(S) != p or not S[0]:
+        raise ValueError(f"{name}: one signature entry per factor, S[0] True")
+    if not (0 <= m <= i <= n - 1):
+        raise ValueError(f"{name}: bad window m={m} i={i} for n={n}")
+
+
+def qz_sweep_generate(H, m: int, i: int, cs, S: Sequence[bool]):
+    """Kernel A alone: the rotation log (p, n, 16) of the sweep over [m, i]
+    (m < i) on the CUDA stack H, which it reads only (steps m..i-1 of the
+    log are written).  Its scratch is the carried row (p n complex128),
+    plus the windows when p is too large for them to fit in shared
+    memory.  On a CPU tensor: the log of ``qz_sweep_plain`` on a copy of H
+    (zeros where the kernel writes nothing)."""
+    if _device_kind(H, "qz_sweep_generate") == "cpu":
+        log = torch.zeros((*H.shape[:2], LOG), dtype=torch.complex128)
+        qz_sweep_plain(H.clone(), None, m, i, cs, S, want_z=False, log=log)
+        return log
+    _check_card_args("qz_sweep_generate", H, None, m, i, cs, S, False)
+    if i == m:
+        raise ValueError("qz_sweep_generate: empty window")
+    return _generate(_cuda.load(), _cuda.stream_ptr(H), H, m, i, cs, S)
+
+
+def _generate(lib, st, H, m, i, cs, S):
+    p, n, _ = H.shape
+    nwork = lib.psd_qz_sweep_generate_scratch(p, n)
+    if nwork < 0:
+        raise RuntimeError("qz_sweep_generate: CUDA error reading the card's shared "
+                           "memory limit")
+    work = torch.empty(nwork, dtype=torch.complex128, device=H.device)
+    log = torch.empty((p, n, LOG), dtype=torch.complex128, device=H.device)
+    _cuda.check(lib.psd_qz_sweep_generate(H.data_ptr(), work.data_ptr(), log.data_ptr(),
+                                          cs.data_ptr(), _signature(S, H.device).data_ptr(),
+                                          p, n, m, i, st), "qz_sweep_generate")
+    launches["qz_sweep_generate"] += 1
+    return log
 
 
 def qz_shift(H, ifirst: int, ilast: int, S: Sequence[bool], out=None):

@@ -57,7 +57,10 @@ inline double __shfl_sync(unsigned, double v, int src) {
 // rounding is not the stub's business: no fused multiply-add (as numpy)
 inline double __fma_rn(double a, double b, double c) { return a * b + c; }
 inline double __dmul_rn(double a, double b) { return a * b; }
+inline double __dadd_rn(double a, double b) { return a + b; }
 inline double __ldg(const double* p) { return *p; }
+inline double2 __ldg(const double2* p) { return *p; }
+inline int __ldg(const int* p) { return *p; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t e) { return e ? "stub error" : "no error"; }
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }

@@ -1,17 +1,35 @@
 #!/usr/bin/env python3
-"""Where kernel A's time goes, on one CUDA card.
+"""Where a sweep-generation kernel's time goes, on one CUDA card.
 
-Builds an instrumented copy of csrc/sweep.cu under ``_dev/`` (clock64
-counters in kernel A: lane 0's generation per (step, factor), the whole
-(step, factor) of the serial phase, and the update phases) with a few
-latency microbenchmarks appended (one thread: a chain of the fused
-two-reflector generation, of the bulge reflector, of float64 divisions,
-square roots and multiply-adds), then runs kernel A on chip_smoke.py's
-sweep problem (p=16, n=512, windows [0, 511] and [37, 300]) and prints
-cycles.  The counters cost a few percent of the kernel's time.
+Real kernel A (default): builds an instrumented copy of csrc/sweep.cu under
+``_dev/`` (clock64 counters in kernel A: lane 0's generation per (step,
+factor), the whole (step, factor) of the serial phase, and the update
+phases) with a few latency microbenchmarks appended (one thread: a chain of
+the fused two-reflector generation, of the bulge reflector, of float64
+divisions, square roots and multiply-adds), then runs kernel A on
+chip_smoke.py's sweep problem (p=16, n=512, windows [0, 511] and [37, 300])
+and prints cycles.
 
-Run from the repository root:  python3 scripts/profile_sweep_generate.py
+``--cx``: the same for the complex kernel A of csrc/sweep_cx.cu on
+chip_smoke.py's ``cx_kernel_phase`` problem (p=8, n=256,
+``default_rng(2025)``, alternating S, windows [0, 255] and [37, 200]).  The
+counters follow the design found in the source: the design with a working
+copy C (thread 0 generates, the block updates whole rows between block
+barriers) reports thread 0's ``givens_cx``, its row updates and its waits
+at the barriers per (step, factor); the look-ahead window reports the
+warp's ``givens_cx`` and the whole (step, factor) of the serial phase, both
+timed on lane 0, and the update phases.  Microbenchmarks: one thread's
+chain of ``givens_cx``, of divisions, of square roots and of one complex
+2x2 row rotation.
+
+``--root DIR`` instruments the sources of another checkout (for example
+the parent commit unpacked with ``git archive``).  The counters add about a
+tenth to the kernel's time (they accumulate in global memory).
+
+Run from the repository root:
+  python3 scripts/profile_sweep_generate.py [--cx] [--root DIR]
 """
+import argparse
 import ctypes
 import os
 import subprocess
@@ -20,9 +38,8 @@ import sys
 import numpy as np
 import torch
 
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
-CSRC = os.path.join(ROOT, "periodicschurdecompositions_jl_torch", "csrc")
+HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, HERE)
 
 BENCH = r'''
 namespace {
@@ -58,6 +75,42 @@ extern "C" int prof_bench(double* out, int T) {
   bench_gen<<<1, 1>>>(out, T, 0.3, -0.7, 0.2);
   return (int)cudaGetLastError();
 }
+'''
+
+BENCH_CX = r'''
+namespace {
+__global__ void bench_gen(double* out, int T, double a0, double a1, double a2) {
+  double c = 0.0;
+  double2 s = make_double2(a0, a1), r = make_double2(a2, a0);
+  long long t0 = clock64();
+  for (int t = 0; t < T; ++t) {
+    psd::givens_cx(make_double2(a0 + 1e-3 * c, a1), make_double2(a2, a0 + 1e-3 * s.y), c, s, r);
+  }
+  out[0] = (double)(clock64() - t0) / T;
+  double2 x0 = make_double2(a0, a1), x1 = make_double2(a2, a0);
+  double2 M[4];
+  put_lmat(M, 0.6, make_double2(0.48, 0.64));
+  t0 = clock64();
+  for (int t = 0; t < T; ++t) left2(M, x0, x1);
+  out[1] = (double)(clock64() - t0) / T;
+  double y = a0;
+  t0 = clock64();
+  for (int t = 0; t < T; ++t) y = a1 / (y + 1.5);
+  out[2] = (double)(clock64() - t0) / T;
+  t0 = clock64();
+  for (int t = 0; t < T; ++t) y = sqrt(y + 1.5);
+  out[3] = (double)(clock64() - t0) / T;
+  out[4] = 0.0;
+  out[5] = c + s.x + r.y + x0.x + x1.y + y;
+}
+}  // namespace
+extern "C" int prof_bench(double* out, int T) {
+  bench_gen<<<1, 1>>>(out, T, 0.3, -0.7, 0.2);
+  return (int)cudaGetLastError();
+}
+'''
+
+READ = r'''
 extern "C" int prof_read(long long* host) {
   cudaDeviceSynchronize();
   cudaError_t e = cudaMemcpyFromSymbol(host, g_prof, sizeof(long long) * 8);
@@ -82,44 +135,125 @@ EDITS = [  # (text in csrc/sweep.cu, instrumented text)
      "    __syncthreads();\n    if (threadIdx.x == 0) g_prof[2] += clock64() - tu0;\n    k0 = k1;"),
 ]
 
+# The cx kernel A with a working copy C: wrappers timed from thread 0
+PROF_CX_COPY = r'''
+__device__ long long g_prof[8];
+__device__ __forceinline__ void prof_givens(double2 f, double2 g, double& c, double2& s,
+                                            double2& r) {
+  const long long t = clock64();
+  psd::givens_cx(f, g, c, s, r);
+  g_prof[0] += clock64() - t;
+}
+__device__ __forceinline__ void prof_rows_left(double2* Cl, int n, int k, int c0, double c,
+                                               double2 s) {
+  const long long t = clock64();
+  rows_left(Cl, n, k, c0, c, s);
+  if (threadIdx.x == 0) g_prof[1] += clock64() - t;
+}
+__device__ __forceinline__ void prof_sync() {
+  const long long t = clock64();
+  __syncthreads();
+  if (threadIdx.x == 0) g_prof[2] += clock64() - t;
+}
+'''
 
-def build():
-    src = open(os.path.join(CSRC, "sweep.cu")).read()
-    for old, new in EDITS:
-        if src.count(old) != 1:
-            raise SystemExit(f"csrc/sweep.cu changed; instrument by hand:\n{old}")
-        src = src.replace(old, new)
-    out = os.path.join(ROOT, "_dev")
+# The cx kernel A with look-ahead windows: the warp's givens_cx, timed on lane 0
+PROF_CX_WINDOW = r'''
+__device__ long long g_prof[8];
+__device__ __forceinline__ void prof_givens(double2 f, double2 g, double& c, double2& s,
+                                            double2& r) {
+  const long long t = clock64();
+  givens_cx_warp(f, g, c, s, r);
+  if ((threadIdx.x & 31) == 0) g_prof[0] += clock64() - t;
+}
+'''
+
+
+def _replace_once(src, old, new, what):
+    if src.count(old) != 1:
+        raise SystemExit(f"{what} changed; instrument by hand:\n{old}")
+    return src.replace(old, new)
+
+
+def instrument_cx(src):
+    """Counters for the design found in csrc/sweep_cx.cu's kernel A."""
+    head, sep, tail = src.partition("__global__ void __launch_bounds__(kGenThreads)\n")
+    if not sep:
+        raise SystemExit("csrc/sweep_cx.cu: kernel A not found; instrument by hand")
+    body, sep2, rest = tail.partition("\n}\n")  # the kernel's body
+    if "rows_left(" in body:  # working copy C, block barriers
+        body = body.replace("psd::givens_cx(", "prof_givens(")
+        body = body.replace("rows_left(", "prof_rows_left(")
+        body = body.replace("__syncthreads();", "prof_sync();")
+        body = _replace_once(body, "  const int tid = threadIdx.x;\n",
+                             "  const int tid = threadIdx.x;\n  const long long tk0 = clock64();\n",
+                             "csrc/sweep_cx.cu")
+        body += "\n  if (tid == 0) g_prof[3] += clock64() - tk0;"
+        return head + PROF_CX_COPY + sep + body + sep2 + rest, "copy"
+    # look-ahead windows: lane 0's generations in the serial phase, the whole
+    # (step, factor) and the update phases
+    src = _replace_once(src, "// Serial phase of the batch",
+                        PROF_CX_WINDOW + "// Serial phase of the batch", "csrc/sweep_cx.cu")
+    src = src.replace("givens_cx_warp(Wf", "prof_givens(Wf")
+    for old, new in EDITS_CX_WINDOW:
+        src = _replace_once(src, old, new, "csrc/sweep_cx.cu")
+    return src, "window"
+
+
+EDITS_CX_WINDOW = [  # (text in csrc/sweep_cx.cu, instrumented text)
+    ("    for (int q = 0; q < p; ++q) {\n",
+     "    for (int q = 0; q < p; ++q) {\n      const long long tq0 = clock64();\n"),
+    ("    }  // factors\n",
+     "      if (lane == 0) g_prof[1] += clock64() - tq0;\n    }  // factors\n"),
+    ("    if (k1 == i) break;\n    __syncthreads();",
+     "    if (k1 == i) break;\n    __syncthreads();\n    const long long tu0 = clock64();"),
+    ("    __syncthreads();\n    k0 = k1;",
+     "    __syncthreads();\n    if (threadIdx.x == 0) g_prof[2] += clock64() - tu0;\n    k0 = k1;"),
+]
+
+
+def build(root, cx):
+    csrc = os.path.join(root, "periodicschurdecompositions_jl_torch", "csrc")
+    name = "sweep_cx" if cx else "sweep"
+    src = open(os.path.join(csrc, name + ".cu")).read()
+    if cx:
+        src, design = instrument_cx(src)
+        src += BENCH_CX
+    else:
+        design = "window"
+        for old, new in EDITS:
+            src = _replace_once(src, old, new, "csrc/sweep.cu")
+        src += BENCH
+    out = os.path.join(HERE, "_dev")
     os.makedirs(out, exist_ok=True)
-    cu, so = os.path.join(out, "sweep_prof.cu"), os.path.join(out, "libsweep_prof.so")
-    open(cu, "w").write(src + BENCH)
+    cu, so = os.path.join(out, name + "_prof.cu"), os.path.join(out, f"lib{name}_prof.so")
+    open(cu, "w").write(src + READ)
     from periodicschurdecompositions_jl_torch.ops import _cuda
-    subprocess.run([_cuda._find_nvcc(), *_cuda.NVCC_FLAGS, "-shared", "-I", CSRC, "-o", so, cu],
+    subprocess.run([_cuda._find_nvcc(), *_cuda.NVCC_FLAGS, "-shared", "-I", csrc, "-o", so, cu],
                    check=True)
     lib = ctypes.CDLL(so)
     vp, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    lib.psd_sweep_generate.argtypes = [vp, vp, vp, i32, i32, i32, i32, f64, f64, f64, vp]
+    if cx:
+        lib.psd_qz_sweep_generate.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32, vp]
+    else:
+        lib.psd_sweep_generate.argtypes = [vp, vp, vp, i32, i32, i32, i32, f64, f64, f64, vp]
     lib.prof_bench.argtypes = [vp, i32]
     lib.prof_read.argtypes = [vp]
-    return lib
+    return lib, design
 
 
-def main():
-    if not torch.cuda.is_available():
-        print("profile_sweep_generate: no CUDA device", file=sys.stderr)
-        return 2
-    from chip_smoke import mk_sweep_problem
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm",
-                          "--format=csv,noheader"], capture_output=True, text=True,
-                         check=True).stdout.strip()
-    print(smi)
-    lib = build()
-    out = torch.zeros(8, dtype=torch.float64, device="cuda")
-    assert lib.prof_bench(out.data_ptr(), 2000) == 0
+def timed(fn):
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    fn()
+    e1.record()
     torch.cuda.synchronize()
-    print("latency, cycles: fused generation %.0f, bulge reflector %.0f, division %.0f, "
-          "square root %.0f, multiply-add %.0f" % tuple(out[:5].tolist()))
-    buf = (ctypes.c_longlong * 8)()
+    return e0.elapsed_time(e1)
+
+
+def profile_real(lib, buf):
+    from chip_smoke import mk_sweep_problem
     p, n = 16, 512
     N = n + 1
     Hn, _, v0 = mk_sweep_problem(p, n, np.random.default_rng(2024))
@@ -128,18 +262,75 @@ def main():
     R = torch.empty((p, N, 9), dtype=torch.float64, device="cuda")
     for (m, i) in ((0, n - 1), (37, 300)):
         lib.prof_read(buf)
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        assert lib.psd_sweep_generate(H.data_ptr(), work.data_ptr(), R.data_ptr(), p, N, m, i,
-                                      *map(float, v0), None) == 0
-        e1.record()
-        torch.cuda.synchronize()
+        ms = timed(lambda: lib.psd_sweep_generate(H.data_ptr(), work.data_ptr(), R.data_ptr(),
+                                                  p, N, m, i, *map(float, v0), None))
         lib.prof_read(buf)
         K = (i - m) * p
-        print(f"kernel A on [{m}, {i}] (instrumented) {e0.elapsed_time(e1):.3f} ms: lane 0's "
+        print(f"kernel A on [{m}, {i}] (instrumented) {ms:.3f} ms: lane 0's "
               f"generation {buf[0] / K:.0f} cycles per (step, factor), the whole (step, "
               f"factor) {buf[1] / K:.0f}, update phases {buf[2]} cycles in all")
+
+
+def profile_cx(lib, design, buf):
+    from chip_smoke import alternating, mk_cx_problem
+    p, n = 8, 256
+    Hn, _, csn = mk_cx_problem(p, n, np.random.default_rng(2025))
+    H = torch.tensor(Hn, device="cuda")
+    cs = torch.tensor(csn, device="cuda")
+    Sd = torch.tensor([int(x) for x in alternating(p)], dtype=torch.int32, device="cuda")
+    work = torch.empty((p, n, n), dtype=torch.complex128, device="cuda")  # either design's
+    log = torch.empty((p, n, 16), dtype=torch.complex128, device="cuda")
+    for (m, i) in ((0, n - 1), (37, 200)):
+        def call():
+            assert lib.psd_qz_sweep_generate(H.data_ptr(), work.data_ptr(), log.data_ptr(),
+                                             cs.data_ptr(), Sd.data_ptr(), p, n, m, i,
+                                             None) == 0
+        call()  # warm-up
+        lib.prof_read(buf)
+        ms = timed(call)
+        lib.prof_read(buf)
+        K = (i - m) * p
+        if design == "copy":
+            other = buf[3] - buf[0] - buf[1] - buf[2]
+            print(f"cx kernel A (working copy C) on [{m}, {i}] (instrumented) {ms:.3f} ms, "
+                  f"{buf[3]} cycles; per (step, factor): thread 0's givens_cx "
+                  f"{buf[0] / K:.0f} cycles, its row updates {buf[1] / K:.0f}, its waits at "
+                  f"the block barriers {buf[2] / K:.0f}, the rest (band updates, log writes) "
+                  f"{other / K:.0f}, in all {buf[3] / K:.0f}")
+        else:
+            print(f"cx kernel A (look-ahead windows) on [{m}, {i}] (instrumented) {ms:.3f} ms: "
+                  f"per (step, factor) lane 0's givens_cx {buf[0] / K:.0f} cycles, the whole "
+                  f"(step, factor) {buf[1] / K:.0f}; update phases {buf[2]} cycles in all")
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--cx", action="store_true")
+    ap.add_argument("--root", default=HERE)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_sweep_generate: no CUDA device", file=sys.stderr)
+        return 2
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         check=True).stdout.strip()
+    print(smi)
+    lib, design = build(os.path.abspath(args.root), args.cx)
+    print(f"sources: {os.path.abspath(args.root)} ({design} design)")
+    out = torch.zeros(8, dtype=torch.float64, device="cuda")
+    assert lib.prof_bench(out.data_ptr(), 2000) == 0
+    torch.cuda.synchronize()
+    if args.cx:
+        print("latency, cycles: givens_cx %.0f, complex 2x2 row rotation %.0f, division %.0f, "
+              "square root %.0f" % tuple(out[:4].tolist()))
+    else:
+        print("latency, cycles: fused generation %.0f, bulge reflector %.0f, division %.0f, "
+              "square root %.0f, multiply-add %.0f" % tuple(out[:5].tolist()))
+    buf = (ctypes.c_longlong * 8)()
+    if args.cx:
+        profile_cx(lib, design, buf)
+    else:
+        profile_real(lib, buf)
     return 0
 
 

@@ -294,15 +294,19 @@ def _cx_problem(p, n, seed):
 @pytest.mark.parametrize("p,n,S,m,i", [
     (1, 20, (True,), 0, 19), (2, 20, (True, False), 3, 17),
     (4, 40, (True, False, True, False), 0, 39), (3, 12, (True, True, False), 4, 6),
-    (3, 24, (True, True, True), 5, 20)])
+    (3, 24, (True, True, True), 5, 20),
+    (1, 70, (True,), 2, 66),                    # p = 1: 64 steps, batches of 30
+    (8, 48, (True,) + (False,) * 7, 5, 44)])    # S all False but S[0]: 30 + 9 steps
 def test_cx_sweep_kernels_match_plain(cuda, p, n, S, m, i):
     Hn, Zn, cs = _cx_problem(p, n, p * 100 + n)
     if i + 1 < n:
         Hn[0, i + 1, i] = 0.0
     H0, Z0 = torch.tensor(Hn, device=cuda), torch.tensor(Zn, device=cuda)
     cst = torch.tensor(cs, device=cuda)
+    before = sweep_cx.launches["qz_sweep_generate"]
     Hk, Zk = H0.clone(), Z0.clone()
     sweep_cx.qz_sweep(Hk, Zk, m, i, cst, S, want_z=True)
+    assert sweep_cx.launches["qz_sweep_generate"] == before + 1
     Hp, Zp = H0.clone(), Z0.clone()
     sweep_cx.qz_sweep_plain(Hp, Zp, m, i, cst, S, want_z=True)
     torch.cuda.synchronize()
@@ -314,6 +318,40 @@ def test_cx_sweep_kernels_match_plain(cuda, p, n, S, m, i):
     Hz = H0.clone()
     sweep_cx.qz_sweep(Hz, None, m, i, cst, S, want_z=False)
     assert torch.equal(Hz, Hk)
+    # kernel A reads H only; its log against the plain version's
+    log = sweep_cx.qz_sweep_generate(H0, m, i, cst, S)
+    assert torch.equal(H0, torch.tensor(Hn, device=cuda))
+    logp = torch.zeros_like(log)
+    sweep_cx.qz_sweep_plain(H0.clone(), None, m, i, cst, S, want_z=False, log=logp)
+    assert float((log[:, m:i, :12] - logp[:, m:i, :12]).abs().max()) <= 1e-12
+    assert float((log[0, m:i, 12] - logp[0, m:i, 12]).abs().max()) <= 1e-12 * scale
+
+
+def test_cx_sweep_kernel_global_windows(cuda):
+    # p = 1500: even one step's windows exceed a block's shared memory, so
+    # the complex kernel A keeps them in its global scratch.  5 x 1500
+    # chained generations amplify rounding, so the gate is chip_smoke.py's:
+    # 10x the plain version's own change under a relative 1e-16 input
+    # perturbation, and at least 1e-12
+    p, n, m, i = 1500, 6, 0, 5
+    S = tuple(l % 2 == 0 for l in range(p))
+    Hn, Zn, cs = _cx_problem(p, n, 7)
+    H0, Z0 = torch.tensor(Hn, device=cuda), torch.tensor(Zn, device=cuda)
+    cst = torch.tensor(cs, device=cuda)
+    Hk, Zk = H0.clone(), Z0.clone()
+    sweep_cx.qz_sweep(Hk, Zk, m, i, cst, S, want_z=True)
+    Hp, Zp = H0.clone(), Z0.clone()
+    sweep_cx.qz_sweep_plain(Hp, Zp, m, i, cst, S, want_z=True)
+    pert = torch.tensor(1.0 + 1e-16 * np.random.default_rng(1).standard_normal(Hn.shape),
+                        device=cuda)
+    Hq, Zq = H0 * pert, Z0.clone()
+    sweep_cx.qz_sweep_plain(Hq, Zq, m, i, cst, S, want_z=True)
+    scale = float(H0.abs().max())
+    tol_h = max(1e-12, 10 * float((Hq - Hp).abs().max()) / scale)
+    tol_z = max(1e-12, 10 * float((Zq - Zp).abs().max()))
+    assert float((Hk - Hp).abs().max()) <= tol_h * scale
+    assert float((Zk - Zp).abs().max()) <= tol_z
+    _structure_exact(Hk)
 
 
 @pytest.mark.parametrize("S", [(True, True, True, True), (True, False, True, False)])

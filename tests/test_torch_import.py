@@ -60,7 +60,8 @@ def test_cuda_loader_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("fn", ["sweep", "sweep_mb", "deflate", "qz_sweep", "qz_shift",
-                                "rg_chase", "rg_ladder", "hess", "glue"])
+                                "qz_sweep_generate", "rg_chase", "rg_ladder", "hess",
+                                "glue"])
 def test_wrappers_refuse_other_devices(fn):
     H = torch.zeros((2, 5, 5), dtype=torch.float64, device="meta")
     Hc = torch.zeros((2, 5, 5), dtype=torch.complex128, device="meta")
@@ -79,6 +80,9 @@ def test_wrappers_refuse_other_devices(fn):
                               (True, False), want_z=False)
         elif fn == "qz_shift":
             sweep_cx.qz_shift(Hc, 0, 3, (True, False))
+        elif fn == "qz_sweep_generate":
+            sweep_cx.qz_sweep_generate(Hc, 0, 3, torch.zeros(2, dtype=torch.complex128,
+                                                              device="meta"), (True, False))
         elif fn == "rg_chase":
             sweep_rg.rg_chase(H, None, 1, 4, (True, False), want_z=False)
         elif fn == "hess":
