@@ -6,18 +6,22 @@ checks each kernel against its plain torch version on the card at the
 shapes of its path, then drives the paths through the public entry points
 and checks the results:
 
-* real: the Hessenberg reduction kernel on the headline draw (p=16,
-  n=512) and at p=1 n=64 and p=3 n=101, the kernels of the double-shift
-  sweep, of the multi-bulge sweep (4 bulges) and of the 2x2 deflation at
-  p=16, n=512; ``pschur(A, 'R')`` on the headline draw, kernel G against
+* the Hessenberg reduction kernel (one cooperative launch), float64 on the
+  headline draw (p=16, n=512) and at p=1 n=64 and p=3 n=101, complex128 on
+  the complex leg's draw (p=8, n=256), at the same small shapes and on a
+  cycle of zero tails with complex diagonals;
+* real: the kernels of the double-shift sweep, of the multi-bulge sweep
+  (4 bulges) and of the 2x2 deflation at p=16, n=512; ``pschur(A, 'R')``
+  on the headline draw, kernel G against
   its plain version on states of that leg's iteration, the same draw
   through ``pschur_real_pipeline(A, 'R', cfg=AlgoConfig(nbulges=4))``
   (eigenvalues against the one-bulge leg's), and one 'L' problem with one
   and with two bulges;
 * complex: the kernels of the single-shift QZ sweep and its shift at p=8,
   n=256 with an alternating signature; ``pschur`` on a complex p=8 n=256
-  cycle (no signature) and a p=8 n=128 cycle with an alternating signature,
-  and a small signed cycle against numpy's eigenvalues;
+  cycle (no signature: the complex128 reduction kernel) and a p=8 n=128
+  cycle with an alternating signature, and a small signed cycle against
+  numpy's eigenvalues;
 * real generalized: the kernels of the double-shift chase (rg A, B0, B) and
   the rotation ladders (R) at p=8, n=256 with an alternating signature;
   ``pschur(A, 'R', S)`` on the p=8 n=256 draw of seed 4242 (the source
@@ -289,7 +293,8 @@ def sweep_phase(dev, p, n, report):
 def headline_profile(dev):
     """torch.profiler over one real headline ``pschur`` (p=16 n=512, seed
     12345): wall, device busy time and idle share, kernel A's share of the
-    device time and its time per (step, factor) on the leg's windows."""
+    device time and its time per (step, factor) on the leg's windows, and
+    the reduction kernel's (``hess_reduce_kernel``) time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     import periodicschurdecompositions_jl_torch as pt
@@ -297,7 +302,10 @@ def headline_profile(dev):
     A = torch.tensor(np.random.default_rng(SEED_HEAD).standard_normal(
         (P_HEAD, N_HEAD, N_HEAD)), device=dev)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # The trace of a whole pschur has left out the reduction's cooperative
+    # launch in some runs (PERF.md section 5): the line also prints the
+    # reduction's host time.
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         pt.pschur(A, "R")
         torch.cuda.synchronize()
@@ -305,10 +313,14 @@ def headline_profile(dev):
     ev = [e for e in prof.key_averages() if "CUDA" in str(e.device_type) and dev_us(e) > 0]
     busy = sum(dev_us(e) for e in ev)
     a_us = sum(dev_us(e) for e in ev if "sweep_generate_kernel" in e.key)
+    hess = [e for e in ev if "hess_reduce_kernel" in e.key]
     steps = pqr_real.last_info["sweep_steps"]
     _log(f"profile of one headline pschur: kernel A {a_us / 1e3:.1f} ms, "
          f"{a_us / busy:.1%} of device time, {a_us / (steps * P_HEAD):.4f} us per (step, "
-         f"factor) over {steps} steps; {profile_line(prof, wall)}")
+         f"factor) over {steps} steps; reduction kernel hess_reduce_kernel "
+         f"{sum(dev_us(e) for e in hess) / 1e3:.1f} ms in {sum(e.count for e in hess)} "
+         f"in the trace (reduction {pqr_real.last_info['reduce_s'] * 1e3:.1f} ms on the "
+         f"host clock); {profile_line(prof, wall)}")
 
 
 def mb_generate(lib, st, H, m, i, v0, sig, nb, nbact):
@@ -528,46 +540,69 @@ def deflate_phase(dev, p, n, report):
         "bound_by": bby, "library_ms": None}
 
 
-def hess_work(p, n):
+def hess_work(p, n, cplx=False):
     """(bytes, flops) of one reduction with Q: A read once, H and Q written
-    once; per stage (i, j) with a nonempty tail (window length k = n - lo
-    >= 2; an empty tail gives tau = 0 and no update) the xLARFG (3k), the
-    left update of A[j] (4 k (n-i-1)) and the right updates of A[j-1] and
-    Q[j] (4 n k each)."""
+    once (8 bytes an entry, 16 in complex128); per stage (i, j) whose
+    reflector is not trivial, with window length k = n - lo, the xLARFG (3k),
+    the left update of A[j] (4 k (n-i-1)) and the right updates of A[j-1]
+    and Q[j] (4 n k each), a complex multiply-add counted as 8 real
+    operations (so 4x those counts in complex128).  Real: a window with an
+    empty tail (k = 1) gives tau = 0 and no update.  Complex: such a window
+    still has tau != 0 unless alpha is real, which a random complex draw's
+    never is, so every stage counts."""
     flops = 0
     for i in range(n - 1):
         for j in range(p):
             k = n - (i + 1 if j == 0 else i)
-            if k >= 2:
+            if k >= (1 if cplx else 2):
                 flops += 3 * k + 4 * k * (n - i - 1) + 8 * n * k
-    return 8 * 3 * p * n * n, flops
+    return (16 if cplx else 8) * 3 * p * n * n, flops * (4 if cplx else 1)
+
+
+def hess_cases():
+    """(name, p, n, A) of hess_phase: the real headline draw, p=1 n=64 and
+    p=3 n=101; in complex128 the complex leg's draw (p=8 n=256 seed 777), the
+    same two small shapes, and a cycle whose columns already have zero tails
+    but complex diagonals (every tau != 0: the updates must run)."""
+    def cplx(rng, shape):
+        return rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+    out = []
+    for (p, n, seed) in ((P_HEAD, N_HEAD, SEED_HEAD), (1, 64, 64), (3, 101, 101)):
+        out.append((f"real p={p} n={n} seed={seed}", p, n,
+                    np.random.default_rng(seed).standard_normal((p, n, n))))
+    for (p, n, seed) in ((P_CX, N_CX, SEED_CX), (1, 64, 64), (3, 101, 101)):
+        out.append((f"complex p={p} n={n} seed={seed}", p, n,
+                    cplx(np.random.default_rng(seed), (p, n, n))))
+    Z = np.triu(cplx(np.random.default_rng(5), (3, 48, 48)))
+    Z[0] += np.diag(cplx(np.random.default_rng(6), (47,)), -1)
+    out.append(("complex zero tails p=3 n=48", 3, 48, Z))
+    return out
 
 
 def hess_phase(dev, report):
-    """The reduction kernel (csrc/hess.cu) against phessenberg_core_plain on
-    the card: the headline draw (p=16 n=512 seed 12345), p=1 n=64 (left and
-    right updates on one matrix) and p=3 n=101 (odd n).
+    """The reduction kernel (csrc/hess.cu), float64 and complex128, against
+    phessenberg_core_plain on the card, on the cases of hess_cases.
 
     1. max|dH|/max|A| and max|dQ| within max(1e-11, 10 sens), sens being the
        plain version's own change when A is perturbed by a relative 1e-16.
-    2. The kernel's similarity residual max_l |Q_l' A_l Q_{l+1} - H_l| /
-       max|A| <= 2e-13, orthonormality max_l ||Q_l Q_l' - I||_1 <= 10 eps n,
+    2. The kernel's similarity residual max_l |Q_l^H A_l Q_{l+1} - H_l| /
+       max|A| <= 2e-13, orthonormality max_l ||Q_l Q_l^H - I||_1 <= 10 eps n,
        exact structural zeros, and want_q=False leaves H identical.
-    3. One reduction adds 2 p (n-1) kernel launches to the counter (n-1
-       more when p == 1).
+    3. One reduction adds one launch (the cooperative kernel) to the counter.
     """
     import torch
     from periodicschurdecompositions_jl_torch.ops import hessenberg
-    worst = 0.0
-    for (p, n, seed) in ((P_HEAD, N_HEAD, SEED_HEAD), (1, 64, 64), (3, 101, 101)):
-        A = torch.tensor(np.random.default_rng(seed).standard_normal((p, n, n)), device=dev)
+    worst = {"hess_reduce": 0.0, "hess_reduce_c128": 0.0}
+    for (name, p, n, An) in hess_cases():
+        A = torch.tensor(An, device=dev)
+        cx = A.is_complex()
+        key = "hess_reduce_c128" if cx else "hess_reduce"
         scale = float(A.abs().max())
-        inner = 2 * p * (n - 1) + (n - 1 if p == 1 else 0)
         hessenberg.launches["hess_reduce"] = 0
         H, Q = hessenberg.phessenberg_core(A)
-        if hessenberg.launches["hess_reduce"] != inner:
-            raise AssertionError(f"hess p={p} n={n}: {hessenberg.launches['hess_reduce']} "
-                                 f"launches counted, {inner} expected")
+        if hessenberg.launches["hess_reduce"] != 1:
+            raise AssertionError(f"hess {name}: {hessenberg.launches['hess_reduce']} "
+                                 f"launches counted, 1 expected")
         out = {}
         t_plain = wall_ms(lambda: out.update(hq=hessenberg.phessenberg_core_plain(A)))
         Hp, Qp = out.pop("hq")
@@ -580,34 +615,34 @@ def hess_phase(dev, report):
         dh = float((H - Hp).abs().max()) / scale
         dq = float((Q - Qp).abs().max())
         tol_h, tol_q = max(1e-11, 10 * sens_h), max(1e-11, 10 * sens_q)
-        eye = torch.eye(n, dtype=torch.float64, device=dev)
-        res = max(float((Q[l].T @ A[l] @ Q[(l + 1) % p] - H[l]).abs().max())
+        eye = torch.eye(n, dtype=A.dtype, device=dev)
+        res = max(float((Q[l].mH @ A[l] @ Q[(l + 1) % p] - H[l]).abs().max())
                   for l in range(p)) / scale
-        orth = max(float(torch.linalg.matrix_norm(Q[l] @ Q[l].T - eye, ord=1))
+        orth = max(float(torch.linalg.matrix_norm(Q[l] @ Q[l].mH - eye, ord=1))
                    for l in range(p))
         orth_bound = 10 * np.finfo(np.float64).eps * n
         Hn, Qn = hessenberg.phessenberg_core(A, want_q=False)
         ms = event_ms(lambda: hessenberg.phessenberg_core(A), 3)
-        nb, fl = hess_work(p, n)
+        nb, fl = hess_work(p, n, cx)
         bms, bby = bound(nb, fl)
-        _log(f"hess reduction p={p} n={n} seed={seed}: vs phessenberg_core_plain "
-             f"max|dH|/max|A| {dh:.3e} max|dQ| {dq:.3e} (plain's own 1e-16 sensitivity "
-             f"{sens_h:.3e} / {sens_q:.3e}; tolerance {tol_h:.3e} / {tol_q:.3e}); kernel "
-             f"residual {res:.3e}, orthonormality {orth:.3e} (bound {orth_bound:.3e}); "
-             f"kernel {ms:.3f} ms ({inner} launches), plain {t_plain:.1f} ms, "
+        _log(f"hess reduction {name}: vs phessenberg_core_plain max|dH|/max|A| {dh:.3e} "
+             f"max|dQ| {dq:.3e} (plain's own 1e-16 sensitivity {sens_h:.3e} / "
+             f"{sens_q:.3e}; tolerance {tol_h:.3e} / {tol_q:.3e}); kernel residual "
+             f"{res:.3e}, orthonormality {orth:.3e} (bound {orth_bound:.3e}); kernel "
+             f"{ms:.3f} ms (1 launch, {p * (n - 1)} stages), plain {t_plain:.1f} ms, "
              f"bound {bms * 1e3:.3f} us ({bby})")
         if not (dh <= tol_h and dq <= tol_q):
-            raise AssertionError(f"hess kernel disagrees with the plain version at "
-                                 f"p={p} n={n}: {dh:.3e} {dq:.3e}")
+            raise AssertionError(f"hess kernel disagrees with the plain version, {name}: "
+                                 f"{dh:.3e} {dq:.3e}")
         if not (res <= 2e-13 and orth <= orth_bound):
             raise AssertionError(f"hess kernel residual {res:.3e} / orthonormality "
-                                 f"{orth:.3e} at p={p} n={n}")
+                                 f"{orth:.3e}, {name}")
         if not (structure_ok(H) and structure_ok(Hp)):
-            raise AssertionError(f"hess p={p} n={n}: structural zeros not exact")
+            raise AssertionError(f"hess {name}: structural zeros not exact")
         if not (Qn is None and torch.equal(Hn, H)):
-            raise AssertionError("hess want_q=False changed H")
-        worst = max(worst, dh, dq)
-        if (p, n) == (P_HEAD, N_HEAD):
+            raise AssertionError(f"hess {name}: want_q=False changed H")
+        worst[key] = max(worst[key], dh, dq)
+        if (p, n) in ((P_HEAD, N_HEAD), (P_CX, N_CX)):
             from torch.profiler import ProfilerActivity, profile
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -615,14 +650,17 @@ def hess_phase(dev, report):
                 hessenberg.phessenberg_core(A)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
-            _log(f"profile of one kernel reduction p={p} n={n}: {profile_line(prof, wall)}")
-            report["hess_reduce"] = {
-                "name": "hess_reduce", "route": "cuda",
+            _log(f"profile of one kernel reduction {name}: {profile_line(prof, wall)}")
+            report[key] = {
+                "name": key, "route": "cuda",
                 "source": "periodicschurdecompositions_jl_torch/csrc/hess.cu",
-                "replaces": "periodicschurdecompositions_jl_tpu/ops/pallas_hess.py:127",
+                # the complex instance stands for the JAX package's jnp reduction
+                "replaces": "periodicschurdecompositions_jl_tpu/ops/"
+                + ("hessenberg.py:45" if cx else "pallas_hess.py:127"),
                 "ms": ms, "plain_ms": t_plain, "bound_ms": bms, "bound_by": bby,
                 "library_ms": None}
-    report["hess_reduce"]["max_abs_err"] = worst
+    for key, err in worst.items():
+        report[key]["max_abs_err"] = err
 
 
 def glue_phase(dev, states, report):
@@ -1046,17 +1084,18 @@ def cx_e2e_case(dev, p, n, seed, S, lr):
     """pschur on a complex cycle through the public entry point."""
     import torch
     import periodicschurdecompositions_jl_torch as pt
-    from periodicschurdecompositions_jl_torch.ops import pqz_complex, sweep_cx
+    from periodicschurdecompositions_jl_torch.ops import hessenberg, pqz_complex, sweep_cx
     rng = np.random.default_rng(seed)
     A = rng.standard_normal((p, n, n)) + 1j * rng.standard_normal((p, n, n))
     At = torch.tensor(A, device=dev)
     for k in sweep_cx.launches:
         sweep_cx.launches[k] = 0
+    hessenberg.launches["hess_reduce"] = 0
     t0 = time.perf_counter()
     P = pt.pschur(At, lr, S=S)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(sweep_cx.launches)
+    launches = {**sweep_cx.launches, "hess_reduce_c128": hessenberg.launches["hess_reduce"]}
     info = dict(pqz_complex.last_info)
     T = P.Ts.cpu().numpy()
     Z = P.Zs.cpu().numpy()
@@ -1079,9 +1118,11 @@ def cx_e2e_case(dev, p, n, seed, S, lr):
         raise AssertionError("orthonormality above 10 eps n")
     if not (np.all(np.isfinite(vals)) and vals.shape == (n,)):
         raise AssertionError("eigenvalues not finite or of the wrong shape")
+    # the reduction kernel runs once when every factor is direct; a signature
+    # takes the signed reduction
     for k, v in launches.items():
-        if v <= 0:
-            raise AssertionError(f"kernel {k} was not launched by the complex path")
+        if (v != (1 if S is None else 0)) if k == "hess_reduce_c128" else v <= 0:
+            raise AssertionError(f"kernel {k} launched {v} times on the complex path")
     return launches
 
 
@@ -1544,7 +1585,7 @@ def main() -> int:
                  "deflate2x2",
                  "qz_sweep_generate", "qz_sweep_left", "qz_sweep_right", "qz_shift",
                  "rg_sweep_generate", "rg_sweep_left", "rg_sweep_right", "rg_ladder",
-                 "hess_reduce", "glue"):
+                 "hess_reduce", "hess_reduce_c128", "glue"):
         kernels.append({**report[name], "launches": launches[name]})
     _log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the kernel build to here")
     print(json.dumps({"kernels": kernels}))

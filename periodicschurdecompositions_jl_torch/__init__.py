@@ -4,13 +4,13 @@ Port of the JAX package ``periodicschurdecompositions_jl_tpu`` (the
 reference implementation).  Computes in float64 / complex128.  A torch
 tensor is computed on its own device; an array or a sequence of matrices
 goes to ``device`` (default ``"cuda"``; without a card pass
-``device="cpu"``).  On a CUDA device the real periodic Hessenberg
-reduction, the real iteration's per-iteration glue (kernel G), the real
-Francis sweep (one bulge, and NB bulges with ``AlgoConfig(nbulges>1)``),
-the 2x2 deflation, the complex QZ sweep and its shift, and the real
-generalized chase and its rotation ladders run as hand-written CUDA
-kernels (``csrc/``, built with nvcc on first use), on the CPU as their
-plain torch versions.  Sets no global torch state.
+``device="cpu"``).  On a CUDA device the periodic Hessenberg reduction
+of direct factors (real and complex), the real iteration's per-iteration
+glue (kernel G), the real Francis sweep (one bulge, and NB bulges with
+``AlgoConfig(nbulges>1)``), the 2x2 deflation, the complex QZ sweep and
+its shift, and the real generalized chase and its rotation ladders run as
+hand-written CUDA kernels (``csrc/``, built with nvcc on first use), on
+the CPU as their plain torch versions.  Sets no global torch state.
 
 Ported so far: ``pschur`` for real and complex cycles with or without a
 signature, ``gpschur`` for real and complex pairs, ``phessenberg`` and

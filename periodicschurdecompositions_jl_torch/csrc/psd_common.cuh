@@ -76,6 +76,54 @@ __device__ __forceinline__ void reflector_from_norm(double alpha, double m,
   beta = need ? b * sfmin : b;
 }
 
+// sqrt(x^2 + y^2 + z^2) by max-scaling (the JAX package's hyp3).
+__device__ __forceinline__ double hyp3(double x, double y, double z) {
+  const double m = fmax(fmax(fabs(x), fabs(y)), fabs(z));
+  const double ms = (m == 0.0) ? 1.0 : m;
+  const double xs = x / ms, ys = y / ms, zs = z / ms;
+  return m * sqrt(xs * xs + ys * ys + zs * zs);
+}
+
+// zlarfg on (alpha, x) from the tail's max-scaled norm (m = max over the
+// tail of |re| and |im|, rs = sqrt(sum |x_r / m|^2)): the arithmetic of the
+// JAX package's _reflector_from_complex.  beta is real, tau complex; the
+// essential part of w is w_r = (x_r * scl) * dinv with dinv = 1 / (alpha -
+// beta) as conj(d) / |d|^2.  Trivial (tau = 0, beta = re(alpha), w = 0)
+// only for a zero tail with a real alpha.
+__device__ __forceinline__ void reflector_from_norm_cx(double2 alpha, double m,
+                                                       double rs, double2& tau,
+                                                       double& beta, double& scl,
+                                                       double2& dinv) {
+  const double sfmin = 2.0 * DBL_MIN / DBL_EPSILON;
+  const double rsfmin = 1.0 / sfmin;
+  const double xnorm = m * rs;
+  double ar = alpha.x, ai = alpha.y;
+  if (xnorm == 0.0 && ai == 0.0) {
+    tau = make_double2(0.0, 0.0);
+    beta = ar;
+    scl = 0.0;
+    dinv = make_double2(1.0, 0.0);
+    return;
+  }
+  double b = neg_copysign(hyp3(ar, ai, xnorm), ar);
+  scl = 1.0;
+  const bool need = fabs(b) < sfmin;
+  if (need) {  // one rescaling round suffices in binary64
+    scl = rsfmin;
+    ar *= rsfmin;
+    ai *= rsfmin;
+    b = neg_copysign(hyp3(ar, ai, (m * rsfmin) * rs), ar);
+  }
+  const double bs = (b == 0.0) ? 1.0 : b;
+  tau = make_double2((b - ar) / bs, -(ai / bs));
+  double dr = ar - b;
+  const double di = ai;
+  if (dr == 0.0 && di == 0.0) dr = 1.0;
+  const double d2 = dr * dr + di * di;
+  dinv = make_double2(dr / d2, -di / d2);
+  beta = need ? b * sfmin : b;
+}
+
 // xLARFG on (alpha, x1, x2): P = I - tau w w^T with w = (1, v1, v2) and
 // P (alpha, x1, x2)^T = (beta, 0, 0)^T.  A 2-vector is (alpha, x1, 0).
 __device__ __forceinline__ void gen_reflector(double alpha, double x1, double x2,

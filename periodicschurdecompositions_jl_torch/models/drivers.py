@@ -104,8 +104,8 @@ def pschur(A, lr="R", S: Optional[Sequence[bool]] = None, *,
       A: (p, n, n) cycle (tensor, array, or sequence of matrices), computed
          in float64 (real) or complex128 (complex).  A tensor is computed on
          its own device; an array goes to ``device`` (default ``"cuda"``;
-         without a card pass ``device="cpu"``).  On a CUDA device the real
-         Hessenberg reduction, the real iteration's per-iteration glue, the
+         without a card pass ``device="cpu"``).  On a CUDA device the
+         Hessenberg reduction of direct factors, the real iteration's per-iteration glue, the
          sweeps, the 2x2 deflation, the complex shift and the real
          generalized chase and its ladders run as hand-written CUDA kernels.
       lr: 'R' for the product ``A[0] @ ... @ A[p-1]``, 'L' for

@@ -8,25 +8,26 @@ unitary similarity,
 with ``H[0]`` upper Hessenberg and ``H[1..p-1]`` upper triangular (MB03VD
 column sweep).
 
-* A real float64 CUDA tensor launches the hand-written reduction of
-  ``csrc/hess.cu`` (it replaces the Pallas kernel of the JAX package's
-  ``ops/pallas_hess.py``): one C call enqueues the whole chain of
-  reflector generations and updates on the stream.  The JAX package keeps
-  its kernel off by default (``PSD_HESS_KERNEL``) only because it measured
-  no gain over its XLA glue on the TPU; that measurement says nothing about
-  this card, so here the kernel is the route and there is no switch.
-* A CPU tensor, and complex input on any device (the JAX complex reduction
-  has no Pallas kernel), take ``phessenberg_core_plain``: one host loop
-  over columns; for each column the p-cycle of reflector generate/apply
-  steps runs as torch GEMV/GER updates on the tensors' device.  The
-  generators are branch-free, so the loop never reads a value back to the
-  host.  Each reflector is zero outside its window, so the rank-1 updates
-  touch only the rows (left) or columns (right) of that window; outside it
-  the full-width update of the JAX package is an exact no-op.
+* A float64 or complex128 CUDA tensor launches the hand-written reduction
+  of ``csrc/hess.cu`` (it replaces the Pallas kernel of the JAX package's
+  ``ops/pallas_hess.py``; the complex128 instance is the same kernel over
+  complex scalars, where the JAX package reduces in jnp): one cooperative
+  launch runs the whole chain of reflector generations and updates, with
+  a grid barrier between stages.  The JAX package keeps its kernel off by
+  default (``PSD_HESS_KERNEL``) only because it measured no gain over its
+  XLA glue on the TPU; that measurement says nothing about this card, so
+  here the kernel is the route and there is no switch.  Other dtypes on
+  the card raise.
+* A CPU tensor takes ``phessenberg_core_plain``: one host loop over
+  columns; for each column the p-cycle of reflector generate/apply steps
+  runs as torch GEMV/GER updates on the tensors' device.  The generators
+  are branch-free, so the loop never reads a value back to the host.  Each
+  reflector is zero outside its window, so the rank-1 updates touch only
+  the rows (left) or columns (right) of that window; outside it the
+  full-width update of the JAX package is an exact no-op.
 
-``launches["hess_reduce"]`` counts the launches of the reduction's kernels
-(2 p (n-1) per reduction, n-1 more when p == 1), as the C entry point
-reports them.
+``launches["hess_reduce"]`` counts the kernel's launches (one per
+reduction with n >= 2, either instance), as the C entry points report them.
 
 ``phessenberg_signed_core`` handles a mixed signature (Kressner's
 two-stage scheme): QR/RQ factorizations of the triangular factors, then
@@ -62,8 +63,8 @@ def phessenberg_core(A: torch.Tensor, want_q: bool = True
     """Reduce a stacked cycle to periodic Hessenberg/triangular form.
 
     Args:
-      A: (p, n, n) real or complex stack (not modified); real input on a
-         CUDA device must be float64.
+      A: (p, n, n) real or complex stack (not modified); on a CUDA device
+         it must be float64 or complex128.
       want_q: accumulate the unitary factors.
 
     Returns:
@@ -71,16 +72,16 @@ def phessenberg_core(A: torch.Tensor, want_q: bool = True
       structural zeros; Q (p, n, n) with Q[j]^H A[j] Q[(j+1)%p] = H[j]
       (None if not requested).
     """
-    if A.is_complex() or A.device.type == "cpu":
+    if A.device.type == "cpu":
         return phessenberg_core_plain(A, want_q)
     if A.device.type != "cuda":
         raise ValueError(f"phessenberg_core: unsupported device {A.device}")
     p, n, n2 = A.shape
     if n != n2:
         raise ValueError("factors must be square")
-    if A.dtype != torch.float64:
-        raise ValueError(f"phessenberg_core: real input on the card must be "
-                         f"float64, got {A.dtype}")
+    if A.dtype not in (torch.float64, torch.complex128):
+        raise ValueError(f"phessenberg_core: input on the card must be float64 "
+                         f"or complex128, got {A.dtype}")
     H = A.clone(memory_format=torch.contiguous_format)
     Q = torch.eye(n, dtype=H.dtype, device=H.device).expand(p, n, n).clone() \
         if want_q else None
@@ -88,9 +89,10 @@ def phessenberg_core(A: torch.Tensor, want_q: bool = True
         return H, Q
     ws = torch.empty(n + 2, dtype=H.dtype, device=H.device)
     nlaunch = ctypes.c_int(0)
-    rc = _cuda.load().psd_hess_reduce(
-        H.data_ptr(), Q.data_ptr() if want_q else None, ws.data_ptr(), p, n,
-        ctypes.byref(nlaunch), _cuda.stream_ptr(H))
+    lib = _cuda.load()
+    entry = lib.psd_hess_reduce_c128 if H.is_complex() else lib.psd_hess_reduce
+    rc = entry(H.data_ptr(), Q.data_ptr() if want_q else None, ws.data_ptr(), p, n,
+               ctypes.byref(nlaunch), _cuda.stream_ptr(H))
     launches["hess_reduce"] += nlaunch.value
     _cuda.check(rc, "hess_reduce")
     return H, Q

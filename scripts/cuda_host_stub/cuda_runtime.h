@@ -1,12 +1,17 @@
 // Host stand-in for the CUDA runtime, to rehearse a kernel of csrc/ on the
 // CPU with g++ (scripts/rehearse_sweep_host.py).  Each block runs as
-// blockDim std::threads, one block after the other; __syncthreads and
-// __syncwarp are std::barriers, __shared__ is static, __shfl_sync goes
-// through a per-warp slot array, and the dynamic shared memory is a buffer
-// filled with NaN.  STUB_SMEM_OPTIN sets the shared memory a block may take
-// (default 232448 bytes, an H100's).  It checks a kernel's logic (indices,
-// barriers, order), not nvcc's code or its speed; products and sums are
-// rounded one at a time (no fused multiply-add), as in numpy.
+// blockDim std::threads, one block after the other (stub_launch) or all
+// blocks at once (stub_launch_coop, for cudaLaunchCooperativeKernel, with a
+// std::barrier over the whole grid for cooperative_groups' grid sync);
+// __syncthreads and __syncwarp are std::barriers, __shared__ is static
+// (shared by concurrent blocks: a cooperative kernel keeps its shared data
+// in the dynamic buffer), __shfl_sync goes through a per-warp slot array,
+// and the dynamic shared memory is a buffer of each block filled with NaN.
+// STUB_SMEM_OPTIN sets the shared memory a block may take (default 232448
+// bytes, an H100's), STUB_SMS the number of SMs (default 2) and
+// STUB_BLOCKS_PER_SM the occupancy (default 2).  It checks a kernel's logic
+// (indices, barriers, order), not nvcc's code or its speed; products and
+// sums are rounded one at a time (no fused multiply-add), as in numpy.
 #pragma once
 #include <algorithm>
 #include <barrier>
@@ -16,6 +21,7 @@
 #include <cstring>
 #include <memory>
 #include <thread>
+#include <utility>
 #include <vector>
 using std::max;
 using std::min;
@@ -26,9 +32,11 @@ using std::min;
 #define __launch_bounds__(x)
 #define __shared__ static
 typedef void* cudaStream_t;
-enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1 };
+enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1,
+                   cudaErrorCooperativeLaunchTooLarge = 82 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
-enum cudaDeviceAttr { cudaDevAttrMaxSharedMemoryPerBlockOptin = 97 };
+enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16,
+                      cudaDevAttrMaxSharedMemoryPerBlockOptin = 97 };
 enum cudaMemcpyKind { cudaMemcpyDeviceToDevice = 3 };
 struct double2 { double x, y; };
 inline double2 make_double2(double a, double b) { return {a, b}; }
@@ -39,20 +47,34 @@ struct dim3 {
 struct stub_idx { unsigned x, y, z; };
 inline thread_local stub_idx threadIdx, blockIdx;
 inline dim3 blockDim, gridDim;
-inline std::barrier<>* stub_bar;
-inline std::vector<std::unique_ptr<std::barrier<>>> stub_wbar;
-inline double stub_slots[64][32];
-inline double* stub_dyn_smem;
+// One block's barriers, shuffle slots and dynamic shared memory.
+struct stub_block {
+  std::barrier<> bar;
+  std::vector<std::unique_ptr<std::barrier<>>> wbar;
+  double slots[64][32];
+  std::vector<double> dyn;
+  stub_block(unsigned nt, size_t smem)
+      : bar(nt), dyn(smem / sizeof(double) + 1, std::nan("")) {
+    for (unsigned w = 0; w < (nt + 31) / 32; ++w)
+      wbar.emplace_back(new std::barrier<>(std::min(32u, nt - 32 * w)));
+  }
+};
+inline thread_local stub_block* stub_blk;
+inline thread_local double* stub_dyn_smem;
+inline std::barrier<>* stub_grid_bar;
 inline size_t stub_max_dyn = 48 * 1024;
-inline void __syncthreads() { stub_bar->arrive_and_wait(); }
-inline void __syncwarp(unsigned = 0xffffffffu) { stub_wbar[threadIdx.x / 32]->arrive_and_wait(); }
+inline void __syncthreads() { stub_blk->bar.arrive_and_wait(); }
+inline void __syncwarp(unsigned = 0xffffffffu) { stub_blk->wbar[threadIdx.x / 32]->arrive_and_wait(); }
 inline double __shfl_sync(unsigned, double v, int src) {
   const int w = threadIdx.x / 32;
-  stub_slots[w][threadIdx.x % 32] = v;
+  stub_blk->slots[w][threadIdx.x % 32] = v;
   __syncwarp();
-  const double r = stub_slots[w][src];
+  const double r = stub_blk->slots[w][src];
   __syncwarp();
   return r;
+}
+inline double __shfl_xor_sync(unsigned m, double v, int o) {
+  return __shfl_sync(m, v, (threadIdx.x % 32) ^ o);
 }
 // rounding is not the stub's business: no fused multiply-add (as numpy)
 inline double __fma_rn(double a, double b, double c) { return a * b + c; }
@@ -64,9 +86,19 @@ inline int __ldg(const int* p) { return *p; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 inline const char* cudaGetErrorString(cudaError_t e) { return e ? "stub error" : "no error"; }
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
-inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr, int) {
-  const char* s = std::getenv("STUB_SMEM_OPTIN");
-  *v = s ? std::atoi(s) : 232448;
+inline int stub_env(const char* name, int dflt) {
+  const char* s = std::getenv(name);
+  return s ? std::atoi(s) : dflt;
+}
+inline cudaError_t cudaDeviceGetAttribute(int* v, cudaDeviceAttr a, int) {
+  *v = a == cudaDevAttrMultiProcessorCount ? stub_env("STUB_SMS", 2)
+                                           : stub_env("STUB_SMEM_OPTIN", 232448);
+  return cudaSuccess;
+}
+template <class F>
+cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t smem) {
+  *n = smem > (size_t)stub_env("STUB_SMEM_OPTIN", 232448) ? 0
+                                                          : stub_env("STUB_BLOCKS_PER_SM", 2);
   return cudaSuccess;
 }
 template <class F>
@@ -79,29 +111,53 @@ inline cudaError_t cudaMemcpy2DAsync(void* dst, size_t dp, const void* src, size
   for (size_t r = 0; r < h; ++r) std::memcpy((char*)dst + r * dp, (const char*)src + r * sp, w);
   return cudaSuccess;
 }
+// The threads of blocks [b0, b1) of grid g, each block with its own state.
+template <class F>
+void stub_run(dim3 g, dim3 b, size_t smem, unsigned b0, unsigned b1, F body) {
+  const unsigned nt = b.x * b.y * b.z;
+  std::vector<std::unique_ptr<stub_block>> blocks;
+  std::vector<std::thread> th;
+  for (unsigned k = b0; k < b1; ++k) {
+    blocks.emplace_back(new stub_block(nt, smem));
+    stub_block* blk = blocks.back().get();
+    const stub_idx bi = {k % g.x, (k / g.x) % g.y, k / (g.x * g.y)};
+    for (unsigned t = 0; t < nt; ++t)
+      th.emplace_back([=] {
+        threadIdx = {t % b.x, (t / b.x) % b.y, t / (b.x * b.y)};
+        blockIdx = bi;
+        stub_blk = blk;
+        stub_dyn_smem = blk->dyn.data();
+        body();
+      });
+  }
+  for (auto& x : th) x.join();
+}
 template <class K, class... A>
 void stub_launch(K kernel, dim3 g, dim3 b, size_t smem, cudaStream_t, A... args) {
   if (smem > 48 * 1024 && smem > stub_max_dyn) std::abort();  // refused launch
   blockDim = b;
   gridDim = g;
-  const unsigned nt = b.x * b.y * b.z;
-  std::vector<double> dyn(smem / sizeof(double) + 1, std::nan(""));
-  stub_dyn_smem = dyn.data();
-  for (unsigned bz = 0; bz < g.z; ++bz)
-    for (unsigned by = 0; by < g.y; ++by)
-      for (unsigned bx = 0; bx < g.x; ++bx) {
-        std::barrier<> bar(nt);
-        stub_bar = &bar;
-        stub_wbar.clear();
-        for (unsigned w = 0; w < (nt + 31) / 32; ++w)
-          stub_wbar.emplace_back(new std::barrier<>(std::min(32u, nt - 32 * w)));
-        std::vector<std::thread> th;
-        for (unsigned t = 0; t < nt; ++t)
-          th.emplace_back([=] {
-            threadIdx = {t % b.x, (t / b.x) % b.y, t / (b.x * b.y)};
-            blockIdx = {bx, by, bz};
-            kernel(args...);
-          });
-        for (auto& x : th) x.join();
-      }
+  for (unsigned k = 0; k < g.x * g.y * g.z; ++k)
+    stub_run(g, b, smem, k, k + 1, [=] { kernel(args...); });
+}
+// cudaLaunchCooperativeKernel: every block at once, args as the runtime
+// takes them (one pointer per kernel argument).
+template <class... A, size_t... I>
+void stub_call(void (*kernel)(A...), void** args, std::index_sequence<I...>) {
+  kernel(*static_cast<A*>(args[I])...);
+}
+template <class... A>
+cudaError_t stub_launch_coop(void (*kernel)(A...), dim3 g, dim3 b, void** args, size_t smem,
+                             cudaStream_t) {
+  if (smem > 48 * 1024 && smem > stub_max_dyn) return cudaErrorInvalidValue;
+  const unsigned nb = g.x * g.y * g.z;
+  if ((int)nb > stub_env("STUB_SMS", 2) * stub_env("STUB_BLOCKS_PER_SM", 2))
+    return cudaErrorCooperativeLaunchTooLarge;
+  blockDim = b;
+  gridDim = g;
+  std::barrier<> grid_bar(nb * b.x * b.y * b.z);
+  stub_grid_bar = &grid_bar;
+  stub_run(g, b, smem, 0, nb,
+           [=] { stub_call(kernel, args, std::index_sequence_for<A...>{}); });
+  return cudaSuccess;
 }

@@ -22,12 +22,21 @@ timed on lane 0, and the update phases.  Microbenchmarks: one thread's
 chain of ``givens_cx``, of divisions, of square roots and of one complex
 2x2 row rotation.
 
+``--hess``: the periodic Hessenberg reduction of csrc/hess.cu (one
+cooperative launch) on the real headline draw (p=16, n=512, seed 12345)
+and the complex leg's draw (p=8, n=256, seed 777): per block and stage the
+cycles of its generation, of its update tiles and of its wait at the grid
+barrier (a block of the first left tile, one of the right tiles and the
+mean over blocks), and inside the tiles the cycles of a left tile's first
+pass (the dot products, to its partial sums) and whole, and of a right
+tile row's first pass and whole, timed on thread 0.
+
 ``--root DIR`` instruments the sources of another checkout (for example
 the parent commit unpacked with ``git archive``).  The counters add about a
 tenth to the kernel's time (they accumulate in global memory).
 
 Run from the repository root:
-  python3 scripts/profile_sweep_generate.py [--cx] [--root DIR]
+  python3 scripts/profile_sweep_generate.py [--cx | --hess] [--root DIR]
 """
 import argparse
 import ctypes
@@ -212,6 +221,120 @@ EDITS_CX_WINDOW = [  # (text in csrc/sweep_cx.cu, instrumented text)
 ]
 
 
+EDITS_HESS = [  # (text in csrc/hess.cu, instrumented text)
+    ("constexpr int kThreads = 256;\n",
+     "constexpr int kThreads = 256;\n__device__ long long g_prof[8 * 2048];\n"),
+    # left tile: its first pass, and the whole tile (thread 0)
+    ("  const int tx = threadIdx.x % kLeftCols, ty = threadIdx.x / kLeftCols;\n",
+     "  const long long ta = clock64();\n"
+     "  const int tx = threadIdx.x % kLeftCols, ty = threadIdx.x / kLeftCols;\n"),
+    ("  if (mine) part[ty * kLeftCols + tx] = s;\n",
+     "  if (mine) part[ty * kLeftCols + tx] = s;\n"
+     "  if (threadIdx.x == 0) g_prof[8 * blockIdx.x + 3] += clock64() - ta;\n"),
+    ("  __syncthreads();  // part is free again\n",
+     "  if (threadIdx.x == 0) {\n    g_prof[8 * blockIdx.x + 4] += clock64() - ta;\n"
+     "    g_prof[8 * blockIdx.x + 5] += 1;\n  }\n  __syncthreads();  // part is free again\n"),
+    # right tile rows: first pass and whole row (warp 0, lane 0)
+    ("    T* row = M + (size_t)r * n;\n",
+     "    const long long tr = clock64();\n    T* row = M + (size_t)r * n;\n"),
+    ("    const T ts = mul(tau, warp_sum(s));\n",
+     "    const T ts = mul(tau, warp_sum(s));\n"
+     "    if (threadIdx.x == 0) g_prof[8 * blockIdx.x + 6] += clock64() - tr;\n"),
+    # stages: generation, update tiles, wait at the barrier
+    ("  for (int i = 0; i < n - 1; ++i) {\n    for (int j = p - 1; j >= 0; --j) {\n",
+     "  long long tg = 0, tu = 0, tb = 0;\n  for (int i = 0; i < n - 1; ++i) {\n"
+     "    for (int j = p - 1; j >= 0; --j) {\n      const long long c0 = clock64();\n"),
+    ("      const int nbl = (n - i - 1 + kLeftCols - 1) / kLeftCols;\n",
+     "      const long long c1 = clock64();\n      tg += c1 - c0;\n"
+     "      const int nbl = (n - i - 1 + kLeftCols - 1) / kLeftCols;\n"),
+    ("      const double beta = sc->beta;\n      grid.sync();\n",
+     "      const double beta = sc->beta;\n      const long long c2 = clock64();\n"
+     "      tu += c2 - c1;\n      grid.sync();\n      tb += clock64() - c2;\n"),
+    ("          col[(size_t)r * n] = real_as((r == lo) ? beta : 0.0, T());\n      }\n    }\n  }\n",
+     "          col[(size_t)r * n] = real_as((r == lo) ? beta : 0.0, T());\n      }\n    }\n  }\n"
+     "  if (threadIdx.x == 0) {\n    g_prof[8 * blockIdx.x] = tg;\n"
+     "    g_prof[8 * blockIdx.x + 1] = tu;\n    g_prof[8 * blockIdx.x + 2] = tb;\n  }\n"),
+]
+
+READ_HESS = r'''
+extern "C" int prof_read(long long* host) {
+  cudaDeviceSynchronize();
+  cudaError_t e = cudaMemcpyFromSymbol(host, g_prof, sizeof(long long) * 8 * 2048);
+  static long long z[8 * 2048];
+  cudaMemcpyToSymbol(g_prof, z, sizeof(z));
+  return (int)e;
+}
+'''
+
+
+def build_hess(root):
+    csrc = os.path.join(root, "periodicschurdecompositions_jl_torch", "csrc")
+    src = open(os.path.join(csrc, "hess.cu")).read()
+    for old, new in EDITS_HESS:
+        src = _replace_once(src, old, new, "csrc/hess.cu")
+    # the end of a right tile's row: after the second pass's loop
+    old = "        if (c < n) row[c] = msub(rv[k], ts, conj_of(w[c]));\n      }\n    }\n"
+    src = _replace_once(src, old, old + "    if (threadIdx.x == 0) {\n"
+                        "      g_prof[8 * blockIdx.x + 7] += clock64() - tr;\n"
+                        "      g_prof[8 * blockIdx.x + 5] += 1L << 32;\n    }\n",
+                        "csrc/hess.cu")
+    out = os.path.join(HERE, "_dev")
+    os.makedirs(out, exist_ok=True)
+    cu, so = os.path.join(out, "hess_prof.cu"), os.path.join(out, "libhess_prof.so")
+    open(cu, "w").write(src + READ_HESS)
+    from periodicschurdecompositions_jl_torch.ops import _cuda
+    subprocess.run([_cuda._find_nvcc(), *_cuda.NVCC_FLAGS, "-shared", "-I", csrc, "-o", so, cu],
+                   check=True)
+    lib = ctypes.CDLL(so)
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    for fn in (lib.psd_hess_reduce, lib.psd_hess_reduce_c128):
+        fn.argtypes = [vp, vp, vp, i32, i32, ctypes.POINTER(i32), vp]
+    lib.prof_read.argtypes = [vp]
+    return lib
+
+
+def profile_hess(lib):
+    buf = np.zeros(8 * 2048, dtype=np.int64)
+    for (p, n, seed, cplx) in ((16, 512, 12345, False), (8, 256, 777, True)):
+        rng = np.random.default_rng(seed)
+        A = rng.standard_normal((p, n, n))
+        if cplx:
+            A = A + 1j * rng.standard_normal((p, n, n))
+        A = torch.tensor(A, device="cuda")
+        H = torch.empty_like(A)
+        Q = torch.empty_like(A)
+        ws = torch.empty(n + 2, dtype=A.dtype, device="cuda")
+        entry = lib.psd_hess_reduce_c128 if cplx else lib.psd_hess_reduce
+        nl = ctypes.c_int(0)
+
+        def call():
+            H.copy_(A)
+            Q.copy_(torch.eye(n, dtype=A.dtype, device="cuda").expand(p, n, n))
+            assert entry(H.data_ptr(), Q.data_ptr(), ws.data_ptr(), p, n, ctypes.byref(nl),
+                         None) == 0
+        call()  # warm-up
+        lib.prof_read(buf.ctypes.data)
+        ms = timed(call)
+        lib.prof_read(buf.ctypes.data)
+        P = buf.reshape(-1, 8)
+        nb = int((P[:, 0] > 0).sum())
+        st = p * (n - 1)
+        ntile = P[:nb, 5] & 0xFFFFFFFF
+        nrow = P[:nb, 5] >> 32
+        right = int(np.argmax(nrow))  # a block that took right tiles
+        print(f"reduction {'complex128' if cplx else 'float64'} p={p} n={n} (instrumented) "
+              f"{ms:.3f} ms, {nb} blocks; cycles per stage, generation / update / barrier "
+              f"wait: block 0 (first left tile) {P[0, 0] / st:.0f} / {P[0, 1] / st:.0f} / "
+              f"{P[0, 2] / st:.0f}, block {right} (right tiles) {P[right, 0] / st:.0f} / "
+              f"{P[right, 1] / st:.0f} / {P[right, 2] / st:.0f}, mean "
+              f"{P[:nb, 0].mean() / st:.0f} / {P[:nb, 1].mean() / st:.0f} / "
+              f"{P[:nb, 2].mean() / st:.0f}; left tile first pass "
+              f"{P[:nb, 3].sum() / ntile.sum():.0f}, whole {P[:nb, 4].sum() / ntile.sum():.0f} "
+              f"cycles ({ntile.sum()} tiles); right row first pass "
+              f"{P[:nb, 6].sum() / nrow.sum():.0f}, whole {P[:nb, 7].sum() / nrow.sum():.0f} "
+              f"cycles ({nrow.sum()} rows of warp 0)")
+
+
 def build(root, cx):
     csrc = os.path.join(root, "periodicschurdecompositions_jl_torch", "csrc")
     name = "sweep_cx" if cx else "sweep"
@@ -306,6 +429,7 @@ def profile_cx(lib, design, buf):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--cx", action="store_true")
+    ap.add_argument("--hess", action="store_true")
     ap.add_argument("--root", default=HERE)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -315,6 +439,9 @@ def main():
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip()
     print(smi)
+    if args.hess:
+        profile_hess(build_hess(os.path.abspath(args.root)))
+        return 0
     lib, design = build(os.path.abspath(args.root), args.cx)
     print(f"sources: {os.path.abspath(args.root)} ({design} design)")
     out = torch.zeros(8, dtype=torch.float64, device="cuda")

@@ -23,7 +23,21 @@ and B0 and B on A's log against ``qz_apply_log_plain``, at an H100's shared
 memory, 3000 bytes (short batches; p=16 takes the global windows) and 200
 bytes (the windows in the global scratch for every p).
 
-Run from the repository root:  python3 scripts/rehearse_sweep_host.py [--cx]
+``--hess``: csrc/hess.cu, the reduction in one cooperative launch (the
+stub runs every block at once, with a std::barrier for the grid sync), on
+float64 and complex128 cycles (p = 1, 2, 3, 5; n = 1, 2, 3, 12, 40, 150,
+270, so that the update tiles walk several batches of loads; want_q on and
+off; a complex cycle whose columns have zero tails but complex diagonals)
+against ``phessenberg_core_plain`` within 1e-13 max|A| (1e-11 at n >= 150,
+chip_smoke.py's floor: the two sum in other orders), with exact structural
+zeros, at 1 and 4 resident blocks and at 2 with w in the global scratch
+(4500 bytes of shared memory; about 4 minutes, 15 with ``--parent``,
+whose two-launch design starts its threads anew for every launch).  The float64 instance is
+also held bit for bit against the two-launch design of ``--parent FILE``
+(its hess.cu, built for the stub the same way), where given.
+
+Run from the repository root:
+  python3 scripts/rehearse_sweep_host.py [--cx | --hess [--parent FILE]]
 """
 import argparse
 import ctypes
@@ -46,9 +60,11 @@ from torch_cx_window_host import qz_log_full  # noqa: E402
 from torch_window_host import sweep_log_full  # noqa: E402
 
 
-def build_stub(name):
-    """csrc/<name>.cu rewritten for the host stub and built with g++."""
-    src = open(os.path.join(CSRC, name + ".cu")).read()
+def build_stub(name, path=None):
+    """csrc/<name>.cu (or the file ``path``) rewritten for the host stub and
+    built with g++."""
+    src = open(path or os.path.join(CSRC, name + ".cu")).read()
+    src = src.replace("cudaLaunchCooperativeKernel((void*)kernel,", "stub_launch_coop(kernel,")
     src = src.replace("extern __shared__ double smem[];", "double* smem = stub_dyn_smem;")
     src = src.replace("extern __shared__ double2 smem[];",
                       "double2* smem = (double2*)stub_dyn_smem;")
@@ -184,10 +200,88 @@ def main_cx():
     return 0
 
 
+def build_hess(name, path=None):
+    lib = build_stub(name, path)
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.psd_hess_reduce.argtypes = [vp, vp, vp, i32, i32, ctypes.POINTER(i32), vp]
+    if hasattr(lib, "psd_hess_reduce_c128"):
+        lib.psd_hess_reduce_c128.argtypes = [vp, vp, vp, i32, i32, ctypes.POINTER(i32), vp]
+    return lib
+
+
+def hess_stub(lib, A, want_q):
+    """One reduction through the stub's C entry; returns (H, Q, launches)."""
+    p, n, _ = A.shape
+    H = A.clone()
+    Q = torch.eye(n, dtype=A.dtype).expand(p, n, n).clone() if want_q else None
+    ws = torch.full((n + 2,), float("nan"), dtype=A.dtype)
+    nl = ctypes.c_int(-1)
+    entry = lib.psd_hess_reduce_c128 if A.is_complex() else lib.psd_hess_reduce
+    rc = entry(H.data_ptr(), Q.data_ptr() if want_q else None, ws.data_ptr(), p, n,
+               ctypes.byref(nl), None)
+    assert rc == 0, rc
+    return H, Q, nl.value
+
+
+def hess_cycle(p, n, kind, seed):
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((p, n, n))
+    if kind == "real":
+        return torch.tensor(A)
+    A = A + 1j * rng.standard_normal((p, n, n))
+    if kind == "zero-tails":  # triangular, complex diagonals: every tau != 0
+        A = np.triu(A)
+        A[0] = np.triu(A[0], -1)
+    return torch.tensor(A)
+
+
+def main_hess(parent):
+    from periodicschurdecompositions_jl_torch.ops import hessenberg
+    lib = build_hess("hess")
+    old = build_hess("hess_parent", parent) if parent else None
+    cases = [(1, 12, "real", True), (3, 12, "real", True), (2, 40, "real", False),
+             (5, 12, "real", True), (1, 2, "real", True), (3, 3, "real", True),
+             (1, 12, "complex", True), (3, 12, "complex", True), (2, 40, "complex", True),
+             (3, 1, "complex", True), (1, 2, "complex", True), (2, 3, "complex", False),
+             (3, 12, "zero-tails", True), (1, 12, "zero-tails", True),
+             (2, 150, "real", True), (1, 270, "complex", True)]
+    for (sms, per_sm, optin) in ((1, 1, 232448), (2, 2, 232448), (2, 1, 4500)):
+        os.environ.update(STUB_SMS=str(sms), STUB_BLOCKS_PER_SM=str(per_sm),
+                          STUB_SMEM_OPTIN=str(optin))
+        for (p, n, kind, want_q) in cases:
+            A = hess_cycle(p, n, kind, 100 * p + n)
+            H, Q, nl = hess_stub(lib, A, want_q)
+            Hp, Qp = hessenberg.phessenberg_core_plain(A, want_q)
+            scale = float(A.abs().max())
+            dh = float((H - Hp).abs().max()) / scale
+            dq = float((Q - Qp).abs().max()) if want_q else 0.0
+            assert nl == (1 if n > 1 else 0), nl
+            tol = 1e-13 if n <= 40 else 1e-11  # hess_phase's floor at the long windows
+            assert dh <= tol and dq <= tol, (p, n, kind, dh, dq)
+            Hn = H.numpy()
+            assert np.all(np.tril(Hn[0], -2) == 0) and all(
+                np.all(np.tril(Hn[f], -1) == 0) for f in range(1, p)), "structural zeros"
+            msg = ""
+            if old is not None and kind == "real":
+                Ho, Qo, _ = hess_stub(old, A, want_q)
+                assert torch.equal(H, Ho) and (not want_q or torch.equal(Q, Qo)), \
+                    "the real instance != the two-launch design"
+                msg = "; bit for bit the two-launch design's"
+            print(f"{sms * per_sm} blocks, shared memory {optin} B: p={p} n={n} {kind} "
+                  f"want_q={want_q}: vs phessenberg_core_plain dH {dh:.2e} dQ {dq:.2e}{msg}",
+                  flush=True)
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--cx", action="store_true")
-    if ap.parse_args().cx:
+    ap.add_argument("--hess", action="store_true")
+    ap.add_argument("--parent", default=None)
+    args = ap.parse_args()
+    if args.hess:
+        return main_hess(args.parent)
+    if args.cx:
         return main_cx()
     lib = build()
     cases = [(1, 12, 0, 11), (2, 14, 2, 12), (3, 9, 1, 7), (3, 40, 0, 39), (16, 40, 0, 39),

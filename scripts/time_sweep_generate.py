@@ -25,8 +25,26 @@ writes.  ``--headline`` then times the complex leg of chip_smoke.py (p=8,
 n=256, seed 777, no signature) and prints its iteration time and niter.
 Here too the scratch is a (p, n, n) buffer, large enough for either design.
 
+``--hess``: the periodic Hessenberg reduction (csrc/hess.cu through
+``phessenberg_core``), float64 on the headline draw (p=16, n=512, seed
+12345) and complex128 on the complex leg's draw (p=8, n=256, seed 777),
+mean of ``--reps`` calls after a warm-up, with CUDA events; hashes of H and
+Q on those draws and at p=1 n=64 (seed 64) and p=3 n=101 (seed 101), real
+and complex (the draws of chip_smoke.py's ``hess_phase``).  Where the
+source has the cooperative design's ``kStagePhases``, the script also
+builds copies of hess.cu under ``_dev/`` that run the barriers only, then
+the generations and barriers, then everything, and times them on the same
+draws: the split of the reduction's time into barrier, generation and
+update (it prints ptxas's register and spill report of those builds).
+``--set NAME=VALUE`` (repeatable) rewrites ``constexpr int NAME`` in those
+copies, to time a variant of the design (for example ``--set
+kRowsPerWarp=2``) beside the source's own build.  ``--headline`` then
+times the real headline ``pschur`` and the complex leg (walls, reduction
+and iteration times, niter).  A parent whose complex reduction is the
+plain torch version times that version instead.
+
 Run from the repository root:
-  python3 scripts/time_sweep_generate.py [--cx] [--root DIR] [--headline]
+  python3 scripts/time_sweep_generate.py [--cx | --hess] [--root DIR] [--headline]
 """
 import argparse
 import hashlib
@@ -47,6 +65,8 @@ def main():
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--headline", action="store_true")
     ap.add_argument("--cx", action="store_true")
+    ap.add_argument("--hess", action="store_true")
+    ap.add_argument("--set", action="append", default=[])
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     sys.path.insert(1, HERE)
@@ -61,7 +81,8 @@ def main():
     print(smi)
     lib = _cuda.load()
     out = {"root": os.path.abspath(args.root), "card": smi}
-    (time_cx if args.cx else time_real)(torch, lib, _cuda, args, out)
+    (time_hess if args.hess else time_cx if args.cx else time_real)(
+        torch, lib, _cuda, args, out)
     print(json.dumps(out))
     return 0
 
@@ -100,18 +121,28 @@ def time_real(torch, lib, _cuda, args, out):
         out[f"R_sha256[{m},{i}]"] = hashlib.sha256(
             R[:, m:i].contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
     if args.headline:
-        import periodicschurdecompositions_jl_torch as pt
-        from periodicschurdecompositions_jl_torch.ops import pqr_real
-        pt.pschur(torch.tensor(np.random.default_rng(0).standard_normal((2, 32, 32)),
-                               device="cuda"), "R")
-        A = torch.tensor(np.random.default_rng(12345).standard_normal((16, 512, 512)),
-                         device="cuda")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        pt.pschur(A, "R")
-        torch.cuda.synchronize()
-        out["headline_wall_s"] = time.perf_counter() - t0
-        out["headline_niter"] = pqr_real.last_info["niter"]
+        headline_real(torch, out)
+
+
+def headline_real(torch, out):
+    """One real headline pschur (p=16, n=512, seed 12345) after a small
+    warm-up call."""
+    import periodicschurdecompositions_jl_torch as pt
+    from periodicschurdecompositions_jl_torch.ops import pqr_real
+    pt.pschur(torch.tensor(np.random.default_rng(0).standard_normal((2, 32, 32)),
+                           device="cuda"), "R")
+    A = torch.tensor(np.random.default_rng(12345).standard_normal((16, 512, 512)),
+                     device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pt.pschur(A, "R")
+    torch.cuda.synchronize()
+    out["headline_wall_s"] = time.perf_counter() - t0
+    info = pqr_real.last_info
+    out["headline_reduce_s"] = info["reduce_s"]
+    out["headline_iterate_s"] = info["iterate_s"]
+    out["headline_niter"] = info["niter"]
+    out["headline_sweeps"] = info["sweeps"]
 
 
 def time_cx(torch, lib, _cuda, args, out):
@@ -146,24 +177,122 @@ def time_cx(torch, lib, _cuda, args, out):
             out[f"log_sha256_{w}"] = hashlib.sha256(
                 written.cpu().numpy().tobytes()).hexdigest()[:16]
     if args.headline:
-        import periodicschurdecompositions_jl_torch as pt
-        from periodicschurdecompositions_jl_torch.ops import pqz_complex
-        rng = np.random.default_rng(0)
-        pt.pschur(torch.tensor(rng.standard_normal((2, 16, 16))
-                               + 1j * rng.standard_normal((2, 16, 16)), device="cuda"), "R")
-        rng = np.random.default_rng(777)
-        A = torch.tensor(rng.standard_normal((p, n, n)) + 1j * rng.standard_normal((p, n, n)),
-                         device="cuda")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        pt.pschur(A, "R")
-        torch.cuda.synchronize()
-        out["cx_leg_wall_s"] = time.perf_counter() - t0
-        info = pqz_complex.last_info
-        out["cx_leg_iterate_s"] = info["iterate_s"]
-        out["cx_leg_reduce_s"] = info["reduce_s"]
-        out["cx_leg_niter"] = info["niter"]
-        out["cx_leg_sweeps"] = info["sweeps"]
+        headline_cx(torch, out)
+
+
+def headline_cx(torch, out):
+    """The complex leg of chip_smoke.py (p=8, n=256, seed 777, no
+    signature) after a small warm-up call."""
+    import periodicschurdecompositions_jl_torch as pt
+    from periodicschurdecompositions_jl_torch.ops import pqz_complex
+    p, n = 8, 256
+    rng = np.random.default_rng(0)
+    pt.pschur(torch.tensor(rng.standard_normal((2, 16, 16))
+                           + 1j * rng.standard_normal((2, 16, 16)), device="cuda"), "R")
+    rng = np.random.default_rng(777)
+    A = torch.tensor(rng.standard_normal((p, n, n)) + 1j * rng.standard_normal((p, n, n)),
+                     device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pt.pschur(A, "R")
+    torch.cuda.synchronize()
+    out["cx_leg_wall_s"] = time.perf_counter() - t0
+    info = pqz_complex.last_info
+    out["cx_leg_iterate_s"] = info["iterate_s"]
+    out["cx_leg_reduce_s"] = info["reduce_s"]
+    out["cx_leg_niter"] = info["niter"]
+    out["cx_leg_sweeps"] = info["sweeps"]
+
+
+def hess_draw(p, n, seed, cplx):
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((p, n, n))
+    return A + 1j * rng.standard_normal((p, n, n)) if cplx else A
+
+
+def sha(t):
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def build_phase_libs(_cuda, root, sets):
+    """hess.cu of ``root`` built with kStagePhases 0 (barriers only), 1
+    (generations and barriers) and 2 (everything), each ``constexpr int``
+    of ``sets`` ("NAME=VALUE") rewritten, into _dev/; {phases: CDLL}, empty
+    when the source has no kStagePhases.  Prints ptxas's report."""
+    import ctypes
+    import re
+    csrc = os.path.join(root, "periodicschurdecompositions_jl_torch", "csrc")
+    src = open(os.path.join(csrc, "hess.cu")).read()
+    line = "constexpr int kStagePhases = 2;"
+    if line not in src:
+        return {}
+    for kv in sets:
+        name, val = kv.split("=")
+        src, k = re.subn(rf"constexpr int {name} = [^;]*;", f"constexpr int {name} = {val};",
+                         src)
+        if k != 1:
+            raise SystemExit(f"--set {kv}: no constexpr int {name} in hess.cu")
+    dev = os.path.join(HERE, "_dev")
+    os.makedirs(dev, exist_ok=True)
+    nvcc, libs, procs = _cuda._find_nvcc(), {}, {}
+    for k in (0, 1, 2):
+        cu = os.path.join(dev, f"hess_phases{k}.cu")
+        open(cu, "w").write(src.replace(line, f"constexpr int kStagePhases = {k};"))
+        procs[k] = subprocess.Popen(
+            [nvcc, *_cuda.NVCC_FLAGS, "-Xptxas", "-v", "-shared", "-I", csrc, "-o",
+             cu[:-3] + ".so", cu], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for k, pr in procs.items():
+        log = pr.communicate()[0]
+        print(f"nvcc hess.cu kStagePhases={k} {' '.join(sets)}: rc {pr.returncode}\n"
+              + "\n".join(x for x in log.splitlines() if "Used" in x or "spill" in x))
+        if pr.returncode:
+            raise SystemExit(log)
+        lib = ctypes.CDLL(os.path.join(dev, f"hess_phases{k}.so"))
+        vp, i32 = ctypes.c_void_p, ctypes.c_int
+        for fn in (lib.psd_hess_reduce, lib.psd_hess_reduce_c128):
+            fn.argtypes = [vp, vp, vp, i32, i32, ctypes.POINTER(i32), vp]
+        libs[k] = lib
+    return libs
+
+
+def time_hess(torch, lib, _cuda, args, out):
+    import ctypes
+    from periodicschurdecompositions_jl_torch.ops import hessenberg
+    reps = min(args.reps, 5)
+    phase_libs = build_phase_libs(_cuda, args.root, args.set)
+    out["set"] = args.set
+    for (tag, p, n, seed, cplx) in (("real", 16, 512, 12345, False),
+                                    ("c128", 8, 256, 777, True),
+                                    ("real_p1n64", 1, 64, 64, False),
+                                    ("real_p3n101", 3, 101, 101, False),
+                                    ("c128_p1n64", 1, 64, 64, True),
+                                    ("c128_p3n101", 3, 101, 101, True)):
+        A = torch.tensor(hess_draw(p, n, seed, cplx), device="cuda")
+        H, Q = hessenberg.phessenberg_core(A)
+        out[f"H_sha256_{tag}"], out[f"Q_sha256_{tag}"] = sha(H), sha(Q)
+        if "_" in tag:
+            continue
+        before = hessenberg.launches["hess_reduce"]
+        out[f"hess_ms_{tag}"] = event_ms(torch, lambda: hessenberg.phessenberg_core(A), reps)
+        out[f"hess_launches_per_call_{tag}"] = \
+            (hessenberg.launches["hess_reduce"] - before) / (reps + 1)
+        for k, plib in phase_libs.items():
+            Hk = torch.empty_like(A)
+            ws = torch.empty(n + 2, dtype=A.dtype, device="cuda")
+            entry = plib.psd_hess_reduce_c128 if cplx else plib.psd_hess_reduce
+            st = torch.cuda.current_stream().cuda_stream
+
+            def call():
+                Hk.copy_(A)
+                nl = ctypes.c_int(0)
+                _cuda.check(entry(Hk.data_ptr(), Q.data_ptr(), ws.data_ptr(), p, n,
+                                  ctypes.byref(nl), st), "hess_reduce phases")
+            out[f"hess_ms_{tag}_phases{k}"] = event_ms(torch, call, reps)
+            if k == 2:  # H does not depend on Q: the variant's H against the source's
+                out[f"H_sha256_{tag}_phases2"] = sha(Hk)
+    if args.headline:
+        headline_real(torch, out)
+        headline_cx(torch, out)
 
 
 if __name__ == "__main__":

@@ -13,8 +13,8 @@ amplifies rounding far less than at n=512 (see chip_smoke.py for the
 long-window check).  The complex shift kernel: 1e-14 relative to the plain
 version's |s|.  The real generalized chase and ladders: 1e-12 on cycles
 whose triangular factors have diagonals of modulus in [1, 2).  The
-reduction kernel: 1e-12 relative to max|A| (n <= 128), similarity residual
-2e-13 max|A|, orthonormality 10 eps n.  Kernel G: bit for bit with its
+reduction kernel, float64 and complex128: 1e-12 relative to max|A| (n <=
+128), similarity residual 2e-13 max|A|, orthonormality 10 eps n.  Kernel G: bit for bit with its
 plain version and with the numpy host glue (it is written without FMA, in
 numpy's order).
 """
@@ -492,7 +492,7 @@ def test_hess_kernel_matches_plain(cuda, p, n):
                      device=cuda)
     before = hessenberg.launches["hess_reduce"]
     H, Q = hessenberg.phessenberg_core(A)
-    assert hessenberg.launches["hess_reduce"] - before == 2 * p * (n - 1) + (n - 1) * (p == 1)
+    assert hessenberg.launches["hess_reduce"] - before == 1  # one cooperative launch
     Hp, Qp = hessenberg.phessenberg_core_plain(A)
     torch.cuda.synchronize()
     scale = float(A.abs().max())
@@ -506,6 +506,59 @@ def test_hess_kernel_matches_plain(cuda, p, n):
         assert float((Q[l].T @ Q[l] - eye).abs().max()) <= 10 * np.finfo(float).eps * n
     Hn, Qn = hessenberg.phessenberg_core(A, want_q=False)
     assert Qn is None and torch.equal(Hn, H)
+
+
+def _hess_cycle(p, n, kind, seed):
+    rng = np.random.default_rng(seed)
+    A = rng.standard_normal((p, n, n))
+    if kind == "real":
+        return A
+    A = A + 1j * rng.standard_normal((p, n, n))
+    if kind == "zero_tails":  # zero tails, complex diagonals: every tau != 0
+        A = np.triu(A)
+        A[0] += np.diag(rng.standard_normal(n - 1) + 1j * rng.standard_normal(n - 1), -1)
+    return A
+
+
+@pytest.mark.parametrize("p,n,kind,want_q", [
+    (1, 1, "real", True), (1, 2, "real", True), (1, 3, "real", False), (2, 3, "real", True),
+    (1, 1, "complex", True), (1, 2, "complex", True), (1, 3, "complex", True),
+    (3, 3, "complex", False), (1, 33, "complex", True), (4, 64, "complex", True),
+    (16, 128, "complex", False), (3, 40, "zero_tails", True), (1, 40, "zero_tails", True)])
+def test_hess_kernel_edges_and_complex_match_plain(cuda, p, n, kind, want_q):
+    """Both instances against the plain version: 1e-12 max|A| (H) and 1e-12
+    (Q), residual 2e-13 max|A|, orthonormality 10 eps n, exact zeros; one
+    launch per reduction (none for n == 1)."""
+    A = torch.tensor(_hess_cycle(p, n, kind, 1000 * p + n + 7), device=cuda)
+    before = hessenberg.launches["hess_reduce"]
+    H, Q = hessenberg.phessenberg_core(A, want_q=want_q)
+    assert hessenberg.launches["hess_reduce"] - before == (1 if n > 1 else 0)
+    Hp, Qp = hessenberg.phessenberg_core_plain(A, want_q=want_q)
+    torch.cuda.synchronize()
+    scale = float(A.abs().max())
+    assert float((H - Hp).abs().max()) <= 1e-12 * scale
+    _structure_exact(H)
+    if not want_q:
+        assert Q is None
+        Hq, Q = hessenberg.phessenberg_core(A)
+        assert torch.equal(Hq, H)
+    else:
+        assert float((Q - Qp).abs().max()) <= 1e-12
+    eye = torch.eye(n, dtype=A.dtype, device=cuda)
+    for l in range(p):
+        R = Q[l].mH @ A[l] @ Q[(l + 1) % p] - H[l]
+        assert float(R.abs().max()) <= 2e-13 * scale
+        assert float((Q[l].mH @ Q[l] - eye).abs().max()) <= 10 * np.finfo(float).eps * n
+
+
+@pytest.mark.parametrize("dtype", [torch.complex64, torch.float32])
+def test_hess_kernel_refuses_single_precision(cuda, dtype):
+    A = torch.tensor(_hess_cycle(2, 5, "complex", 3), device=cuda)
+    A = A.to(dtype) if dtype.is_complex else A.real.to(dtype)
+    before = hessenberg.launches["hess_reduce"]
+    with pytest.raises(ValueError, match="float64 or complex128"):
+        hessenberg.phessenberg_core(A)
+    assert hessenberg.launches["hess_reduce"] == before
 
 
 @pytest.mark.parametrize("cfg", [AlgoConfig(), AlgoConfig(slicot_convg=True),
