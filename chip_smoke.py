@@ -1246,12 +1246,11 @@ def rg_kernel_phase(dev, p, n, report):
         dh = float((Hk - Hp).abs().max()) / scale
         dz = float((Zk - Zp).abs().max())
         tol_h, tol_z = max(TOL, 10 * sens_h), max(TOL, 10 * sens_z)
-        # 2. the apply kernels on kernel A's own log
-        log = torch.empty((p, n, sweep_rg.LOG), dtype=torch.float64, device=dev)
-        C = torch.empty((p, n, n), dtype=torch.float64, device=dev)
-        _cuda.check(lib.psd_rg_sweep_generate(H0.data_ptr(), C.data_ptr(), log.data_ptr(),
-                                              Sd.data_ptr(), p, n, m, i, st),
-                    "rg_sweep_generate")
+        # 2. the apply kernels on kernel A's own log (A reads H0 only)
+        H0c = H0.clone()
+        log = sweep_rg.rg_sweep_generate(H0, m, i, S)
+        if not torch.equal(H0, H0c):
+            raise AssertionError("rg kernel A wrote its input")
         Hb, Zb = H0.clone(), Z0.clone()
         _cuda.check(lib.psd_rg_sweep_left(Hb.data_ptr(), log.data_ptr(), p, n, m, i, st),
                     "rg_sweep_left")
@@ -1321,9 +1320,10 @@ def rg_kernel_phase(dev, p, n, report):
     H = torch.tensor(Hn, device=dev)
     rgopen.rg_ladder_plain(H, Z, "open", 0, i, rot, S, want_z=True)
     log = torch.empty((p, n, sweep_rg.LOG), dtype=torch.float64, device=dev)
-    C = torch.empty((p, n, n), dtype=torch.float64, device=dev)
+    work = torch.empty(lib.psd_rg_sweep_generate_scratch(p, n), dtype=torch.float64,
+                       device=dev)
     ms_a = event_ms(lambda: _cuda.check(lib.psd_rg_sweep_generate(
-        H.data_ptr(), C.data_ptr(), log.data_ptr(), Sd.data_ptr(), p, n, m, i, st),
+        H.data_ptr(), work.data_ptr(), log.data_ptr(), Sd.data_ptr(), p, n, m, i, st),
         "rg_sweep_generate"), 5)
     ms_b0 = event_ms(lambda: _cuda.check(lib.psd_rg_sweep_left(
         H.data_ptr(), log.data_ptr(), p, n, m, i, st), "rg_sweep_left"), 5)
@@ -1334,18 +1334,22 @@ def rg_kernel_phase(dev, p, n, report):
         0, st), "rg_ladder"), 20)
     t_ladder_plain = wall_ms(lambda: rgopen.rg_ladder_plain(H, Z, "open", 0, n - 1, rot, S,
                                                             want_z=True))
-    _log(f"rg kernels at p={p} n={n} window [{m}, {i}]: A {ms_a:.3f} ms, B0 {ms_b0:.3f} ms, "
+    _log(f"rg kernels at p={p} n={n} window [{m}, {i}]: A {ms_a:.3f} ms "
+         f"({ms_a * 1e3 / ((i - 1 - m) * p):.4f} us per (step, factor)), B0 {ms_b0:.3f} ms, "
          f"B {ms_b:.3f} ms, R (open at 0) {ms_r:.4f} ms; plain chase "
          f"{times['plain_chase']:.1f} ms, plain apply (B0+B) {times['plain_apply']:.1f} ms, "
          f"plain ladder {t_ladder_plain:.2f} ms")
     # bytes and operations of the window (K steps j = m..i-2), float64, of
-    # the entries that are not structural zeros.  A reads the upper parts of
-    # rows m..min(i+1, n-1) (every such entry reaches a later generation:
-    # each left rotation moves it two rows down), from column r-1 in H[0]
-    # (plus the opening's three bulge entries) and from column r in the
-    # other factors, writes the log (27 entries per (factor, step), one more
-    # for factor 0), and applies two 2-row rotations per (step, factor) to
-    # the columns right of j (12 flops per column).  B0 reads the upper
+    # the entries that are not structural zeros.  A reads what its
+    # generations depend on once: rows m..min(i+1, n-1) and columns up to i
+    # (every such entry reaches a later generation: each left rotation
+    # moves it two rows down), from column r-1 in H[0] (plus the opening's
+    # three bulge entries) and from column r in the other factors, writes
+    # the log (27 entries per (factor, step), one more for factor 0), and
+    # applies two 2-row rotations per (step, factor) to columns j..i (12
+    # flops per column).  Columns right of i never reach a generation (an
+    # earlier count took them in; at the full window i = n-1 the two
+    # agree).  B0 reads the upper
     # parts of rows m..i and the log's L, and writes those rows, which it
     # fills from column m-1 in H[0] and from column m in the others, a 3x3
     # application being 15 flops per entry triple.  B reads and writes
@@ -1355,16 +1359,15 @@ def rg_kernel_phase(dev, p, n, report):
     # per entry triple are 4 flops per entry.
     K = i - 1 - m
 
-    def upper(lo, hi):
+    def upper(lo, hi, clast):
         rows = range(lo, hi + 1)
-        return (sum(n - r + 1 for r in rows) + 3
-                + (p - 1) * sum(n - r for r in rows))
-    steps = sum(n - j for j in range(m, i - 1))
+        return (sum(clast + 2 - max(r, lo) for r in rows) + 3
+                + (p - 1) * sum(max(clast + 1 - r, 0) for r in rows))
     ent_r = p * (3 * n + 3 * n) + 3 * n
     bounds = {
-        "rg_sweep_generate": bound(8 * upper(m, min(i + 1, n - 1)) + 8 * (27 * p + 1) * K,
-                                   12 * p * steps),
-        "rg_sweep_left": bound(8 * upper(m, i) + 8 * (i + 1 - m) * (p * (n - m) + 1)
+        "rg_sweep_generate": bound(8 * upper(m, min(i + 1, n - 1), i) + 8 * (27 * p + 1) * K,
+                                   12 * p * sum(i + 1 - j for j in range(m, i - 1))),
+        "rg_sweep_left": bound(8 * upper(m, i, n - 1) + 8 * (i + 1 - m) * (p * (n - m) + 1)
                                + 8 * 9 * p * K, 15 * p * (n - m + 1) * K),
         "rg_sweep_right": bound(2 * 8 * p * (i + 1 + n) * (i + 1 - m) + 8 * 18 * p * K,
                                 15 * p * (i + 1 + n) * K),

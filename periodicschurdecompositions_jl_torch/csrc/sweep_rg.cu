@@ -23,12 +23,50 @@
 // What bounds each kernel on the H100, and what the design does about it:
 // * rg_sweep_generate is a serial latency chain of (i-1-m)*p steps of two
 //   Givens generations each, every one reading entries the previous one
-//   wrote.  It runs in ONE block: thread 0 generates (and applies the
-//   column updates on the few band rows that later generations read), and
-//   all threads apply each left rotation to two rows of a working copy C of
-//   H across the columns to the right.  C lives in global memory,
-//   L2-resident at p=8 n=256 (4.2 MB).  Four block barriers per (factor,
-//   step).
+//   wrote.  It reads H only (B0 and B apply the log to H afterwards) and
+//   runs in ONE block, in batches of L steps (L <= 29, set from p by the
+//   shared memory a block may take):
+//   - the look-ahead window: for a batch j0..j1-1 each factor keeps rows
+//     j0..j1+2 (cut at n-1) and columns j0-1..j1+1 of its working state in
+//     dynamic shared memory, (L+3)^2 entries: every entry the batch's
+//     generations read or its band updates and ring close write on the
+//     way there (factor 0 generates from column j-1, rows j..j+2, and its
+//     ring close reaches row j+3; the other factors stay in rows j..j+2
+//     and columns j..j+2);
+//   - serial phase: one warp runs the batch's L steps x p factors in the
+//     reference order (rg_chase_plain's, both branches of S) on the
+//     windows only: every lane runs the generation (psd::givens_r's
+//     operations, less the division of the larger operand by itself, which
+//     is exactly +-1), the band updates take one lane per row, and the
+//     lanes apply each left rotation to the window's rows (lanes as
+//     columns), with __syncwarp between; it keeps the rotation pair each
+//     factor hands on, and the block writes the batch's log from those
+//     pairs at its end;
+//   - update phase: the columns right of the window receive no right
+//     rotation in the batch, only left ones (per factor and step: rows
+//     j+1, j+2, then rows j, j+1), so the whole block applies the batch's
+//     2L left rotations of each factor to them at its end, in step order.
+//     Each thread walks one (factor, column): the two rows still in flux
+//     come from a 2 p n scratch (or from H at the first batch) and go back
+//     there, or into the next window when the column enters it; the row
+//     below comes fresh from H, which no rotation has touched there.
+//     Columns right of i are never read by a generation and are not
+//     visited.
+//   Every entry therefore receives the same operations in the same order as
+//   in the reference order on a full working copy (tests/torch_rg_window_host.py
+//   models both schedules and checks that their logs agree bit for bit),
+//   and the chain waits on no global memory and no block barrier: one
+//   __syncthreads pair per batch.  Every rotation is written out as the
+//   design before the look-ahead window had it from nvcc (the c product
+//   fused, the s product rounded: rot2), so the log is that design's bit
+//   for bit.  Where even L = 1 does not fit in shared memory (p above
+//   about 1000), the same kernel keeps the windows in a global scratch.
+//   What bounds it: the generations, a float64 division, a square root and
+//   two more divisions each, one after the other, and the window's
+//   shared-memory round trips and __syncwarp between them (p=8 n=256 on an
+//   H100: ~2180 cycles per (step, factor); with the clock64 counters of
+//   scripts/profile_sweep_generate.py --rg, 2368, 1281 of them the two
+//   generations).
 // * rg_sweep_left / rg_sweep_right apply the logged 3x3 transforms with full
 //   parallelism (one thread per (factor, column) or (factor, row), each
 //   walking all steps with two live entries in registers).  They are bound
@@ -45,7 +83,8 @@
 
 namespace {
 
-constexpr int kGenThreads = 256;
+constexpr int kGenThreads = 512;
+constexpr int kMaxBatch = 29;  // kernel rg A: L + 3 <= 32 window columns, one per lane
 constexpr int kApplyThreads = 128;
 constexpr int kLog = 28;
 
@@ -77,157 +116,314 @@ __device__ __forceinline__ void put_fuse_right(double* E, double c1, double s1,
   E[8] = c2;
 }
 
-// rows k, k+1 of one factor of C, columns c0..n-1 <- lmat(c, s) rows
-__device__ __forceinline__ void rows_left(double* Cl, int n, int k, int c0,
+// (x0, x1) <- (c x0 + s x1, c x1 - s x0): a left rotation lmat(c, s) on two
+// rows, or a right rotation rmat_adj(c, s) on two columns.  The c product
+// is fused, the s product rounded: the form nvcc gave every rotation of
+// kernel rg A before the look-ahead window (its log is this kernel's, bit
+// for bit).
+__device__ __forceinline__ void rot2(double c, double s, double& x0, double& x1) {
+  const double y0 = __fma_rn(c, x0, __dmul_rn(s, x1));
+  x1 = __fma_rn(c, x1, -__dmul_rn(s, x0));
+  x0 = y0;
+}
+
+// psd::givens_r's values, on every lane of warp 0 alike.  Of the two
+// scaled operands f / sc and g / sc (sc = max(|f|, |g|)) the larger one is
+// x / |x|, exactly +-1 for a finite sc, and is not divided: one float64
+// division less on the chain (2.39 -> 2.23 ms at p=8 n=256 on an H100); an
+// infinite or NaN sc takes psd::givens_r itself.  The sum of squares
+// is written in the form nvcc gave psd::givens_r in the kernel before the
+// look-ahead window.  Handing the second round's two divisions to lanes 0
+// and 1 (shuffles) was slower (2.36 ms).
+__device__ __forceinline__ void givens_gen(double f, double g, double& c, double& s,
+                                           double& r) {
+  if (g == 0.0) {
+    c = 1.0;
+    s = 0.0;
+    r = f;
+  } else if (f == 0.0) {
+    c = 0.0;
+    s = (g >= 0.0) ? 1.0 : -1.0;
+    r = fabs(g);
+  } else {
+    const double af = fabs(f), ag = fabs(g);
+    const double sc = fmax(af, ag);
+    if (!(sc <= DBL_MAX)) {  // an infinite or NaN operand
+      psd::givens_r(f, g, c, s, r);
+      return;
+    }
+    const bool fbig = af == sc;
+    const double q = (fbig ? g : f) / sc;
+    const double fs = fbig ? copysign(1.0, f) : q;
+    const double gs = fbig ? q : copysign(1.0, g);
+    const double d = __dmul_rn(sc, sqrt(__fma_rn(fs, fs, __dmul_rn(gs, gs))));
+    r = (f >= 0.0) ? d : -d;
+    c = af / d;
+    s = g / r;
+  }
+}
+
+// Kernel rg A's working set for batch length L, in bytes: per factor the
+// (L+3) x (L+3) window, the 3x3 corner handed to the next batch and the
+// batch's L rotation pairs handed on (c1, s1, c2, s2); factor 0's L
+// regenerated entries r.
+inline size_t window_bytes(int p, int L) {
+  return ((size_t)p * ((size_t)(L + 3) * (L + 3) + 9 + 4 * (size_t)L) + L) *
+         sizeof(double);
+}
+
+// lanes 0..3 of warp 0 store (a, b, c, d) to D[0..3]
+__device__ __forceinline__ void put4(double* D, double a, double b, double c,
+                                     double d) {
+  const int lane = threadIdx.x & 31;
+  if (lane < 4) D[lane] = lane == 0 ? a : lane == 1 ? b : lane == 2 ? c : d;
+}
+
+// The rotation pair handed into factor f at step t of the batch (hp: the
+// pairs each factor hands on, (c1, s1, c2, s2) at 4 (f L + t)): factor 0's
+// ring close takes the last factor's (factor 1's), factor p-1 takes factor
+// 0's, factor l < p-1 takes factor l+1's.
+__device__ __forceinline__ const double* pair_in(const double* hp, int p, int L,
+                                                 int f, int t) {
+  const int g = (f == 0) ? (p > 1 ? 1 : 0) : (f == p - 1 ? 0 : f + 1);
+  return hp + 4 * ((size_t)g * L + t);
+}
+
+// row a of a window, columns b, b+1 <- (...) rmat_adj(c, s)
+__device__ __forceinline__ void win_right(double* Wf, int SW, int a, int b,
                                           double c, double s) {
-  double* r0 = Cl + (size_t)k * n;
-  for (int col = c0 + threadIdx.x; col < n; col += blockDim.x) {
-    const double x0 = r0[col], x1 = r0[col + n];
-    r0[col] = c * x0 + s * x1;
-    r0[col + n] = -s * x0 + c * x1;
+  double* y = Wf + a * SW + b;
+  double x0 = y[0], x1 = y[1];
+  rot2(c, s, x0, x1);
+  y[0] = x0;
+  y[1] = x1;
+}
+
+// rows a, a+1 of a window, columns b0..b1 <- lmat(c, s) rows (lanes as
+// columns)
+__device__ __forceinline__ void win_left(double* Wf, int SW, int a, int b0,
+                                         int b1, double c, double s) {
+  for (int b = b0 + (threadIdx.x & 31); b <= b1; b += 32) {
+    double* x = Wf + a * SW + b;
+    double x0 = x[0], x1 = x[SW];
+    rot2(c, s, x0, x1);
+    x[0] = x0;
+    x[SW] = x1;
   }
 }
 
-// rows r0..r1 of one factor of C, columns k, k+1 <- (...) rmat_adj(c, s)
-// (thread 0)
-__device__ __forceinline__ void band_right(double* Cl, int n, int k, int r0,
-                                           int r1, double c, double s) {
-  for (int r = r0; r <= r1; ++r) {
-    double* row = Cl + (size_t)r * n + k;
-    const double x0 = row[0], x1 = row[1];
-    row[0] = x0 * c + x1 * s;
-    row[1] = x0 * (-s) + x1 * c;
+// Serial phase of the batch j0..j1-1, on warp 0.  win: the p windows
+// (factor f's entry (r, c) at win[f SW^2 + (r - j0) SW + c - j0 + 1],
+// SW = L+3); hp: the rotation pair each factor hands on at each step (see
+// pair_in), and r0: factor 0's regenerated entries, from which the block
+// writes the log and takes the left rotations of the update phase; stage:
+// the next batch's corners.  Every lane generates and holds the rotations
+// handed from factor to factor; lane 0 writes the generated entries.
+// Warp-synchronous: __syncwarp only.
+__device__ void gen_serial(double* win, double* stage, double* hp, double* r0,
+                           const int* __restrict__ S, int p, int n, int i, int L,
+                           int j0, int j1) {
+  const int lane = threadIdx.x & 31;
+  const int SW = L + 3;
+  const size_t SS = (size_t)SW * SW;
+  const int bmax = j1 - j0 + 2;  // the window column of j1+1
+  for (int j = j0; j < j1; ++j) {
+    const int t = j - j0;
+    // ---- factor 0: the two bulge rotations from column j-1 -------------
+    double c1, s1, c2, s2;
+    {
+      double* W = win;
+      double r1, r2;
+      givens_gen(W[(t + 1) * SW + t], W[(t + 2) * SW + t], c2, s2, r2);
+      givens_gen(W[t * SW + t], r2, c1, s1, r1);
+      __syncwarp();
+      if (lane == 0) {
+        W[t * SW + t] = r1;
+        W[(t + 1) * SW + t] = 0.0;
+        W[(t + 2) * SW + t] = 0.0;
+        r0[t] = r1;
+      }
+      put4(hp + 4 * (size_t)t, c1, s1, c2, s2);
+      // rows j+1, j+2 then j, j+1, columns j..j1+1, fused per column
+      for (int b = t + 1 + lane; b <= bmax; b += 32) {
+        double* x = W + t * SW + b;
+        double x0 = x[0], x1 = x[SW], x2 = x[2 * SW];
+        rot2(c2, s2, x1, x2);
+        rot2(c1, s1, x0, x1);
+        x[0] = x0;
+        x[SW] = x1;
+        x[2 * SW] = x2;
+      }
+      __syncwarp();
+    }
+    // ---- factors p-1..1 ----------------------------------------------------
+    for (int l = p - 1; l >= 1; --l) {
+      double* W = win + l * SS;
+      double c2n, s2n, c1n, s1n, r;
+      if (__ldg(S + l)) {
+        // incoming rights on columns j+1, j+2 (band rows j..j+2, one per
+        // lane), then regenerate from the new column j+1
+        if (lane < 3) win_right(W, SW, t + lane, t + 2, c2, s2);
+        __syncwarp();
+        givens_gen(W[(t + 1) * SW + t + 2], W[(t + 2) * SW + t + 2], c2n, s2n, r);
+        __syncwarp();
+        if (lane == 0) {
+          W[(t + 1) * SW + t + 2] = r;
+          W[(t + 2) * SW + t + 2] = 0.0;
+        }
+        __syncwarp();
+        // rows j+1, j+2 from column j+2; the incoming right on columns j,
+        // j+1 (band rows j, j+1): disjoint entries
+        win_left(W, SW, t + 1, t + 3, bmax, c2n, s2n);
+        if (lane < 2) win_right(W, SW, t + lane, t + 1, c1, s1);
+        __syncwarp();
+        givens_gen(W[t * SW + t + 1], W[(t + 1) * SW + t + 1], c1n, s1n, r);
+        __syncwarp();
+        if (lane == 0) {
+          W[t * SW + t + 1] = r;
+          W[(t + 1) * SW + t + 1] = 0.0;
+        }
+        win_left(W, SW, t, t + 2, bmax, c1n, s1n);  // rows j, j+1 from column j+1
+      } else {
+        // incoming lefts, then regenerate from the new rows
+        win_left(W, SW, t + 1, t + 1, bmax, c2, s2);  // rows j+1, j+2 from column j
+        __syncwarp();
+        givens_gen(W[(t + 2) * SW + t + 3], -W[(t + 2) * SW + t + 2], c2n, s2n, r);
+        __syncwarp();
+        if (lane == 0) {
+          W[(t + 2) * SW + t + 2] = 0.0;
+          W[(t + 2) * SW + t + 3] = r;
+        }
+        if (lane < 2) win_right(W, SW, t + lane, t + 2, c2n, s2n);  // columns j+1, j+2
+        __syncwarp();
+        win_left(W, SW, t, t + 1, bmax, c1, s1);  // rows j, j+1 from column j
+        __syncwarp();
+        givens_gen(W[(t + 1) * SW + t + 2], -W[(t + 1) * SW + t + 1], c1n, s1n, r);
+        __syncwarp();
+        if (lane == 0) {
+          W[(t + 1) * SW + t + 1] = 0.0;
+          W[(t + 1) * SW + t + 2] = r;
+          win_right(W, SW, t, t + 1, c1n, s1n);  // row j, columns j, j+1
+        }
+      }
+      c1 = c1n;
+      s1 = s1n;
+      c2 = c2n;
+      s2 = s2n;
+      put4(hp + 4 * ((size_t)l * L + t), c1, s1, c2, s2);
+      __syncwarp();
+    }
+    // ---- ring close on factor 0: columns j+1, j+2 then j, j+1, band rows
+    // j..j+3 (cut at n-1), one per lane -----------------------------------
+    if (lane < 4 && j + lane <= n - 1) {
+      win_right(win, SW, t + lane, t + 2, c2, s2);
+      win_right(win, SW, t + lane, t + 1, c1, s1);
+    }
+    __syncwarp();
+  }
+  if (j1 < i - 1) {  // rows j1..j1+2 x columns j1-1..j1+1: the next corners
+    const int a = j1 - j0;
+    for (int q = lane; q < p * 9; q += 32) {
+      const int f = q / 9, da = (q % 9) / 3, db = q % 3;
+      stage[q] = win[f * SS + (size_t)(a + da) * SW + a + db];
+    }
   }
 }
 
-__device__ __forceinline__ double& at(double* Cl, int n, int r, int c) {
-  return Cl[(size_t)r * n + c];
+// The log of the batch j0..j1-1, whole block, one thread per (factor, step),
+// from the pairs handed on (see gen_serial): factor 0 logs its own pair as
+// L and ZR, the pair of its ring close as R and its r; a factor of S[l] = 1
+// logs the incoming pair as R and its own as L and ZR; one of S[l] = 0 logs
+// the incoming pair as L and its own as R and ZR.
+__device__ void write_log(const double* hp, const double* r0, double* __restrict__ Lg,
+                          const int* __restrict__ S, int p, int n, int L, int j0,
+                          int j1) {
+  const int nb = j1 - j0;
+  for (int q = threadIdx.x; q < p * nb; q += blockDim.x) {
+    const int f = q / nb, t = q % nb;
+    const double* own = hp + 4 * ((size_t)f * L + t);
+    const double* in = pair_in(hp, p, L, f, t);
+    const bool direct = f == 0 || __ldg(S + f);
+    const double* lp = direct ? own : in;  // the left pair
+    const double* rp = (f > 0 && !direct) ? own : in;  // the right pair
+    double* E = Lg + ((size_t)f * n + j0 + t) * kLog;
+    put_fuse_left(E, lp[0], lp[1], lp[2], lp[3]);
+    put_fuse_right(E + 9, rp[0], rp[1], rp[2], rp[3]);
+    put_fuse_right(E + 18, own[0], own[1], own[2], own[3]);
+    if (f == 0) E[27] = r0[t];
+  }
+}
+
+// Window entries (a, b) (row j0+a, column j0-1+b, up to rlast and clast)
+// from H, whole block: with first, every entry (the first batch); else all
+// but the corner (a, b <= 2) and the carried rows (a <= 1).
+__device__ void fill_from_h(const double* __restrict__ H, double* win, int p,
+                            int n, int L, int j0, int rlast, int clast,
+                            bool first) {
+  const int SW = L + 3;
+  const int na = rlast - j0 + 1, nb = clast - j0 + 2, per = na * nb;
+  for (int q = threadIdx.x; q < p * per; q += blockDim.x) {
+    const int f = q / per, a = (q % per) / nb, b = q % nb;
+    if (!first && (a <= 1 || (a == 2 && b <= 2))) continue;
+    win[((size_t)f * SW + a) * SW + b] = H[((size_t)f * n + j0 + a) * n + j0 - 1 + b];
+  }
 }
 
 __global__ void __launch_bounds__(kGenThreads)
-rg_generate_kernel(double* __restrict__ C, double* __restrict__ Lg,
-                   const int* __restrict__ S, int p, int n, int m, int i) {
-  __shared__ double sh[4];  // c1, s1, c2, s2
-  const size_t nn = (size_t)n * n;
-  const int tid = threadIdx.x;
-
-  for (int j = m; j <= i - 2; ++j) {
-    // ---- factor 0: the two bulge rotations from column j-1 ---------------
-    if (tid == 0) {
-      double c1, s1, c2, s2, r1, r2;
-      psd::givens_r(at(C, n, j + 1, j - 1), at(C, n, j + 2, j - 1), c2, s2, r2);
-      psd::givens_r(at(C, n, j, j - 1), r2, c1, s1, r1);
-      at(C, n, j, j - 1) = r1;
-      at(C, n, j + 1, j - 1) = 0.0;
-      at(C, n, j + 2, j - 1) = 0.0;
-      double* E = Lg + (size_t)j * kLog;
-      put_fuse_left(E, c1, s1, c2, s2);
-      put_fuse_right(E + 18, c1, s1, c2, s2);
-      E[27] = r1;
-      sh[0] = c1;
-      sh[1] = s1;
-      sh[2] = c2;
-      sh[3] = s2;
-    }
+rg_generate_kernel(const double* __restrict__ H, double* __restrict__ carry,
+                   double* __restrict__ gwin, double* __restrict__ Lg,
+                   const int* __restrict__ S, int p, int n, int m, int i, int L) {
+  extern __shared__ double smem[];
+  double* win = gwin ? gwin : smem;
+  const int SW = L + 3;
+  double* stage = win + (size_t)p * SW * SW;
+  double* hp = stage + 9 * (size_t)p;
+  double* r0 = hp + 4 * (size_t)p * L;
+  int j0 = m, j1 = min(m + L, i - 1);
+  fill_from_h(H, win, p, n, L, j0, min(j1 + 2, n - 1), j1 + 1, true);
+  __syncthreads();
+  for (;;) {
+    if (threadIdx.x < 32) gen_serial(win, stage, hp, r0, S, p, n, i, L, j0, j1);
     __syncthreads();
-    double c1 = sh[0], s1 = sh[1], c2 = sh[2], s2 = sh[3];
-    // rows j+1, j+2 then j, j+1 of C[0], columns j..n-1
-    for (int col = j + tid; col < n; col += blockDim.x) {
-      double* x = C + (size_t)j * n + col;
-      const double x0 = x[0], x1 = x[n], x2 = x[2 * n];
-      const double y1 = c2 * x1 + s2 * x2;
-      x[2 * n] = -s2 * x1 + c2 * x2;
-      x[0] = c1 * x0 + s1 * y1;
-      x[n] = -s1 * x0 + c1 * y1;
-    }
-    __syncthreads();
-
-    // ---- factors p-1..1 ----------------------------------------------------
-    for (int l = p - 1; l >= 1; --l) {
-      double* Cl = C + (size_t)l * nn;
-      double* E = Lg + ((size_t)l * n + j) * kLog;
-      if (S[l]) {
-        // incoming rights, then regenerate from the new columns
-        if (tid == 0) {
-          put_fuse_right(E + 9, c1, s1, c2, s2);
-          band_right(Cl, n, j + 1, j, j + 2, c2, s2);
-          double c, s, r;
-          psd::givens_r(at(Cl, n, j + 1, j + 1), at(Cl, n, j + 2, j + 1), c, s, r);
-          at(Cl, n, j + 1, j + 1) = r;
-          at(Cl, n, j + 2, j + 1) = 0.0;
-          sh[2] = c;
-          sh[3] = s;
-        }
-        __syncthreads();
-        const double c2n = sh[2], s2n = sh[3];
-        rows_left(Cl, n, j + 1, j + 2, c2n, s2n);
-        __syncthreads();
-        if (tid == 0) {
-          band_right(Cl, n, j, j, j + 1, c1, s1);
-          double c, s, r;
-          psd::givens_r(at(Cl, n, j, j), at(Cl, n, j + 1, j), c, s, r);
-          at(Cl, n, j, j) = r;
-          at(Cl, n, j + 1, j) = 0.0;
-          sh[0] = c;
-          sh[1] = s;
-        }
-        __syncthreads();
-        const double c1n = sh[0], s1n = sh[1];
-        rows_left(Cl, n, j, j + 1, c1n, s1n);
-        if (tid == 0) {
-          put_fuse_left(E, c1n, s1n, c2n, s2n);
-          put_fuse_right(E + 18, c1n, s1n, c2n, s2n);
-        }
-        __syncthreads();
-        c1 = c1n;
-        s1 = s1n;
-        c2 = c2n;
-        s2 = s2n;
+    write_log(hp, r0, Lg, S, p, n, L, j0, j1);
+    if (j1 == i - 1) break;
+    // update phase: the batch's left rotations on columns j1+2..i of every
+    // factor, one thread per (factor, column): rows j0, j0+1 carried (from
+    // H at the first batch), rows j0+2..j1+1 fresh from H; rows j1, j1+1 go
+    // into the next window or back to the carry.  The first row of each
+    // step's second rotation is final and not formed.
+    const int j2 = min(j1 + L, i - 1);
+    const int nc = i - j1 - 1;
+    for (int q = threadIdx.x; q < p * nc; q += blockDim.x) {
+      const int f = q / nc, c = j1 + 2 + q % nc;
+      const double* Hc = H + (size_t)f * n * n + c;
+      double* cy = carry + (size_t)f * 2 * n + c;
+      double x0 = (j0 == m) ? Hc[(size_t)j0 * n] : cy[0];
+      double x1 = (j0 == m) ? Hc[(size_t)(j0 + 1) * n] : cy[n];
+      const bool direct = f == 0 || __ldg(S + f);
+      for (int u = 0; u < L; ++u) {
+        const double* P = direct ? hp + 4 * ((size_t)f * L + u) : pair_in(hp, p, L, f, u);
+        double x2 = Hc[(size_t)(j0 + u + 2) * n];
+        rot2(P[2], P[3], x1, x2);
+        x0 = __fma_rn(P[0], x1, -__dmul_rn(P[1], x0));  // rot2's second row
+        x1 = x2;
+      }
+      if (c <= j2 + 1) {
+        double* w = win + (size_t)f * SW * SW + c - j1 + 1;
+        w[0] = x0;
+        w[SW] = x1;
       } else {
-        // incoming lefts, then regenerate from the new rows
-        rows_left(Cl, n, j + 1, j, c2, s2);
-        __syncthreads();
-        if (tid == 0) {
-          put_fuse_left(E, c1, s1, c2, s2);
-          double c, s, r;
-          psd::givens_r(at(Cl, n, j + 2, j + 2), -at(Cl, n, j + 2, j + 1), c, s, r);
-          at(Cl, n, j + 2, j + 1) = 0.0;
-          at(Cl, n, j + 2, j + 2) = r;
-          band_right(Cl, n, j + 1, j, j + 1, c, s);
-          sh[2] = c;
-          sh[3] = s;
-        }
-        __syncthreads();
-        const double c2n = sh[2], s2n = sh[3];
-        rows_left(Cl, n, j, j, c1, s1);
-        __syncthreads();
-        if (tid == 0) {
-          double c, s, r;
-          psd::givens_r(at(Cl, n, j + 1, j + 1), -at(Cl, n, j + 1, j), c, s, r);
-          at(Cl, n, j + 1, j) = 0.0;
-          at(Cl, n, j + 1, j + 1) = r;
-          band_right(Cl, n, j, j, j, c, s);
-          put_fuse_right(E + 9, c, s, c2n, s2n);
-          put_fuse_right(E + 18, c, s, c2n, s2n);
-          sh[0] = c;
-          sh[1] = s;
-        }
-        __syncthreads();
-        c1 = sh[0];
-        s1 = sh[1];
-        c2 = c2n;
-        s2 = s2n;
+        cy[0] = x0;
+        cy[n] = x1;
       }
     }
-
-    // ---- ring close on factor 0: columns j+1, j+2 then j, j+1 ------------
-    if (tid == 0) {
-      const int r1 = min(j + 3, n - 1);
-      band_right(C, n, j + 1, j, r1, c2, s2);
-      band_right(C, n, j, j, r1, c1, s1);
-      put_fuse_right(Lg + (size_t)j * kLog + 9, c1, s1, c2, s2);
-    }
+    // the rest of the next windows: the corners, then fresh rows of H
+    for (int q = threadIdx.x; q < p * 9; q += blockDim.x)
+      win[((size_t)(q / 9) * SW + (q % 9) / 3) * SW + q % 3] = stage[q];
+    fill_from_h(H, win, p, n, L, j1, min(j2 + 2, n - 1), j2 + 1, false);
     __syncthreads();
+    j0 = j1;
+    j1 = j2;
   }
 }
 
@@ -300,23 +496,54 @@ rg_right_kernel(double* __restrict__ H, double* __restrict__ Z,
   }
 }
 
+struct GenPlan {
+  int L;        // batch length
+  bool global;  // windows in the global scratch (p too large for shared memory)
+};
+
+// The longest batch (at most kMaxBatch) whose working set fits the shared
+// memory a block of this device may take; where even L = 1 does not fit,
+// kMaxBatch with the windows in global memory.
+cudaError_t gen_plan(int p, GenPlan& plan) {
+  int L = 0;
+  const cudaError_t e =
+      psd::longest_batch(kMaxBatch, [p](int l) { return window_bytes(p, l); }, L);
+  plan = {L > 0 ? L : kMaxBatch, L == 0};
+  return e;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Kernel rg A.  H: (p, n, n) input (read only); C: (p, n, n) scratch working
-// copy; Lg: (p, n, 28) output log; S: (p,) int signature on the device.
-int psd_rg_sweep_generate(const void* H, void* C, void* Lg, const int* S, int p,
+// Float64 entries of the scratch kernel rg A takes: the two carried rows,
+// 2 p n, and the windows when they do not fit in shared memory; -1 on a
+// CUDA error.
+long long psd_rg_sweep_generate_scratch(int p, int n) {
+  GenPlan plan;
+  if (gen_plan(p, plan) != cudaSuccess) return -1;
+  const long long win = (long long)(window_bytes(p, plan.L) + sizeof(double) - 1) /
+                        (long long)sizeof(double);
+  return 2LL * p * n + (plan.global ? win : 0);
+}
+
+// Kernel rg A.  H: (p, n, n) input (read only); work:
+// psd_rg_sweep_generate_scratch(p, n) float64 entries of scratch; Lg:
+// (p, n, 28) output log (steps m..i-2 written); S: (p,) int signature on
+// the device.
+int psd_rg_sweep_generate(const void* H, void* work, void* Lg, const int* S, int p,
                           int n, int m, int i, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  const size_t pitch = (size_t)n * n * sizeof(double);
-  const int r1 = min(i + 1, n - 1);  // rows m..i+1: what the chain reads
-  cudaError_t e = cudaMemcpy2DAsync(
-      (double*)C + (size_t)m * n, pitch, (const double*)H + (size_t)m * n, pitch,
-      (size_t)(r1 + 1 - m) * n * sizeof(double), p, cudaMemcpyDeviceToDevice, st);
+  if (i - 2 < m) return 0;  // no step
+  GenPlan plan;
+  cudaError_t e = gen_plan(p, plan);
   if (e != cudaSuccess) return (int)e;
-  rg_generate_kernel<<<1, kGenThreads, 0, st>>>((double*)C, (double*)Lg, S, p, n,
-                                                m, i);
+  const size_t smem = plan.global ? 0 : window_bytes(p, plan.L);
+  e = cudaFuncSetAttribute(rg_generate_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return (int)e;
+  double* gwin = plan.global ? (double*)work + 2 * (size_t)p * n : nullptr;
+  rg_generate_kernel<<<1, kGenThreads, smem, (cudaStream_t)stream>>>(
+      (const double*)H, (double*)work, gwin, (double*)Lg, S, p, n, m, i, plan.L);
   return (int)cudaGetLastError();
 }
 

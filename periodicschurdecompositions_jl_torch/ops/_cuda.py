@@ -12,6 +12,7 @@ root; the reflector generations need correctly rounded division and sqrt.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -80,6 +81,8 @@ def _declare(lib):
     lib.psd_qz_sweep_right.argtypes = [vp, vp, vp, i32, i32, i32, i32, vp]
     lib.psd_qz_shift.argtypes = [vp, vp, vp, i32, i32, i32, i32, vp]
     lib.psd_rg_sweep_generate.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, vp]
+    lib.psd_rg_sweep_generate_scratch.argtypes = [i32, i32]
+    lib.psd_rg_sweep_generate_scratch.restype = ctypes.c_longlong
     lib.psd_rg_sweep_left.argtypes = [vp, vp, i32, i32, i32, i32, vp]
     lib.psd_rg_sweep_right.argtypes = [vp, vp, vp, i32, i32, i32, i32, vp]
     lib.psd_rg_ladder.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, i32,
@@ -159,3 +162,17 @@ def check(rc: int, what: str) -> None:
 def stream_ptr(t) -> int:
     import torch
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@contextlib.contextmanager
+def on_device(t):
+    """Make the card of the CUDA tensor ``t`` the current device around a
+    launch: the C entry points size their launches by, and launch on, the
+    current device.  Switches only when ``t`` lies on another card, so a
+    one-card run pays nothing."""
+    import torch
+    if t.device.index == torch.cuda.current_device():
+        yield
+        return
+    with torch.cuda.device(t.device):
+        yield

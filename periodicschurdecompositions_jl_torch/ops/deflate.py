@@ -112,10 +112,11 @@ def deflate2x2(H, Z, i: int, jmin: int, jmax: int, cs0: float, sn0: float,
     if not (1 <= i <= N - 2):
         raise ValueError(f"deflate2x2: bad row i={i} for N={N}")
     lib = _cuda.load()
-    _cuda.check(lib.psd_deflate2x2(H.data_ptr(), Z.data_ptr() if want_z else None,
-                                   p, N, i, int(jmin), int(jmax), int(bool(replace0)),
-                                   int(bool(finzero)), float(cs0), float(sn0),
-                                   float(thr), _cuda.stream_ptr(H)),
-                "deflate2x2")
+    with _cuda.on_device(H):
+        _cuda.check(lib.psd_deflate2x2(H.data_ptr(), Z.data_ptr() if want_z else None,
+                                       p, N, i, int(jmin), int(jmax), int(bool(replace0)),
+                                       int(bool(finzero)), float(cs0), float(sn0),
+                                       float(thr), _cuda.stream_ptr(H)),
+                    "deflate2x2")
     launches["deflate2x2"] += 1
     return H, Z

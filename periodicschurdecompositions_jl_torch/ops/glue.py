@@ -246,9 +246,10 @@ def glue_cuda(Hp: torch.Tensor, n: int, l: int, i: int, its: int, cfg
     k = out_len(p, n)
     buf = torch.empty(k + 3 * n, dtype=torch.float64, device=Hp.device)
     ulp, ulpx, smlnum = scan_constants(n, cfg)
-    _cuda.check(_cuda.load().psd_glue(
-        Hp.data_ptr(), buf.data_ptr(), buf[k:].data_ptr(), p, n, l, i, its,
-        int(cfg.slicot_convg), int(cfg.slicot_shifts), ulp, ulpx, smlnum,
-        _cuda.stream_ptr(Hp)), "glue")
+    with _cuda.on_device(Hp):
+        _cuda.check(_cuda.load().psd_glue(
+            Hp.data_ptr(), buf.data_ptr(), buf[k:].data_ptr(), p, n, l, i, its,
+            int(cfg.slicot_convg), int(cfg.slicot_shifts), ulp, ulpx, smlnum,
+            _cuda.stream_ptr(Hp)), "glue")
     launches["glue"] += 1
     return buf[:k]

@@ -91,8 +91,9 @@ def phessenberg_core(A: torch.Tensor, want_q: bool = True
     nlaunch = ctypes.c_int(0)
     lib = _cuda.load()
     entry = lib.psd_hess_reduce_c128 if H.is_complex() else lib.psd_hess_reduce
-    rc = entry(H.data_ptr(), Q.data_ptr() if want_q else None, ws.data_ptr(), p, n,
-               ctypes.byref(nlaunch), _cuda.stream_ptr(H))
+    with _cuda.on_device(H):
+        rc = entry(H.data_ptr(), Q.data_ptr() if want_q else None, ws.data_ptr(), p, n,
+                   ctypes.byref(nlaunch), _cuda.stream_ptr(H))
     launches["hess_reduce"] += nlaunch.value
     _cuda.check(rc, "hess_reduce")
     return H, Q

@@ -161,11 +161,12 @@ def rg_ladder(H, Z, mode: str, j: int, ilast: int, rot, S: Sequence[bool], *,
     if not (lo_j <= j <= hi_j and ilast <= n - 1):
         raise ValueError(f"rg_ladder: bad position j={j} ilast={ilast} for n={n}")
     lib = _cuda.load()
-    _cuda.check(lib.psd_rg_ladder(H.data_ptr(), Z.data_ptr() if want_z else None,
-                                  rot.data_ptr(), _signature(S, H.device).data_ptr(),
-                                  p, n, MODES[mode], j, ilast,
-                                  n if rhi is None else int(rhi),
-                                  0 if clo is None else int(clo),
-                                  _cuda.stream_ptr(H)), "rg_ladder")
+    with _cuda.on_device(H):
+        _cuda.check(lib.psd_rg_ladder(H.data_ptr(), Z.data_ptr() if want_z else None,
+                                      rot.data_ptr(), _signature(S, H.device).data_ptr(),
+                                      p, n, MODES[mode], j, ilast,
+                                      n if rhi is None else int(rhi),
+                                      0 if clo is None else int(clo),
+                                      _cuda.stream_ptr(H)), "rg_ladder")
     launches["rg_ladder"] += 1
     return H, Z

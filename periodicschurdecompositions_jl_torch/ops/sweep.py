@@ -269,16 +269,17 @@ def sweep_generate(H, m: int, i: int, v0):
         raise ValueError("sweep_generate: empty window")
     p, N, _ = H.shape
     lib = _cuda.load()
-    nwork = lib.psd_sweep_generate_scratch(p, N)
-    if nwork < 0:
-        raise RuntimeError("sweep_generate: CUDA error reading the card's shared "
-                           "memory limit")
-    work = torch.empty(nwork, dtype=torch.float64, device=H.device)
-    R = torch.empty((p, N, 9), dtype=torch.float64, device=H.device)
-    v = [float(x) for x in v0]
-    _cuda.check(lib.psd_sweep_generate(H.data_ptr(), work.data_ptr(), R.data_ptr(),
-                                       p, N, m, i, v[0], v[1], v[2],
-                                       _cuda.stream_ptr(H)), "sweep_generate")
+    with _cuda.on_device(H):
+        nwork = lib.psd_sweep_generate_scratch(p, N)
+        if nwork < 0:
+            raise RuntimeError("sweep_generate: CUDA error reading the card's shared "
+                               "memory limit")
+        work = torch.empty(nwork, dtype=torch.float64, device=H.device)
+        R = torch.empty((p, N, 9), dtype=torch.float64, device=H.device)
+        v = [float(x) for x in v0]
+        _cuda.check(lib.psd_sweep_generate(H.data_ptr(), work.data_ptr(), R.data_ptr(),
+                                           p, N, m, i, v[0], v[1], v[2],
+                                           _cuda.stream_ptr(H)), "sweep_generate")
     launches["sweep_generate"] += 1
     return R
 
@@ -300,13 +301,14 @@ def _check_card_args(name, H, Z, m, i, want_z):
 
 def _apply_log(lib, st, H, Z, R, m, i, nb, want_z):
     p, N, _ = H.shape
-    _cuda.check(lib.psd_sweep_left(H.data_ptr(), R.data_ptr(), p, N, m, i, nb, st),
-                "sweep_left")
-    launches["sweep_left"] += 1
-    _cuda.check(lib.psd_sweep_right(H.data_ptr(),
-                                    Z.data_ptr() if want_z else None,
-                                    R.data_ptr(), p, N, m, i, nb, st),
-                "sweep_right")
+    with _cuda.on_device(H):
+        _cuda.check(lib.psd_sweep_left(H.data_ptr(), R.data_ptr(), p, N, m, i, nb, st),
+                    "sweep_left")
+        launches["sweep_left"] += 1
+        _cuda.check(lib.psd_sweep_right(H.data_ptr(),
+                                        Z.data_ptr() if want_z else None,
+                                        R.data_ptr(), p, N, m, i, nb, st),
+                    "sweep_right")
     launches["sweep_right"] += 1
 
 
@@ -353,9 +355,10 @@ def chase_sweep_mb(H, Z, m: int, i: int, v0, sig, nbact: int, *, nb: int, gap: i
     shifts = (ctypes.c_double * len(vals))(*vals)
     R = torch.empty((nbact, p, N, 9), dtype=torch.float64, device=H.device)
     C = torch.empty((p, N, N), dtype=torch.float64, device=H.device)
-    _cuda.check(lib.psd_sweep_generate_mb(H.data_ptr(), C.data_ptr(), R.data_ptr(),
-                                          p, N, m, i, nb, gap, nbact, shifts, st),
-                "sweep_generate_mb")
+    with _cuda.on_device(H):
+        _cuda.check(lib.psd_sweep_generate_mb(H.data_ptr(), C.data_ptr(), R.data_ptr(),
+                                              p, N, m, i, nb, gap, nbact, shifts, st),
+                    "sweep_generate_mb")
     launches["sweep_generate_mb"] += 1
     _apply_log(lib, st, H, Z, R, m, i, nbact, want_z)
     return H, Z

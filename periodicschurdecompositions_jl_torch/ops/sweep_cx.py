@@ -200,13 +200,14 @@ def qz_sweep(H, Z, m: int, i: int, cs, S: Sequence[bool], *, want_z: bool):
     lib = _cuda.load()
     st = _cuda.stream_ptr(H)
     log = _generate(lib, st, H, m, i, cs, S)
-    _cuda.check(lib.psd_qz_sweep_left(H.data_ptr(), log.data_ptr(), p, n, m, i,
-                                      st), "qz_sweep_left")
-    launches["qz_sweep_left"] += 1
-    _cuda.check(lib.psd_qz_sweep_right(H.data_ptr(),
-                                       Z.data_ptr() if want_z else None,
-                                       log.data_ptr(), p, n, m, i, st),
-                "qz_sweep_right")
+    with _cuda.on_device(H):
+        _cuda.check(lib.psd_qz_sweep_left(H.data_ptr(), log.data_ptr(), p, n, m, i,
+                                          st), "qz_sweep_left")
+        launches["qz_sweep_left"] += 1
+        _cuda.check(lib.psd_qz_sweep_right(H.data_ptr(),
+                                           Z.data_ptr() if want_z else None,
+                                           log.data_ptr(), p, n, m, i, st),
+                    "qz_sweep_right")
     launches["qz_sweep_right"] += 1
     return H, Z
 
@@ -248,15 +249,17 @@ def qz_sweep_generate(H, m: int, i: int, cs, S: Sequence[bool]):
 
 def _generate(lib, st, H, m, i, cs, S):
     p, n, _ = H.shape
-    nwork = lib.psd_qz_sweep_generate_scratch(p, n)
-    if nwork < 0:
-        raise RuntimeError("qz_sweep_generate: CUDA error reading the card's shared "
-                           "memory limit")
-    work = torch.empty(nwork, dtype=torch.complex128, device=H.device)
-    log = torch.empty((p, n, LOG), dtype=torch.complex128, device=H.device)
-    _cuda.check(lib.psd_qz_sweep_generate(H.data_ptr(), work.data_ptr(), log.data_ptr(),
-                                          cs.data_ptr(), _signature(S, H.device).data_ptr(),
-                                          p, n, m, i, st), "qz_sweep_generate")
+    with _cuda.on_device(H):
+        nwork = lib.psd_qz_sweep_generate_scratch(p, n)
+        if nwork < 0:
+            raise RuntimeError("qz_sweep_generate: CUDA error reading the card's shared "
+                               "memory limit")
+        work = torch.empty(nwork, dtype=torch.complex128, device=H.device)
+        log = torch.empty((p, n, LOG), dtype=torch.complex128, device=H.device)
+        _cuda.check(lib.psd_qz_sweep_generate(H.data_ptr(), work.data_ptr(),
+                                              log.data_ptr(), cs.data_ptr(),
+                                              _signature(S, H.device).data_ptr(),
+                                              p, n, m, i, st), "qz_sweep_generate")
     launches["qz_sweep_generate"] += 1
     return log
 
@@ -277,9 +280,10 @@ def qz_shift(H, ifirst: int, ilast: int, S: Sequence[bool], out=None):
         out = torch.empty(2, dtype=torch.complex128, device=H.device)
     _check("out", out, (2,))
     lib = _cuda.load()
-    _cuda.check(lib.psd_qz_shift(H.data_ptr(), out.data_ptr(),
-                                 _signature(S, H.device).data_ptr(), p, n,
-                                 ifirst, ilast, _cuda.stream_ptr(H)),
-                "qz_shift")
+    with _cuda.on_device(H):
+        _cuda.check(lib.psd_qz_shift(H.data_ptr(), out.data_ptr(),
+                                     _signature(S, H.device).data_ptr(), p, n,
+                                     ifirst, ilast, _cuda.stream_ptr(H)),
+                    "qz_shift")
     launches["qz_shift"] += 1
     return out

@@ -15,16 +15,19 @@ j, j+1.
   the JAX package's ``ops/pallas_sweep_rg.py``):
 
   - ``rg_sweep_generate`` generates, in the reference order, every
-    rotation of the chase on a working copy of H and writes the log
-    (p, n, 28): per (factor, step) the fused left 3x3 L (rows j..j+2), the
-    fused right 3x3 R (columns j..j+2 of H[l]) and the fused ZR (columns
-    j..j+2 of Z[l]), and for factor 0 the regenerated H[0][j, j-1];
+    rotation of the chase; it reads H only (look-ahead windows in shared
+    memory, a 2 p n scratch) and writes the log (p, n, 28): per (factor,
+    step) the fused left 3x3 L (rows j..j+2), the fused right 3x3 R
+    (columns j..j+2 of H[l]) and the fused ZR (columns j..j+2 of Z[l]), and
+    for factor 0 the regenerated H[0][j, j-1];
   - ``rg_sweep_left`` applies every logged L to rows j..j+2 of H[l];
   - ``rg_sweep_right`` applies every logged R to columns j..j+2 of H[l]
     (rows 0..i) and ZR to Z[l], then writes the structural zeros of the
     window and the regenerated entries exactly, keeping the closing bulge.
 * On a CPU tensor it runs the plain version ``rg_chase_plain`` (the
-  interleaved reference order).  Any other device raises.
+  interleaved reference order; with ``log=`` it is kernel rg A's plain
+  version).  Any other device raises.  ``rg_sweep_generate`` runs kernel
+  rg A alone and returns its log.
 
 ``rg_apply_log_plain`` is the plain version of kernels B0 + B: it replays a
 log in their deferred order.  ``launches`` counts the launches of each
@@ -178,33 +181,69 @@ def rg_chase(H, Z, m: int, i: int, S: Sequence[bool], *, want_z: bool):
     """
     if H.device.type == "cpu":
         return rg_chase_plain(H, Z, m, i, S, want_z=want_z)
+    _check_card_args("rg_chase", H, Z, m, i, S, want_z)
+    if i - 2 < m:
+        return H, Z
+    p, n, _ = H.shape
+    lib = _cuda.load()
+    st = _cuda.stream_ptr(H)
+    log = _generate(lib, st, H, m, i, S)
+    with _cuda.on_device(H):
+        _cuda.check(lib.psd_rg_sweep_left(H.data_ptr(), log.data_ptr(), p, n, m, i, st),
+                    "rg_sweep_left")
+        launches["rg_sweep_left"] += 1
+        _cuda.check(lib.psd_rg_sweep_right(H.data_ptr(), Z.data_ptr() if want_z else None,
+                                           log.data_ptr(), p, n, m, i, st),
+                    "rg_sweep_right")
+    launches["rg_sweep_right"] += 1
+    return H, Z
+
+
+def _check_card_args(name, H, Z, m, i, S, want_z):
+    """Raise ValueError unless H (and Z) are float64 (p, n, n) stacks on one
+    CUDA device, S a signature of them and [m, i] a window."""
     if H.device.type != "cuda":
-        raise ValueError(f"rg_chase: unsupported device {H.device}")
+        raise ValueError(f"{name}: unsupported device {H.device}")
     p, n, _ = H.shape
     _check("H", H, (p, n, n))
     if want_z:
         _check("Z", Z, (p, n, n))
         if Z.device != H.device:
-            raise ValueError("rg_chase: H and Z on different devices")
+            raise ValueError(f"{name}: H and Z on different devices")
     if len(S) != p or not S[0] or p < 2:
-        raise ValueError("rg_chase: p >= 2, one signature entry per factor, S[0] True")
+        raise ValueError(f"{name}: p >= 2, one signature entry per factor, S[0] True")
     if not (1 <= m and i <= n - 1):
-        raise ValueError(f"rg_chase: bad window m={m} i={i} for n={n}")
+        raise ValueError(f"{name}: bad window m={m} i={i} for n={n}")
+
+
+def rg_sweep_generate(H, m: int, i: int, S: Sequence[bool]):
+    """Kernel rg A alone: the rotation log (p, n, 28) of the chase steps
+    m..i-2 (m <= i-2) on the CUDA stack H, which it reads only (those steps
+    of the log are written).  Its scratch is the two carried rows (2 p n
+    float64), plus the windows when p is too large for them to fit in
+    shared memory.  On a CPU tensor: the log of ``rg_chase_plain`` on a copy
+    of H (zeros where the kernel writes nothing)."""
+    if H.device.type == "cpu":
+        log = torch.zeros((*H.shape[:2], LOG), dtype=torch.float64)
+        rg_chase_plain(H.clone(), None, m, i, S, want_z=False, log=log)
+        return log
+    _check_card_args("rg_sweep_generate", H, None, m, i, S, False)
     if i - 2 < m:
-        return H, Z
-    lib = _cuda.load()
-    st = _cuda.stream_ptr(H)
-    log = torch.empty((p, n, LOG), dtype=torch.float64, device=H.device)
-    C = torch.empty((p, n, n), dtype=torch.float64, device=H.device)
-    _cuda.check(lib.psd_rg_sweep_generate(H.data_ptr(), C.data_ptr(), log.data_ptr(),
-                                          _signature(S, H.device).data_ptr(), p, n,
-                                          m, i, st), "rg_sweep_generate")
+        raise ValueError("rg_sweep_generate: no chase step in the window")
+    return _generate(_cuda.load(), _cuda.stream_ptr(H), H, m, i, S)
+
+
+def _generate(lib, st, H, m, i, S):
+    p, n, _ = H.shape
+    with _cuda.on_device(H):
+        nwork = lib.psd_rg_sweep_generate_scratch(p, n)
+        if nwork < 0:
+            raise RuntimeError("rg_sweep_generate: CUDA error reading the card's shared "
+                               "memory limit")
+        work = torch.empty(nwork, dtype=torch.float64, device=H.device)
+        log = torch.empty((p, n, LOG), dtype=torch.float64, device=H.device)
+        _cuda.check(lib.psd_rg_sweep_generate(H.data_ptr(), work.data_ptr(), log.data_ptr(),
+                                              _signature(S, H.device).data_ptr(), p, n,
+                                              m, i, st), "rg_sweep_generate")
     launches["rg_sweep_generate"] += 1
-    _cuda.check(lib.psd_rg_sweep_left(H.data_ptr(), log.data_ptr(), p, n, m, i, st),
-                "rg_sweep_left")
-    launches["rg_sweep_left"] += 1
-    _cuda.check(lib.psd_rg_sweep_right(H.data_ptr(), Z.data_ptr() if want_z else None,
-                                       log.data_ptr(), p, n, m, i, st),
-                "rg_sweep_right")
-    launches["rg_sweep_right"] += 1
-    return H, Z
+    return log

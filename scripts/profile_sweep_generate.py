@@ -22,6 +22,19 @@ timed on lane 0, and the update phases.  Microbenchmarks: one thread's
 chain of ``givens_cx``, of divisions, of square roots and of one complex
 2x2 row rotation.
 
+``--rg``: the real generalized chase kernel rg A of csrc/sweep_rg.cu on
+chip_smoke.py's ``rg_kernel_phase`` problem (p=8, n=256,
+``default_rng(2026)``, alternating S, the opening ladder applied, windows
+[1, 255] and [38, 200]).  The design with a working copy C (thread 0
+generates and applies the band's right rotations, the block updates whole
+rows between block barriers) reports, per (step, factor) and on thread 0,
+the first and the second ``givens_r`` of the pair, the row updates, the
+band updates, the waits at the block barriers and the rest; the
+look-ahead window reports the warp's two ``givens_r`` on lane 0, the
+whole (step, factor) of the serial phase and the update phases.
+Microbenchmarks: one thread's chain of ``givens_r``, of divisions, of
+square roots and of one two-row rotation.
+
 ``--hess``: the periodic Hessenberg reduction of csrc/hess.cu (one
 cooperative launch) on the real headline draw (p=16, n=512, seed 12345)
 and the complex leg's draw (p=8, n=256, seed 777): per block and stage the
@@ -36,7 +49,7 @@ the parent commit unpacked with ``git archive``).  The counters add about a
 tenth to the kernel's time (they accumulate in global memory).
 
 Run from the repository root:
-  python3 scripts/profile_sweep_generate.py [--cx | --hess] [--root DIR]
+  python3 scripts/profile_sweep_generate.py [--cx | --rg | --hess] [--root DIR]
 """
 import argparse
 import ctypes
@@ -111,6 +124,38 @@ __global__ void bench_gen(double* out, int T, double a0, double a1, double a2) {
   out[3] = (double)(clock64() - t0) / T;
   out[4] = 0.0;
   out[5] = c + s.x + r.y + x0.x + x1.y + y;
+}
+}  // namespace
+extern "C" int prof_bench(double* out, int T) {
+  bench_gen<<<1, 1>>>(out, T, 0.3, -0.7, 0.2);
+  return (int)cudaGetLastError();
+}
+'''
+
+BENCH_RG = r'''
+namespace {
+__global__ void bench_gen(double* out, int T, double a0, double a1, double a2) {
+  double c = 0.0, s = 0.0, r = a2;
+  long long t0 = clock64();
+  for (int t = 0; t < T; ++t) psd::givens_r(a0 + 1e-3 * c, a1 + 1e-3 * s, c, s, r);
+  out[0] = (double)(clock64() - t0) / T;
+  double x0 = a0, x1 = a1;
+  t0 = clock64();
+  for (int t = 0; t < T; ++t) {
+    const double y0 = 0.6 * x0 + 0.8 * x1;
+    x1 = -0.8 * x0 + 0.6 * x1;
+    x0 = y0;
+  }
+  out[1] = (double)(clock64() - t0) / T;
+  double y = a0;
+  t0 = clock64();
+  for (int t = 0; t < T; ++t) y = a1 / (y + 1.5);
+  out[2] = (double)(clock64() - t0) / T;
+  t0 = clock64();
+  for (int t = 0; t < T; ++t) y = sqrt(y + 1.5);
+  out[3] = (double)(clock64() - t0) / T;
+  out[4] = 0.0;
+  out[5] = c + s + r + x0 + x1 + y;
 }
 }  // namespace
 extern "C" int prof_bench(double* out, int T) {
@@ -218,6 +263,109 @@ EDITS_CX_WINDOW = [  # (text in csrc/sweep_cx.cu, instrumented text)
      "    if (k1 == i) break;\n    __syncthreads();\n    const long long tu0 = clock64();"),
     ("    __syncthreads();\n    k0 = k1;",
      "    __syncthreads();\n    if (threadIdx.x == 0) g_prof[2] += clock64() - tu0;\n    k0 = k1;"),
+]
+
+
+# rg A with a working copy C: thread 0's two givens_r of each pair, its
+# share of the row updates, its band updates and its waits at the barriers
+PROF_RG_COPY = r'''
+__device__ long long g_prof[8];
+__device__ __forceinline__ void prof_givens(int k, double f, double g, double& c, double& s,
+                                            double& r) {
+  const long long t = clock64();
+  psd::givens_r(f, g, c, s, r);
+  g_prof[k] += clock64() - t;
+}
+__device__ __forceinline__ void prof_rows_left(double* Cl, int n, int k, int c0, double c,
+                                               double s) {
+  const long long t = clock64();
+  rows_left(Cl, n, k, c0, c, s);
+  if (threadIdx.x == 0) g_prof[2] += clock64() - t;
+}
+__device__ __forceinline__ void prof_band_right(double* Cl, int n, int k, int r0, int r1,
+                                                double c, double s) {
+  const long long t = clock64();
+  band_right(Cl, n, k, r0, r1, c, s);
+  g_prof[3] += clock64() - t;
+}
+__device__ __forceinline__ void prof_sync() {
+  const long long t = clock64();
+  __syncthreads();
+  if (threadIdx.x == 0) g_prof[4] += clock64() - t;
+}
+'''
+
+
+def instrument_rg(src):
+    """Counters for the design found in csrc/sweep_rg.cu's kernel rg A."""
+    head, sep, tail = src.partition("__global__ void __launch_bounds__(kGenThreads)\n")
+    if not sep:
+        raise SystemExit("csrc/sweep_rg.cu: kernel rg A not found; instrument by hand")
+    body, sep2, rest = tail.partition("\n}\n")  # the kernel's body
+    if "rows_left(" in body:  # working copy C, block barriers
+        parts = body.split("psd::givens_r(")
+        body = parts[0] + "".join(f"prof_givens({k % 2}, " + x
+                                  for k, x in enumerate(parts[1:]))
+        body = body.replace("rows_left(", "prof_rows_left(")
+        body = body.replace("band_right(", "prof_band_right(")
+        body = body.replace("__syncthreads();", "prof_sync();")
+        body = _replace_once(body, "    // rows j+1, j+2 then j, j+1 of C[0], columns j..n-1\n",
+                             "    const long long tr0 = clock64();\n", "csrc/sweep_rg.cu")
+        body = _replace_once(body, "      x[n] = -s1 * x0 + c1 * y1;\n    }\n",
+                             "      x[n] = -s1 * x0 + c1 * y1;\n    }\n"
+                             "    if (tid == 0) g_prof[2] += clock64() - tr0;\n",
+                             "csrc/sweep_rg.cu")
+        body = _replace_once(body, "  const int tid = threadIdx.x;\n",
+                             "  const int tid = threadIdx.x;\n  const long long tk0 = clock64();\n",
+                             "csrc/sweep_rg.cu")
+        body += "\n  if (tid == 0) g_prof[5] += clock64() - tk0;"
+        return head + PROF_RG_COPY + sep + body + sep2 + rest, "copy"
+    # look-ahead windows: lane 0's two generations of each pair in the
+    # serial phase, the whole step and the update phases
+    pre, sep, serial = src.partition("// Serial phase of the batch")
+    if not sep:
+        raise SystemExit("csrc/sweep_rg.cu: unknown design; instrument by hand")
+    serial, sep2, post = serial.partition("// Window entries (a, b)")
+    parts = serial.split("givens_gen(")
+    serial = parts[0] + "".join(f"prof_givens({k % 2}, " + x for k, x in enumerate(parts[1:]))
+    src = pre + PROF_RG_WINDOW + sep + serial + sep2 + post
+    for old, new in EDITS_RG_WINDOW:
+        src = _replace_once(src, old, new, "csrc/sweep_rg.cu")
+    return src, "window"
+
+
+# rg A with look-ahead windows: the warp's givens, timed on lane 0
+PROF_RG_WINDOW = r'''__device__ long long g_prof[8];
+__device__ __forceinline__ void prof_givens(int k, double f, double g, double& c, double& s,
+                                            double& r) {
+  const long long t = clock64();
+  givens_gen(f, g, c, s, r);
+  if ((threadIdx.x & 31) == 0) g_prof[k] += clock64() - t;
+}
+
+'''
+
+EDITS_RG_WINDOW = [  # (text in csrc/sweep_rg.cu, instrumented text)
+    ("    const int t = j - j0;\n",
+     "    const int t = j - j0;\n    const long long tq0 = clock64();\n"),
+    ("      __syncwarp();\n    }\n    // ---- factors p-1..1",
+     "      __syncwarp();\n    }\n    if (lane == 0) g_prof[4] += clock64() - tq0;\n"
+     "    // ---- factors p-1..1"),
+    ("      if (__ldg(S + l)) {\n",
+     "      const long long tf0 = clock64();\n      if (__ldg(S + l)) {\n"),
+    ("      put4(hp + 4 * ((size_t)l * L + t), c1, s1, c2, s2);\n      __syncwarp();\n",
+     "      put4(hp + 4 * ((size_t)l * L + t), c1, s1, c2, s2);\n      __syncwarp();\n"
+     "      if (lane == 0) g_prof[__ldg(S + l) ? 6 : 7] += clock64() - tf0;\n"),
+    ("    // ---- ring close on factor 0",
+     "    const long long tr0 = clock64();\n    // ---- ring close on factor 0"),
+    ("      win_right(win, SW, t + lane, t + 1, c1, s1);\n    }\n    __syncwarp();\n  }\n",
+     "      win_right(win, SW, t + lane, t + 1, c1, s1);\n    }\n    __syncwarp();\n"
+     "    if (lane == 0) {\n      g_prof[5] += clock64() - tr0;\n"
+     "      g_prof[3] += clock64() - tq0;\n    }\n  }\n"),
+    ("    __syncthreads();\n    write_log(",
+     "    __syncthreads();\n    const long long tu0 = clock64();\n    write_log("),
+    ("    __syncthreads();\n    j0 = j1;",
+     "    __syncthreads();\n    if (threadIdx.x == 0) g_prof[2] += clock64() - tu0;\n    j0 = j1;"),
 ]
 
 
@@ -335,13 +483,16 @@ def profile_hess(lib):
               f"cycles ({nrow.sum()} rows of warp 0)")
 
 
-def build(root, cx):
+def build(root, kind):
     csrc = os.path.join(root, "periodicschurdecompositions_jl_torch", "csrc")
-    name = "sweep_cx" if cx else "sweep"
+    name = {"cx": "sweep_cx", "rg": "sweep_rg"}.get(kind, "sweep")
     src = open(os.path.join(csrc, name + ".cu")).read()
-    if cx:
+    if kind == "cx":
         src, design = instrument_cx(src)
         src += BENCH_CX
+    elif kind == "rg":
+        src, design = instrument_rg(src)
+        src += BENCH_RG
     else:
         design = "window"
         for old, new in EDITS:
@@ -356,8 +507,10 @@ def build(root, cx):
                    check=True)
     lib = ctypes.CDLL(so)
     vp, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
-    if cx:
+    if kind == "cx":
         lib.psd_qz_sweep_generate.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32, vp]
+    elif kind == "rg":
+        lib.psd_rg_sweep_generate.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, vp]
     else:
         lib.psd_sweep_generate.argtypes = [vp, vp, vp, i32, i32, i32, i32, f64, f64, f64, vp]
     lib.prof_bench.argtypes = [vp, i32]
@@ -426,9 +579,66 @@ def profile_cx(lib, design, buf):
                   f"(step, factor) {buf[1] / K:.0f}; update phases {buf[2]} cycles in all")
 
 
+def rg_opened(p, n, m, i, S, dev="cuda"):
+    """rg_kernel_phase's state of chip_smoke.py: its problem (p, n,
+    default_rng(2026)) with the window's boundaries deflated and the
+    opening ladder applied; returns (H, Z) on the card."""
+    from chip_smoke import mk_rg_problem
+    from periodicschurdecompositions_jl_torch.ops import rgopen
+    Hn, Zn, rotn = mk_rg_problem(p, n, np.random.default_rng(2026))
+    H = torch.tensor(Hn, device=dev)
+    if m > 1:
+        H[0, m - 1, m - 2] = 0.0
+    if i + 1 < n:
+        H[0, i + 1, i] = 0.0
+    Z = torch.tensor(Zn, device=dev)
+    rgopen.rg_ladder_plain(H, Z, "open", m - 1, i, torch.tensor(rotn, device=dev), S,
+                           want_z=True)
+    return H, Z
+
+
+def profile_rg(lib, design, buf):
+    from chip_smoke import alternating
+    p, n = 8, 256
+    S = alternating(p)
+    Sd = torch.tensor([int(x) for x in S], dtype=torch.int32, device="cuda")
+    work = torch.empty((p, n, n), dtype=torch.float64, device="cuda")  # either design's
+    log = torch.empty((p, n, 28), dtype=torch.float64, device="cuda")
+    for (m, i) in ((1, n - 1), (38, 200)):
+        H, _ = rg_opened(p, n, m, i, S)
+
+        def call():
+            assert lib.psd_rg_sweep_generate(H.data_ptr(), work.data_ptr(), log.data_ptr(),
+                                             Sd.data_ptr(), p, n, m, i, None) == 0
+        call()  # warm-up
+        lib.prof_read(buf)
+        ms = timed(call)
+        lib.prof_read(buf)
+        K = (i - 1 - m) * p
+        if design == "copy":
+            other = buf[5] - sum(buf[k] for k in range(5))
+            print(f"rg A (working copy C) on [{m}, {i}] (instrumented) {ms:.3f} ms, "
+                  f"{buf[5]} cycles; per (step, factor) on thread 0: first givens_r "
+                  f"{buf[0] / K:.0f} cycles, second {buf[1] / K:.0f}, row updates "
+                  f"{buf[2] / K:.0f}, band updates {buf[3] / K:.0f}, waits at the block "
+                  f"barriers {buf[4] / K:.0f}, the rest (log writes, loop) {other / K:.0f}, "
+                  f"in all {buf[5] / K:.0f}")
+        else:
+            steps = i - 1 - m
+            ns = sum(1 for l in range(1, p) if S[l])
+            print(f"rg A (look-ahead windows) on [{m}, {i}] (instrumented) {ms:.3f} ms: per "
+                  f"(step, factor) lane 0's first givens_r {buf[0] / K:.0f} cycles, second "
+                  f"{buf[1] / K:.0f}, the whole (step, factor) {buf[3] / K:.0f}; per step "
+                  f"factor 0 {buf[4] / steps:.0f}, the ring close {buf[5] / steps:.0f}; per "
+                  f"factor of S[l] = 1 {buf[6] / max(ns * steps, 1):.0f}, of S[l] = 0 "
+                  f"{buf[7] / max((p - 1 - ns) * steps, 1):.0f}; update phases (the log and "
+                  f"the deferred left rotations) {buf[2]} cycles in all")
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--cx", action="store_true")
+    ap.add_argument("--rg", action="store_true")
     ap.add_argument("--hess", action="store_true")
     ap.add_argument("--root", default=HERE)
     args = ap.parse_args()
@@ -442,19 +652,25 @@ def main():
     if args.hess:
         profile_hess(build_hess(os.path.abspath(args.root)))
         return 0
-    lib, design = build(os.path.abspath(args.root), args.cx)
+    kind = "cx" if args.cx else "rg" if args.rg else "real"
+    lib, design = build(os.path.abspath(args.root), kind)
     print(f"sources: {os.path.abspath(args.root)} ({design} design)")
     out = torch.zeros(8, dtype=torch.float64, device="cuda")
     assert lib.prof_bench(out.data_ptr(), 2000) == 0
     torch.cuda.synchronize()
-    if args.cx:
+    if args.rg:
+        print("latency, cycles: givens_r %.0f, two-row rotation %.0f, division %.0f, "
+              "square root %.0f" % tuple(out[:4].tolist()))
+    elif args.cx:
         print("latency, cycles: givens_cx %.0f, complex 2x2 row rotation %.0f, division %.0f, "
               "square root %.0f" % tuple(out[:4].tolist()))
     else:
         print("latency, cycles: fused generation %.0f, bulge reflector %.0f, division %.0f, "
               "square root %.0f, multiply-add %.0f" % tuple(out[:5].tolist()))
     buf = (ctypes.c_longlong * 8)()
-    if args.cx:
+    if args.rg:
+        profile_rg(lib, design, buf)
+    elif args.cx:
         profile_cx(lib, design, buf)
     else:
         profile_real(lib, buf)

@@ -23,6 +23,16 @@ and B0 and B on A's log against ``qz_apply_log_plain``, at an H100's shared
 memory, 3000 bytes (short batches; p=16 takes the global windows) and 200
 bytes (the windows in the global scratch for every p).
 
+``--rg``: the same for csrc/sweep_rg.cu: kernel rg A's generation against
+``psd::givens_r`` bit for bit on operands that take every branch (zeros,
+subnormals, infinities, NaNs), kernel rg A's log against the
+numpy model of tests/torch_rg_window_host.py, bit for bit, for
+alternating, all-direct and all-inverse (but S[0]) signatures on the state
+the opening ladder leaves, H unchanged, and B0 and B on A's log against
+``rg_apply_log_plain``, at an H100's shared memory, 3000 bytes (short
+batches; p=16 takes the global windows) and 200 bytes (the windows in the
+global scratch for every p); about a minute.
+
 ``--hess``: csrc/hess.cu, the reduction in one cooperative launch (the
 stub runs every block at once, with a std::barrier for the grid sync), on
 float64 and complex128 cycles (p = 1, 2, 3, 5; n = 1, 2, 3, 12, 40, 150,
@@ -37,7 +47,7 @@ also held bit for bit against the two-launch design of ``--parent FILE``
 (its hess.cu, built for the stub the same way), where given.
 
 Run from the repository root:
-  python3 scripts/rehearse_sweep_host.py [--cx | --hess [--parent FILE]]
+  python3 scripts/rehearse_sweep_host.py [--cx | --rg | --hess [--parent FILE]]
 """
 import argparse
 import ctypes
@@ -55,15 +65,16 @@ CSRC = os.path.join(ROOT, "periodicschurdecompositions_jl_torch", "csrc")
 OUT = os.path.join(ROOT, "_dev")
 
 from chip_smoke import mk_cx_problem  # noqa: E402
-from periodicschurdecompositions_jl_torch.ops import sweep, sweep_cx  # noqa: E402
+from periodicschurdecompositions_jl_torch.ops import rgopen, sweep, sweep_cx, sweep_rg  # noqa: E402
 from torch_cx_window_host import qz_log_full  # noqa: E402
+from torch_rg_window_host import rg_log_full  # noqa: E402
 from torch_window_host import sweep_log_full  # noqa: E402
 
 
-def build_stub(name, path=None):
-    """csrc/<name>.cu (or the file ``path``) rewritten for the host stub and
-    built with g++."""
-    src = open(path or os.path.join(CSRC, name + ".cu")).read()
+def build_stub(name, path=None, extra=""):
+    """csrc/<name>.cu (or the file ``path``) rewritten for the host stub,
+    with the source ``extra`` appended, and built with g++."""
+    src = open(path or os.path.join(CSRC, name + ".cu")).read() + extra
     src = src.replace("cudaLaunchCooperativeKernel((void*)kernel,", "stub_launch_coop(kernel,")
     src = src.replace("extern __shared__ double smem[];", "double* smem = stub_dyn_smem;")
     src = src.replace("extern __shared__ double2 smem[];",
@@ -200,6 +211,94 @@ def main_cx():
     return 0
 
 
+# kernel rg A's generation and psd::givens_r side by side, for the special
+# operands below
+GIVENS_PAIR = r'''
+extern "C" void stub_givens_pair(double f, double g, double* out) {
+  givens_gen(f, g, out[0], out[1], out[2]);
+  psd::givens_r(f, g, out[3], out[4], out[5]);
+}
+'''
+
+
+def check_givens(lib):
+    """rg A's generation against psd::givens_r, bit for bit (NaN as NaN), on
+    operands that take every branch: zeros, equal magnitudes, subnormals,
+    infinities and NaNs of both signs."""
+    vals = [0.0, -0.0, 1.5, -1.5, 3.0, -2.0 ** -1060, 2.0 ** -1070, 1e300, -1e-300,
+            float("inf"), -float("inf"), float("nan")]
+    out = (ctypes.c_double * 6)()
+    for f in vals:
+        for g in vals:
+            lib.stub_givens_pair(f, g, out)
+            a, b = np.array(out[:3]), np.array(out[3:])
+            assert np.array_equal(a, b, equal_nan=True), (f, g, a, b)
+    return len(vals) ** 2
+
+
+def build_rg():
+    lib = build_stub("sweep_rg", extra=GIVENS_PAIR)
+    lib.stub_givens_pair.argtypes = [ctypes.c_double, ctypes.c_double, ctypes.c_void_p]
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.psd_rg_sweep_generate.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, vp]
+    lib.psd_rg_sweep_generate_scratch.argtypes = [i32, i32]
+    lib.psd_rg_sweep_generate_scratch.restype = ctypes.c_longlong
+    lib.psd_rg_sweep_left.argtypes = [vp, vp, i32, i32, i32, i32, vp]
+    lib.psd_rg_sweep_right.argtypes = [vp, vp, vp, i32, i32, i32, i32, vp]
+    return lib
+
+
+def check_rg(lib, p, n, m, i, S):
+    from chip_smoke import mk_rg_problem
+    H, Z, rot = mk_rg_problem(p, n, np.random.default_rng(p * 31 + n))
+    if m > 1:
+        H[0, m - 1, m - 2] = 0.0
+    if i + 1 < n:
+        H[0, i + 1, i] = 0.0
+    Ht, Zt = torch.tensor(H), torch.tensor(Z)
+    rgopen.rg_ladder_plain(Ht, Zt, "open", m - 1, i, torch.tensor(rot), S, want_z=True)
+    H, Z = Ht.numpy().copy(), Zt.numpy().copy()
+    Sd = torch.tensor([int(x) for x in S], dtype=torch.int32)
+    work = torch.full((lib.psd_rg_sweep_generate_scratch(p, n),), float("nan"),
+                      dtype=torch.float64)
+    log = torch.full((p, n, sweep_rg.LOG), float("nan"), dtype=torch.float64)
+    assert lib.psd_rg_sweep_generate(Ht.data_ptr(), work.data_ptr(), log.data_ptr(),
+                                     Sd.data_ptr(), p, n, m, i, None) == 0
+    assert torch.equal(Ht, torch.tensor(H)), "kernel rg A wrote H"
+    Lf, _ = rg_log_full(H, m, i, S)
+    lk = log.numpy()
+    assert np.array_equal(lk[:, m:i - 1, :27], Lf[:, m:i - 1, :27]) and \
+        np.array_equal(lk[0, m:i - 1, 27], Lf[0, m:i - 1, 27]), "rg A's log != the model's"
+    Hb, Zb = torch.tensor(H), torch.tensor(Z)
+    assert lib.psd_rg_sweep_left(Hb.data_ptr(), log.data_ptr(), p, n, m, i, None) == 0
+    assert lib.psd_rg_sweep_right(Hb.data_ptr(), Zb.data_ptr(), log.data_ptr(), p, n, m, i,
+                                  None) == 0
+    Ha, Za = torch.tensor(H), torch.tensor(Z)
+    sweep_rg.rg_apply_log_plain(Ha, Za, log, m, i, want_z=True)
+    dh = float((Hb - Ha).abs().max()) / np.abs(H).max()
+    dz = float((Zb - Za).abs().max())
+    assert dh <= 1e-13 and dz <= 1e-13, (dh, dz)
+    return dh, dz
+
+
+def main_rg():
+    lib = build_rg()
+    print(f"rg A's generation == psd::givens_r on {check_givens(lib)} special operand pairs",
+          flush=True)
+    cases = [(2, 12, 1, 11, "alt"), (2, 14, 2, 12, "direct"), (3, 9, 1, 7, "inverse"),
+             (3, 40, 1, 39, "alt"), (16, 40, 1, 39, "alt"), (16, 37, 5, 33, "direct"),
+             (4, 8, 2, 5, "inverse"), (2, 6, 2, 4, "alt"), (5, 70, 3, 66, "alt"),
+             (8, 64, 1, 63, "inverse"), (3, 50, 4, 47, "direct")]
+    for optin in ("232448", "3000", "200"):
+        os.environ["STUB_SMEM_OPTIN"] = optin
+        for (p, n, m, i, kind) in cases:
+            dh, dz = check_rg(lib, p, n, m, i, sig(kind, p))
+            print(f"shared memory {optin} B, p={p} n={n} [{m}, {i}] S {kind}: rg A's log == "
+                  f"the model's; B0+B vs rg_apply_log_plain dH {dh:.2e} dZ {dz:.2e}",
+                  flush=True)
+    return 0
+
+
 def build_hess(name, path=None):
     lib = build_stub(name, path)
     vp, i32 = ctypes.c_void_p, ctypes.c_int
@@ -276,6 +375,7 @@ def main_hess(parent):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--cx", action="store_true")
+    ap.add_argument("--rg", action="store_true")
     ap.add_argument("--hess", action="store_true")
     ap.add_argument("--parent", default=None)
     args = ap.parse_args()
@@ -283,6 +383,8 @@ def main():
         return main_hess(args.parent)
     if args.cx:
         return main_cx()
+    if args.rg:
+        return main_rg()
     lib = build()
     cases = [(1, 12, 0, 11), (2, 14, 2, 12), (3, 9, 1, 7), (3, 40, 0, 39), (16, 40, 0, 39),
              (16, 37, 5, 33), (4, 8, 2, 4), (2, 6, 2, 3), (5, 70, 3, 66)]

@@ -25,6 +25,28 @@ writes.  ``--headline`` then times the complex leg of chip_smoke.py (p=8,
 n=256, seed 777, no signature) and prints its iteration time and niter.
 Here too the scratch is a (p, n, n) buffer, large enough for either design.
 
+``--rg``: kernel rg A (csrc/sweep_rg.cu::psd_rg_sweep_generate) on the
+problem of chip_smoke.py's ``rg_kernel_phase`` (p=8, n=256,
+``default_rng(2026)``, the window's boundaries deflated, the opening ladder
+applied) and its windows [1, 255], [38, 200] and [121, 124], each with an
+alternating and an all-direct signature; the hash covers every log entry
+the kernel writes.  ``--set NAME=VALUE`` (repeatable) also builds a copy
+of sweep_rg.cu with ``constexpr int NAME`` rewritten under ``_dev/`` and
+times it on the same windows (its hashes beside the source's).
+``--headline`` then times the real generalized iteration of chip_smoke.py's
+rg leg (p=8, n=256, seed 4242, alternating S): ``pqz_real_gen_core`` from
+the leg's signed reduction, which takes most of a minute and is the same
+in every version, so it is computed once and kept in the file ``--hq``
+(default ``_dev/rg_hq.pt``) for the next turns; prints the iteration's
+wall (the median of three runs after a warm-up, and each run), niter,
+sweeps, rg A launches per run and hashes of T and Z.  ``--trace``
+(with ``--headline``) then runs the iteration once more under a CPU and
+CUDA ``torch.profiler`` and once under ``cProfile`` and prints where the
+host time goes: the torch operations by self CPU time (the reads to the
+host, the copies to the card, the launches) and the Python functions by
+their own time (the numpy tests and shifts), with the full tables in the
+file ``--trace-out`` (default ``_dev/rg_trace.txt``).
+
 ``--hess``: the periodic Hessenberg reduction (csrc/hess.cu through
 ``phessenberg_core``), float64 on the headline draw (p=16, n=512, seed
 12345) and complex128 on the complex leg's draw (p=8, n=256, seed 777),
@@ -44,7 +66,7 @@ and iteration times, niter).  A parent whose complex reduction is the
 plain torch version times that version instead.
 
 Run from the repository root:
-  python3 scripts/time_sweep_generate.py [--cx | --hess] [--root DIR] [--headline]
+  python3 scripts/time_sweep_generate.py [--cx | --rg | --hess] [--root DIR] [--headline]
 """
 import argparse
 import hashlib
@@ -57,6 +79,7 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+RG_RUNS = 3  # timed runs of the rg iteration (host-bound: its wall spreads)
 
 
 def main():
@@ -65,8 +88,12 @@ def main():
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--headline", action="store_true")
     ap.add_argument("--cx", action="store_true")
+    ap.add_argument("--rg", action="store_true")
     ap.add_argument("--hess", action="store_true")
     ap.add_argument("--set", action="append", default=[])
+    ap.add_argument("--hq", default=os.path.join(HERE, "_dev", "rg_hq.pt"))
+    ap.add_argument("--trace", action="store_true")
+    ap.add_argument("--trace-out", default=os.path.join(HERE, "_dev", "rg_trace.txt"))
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
     sys.path.insert(1, HERE)
@@ -81,8 +108,8 @@ def main():
     print(smi)
     lib = _cuda.load()
     out = {"root": os.path.abspath(args.root), "card": smi}
-    (time_hess if args.hess else time_cx if args.cx else time_real)(
-        torch, lib, _cuda, args, out)
+    (time_hess if args.hess else time_cx if args.cx else time_rg if args.rg
+     else time_real)(torch, lib, _cuda, args, out)
     print(json.dumps(out))
     return 0
 
@@ -204,6 +231,173 @@ def headline_cx(torch, out):
     out["cx_leg_sweeps"] = info["sweeps"]
 
 
+def set_constexprs(src, sets, fname):
+    """src with each ``constexpr int NAME`` of ``sets`` ("NAME=VALUE")
+    rewritten."""
+    import re
+    for kv in sets:
+        key, val = kv.split("=")
+        src, k = re.subn(rf"constexpr int {key} = [^;]*;", f"constexpr int {key} = {val};",
+                         src)
+        if k != 1:
+            raise SystemExit(f"--set {kv}: no constexpr int {key} in {fname}")
+    return src
+
+
+def build_variant(_cuda, root, name, sets):
+    """csrc/<name>.cu of ``root`` with each ``constexpr int`` of ``sets``
+    ("NAME=VALUE") rewritten, built alone into _dev/; the CDLL."""
+    import ctypes
+    csrc = os.path.join(root, "periodicschurdecompositions_jl_torch", "csrc")
+    src = set_constexprs(open(os.path.join(csrc, name + ".cu")).read(), sets, name + ".cu")
+    dev = os.path.join(HERE, "_dev")
+    os.makedirs(dev, exist_ok=True)
+    tag = "_".join(x.replace("=", "") for x in sets)
+    cu = os.path.join(dev, f"{name}_{tag}.cu")
+    open(cu, "w").write(src)
+    subprocess.run([_cuda._find_nvcc(), *_cuda.NVCC_FLAGS, "-shared", "-I", csrc, "-o",
+                    cu[:-3] + ".so", cu], check=True)
+    return ctypes.CDLL(cu[:-3] + ".so")
+
+
+def rg_state(torch, p, n, m, i, S):
+    """rg_kernel_phase's state: its problem with the window's boundaries
+    deflated and the opening ladder applied (H on the card)."""
+    from chip_smoke import mk_rg_problem
+    from periodicschurdecompositions_jl_torch.ops import rgopen
+    Hn, Zn, rotn = mk_rg_problem(p, n, np.random.default_rng(2026))
+    H = torch.tensor(Hn, device="cuda")
+    if m > 1:
+        H[0, m - 1, m - 2] = 0.0
+    if i + 1 < n:
+        H[0, i + 1, i] = 0.0
+    rgopen.rg_ladder_plain(H, torch.tensor(Zn, device="cuda"), "open", m - 1, i,
+                           torch.tensor(rotn, device="cuda"), S, want_z=True)
+    return H
+
+
+def time_rg(torch, lib, _cuda, args, out):
+    import ctypes
+    from chip_smoke import alternating
+    p, n = 8, 256
+    libs = {"": lib}
+    if args.set:
+        libs["_" + "_".join(args.set)] = build_variant(_cuda, args.root, "sweep_rg", args.set)
+        out["set"] = args.set
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    for lb in libs.values():
+        lb.psd_rg_sweep_generate.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, vp]
+    work = torch.empty((p, n, n), dtype=torch.float64, device="cuda")  # either design's
+    log = torch.zeros((p, n, 28), dtype=torch.float64, device="cuda")
+    st = torch.cuda.current_stream().cuda_stream
+    out.update(p=p, n=n)
+    for sname, S in (("alt", alternating(p)), ("direct", (True,) * p)):
+        Sd = torch.tensor([int(x) for x in S], dtype=torch.int32, device="cuda")
+        for (m, i) in ((1, n - 1), (38, 200), (121, 124)):
+            H0 = rg_state(torch, p, n, m, i, S)
+            for tag, lb in libs.items():
+                def call():
+                    _cuda.check(lb.psd_rg_sweep_generate(H0.data_ptr(), work.data_ptr(),
+                                                         log.data_ptr(), Sd.data_ptr(), p, n,
+                                                         m, i, st), "rg_sweep_generate")
+                ms = event_ms(torch, call, args.reps)
+                w = f"{sname}[{m},{i}]{tag}"
+                out[f"A_ms_{w}"] = ms
+                out[f"A_us_per_step_factor_{w}"] = ms * 1e3 / ((i - 1 - m) * p)
+                # every entry the kernel writes: L, R, ZR of each factor, r of factor 0
+                written = torch.cat([log[:, m:i - 1, :27].reshape(-1), log[0, m:i - 1, 27]])
+                out[f"log_sha256_{w}"] = hashlib.sha256(
+                    written.cpu().numpy().tobytes()).hexdigest()[:16]
+    if args.headline:
+        headline_rg(torch, args, out)
+
+
+def headline_rg(torch, args, out):
+    """The real generalized iteration of the rg leg (p=8, n=256, seed 4242,
+    alternating S) from its signed reduction, kept in ``args.hq``."""
+    from chip_smoke import alternating
+    from periodicschurdecompositions_jl_torch.ops import hessenberg, pqz_real, sweep_rg
+    p, n = 8, 256
+    S = alternating(p)
+    if os.path.exists(args.hq):
+        H, Q = (t.cuda() for t in torch.load(args.hq))
+        out["rg_reduce_s"] = "loaded from " + os.path.relpath(args.hq, HERE)
+    else:
+        A = torch.tensor(np.random.default_rng(4242).standard_normal((p, n, n)),
+                         device="cuda")
+        t0 = time.perf_counter()
+        H, Q = hessenberg.phessenberg_signed_core(A, S, want_q=True)
+        torch.cuda.synchronize()
+        out["rg_reduce_s"] = time.perf_counter() - t0
+        os.makedirs(os.path.dirname(args.hq), exist_ok=True)
+        torch.save((H.cpu(), Q.cpu()), args.hq)
+
+    def run():
+        return pqz_real.pqz_real_gen_core(H, S, Z=Q, with_info=True)
+    T, Z, *_, info = run()  # warm-up
+    torch.cuda.synchronize()
+    before = sweep_rg.launches["rg_sweep_generate"]
+    walls = []
+    for _ in range(RG_RUNS):
+        t0 = time.perf_counter()
+        T, Z, *_, info = run()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    out["rg_iterate_s"] = sorted(walls)[len(walls) // 2]
+    out["rg_iterate_runs_s"] = walls
+    out["rg_niter"] = info["niter"]
+    out["rg_sweeps"] = info["sweeps"]
+    out["rg_A_launches"] = (sweep_rg.launches["rg_sweep_generate"] - before) / RG_RUNS
+    out["rg_T_sha256"], out["rg_Z_sha256"] = sha(T), sha(Z)
+    if args.trace:
+        trace_rg(torch, run, out, args.trace_out)
+
+
+def trace_rg(torch, run, out, path):
+    """Where the rg iteration's host time goes: a CPU + CUDA torch.profiler
+    trace grouped by operation, then cProfile by Python function."""
+    import cProfile
+    import io
+    import pstats
+    from torch.profiler import ProfilerActivity, profile
+    from chip_smoke import dev_us
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ev = prof.key_averages()
+    busy = sum(dev_us(e) for e in ev if "CUDA" in str(e.device_type)) / 1e6
+    cpu = sorted(ev, key=lambda e: e.self_cpu_time_total, reverse=True)
+    host_ops = sum(e.self_cpu_time_total for e in ev) / 1e6
+    out["trace_wall_s"] = wall
+    out["trace_device_busy_s"] = busy
+    out["trace_host_ops_self_s"] = host_ops
+    out["trace_top_host_ops"] = [
+        [e.key[:40], e.count, round(e.self_cpu_time_total / 1e3, 3)] for e in cpu[:14]]
+    pr = cProfile.Profile()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pr.enable()
+    run()
+    torch.cuda.synchronize()
+    pr.disable()
+    out["cprofile_wall_s"] = time.perf_counter() - t0
+    buf = io.StringIO()
+    st = pstats.Stats(pr, stream=buf).sort_stats("tottime")
+    st.print_stats(40)
+    rows = []
+    for (fn, line, name), (cc, nc, tt, ct, _) in sorted(
+            st.stats.items(), key=lambda kv: kv[1][2], reverse=True)[:16]:
+        rows.append([f"{os.path.basename(fn)}:{line}:{name}"[:60], nc, round(tt, 4)])
+    out["cprofile_top_tottime"] = rows
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        f.write(prof.key_averages().table(sort_by="self_cpu_time_total", row_limit=60))
+        f.write("\n\n" + buf.getvalue())
+
+
 def hess_draw(p, n, seed, cplx):
     rng = np.random.default_rng(seed)
     A = rng.standard_normal((p, n, n))
@@ -220,18 +414,12 @@ def build_phase_libs(_cuda, root, sets):
     of ``sets`` ("NAME=VALUE") rewritten, into _dev/; {phases: CDLL}, empty
     when the source has no kStagePhases.  Prints ptxas's report."""
     import ctypes
-    import re
     csrc = os.path.join(root, "periodicschurdecompositions_jl_torch", "csrc")
     src = open(os.path.join(csrc, "hess.cu")).read()
     line = "constexpr int kStagePhases = 2;"
     if line not in src:
         return {}
-    for kv in sets:
-        name, val = kv.split("=")
-        src, k = re.subn(rf"constexpr int {name} = [^;]*;", f"constexpr int {name} = {val};",
-                         src)
-        if k != 1:
-            raise SystemExit(f"--set {kv}: no constexpr int {name} in hess.cu")
+    src = set_constexprs(src, sets, "hess.cu")
     dev = os.path.join(HERE, "_dev")
     os.makedirs(dev, exist_ok=True)
     nvcc, libs, procs = _cuda._find_nvcc(), {}, {}

@@ -402,7 +402,10 @@ def _rg_problem(p, n, seed):
 
 @pytest.mark.parametrize("p,n,S,m,i", [
     (2, 20, (True, False), 1, 19), (3, 24, (True, True, False), 4, 20),
-    (4, 40, (True, False, True, False), 1, 39), (3, 12, (True, False, True), 5, 8)])
+    (4, 40, (True, False, True, False), 1, 39), (3, 12, (True, False, True), 5, 8),
+    (2, 70, (True, True), 1, 69),                # p = 2: 67 steps, batches of 29
+    (3, 70, (True, False, True), 2, 66),
+    (8, 48, (True,) + (False,) * 7, 5, 44)])     # S all False but S[0]: 29 + 9 steps
 def test_rg_chase_kernels_match_plain(cuda, p, n, S, m, i):
     Hn, Zn, rot = _rg_problem(p, n, p * 100 + n)
     if m > 1:
@@ -413,8 +416,10 @@ def test_rg_chase_kernels_match_plain(cuda, p, n, S, m, i):
     # the opening leaves the bulge the chase starts from
     rgopen.rg_ladder_plain(H0, Z0, "open", m - 1, i, torch.tensor(rot, device=cuda), S,
                            want_z=True)
+    before = sweep_rg.launches["rg_sweep_generate"]
     Hk, Zk = H0.clone(), Z0.clone()
     sweep_rg.rg_chase(Hk, Zk, m, i, S, want_z=True)
+    assert sweep_rg.launches["rg_sweep_generate"] == before + 1
     Hp, Zp = H0.clone(), Z0.clone()
     log = torch.zeros((p, n, sweep_rg.LOG), dtype=torch.float64, device=cuda)
     sweep_rg.rg_chase_plain(Hp, Zp, m, i, S, want_z=True, log=log)
@@ -430,6 +435,12 @@ def test_rg_chase_kernels_match_plain(cuda, p, n, S, m, i):
     Hz = H0.clone()
     sweep_rg.rg_chase(Hz, None, m, i, S, want_z=False)
     assert torch.equal(Hz, Hk)
+    # kernel rg A reads H only; its log against the plain version's
+    H0c = H0.clone()
+    logk = sweep_rg.rg_sweep_generate(H0, m, i, S)
+    assert torch.equal(H0, H0c)
+    assert float((logk[:, m:i - 1, :27] - log[:, m:i - 1, :27]).abs().max()) <= 1e-12
+    assert float((logk[0, m:i - 1, 27] - log[0, m:i - 1, 27]).abs().max()) <= 1e-12 * scale
     # B0 + B on the plain log against their plain version
     lib = _cuda.load()
     Hb, Zb = H0.clone(), Z0.clone()
@@ -442,6 +453,64 @@ def test_rg_chase_kernels_match_plain(cuda, p, n, S, m, i):
     torch.cuda.synchronize()
     assert float((Hb - Ha).abs().max()) <= 1e-13 * scale
     assert float((Zb - Za).abs().max()) <= 1e-13
+
+
+def test_rg_chase_kernel_global_windows(cuda):
+    # p = 1500: even one step's windows exceed a block's shared memory, so
+    # kernel rg A keeps them in its global scratch.  5 x 1500 chained pairs
+    # of generations amplify rounding, so the gate is chip_smoke.py's: 10x
+    # the plain version's own change under a relative 1e-16 input
+    # perturbation, and at least 1e-12
+    p, n, m, i = 1500, 8, 1, 7
+    S = tuple(l % 2 == 0 for l in range(p))
+    Hn, Zn, rot = _rg_problem(p, n, 7)
+    H0, Z0 = torch.tensor(Hn, device=cuda), torch.tensor(Zn, device=cuda)
+    rgopen.rg_ladder_plain(H0, Z0, "open", m - 1, i, torch.tensor(rot, device=cuda), S,
+                           want_z=True)
+    Hk, Zk = H0.clone(), Z0.clone()
+    sweep_rg.rg_chase(Hk, Zk, m, i, S, want_z=True)
+    Hp, Zp = H0.clone(), Z0.clone()
+    sweep_rg.rg_chase_plain(Hp, Zp, m, i, S, want_z=True)
+    pert = torch.tensor(1.0 + 1e-16 * np.random.default_rng(1).standard_normal(Hn.shape),
+                        device=cuda)
+    Hq, Zq = H0 * pert, Z0.clone()
+    sweep_rg.rg_chase_plain(Hq, Zq, m, i, S, want_z=True)
+    scale = float(H0.abs().max())
+    tol_h = max(1e-12, 10 * float((Hq - Hp).abs().max()) / scale)
+    tol_z = max(1e-12, 10 * float((Zq - Zp).abs().max()))
+    assert float((Hk - Hp).abs().max()) <= tol_h * scale
+    assert float((Zk - Zp).abs().max()) <= tol_z
+    Hs = Hk.clone()
+    Hs[0, i, i - 2] = 0.0
+    _structure_exact(Hs)
+
+
+def test_launches_go_to_the_tensors_card():
+    # the C entry points size and launch on the current device: the
+    # wrappers make the tensor's card current around each launch
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    dev = torch.device("cuda:1")
+    p, n, m, i = 4, 40, 1, 39
+    S = (True, False, True, False)
+    Hn, Zn, rot = _rg_problem(p, n, 11)
+    H0, Z0 = torch.tensor(Hn, device=dev), torch.tensor(Zn, device=dev)
+    rgopen.rg_ladder_plain(H0, Z0, "open", m - 1, i, torch.tensor(rot, device=dev), S,
+                           want_z=True)
+    A = torch.tensor(np.random.default_rng(12).standard_normal((3, 48, 48)), device=dev)
+    with torch.cuda.device(0):
+        Hk, Zk = H0.clone(), Z0.clone()
+        sweep_rg.rg_chase(Hk, Zk, m, i, S, want_z=True)
+        H, Q = hessenberg.phessenberg_core(A)
+    Hp, Zp = H0.clone(), Z0.clone()
+    sweep_rg.rg_chase_plain(Hp, Zp, m, i, S, want_z=True)
+    Hr, Qr = hessenberg.phessenberg_core_plain(A)
+    torch.cuda.synchronize(dev)
+    assert Hk.device == dev and H.device == dev
+    assert float((Hk - Hp).abs().max()) <= 1e-12 * float(H0.abs().max())
+    assert float((Zk - Zp).abs().max()) <= 1e-12
+    assert float((H - Hr).abs().max()) <= 1e-12 * float(A.abs().max())
+    assert float((Q - Qr).abs().max()) <= 1e-12
 
 
 @pytest.mark.parametrize("mode", ["open", "close", "chain"])
