@@ -10,6 +10,11 @@ and checks the results:
   headline draw (p=16, n=512) and at p=1 n=64 and p=3 n=101, complex128 on
   the complex leg's draw (p=8, n=256), at the same small shapes and on a
   cycle of zero tails with complex diagonals;
+* the signed reduction's stage-2 kernel (one launch), float64 on the rg
+  leg's draw (p=8, n=256, alternating S) and complex128 on the signed
+  complex leg's draw (p=8, n=128, alternating S), and both at small edge
+  shapes (n=3, n=37 with S=(T,F,F), p=4 n=64 alternating, all direct,
+  p=1, a planted zero on an inverted factor's diagonal);
 * real: the kernels of the double-shift sweep, of the multi-bulge sweep
   (4 bulges) and of the 2x2 deflation at p=16, n=512; ``pschur(A, 'R')``
   on the headline draw, kernel G against
@@ -663,6 +668,174 @@ def hess_phase(dev, report):
         report[key]["max_abs_err"] = err
 
 
+def hess_signed_work(p, n, cplx=False, want_q=True):
+    """(bytes, flops) of stage 2 of one signed reduction: H and Q read once
+    and written once (8 bytes an entry, 16 in complex128); per chain j (m =
+    n-j-2 rotations) the updated entries: factor 0's rows (2 (n-j-1) a
+    rotation) and final columns (2 n), each factor l >= 1's columns and rows
+    (2 n + 2 a rotation, direct or inverted), and 2 n of each Q; 3 real
+    operations an entry (a complex one counted as 4x a real one, as
+    hess_work does) and 10 a generation."""
+    ent = 0
+    for j in range(n - 2):
+        m = n - j - 2
+        ent += m * (2 * (n - j - 1) + 2 * n) + (p - 1) * m * (2 * n + 2)
+        if want_q:
+            ent += p * m * 2 * n
+    gens = p * (n - 2) * (n - 1) // 2
+    return ((16 if cplx else 8) * (4 if want_q else 2) * p * n * n,
+            (3 * ent + 10 * gens) * (4 if cplx else 1))
+
+
+def hess_signed_cases():
+    """(name, S, A) of hess_signed_phase: the rg leg's draw and the signed
+    complex leg's (both alternating S), then small edge shapes in float64
+    and complex128."""
+    def cplx(rng, shape):
+        return rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+    alt4 = alternating(4)
+    out = [(f"real p={P_RG} n={N_RG} seed={SEED_RG}", alternating(P_RG),
+            np.random.default_rng(SEED_RG).standard_normal((P_RG, N_RG, N_RG))),
+           (f"complex p={P_CX} n={N_CX_SIGNED} seed={SEED_CX}", alternating(P_CX),
+            cplx(np.random.default_rng(SEED_CX), (P_CX, N_CX_SIGNED, N_CX_SIGNED)))]
+    for (S, n) in (((True, False), 3), ((True, False, False), 37), (alt4, 64),
+                   ((True, True, True), 40), ((True,), 20)):
+        for kind in ("real", "complex"):
+            rng = np.random.default_rng(100 * len(S) + n)
+            A = cplx(rng, (len(S), n, n)) if kind == "complex" else \
+                rng.standard_normal((len(S), n, n))
+            out.append((f"{kind} p={len(S)} n={n}", S, A))
+    Z = np.random.default_rng(9).standard_normal((4, 9, 9))
+    Z[3] = np.triu(Z[3])
+    Z[3, 2, 2] = 0.0    # stage 1 keeps it: an exact zero on an inverted diagonal
+    out.append(("real p=4 n=9 planted zero", alt4, Z))
+    return out
+
+
+def hess_signed_phase(dev, report):
+    """Stage 2 of the signed reduction (csrc/hess_signed.cu), float64 and
+    complex128, against phessenberg_signed_core_plain on the card, on the
+    cases of hess_signed_cases.
+
+    1. max|dH|/max|A| and max|dQ| within max(1e-12, 10 sens), sens being the
+       change of the plain version when A is perturbed by a relative 1e-16.
+       At the rg leg's draw the plain version takes ~40-60 s a call, so it
+       runs once there and sens is the kernel's own change under the same
+       perturbation (printed beside the plain version's at every other
+       case, the signed complex leg's draw included).  On the planted zero
+       the chains turn the exact zero into rounding noise that later
+       generations read, so there sens is O(1) and check 2 decides.
+    2. The kernel's similarity residual <= 1e-12 max|A|, orthonormality <=
+       10 eps n, exact structural zeros, the input unchanged, and
+       want_q=False leaves H identical.
+    3. One reduction adds one launch to the counter.
+    Prints the kernel's time (CUDA events over stage 2 alone, on copies of
+    stage 1's output), the plain version's wall and the bound.
+    """
+    import torch
+    from periodicschurdecompositions_jl_torch.ops import hessenberg, sweep_cx
+    worst = {"hess_signed": 0.0, "hess_signed_c128": 0.0}
+    for idx, (name, S, An) in enumerate(hess_signed_cases()):
+        A = torch.tensor(An, device=dev)
+        A0 = A.clone()
+        p, n, _ = A.shape
+        cx = A.is_complex()
+        key = "hess_signed_c128" if cx else "hess_signed"
+        scale = float(A.abs().max())
+        hessenberg.launches["hess_signed"] = 0
+        H, Q = hessenberg.phessenberg_signed_core(A, S)
+        if hessenberg.launches["hess_signed"] != 1:
+            raise AssertionError(f"hess_signed {name}: {hessenberg.launches['hess_signed']} "
+                                 f"launches counted, 1 expected")
+        out = {}
+        t_plain = wall_ms(lambda: out.update(hq=hessenberg.phessenberg_signed_core_plain(A, S)))
+        Hp, Qp = out.pop("hq")
+        pert = torch.tensor(1.0 + 1e-16 * np.random.default_rng(1).standard_normal(
+            (p, n, n)), device=dev)
+        Hk, Qk = hessenberg.phessenberg_signed_core(A * pert, S)
+        ksens = max(float((Hk - H).abs().max()) / scale, float((Qk - Q).abs().max()))
+        if idx == 0:
+            psens = None
+            sens = ksens
+        else:
+            Hs, Qs = hessenberg.phessenberg_signed_core_plain(A * pert, S)
+            psens = max(float((Hs - Hp).abs().max()) / scale, float((Qs - Qp).abs().max()))
+            sens = psens
+            del Hs, Qs
+        del Hk, Qk, pert
+        dh = float((H - Hp).abs().max()) / scale
+        dq = float((Q - Qp).abs().max())
+        tol = max(1e-12, 10 * sens)
+        eye = torch.eye(n, dtype=A.dtype, device=dev)
+        res = 0.0
+        for l in range(p):
+            a, b = (l, (l + 1) % p) if S[l] else ((l + 1) % p, l)
+            res = max(res, float((Q[a].mH @ A[l] @ Q[b] - H[l]).abs().max()) / scale)
+        orth = max(float(torch.linalg.matrix_norm(Q[l] @ Q[l].mH - eye, ord=1))
+                   for l in range(p))
+        orth_bound = 10 * np.finfo(np.float64).eps * n
+        Hn, Qn = hessenberg.phessenberg_signed_core(A, S, want_q=False)
+        H1, Q1 = hessenberg._signed_stage1(A, S, True)
+        sig = sweep_cx._signature(S, dev)
+        ts = []
+        for _ in range(4):
+            Hc, Qc = H1.clone(), Q1.clone()
+            torch.cuda.synchronize()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            hessenberg.signed_stage2_cuda(Hc, Qc, sig)
+            e1.record()
+            torch.cuda.synchronize()
+            ts.append(e0.elapsed_time(e1))
+        ms = float(np.median(ts[1:]))
+        t_whole = wall_ms(lambda: hessenberg.phessenberg_signed_core(A, S))
+        nb, fl = hess_signed_work(p, n, cx)
+        bms, bby = bound(nb, fl)
+        _log(f"hess_signed {name} S={''.join('TF'[not x] for x in S)}: vs "
+             f"phessenberg_signed_core_plain max|dH|/max|A| {dh:.3e} max|dQ| {dq:.3e} "
+             f"(1e-16 sensitivity: plain's "
+             f"{'not run' if psens is None else f'{psens:.3e}'}, kernel's {ksens:.3e}; "
+             f"tolerance {tol:.3e}); residual {res:.3e}, orthonormality {orth:.3e} (bound "
+             f"{orth_bound:.3e}); stage 2 kernel {ms:.3f} ms (1 launch, "
+             f"{p * (n - 2) * (n - 1) // 2} generations), whole kernel reduction "
+             f"{t_whole:.1f} ms, plain {t_plain:.1f} ms, bound {bms * 1e3:.3f} us ({bby})")
+        if not (dh <= tol and dq <= tol):
+            raise AssertionError(f"hess_signed kernel disagrees with the plain version, "
+                                 f"{name}: {dh:.3e} {dq:.3e}")
+        if not (res <= 1e-12 and orth <= orth_bound):
+            raise AssertionError(f"hess_signed residual {res:.3e} / orthonormality "
+                                 f"{orth:.3e}, {name}")
+        if not (structure_ok(H) and structure_ok(Hp)):
+            raise AssertionError(f"hess_signed {name}: structural zeros not exact")
+        if not torch.equal(A, A0):
+            raise AssertionError(f"hess_signed {name}: the input changed")
+        if not (Qn is None and torch.equal(Hn, H)):
+            raise AssertionError(f"hess_signed {name}: want_q=False changed H")
+        worst[key] = max(worst[key], dh, dq)
+        if idx < 2:
+            report[key] = {
+                "name": key, "route": "cuda",
+                "source": "periodicschurdecompositions_jl_torch/csrc/hess_signed.cu",
+                # stage 2 of the JAX package's jnp phessenberg_signed_core (no Pallas kernel)
+                "replaces": "periodicschurdecompositions_jl_tpu/ops/hessenberg.py:167",
+                "ms": ms, "plain_ms": t_plain, "bound_ms": bms, "bound_by": bby,
+                "library_ms": None}
+    for (p, n, kind) in ((3, 1, "complex"), (4, 2, "real")):
+        A = torch.tensor(np.random.default_rng(n).standard_normal((p, n, n)), device=dev)
+        A = A.to(torch.complex128) if kind == "complex" else A
+        hessenberg.launches["hess_signed"] = 0
+        H, Q = hessenberg.phessenberg_signed_core(A, alternating(p))
+        Hp, Qp = hessenberg.phessenberg_signed_core_plain(A, alternating(p))
+        if hessenberg.launches["hess_signed"] != 0 or not (torch.equal(H, Hp)
+                                                           and torch.equal(Q, Qp)):
+            raise AssertionError(f"hess_signed n={n}: launched, or differs from the plain "
+                                 f"version without chains")
+    _log("hess_signed n=1 (complex) and n=2 (real): no launch, equal to the plain version")
+    for key, err in worst.items():
+        report[key]["max_abs_err"] = err
+
+
 def glue_phase(dev, states, report):
     """Kernel G (csrc/glue.cu) against glue_plain, on the card and on a CPU
     copy, bit for bit (the whole packed buffer: band, lnew, v0 and the
@@ -807,9 +980,10 @@ def e2e_case(dev, p, n, seed, lr, nbulges=1, ref_values=None):
         raise AssertionError("eigenvalues not finite or of the wrong shape")
     if ref_values is not None and not ev <= 1000 * np.finfo(np.float64).eps:
         raise AssertionError(f"eigenvalues differ from the nbulges=1 leg's by {ev:.3e}")
-    unused = "sweep_generate_mb" if nbulges == 1 else "sweep_generate"
+    # the signed reduction is not on the real direct path
+    unused = ("sweep_generate_mb" if nbulges == 1 else "sweep_generate", "hess_signed")
     for k, v in launches.items():
-        if (v <= 0) != (k == unused):
+        if (v <= 0) != (k in unused):
             raise AssertionError(f"kernel {k} launched {v} times on the {tag} path")
     if launches["glue"] != info["niter"]:
         raise AssertionError(f"kernel G launched {launches['glue']} times in "
@@ -1090,12 +1264,14 @@ def cx_e2e_case(dev, p, n, seed, S, lr):
     At = torch.tensor(A, device=dev)
     for k in sweep_cx.launches:
         sweep_cx.launches[k] = 0
-    hessenberg.launches["hess_reduce"] = 0
+    for k in hessenberg.launches:
+        hessenberg.launches[k] = 0
     t0 = time.perf_counter()
     P = pt.pschur(At, lr, S=S)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {**sweep_cx.launches, "hess_reduce_c128": hessenberg.launches["hess_reduce"]}
+    launches = {**sweep_cx.launches, "hess_reduce_c128": hessenberg.launches["hess_reduce"],
+                "hess_signed_c128": hessenberg.launches["hess_signed"]}
     info = dict(pqz_complex.last_info)
     T = P.Ts.cpu().numpy()
     Z = P.Zs.cpu().numpy()
@@ -1119,9 +1295,11 @@ def cx_e2e_case(dev, p, n, seed, S, lr):
     if not (np.all(np.isfinite(vals)) and vals.shape == (n,)):
         raise AssertionError("eigenvalues not finite or of the wrong shape")
     # the reduction kernel runs once when every factor is direct; a signature
-    # takes the signed reduction
+    # takes the signed reduction, whose stage 2 is one launch
+    expect = {"hess_reduce_c128": 1 if S is None else 0,
+              "hess_signed_c128": 0 if S is None else 1}
     for k, v in launches.items():
-        if (v != (1 if S is None else 0)) if k == "hess_reduce_c128" else v <= 0:
+        if (v != expect[k]) if k in expect else v <= 0:
             raise AssertionError(f"kernel {k} launched {v} times on the complex path")
     return launches
 
@@ -1424,14 +1602,14 @@ def rg_block_check(P):
 def rg_e2e_case(dev, p, n, seed):
     """pschur(A, 'R', S) on a real cycle through the public entry point.
     Returns the launch counts and the reduction (H, Q) the leg computed
-    (kept for rg_iteration_profile: at n=256 the signed reduction takes
-    most of a minute)."""
+    (kept for rg_iteration_profile).  The signed reduction's stage 2 runs
+    one launch of hess_signed; the direct reduction kernel none."""
     import torch
     import periodicschurdecompositions_jl_torch as pt
     from periodicschurdecompositions_jl_torch.ops import hessenberg, pqz_real, rgopen, sweep_rg
     A, S = rg_draw(p, n, seed)
     At = torch.tensor(A, device=dev)
-    counters = (sweep_rg.launches, rgopen.launches)
+    counters = (sweep_rg.launches, rgopen.launches, hessenberg.launches)
     kept = {}
     reduce = hessenberg.phessenberg_signed_core
 
@@ -1450,6 +1628,7 @@ def rg_e2e_case(dev, p, n, seed):
     finally:
         hessenberg.phessenberg_signed_core = reduce
     launches = {k: v for d in counters for k, v in d.items()}
+    hess_reduce = launches.pop("hess_reduce")
     info = dict(pqz_real.last_info)
     T = P.Ts.cpu().numpy()
     Z = P.Zs.cpu().numpy()
@@ -1484,8 +1663,11 @@ def rg_e2e_case(dev, p, n, seed):
     if not eig_err <= 1e-10:
         raise AssertionError(f"eigenvalues differ from T's diagonal blocks by {eig_err:.3e}")
     for k, v in launches.items():
-        if v <= 0:
-            raise AssertionError(f"kernel {k} was not launched by the real generalized path")
+        if (v != 1) if k == "hess_signed" else v <= 0:
+            raise AssertionError(f"kernel {k} launched {v} times on the real generalized path")
+    if hess_reduce != 0:
+        raise AssertionError(f"the direct reduction kernel launched {hess_reduce} times on "
+                             f"the real generalized path")
     return launches, kept["HQ"]
 
 
@@ -1557,6 +1739,7 @@ def main() -> int:
 
     report = {}
     hess_phase(dev, report)
+    hess_signed_phase(dev, report)
     sweep_phase(dev, P_HEAD, N_HEAD, report)
     mb_phase(dev, P_HEAD, N_HEAD, report)
     deflate_phase(dev, P_HEAD, N_HEAD, report)
@@ -1575,7 +1758,8 @@ def main() -> int:
     cx_small_check(dev)
     launches.update(cx_e2e_case(dev, P_CX, N_CX, SEED_CX, None, "R"))
     cx_iteration_profile(dev, P_CX, N_CX, SEED_CX)
-    cx_e2e_case(dev, P_CX, N_CX_SIGNED, SEED_CX, alternating(P_CX), "R")
+    cx_signed = cx_e2e_case(dev, P_CX, N_CX_SIGNED, SEED_CX, alternating(P_CX), "R")
+    launches["hess_signed_c128"] = cx_signed["hess_signed_c128"]
 
     rg_kernel_phase(dev, P_RG, N_RG, report)
     rg_small_check(dev)
@@ -1588,7 +1772,8 @@ def main() -> int:
                  "deflate2x2",
                  "qz_sweep_generate", "qz_sweep_left", "qz_sweep_right", "qz_shift",
                  "rg_sweep_generate", "rg_sweep_left", "rg_sweep_right", "rg_ladder",
-                 "hess_reduce", "hess_reduce_c128", "glue"):
+                 "hess_reduce", "hess_reduce_c128", "hess_signed", "hess_signed_c128",
+                 "glue"):
         kernels.append({**report[name], "launches": launches[name]})
     _log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the kernel build to here")
     print(json.dumps({"kernels": kernels}))

@@ -89,6 +89,10 @@ def _declare(lib):
                                   i32, vp]
     lib.psd_hess_reduce.argtypes = [vp, vp, vp, i32, i32, ctypes.POINTER(i32), vp]
     lib.psd_hess_reduce_c128.argtypes = lib.psd_hess_reduce.argtypes
+    lib.psd_hess_signed.argtypes = [vp, vp, vp, vp, i32, i32, ctypes.POINTER(i32), vp]
+    lib.psd_hess_signed_c128.argtypes = lib.psd_hess_signed.argtypes
+    lib.psd_hess_signed_scratch.argtypes = [i32, i32]
+    lib.psd_hess_signed_scratch.restype = ctypes.c_longlong
     lib.psd_glue.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, i32, i32,
                              f64, f64, f64, vp]
     for fn in (lib.psd_sweep_generate, lib.psd_sweep_generate_mb, lib.psd_sweep_left,
@@ -97,7 +101,8 @@ def _declare(lib):
                lib.psd_qz_sweep_right, lib.psd_qz_shift,
                lib.psd_rg_sweep_generate, lib.psd_rg_sweep_left,
                lib.psd_rg_sweep_right, lib.psd_rg_ladder,
-               lib.psd_hess_reduce, lib.psd_hess_reduce_c128, lib.psd_glue):
+               lib.psd_hess_reduce, lib.psd_hess_reduce_c128, lib.psd_hess_signed,
+               lib.psd_hess_signed_c128, lib.psd_glue):
         fn.restype = i32
     lib.psd_error_string.argtypes = [i32]
     lib.psd_error_string.restype = ctypes.c_char_p

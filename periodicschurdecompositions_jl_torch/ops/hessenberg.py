@@ -30,11 +30,23 @@ column sweep).
 reduction with n >= 2, either instance), as the C entry points report them.
 
 ``phessenberg_signed_core`` handles a mixed signature (Kressner's
-two-stage scheme): QR/RQ factorizations of the triangular factors, then
-Givens chains that reduce H[0] to Hessenberg form while re-triangularizing
-the others.  Its chains loop over the active rotations only (the JAX
-package runs all n steps with masks) and generate each rotation on the
-host from the two entries it annihilates.
+two-stage scheme): stage 1, QR/RQ factorizations of the triangular factors
+(``torch.linalg.qr``, as the JAX package leaves them to ``jnp.linalg.qr``);
+stage 2, Givens chains that reduce H[0] to Hessenberg form while
+re-triangularizing the others.
+
+* A float64 or complex128 CUDA tensor runs stage 2 as one launch of
+  ``csrc/hess_signed.cu`` (the JAX package computes it in jnp inside its
+  jitted core, with no Pallas kernel): one block generates every rotation
+  and applies every update on the card, with no read to the host.  Other
+  dtypes on the card raise; n <= 2 launches nothing.
+* A CPU tensor takes ``phessenberg_signed_core_plain``, whose chains loop
+  over the active rotations only (the JAX package runs all n steps with
+  masks) and generate each rotation on the host from the two entries it
+  annihilates.
+
+``launches["hess_signed"]`` counts the stage-2 kernel's launches (one per
+reduction with n > 2, either instance), as the C entry points report them.
 """
 from __future__ import annotations
 
@@ -46,8 +58,9 @@ import torch
 from . import _cuda
 from .householder import refl_left, refl_right, reflector_masked
 from .rotations import colsk, givens_host, lmat_host, rmat_adj_host, rowsk
+from .sweep_cx import _signature
 
-launches = {"hess_reduce": 0}
+launches = {"hess_reduce": 0, "hess_signed": 0}
 
 
 def _scrub(A):
@@ -155,17 +168,63 @@ def phessenberg_signed_core(A: torch.Tensor, S: Sequence[bool],
 
     Requires ``S[0]``.  Returns (H, Q) with H[0] Hessenberg, H[1:]
     triangular, ``Q[l]^H A[l] Q[(l+1)%p] = H[l]`` for S[l], else
-    ``Q[(l+1)%p]^H A[l] Q[l] = H[l]``.  Real or complex input.
+    ``Q[(l+1)%p]^H A[l] Q[l] = H[l]``.  Real or complex input; on a CUDA
+    device it must be float64 or complex128 (stage 2 is one launch of
+    ``csrc/hess_signed.cu``).
     """
-    p, n, _ = A.shape
+    if A.device.type == "cpu":
+        return phessenberg_signed_core_plain(A, S, want_q)
+    if A.device.type != "cuda":
+        raise ValueError(f"phessenberg_signed_core: unsupported device {A.device}")
+    if A.dtype not in (torch.float64, torch.complex128):
+        raise ValueError(f"phessenberg_signed_core: input on the card must be float64 "
+                         f"or complex128, got {A.dtype}")
+    S = _signature_of(S, A.shape[0])
+    sig = _signature(S, A.device)
+    A, Q = _signed_stage1(A, S, want_q)
+    if A.shape[1] > 2:
+        signed_stage2_cuda(A, Q, sig)
+    return _scrub(A), Q
+
+
+def signed_stage2_cuda(H: torch.Tensor, Q: Optional[torch.Tensor],
+                       sig: torch.Tensor) -> None:
+    """Stage 2 on the card, in place: one launch of ``csrc/hess_signed.cu``
+    (no read to the host).  H, Q: stage 1's contiguous (p, n, n) float64 or
+    complex128 output (Q may be None); sig: the signature as a device int32
+    array (``sweep_cx._signature``).  The kernel updates Q transposed (its
+    column updates become row updates, whose loads coalesce)."""
+    p, n, _ = H.shape
+    lib = _cuda.load()
+    cx = H.is_complex()
+    ws = torch.empty(lib.psd_hess_signed_scratch(n, int(cx)), dtype=torch.uint8,
+                     device=H.device)
+    QT = None if Q is None else Q.transpose(1, 2).contiguous()
+    entry = lib.psd_hess_signed_c128 if cx else lib.psd_hess_signed
+    nlaunch = ctypes.c_int(0)
+    with _cuda.on_device(H):
+        rc = entry(H.data_ptr(), None if QT is None else QT.data_ptr(), sig.data_ptr(),
+                   ws.data_ptr(), p, n, ctypes.byref(nlaunch), _cuda.stream_ptr(H))
+    launches["hess_signed"] += nlaunch.value
+    _cuda.check(rc, "hess_signed")
+    if Q is not None:
+        Q.copy_(QT.transpose(1, 2))
+
+
+def _signature_of(S, p):
     S = tuple(bool(x) for x in S)
     if len(S) != p or not S[0]:
         raise ValueError("signature: one entry per factor, S[0] must be True")
-    A = A.clone()
+    return S
+
+
+def _signed_stage1(A, S, want_q):
+    """Stage 1 of the signed reduction on a contiguous copy of A: QR / RQ
+    of factors p-1..1.  Returns (A, Q)."""
+    p, n, _ = A.shape
+    A = A.clone(memory_format=torch.contiguous_format)
     Q = torch.eye(n, dtype=A.dtype, device=A.device).expand(p, n, n).clone() \
         if want_q else None
-
-    # ---- stage 1: triangular decompositions (QR / RQ) -------------------
     for l in range(p - 1, 0, -1):
         if S[l]:
             Qf, R = torch.linalg.qr(A[l])
@@ -179,6 +238,18 @@ def phessenberg_signed_core(A: torch.Tensor, S: Sequence[bool],
             A[l - 1] = A[l - 1] @ Qf.conj().T if S[l - 1] else Qf @ A[l - 1]
             if want_q:
                 Q[l] = Q[l] @ Qf.conj().T
+    return A, Q
+
+
+def phessenberg_signed_core_plain(A: torch.Tensor, S: Sequence[bool],
+                                  want_q: bool = True
+                                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Plain torch signed reduction (the CPU route, and the reference the
+    kernel is checked against on the card); same contract as
+    ``phessenberg_signed_core``, any dtype and device."""
+    p, n, _ = A.shape
+    S = _signature_of(S, p)
+    A, Q = _signed_stage1(A, S, want_q)
     if n <= 2:
         return _scrub(A), Q
 

@@ -46,8 +46,19 @@ whose two-launch design starts its threads anew for every launch).  The float64 
 also held bit for bit against the two-launch design of ``--parent FILE``
 (its hess.cu, built for the stub the same way), where given.
 
+``--signed``: csrc/hess_signed.cu, stage 2 of the signed reduction in one
+launch, float64 and complex128, on stage 1's output of small cycles (p = 1
+to 5, n = 3 to 70; alternating, all-direct and mixed signatures; a planted
+exact zero on an inverted factor's diagonal; want_q on and off) against
+``phessenberg_signed_core_plain`` within max(1e-13, 10 sens) max|A| (sens:
+the plain version's own change when A is perturbed by a relative 1e-16;
+the chains amplify rounding to ~1e-13 at n=20 and ~2e-12 at n=37 complex),
+with exact structural zeros, with the scratch in shared memory and in the
+global ws (200 bytes of shared memory), and with a block of 64 threads (each thread several rows
+and columns); about a minute.
+
 Run from the repository root:
-  python3 scripts/rehearse_sweep_host.py [--cx | --rg | --hess [--parent FILE]]
+  python3 scripts/rehearse_sweep_host.py [--cx | --rg | --hess [--parent FILE] | --signed]
 """
 import argparse
 import ctypes
@@ -71,10 +82,14 @@ from torch_rg_window_host import rg_log_full  # noqa: E402
 from torch_window_host import sweep_log_full  # noqa: E402
 
 
-def build_stub(name, path=None, extra=""):
+def build_stub(name, path=None, extra="", sub=()):
     """csrc/<name>.cu (or the file ``path``) rewritten for the host stub,
-    with the source ``extra`` appended, and built with g++."""
+    with the source ``extra`` appended and each (old, new) of ``sub``
+    replaced, and built with g++."""
     src = open(path or os.path.join(CSRC, name + ".cu")).read() + extra
+    for old, new in sub:
+        assert old in src, old
+        src = src.replace(old, new)
     src = src.replace("cudaLaunchCooperativeKernel((void*)kernel,", "stub_launch_coop(kernel,")
     src = src.replace("extern __shared__ double smem[];", "double* smem = stub_dyn_smem;")
     src = src.replace("extern __shared__ double2 smem[];",
@@ -82,7 +97,8 @@ def build_stub(name, path=None, extra=""):
     src = re.sub(r"([A-Za-z_][A-Za-z_0-9]*(?:<\d+>)?)<<<(.*?)>>>\(", r"stub_launch(\1, \2, ",
                  src, flags=re.S)
     os.makedirs(OUT, exist_ok=True)
-    cpp, so = os.path.join(OUT, name + "_stub.cpp"), os.path.join(OUT, f"lib{name}_stub.so")
+    tag = name + ("_sub" if sub else "")
+    cpp, so = os.path.join(OUT, tag + "_stub.cpp"), os.path.join(OUT, f"lib{tag}_stub.so")
     open(cpp, "w").write(src)
     subprocess.run(["g++", "-std=c++20", "-O2", "-ffp-contract=off", "-fPIC", "-shared",
                     "-I", os.path.join(ROOT, "scripts", "cuda_host_stub"), "-I", CSRC, cpp,
@@ -372,13 +388,94 @@ def main_hess(parent):
     return 0
 
 
+def signed_stub(lib, A, S, want_q):
+    """Stage 1 in torch, stage 2 through the stub's C entry; returns (H, Q,
+    launches)."""
+    from periodicschurdecompositions_jl_torch.ops import hessenberg
+    p, n, _ = A.shape
+    H, Q = hessenberg._signed_stage1(A, S, want_q)
+    cx = A.is_complex()
+    ws = torch.full((lib.psd_hess_signed_scratch(n, int(cx)) // 8,), float("nan"),
+                    dtype=torch.float64)
+    sig = torch.tensor([int(x) for x in S], dtype=torch.int32)
+    QT = Q.transpose(1, 2).contiguous() if want_q else None
+    nl = ctypes.c_int(-1)
+    entry = lib.psd_hess_signed_c128 if cx else lib.psd_hess_signed
+    rc = entry(H.data_ptr(), QT.data_ptr() if want_q else None, sig.data_ptr(),
+               ws.data_ptr(), p, n, ctypes.byref(nl), None)
+    assert rc == 0, rc
+    return hessenberg._scrub(H), QT.transpose(1, 2) if want_q else None, nl.value
+
+
+def build_signed(sub=()):
+    lib = build_stub("hess_signed", sub=sub)
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    for name in ("psd_hess_signed", "psd_hess_signed_c128"):
+        getattr(lib, name).argtypes = [vp, vp, vp, vp, i32, i32, ctypes.POINTER(i32), vp]
+    lib.psd_hess_signed_scratch.argtypes = [i32, i32]
+    lib.psd_hess_signed_scratch.restype = ctypes.c_longlong
+    return lib
+
+
+def main_signed():
+    from periodicschurdecompositions_jl_torch.ops import hessenberg
+    # the source's block, and one of 64 threads: rows and columns outnumber
+    # the threads, so each takes several
+    libs = {"": build_signed(),
+            ", 64 threads": build_signed((("constexpr int kMaxThreads = 512;",
+                                           "constexpr int kMaxThreads = 64;"),))}
+    alt = lambda p: tuple(l % 2 == 0 for l in range(p))  # noqa: E731
+    cases = [((True, False), 3, "real", True), ((True, False, False), 7, "complex", True),
+             (alt(4), 5, "zero", True), ((True,), 6, "real", True),
+             ((True, True, True), 12, "real", True), (alt(4), 20, "real", True),
+             (alt(4), 20, "complex", False), ((True, False, False), 37, "complex", True),
+             ((True, True, False, True, False), 16, "real", False), (alt(2), 2, "real", True),
+             ((True, False, True), 40, "real", True), ((True, True, False), 70, "complex", True)]
+    for (optin, blk) in (("232448", ""), ("200", ""), ("232448", ", 64 threads")):
+        lib = libs[blk]
+        os.environ["STUB_SMEM_OPTIN"] = optin
+        for (S, n, kind, want_q) in cases:
+            p = len(S)
+            rng = np.random.default_rng(10 * p + n)
+            A = rng.standard_normal((p, n, n))
+            if kind == "complex":
+                A = A + 1j * rng.standard_normal((p, n, n))
+            if kind == "zero":  # an exact zero on an inverted factor's diagonal
+                A[1] = np.triu(A[1])
+                A[1, 2, 2] = 0.0
+            A = torch.tensor(A)
+            H, Q, nl = signed_stub(lib, A, S, want_q)
+            Hp, Qp = hessenberg.phessenberg_signed_core_plain(A, S, want_q)
+            assert nl == (1 if n > 2 else 0), nl
+            scale = float(A.abs().max())
+            dh = float((H - Hp).abs().max()) / scale
+            dq = float((Q - Qp).abs().max()) if want_q else 0.0
+            pert = torch.tensor(1.0 + 1e-16 * np.random.default_rng(1).standard_normal(
+                (p, n, n)))
+            Hs, Qs = hessenberg.phessenberg_signed_core_plain(A * pert, S, want_q)
+            sens = max(float((Hs - Hp).abs().max()) / scale,
+                       float((Qs - Qp).abs().max()) if want_q else 0.0)
+            tol = max(1e-13, 10 * sens)
+            assert dh <= tol and dq <= tol, (S, n, kind, dh, dq, tol)
+            Hn = H.numpy()
+            assert np.all(np.tril(Hn[0], -2) == 0) and all(
+                np.all(np.tril(Hn[f], -1) == 0) for f in range(1, p)), "structural zeros"
+            print(f"shared memory {optin} B{blk}: S={''.join('TF'[not x] for x in S)} n={n} "
+                  f"{kind} want_q={want_q}: vs phessenberg_signed_core_plain dH {dh:.2e} "
+                  f"dQ {dq:.2e} (tolerance {tol:.2e})", flush=True)
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--cx", action="store_true")
     ap.add_argument("--rg", action="store_true")
     ap.add_argument("--hess", action="store_true")
     ap.add_argument("--parent", default=None)
+    ap.add_argument("--signed", action="store_true")
     args = ap.parse_args()
+    if args.signed:
+        return main_signed()
     if args.hess:
         return main_hess(args.parent)
     if args.cx:

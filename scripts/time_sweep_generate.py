@@ -65,8 +65,27 @@ times the real headline ``pschur`` and the complex leg (walls, reduction
 and iteration times, niter).  A parent whose complex reduction is the
 plain torch version times that version instead.
 
+``--signed``: the signed reduction (``phessenberg_signed_core``; stage 2
+is csrc/hess_signed.cu where the checkout has it, the plain torch version
+with one host read per rotation where it does not) on the rg leg's draw
+(real p=8, n=256, seed 4242) and the signed complex leg's (complex p=8,
+n=128, seed 777), both with an alternating S: the host clock over one call
+to ``torch.cuda.synchronize()`` (the kernel: the median of ``--reps`` calls,
+at most 5, and, with CUDA events, of stage 2 alone on copies of stage 1's
+output), hashes of H and Q, and, for the kernel, max|dH|/max|A| and
+max|dQ| against the plain version's output, which a turn of the plain
+version keeps in ``_dev/signed_plain_{rg,cx}.pt`` (else the plain version
+runs once).  ``--headline`` runs each draw through ``pschur(A, 'R', S)``
+instead and times the reduction inside it: the leg's wall, iteration time,
+niter and a hash of the eigenvalues.  ``--split`` also builds copies of
+hess_signed.cu under ``_dev/`` (the source; the generations replaced by the
+identity rotation; the batched update chains cut off) and times stage 2
+through each, with and without Q: an attribution of the kernel's time to
+its serial generations, its updates and Q.
+
 Run from the repository root:
-  python3 scripts/time_sweep_generate.py [--cx | --rg | --hess] [--root DIR] [--headline]
+  python3 scripts/time_sweep_generate.py [--cx | --rg | --hess | --signed [--split]]
+      [--root DIR] [--headline]
 """
 import argparse
 import hashlib
@@ -90,6 +109,8 @@ def main():
     ap.add_argument("--cx", action="store_true")
     ap.add_argument("--rg", action="store_true")
     ap.add_argument("--hess", action="store_true")
+    ap.add_argument("--signed", action="store_true")
+    ap.add_argument("--split", action="store_true")
     ap.add_argument("--set", action="append", default=[])
     ap.add_argument("--hq", default=os.path.join(HERE, "_dev", "rg_hq.pt"))
     ap.add_argument("--trace", action="store_true")
@@ -108,8 +129,8 @@ def main():
     print(smi)
     lib = _cuda.load()
     out = {"root": os.path.abspath(args.root), "card": smi}
-    (time_hess if args.hess else time_cx if args.cx else time_rg if args.rg
-     else time_real)(torch, lib, _cuda, args, out)
+    (time_signed if args.signed else time_hess if args.hess else time_cx if args.cx
+     else time_rg if args.rg else time_real)(torch, lib, _cuda, args, out)
     print(json.dumps(out))
     return 0
 
@@ -481,6 +502,173 @@ def time_hess(torch, lib, _cuda, args, out):
     if args.headline:
         headline_real(torch, out)
         headline_cx(torch, out)
+
+
+def time_signed(torch, lib, _cuda, args, out):
+    import periodicschurdecompositions_jl_torch as pt
+    from chip_smoke import alternating
+    from periodicschurdecompositions_jl_torch.ops import hessenberg, pqz_complex, pqz_real
+    kernel = hasattr(hessenberg, "signed_stage2_cuda")
+    out["stage2"] = "csrc/hess_signed.cu" if kernel else "plain torch"
+    hessenberg.phessenberg_signed_core(torch.tensor(hess_draw(4, 8, 1, False), device="cuda"),
+                                       alternating(4))  # warm-up: the build, the signature
+    reduce = hessenberg.phessenberg_signed_core
+    split_libs = build_signed_variants(_cuda, args.root) if args.split and kernel else {}
+    for (tag, p, n, seed, cplx) in (("rg", 8, 256, 4242, False), ("cx", 8, 128, 777, True)):
+        S = alternating(p)
+        A = torch.tensor(hess_draw(p, n, seed, cplx), device="cuda")
+        A0, scale = A.clone(), float(A.abs().max())
+        kept = {"s": []}
+
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = reduce(*a, **k)
+            torch.cuda.synchronize()
+            kept["s"].append(time.perf_counter() - t0)
+            kept["HQ"] = tuple(t.clone() for t in res)  # the caller may work in place
+            return res
+        if args.headline:
+            hessenberg.phessenberg_signed_core = timed
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                P = pt.pschur(A, "R", S=S)
+                torch.cuda.synchronize()
+                out[f"{tag}_leg_wall_s"] = time.perf_counter() - t0
+            finally:
+                hessenberg.phessenberg_signed_core = reduce
+            out[f"{tag}_leg_input_unchanged"] = bool(torch.equal(A, A0))
+            A = A0
+            info = (pqz_complex if cplx else pqz_real).last_info
+            out[f"{tag}_leg_iterate_s"] = info["iterate_s"]
+            out[f"{tag}_leg_niter"] = info["niter"]
+            out[f"{tag}_values_sha256"] = sha(P.values)
+        else:
+            timed(A, S)
+        H, Q = kept["HQ"]
+        out[f"{tag}_H_sha256"], out[f"{tag}_Q_sha256"] = sha(H), sha(Q)
+        ref = os.path.join(HERE, "_dev", f"signed_plain_{tag}.pt")
+        if not kernel:
+            out[f"{tag}_reduce_s"] = kept["s"][0]
+            os.makedirs(os.path.dirname(ref), exist_ok=True)
+            torch.save((H.cpu(), Q.cpu()), ref)
+            continue
+        for _ in range(min(args.reps, 5) - 1):
+            timed(A, S)
+        out[f"{tag}_reduce_s"] = sorted(kept["s"])[len(kept["s"]) // 2]
+        out[f"{tag}_reduce_runs_s"] = kept["s"]
+        if os.path.exists(ref):
+            Hp, Qp = (t.cuda() for t in torch.load(ref))
+            out[f"{tag}_plain_from"] = os.path.relpath(ref, HERE)
+        else:
+            Hp, Qp = hessenberg.phessenberg_signed_core_plain(A, S)
+            out[f"{tag}_plain_from"] = "phessenberg_signed_core_plain"
+        out[f"{tag}_plain_H_sha256"] = sha(Hp)
+        Hn, Hpn, Qn, Qpn = (t.cpu().numpy() for t in (H, Hp, Q, Qp))
+        out[f"{tag}_dH_vs_plain"] = float(np.abs(Hn - Hpn).max()) / scale
+        out[f"{tag}_dQ_vs_plain"] = float(np.abs(Qn - Qpn).max())
+        out[f"{tag}_H_entries_differing"] = int((Hn != Hpn).sum())
+        from periodicschurdecompositions_jl_torch.ops import sweep_cx
+        H1, Q1 = hessenberg._signed_stage1(A, S, True)
+        sig = sweep_cx._signature(S, A.device)
+        ts = []
+        for _ in range(min(args.reps, 5) + 1):
+            Hc, Qc = H1.clone(), Q1.clone()
+            torch.cuda.synchronize()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            hessenberg.signed_stage2_cuda(Hc, Qc, sig)
+            e1.record()
+            torch.cuda.synchronize()
+            ts.append(e0.elapsed_time(e1))
+        out[f"{tag}_stage2_ms"] = sorted(ts[1:])[len(ts[1:]) // 2]
+        out[f"{tag}_stage2_runs_ms"] = ts[1:]
+        for name, vlib in split_libs.items():
+            for want_q in (True, False):
+                out[f"{tag}_stage2_ms_{name}{'' if want_q else '_no_q'}"] = \
+                    time_signed_variant(torch, _cuda, vlib, H1, Q1 if want_q else None, sig,
+                                        min(args.reps, 5))
+
+
+# Copies of hess_signed.cu for --split: the generations replaced by the
+# identity rotation, or every batched chain of updates cut off (the data then
+# differ, so a generation may take a shorter branch: an attribution, not an
+# exact split).
+SIGNED_VARIANTS = {
+    "source": [],
+    "no_generations": [("psd::givens_r(f, g, c, s, r);", "c = 1.0; s = 0.0; r = f;"),
+                       ("psd::givens_cx(f, g, c, s, r);",
+                        "c = 1.0; s = make_double2(0.0, 0.0); r = f;")],
+    "no_chains": [("  T b = e[(size_t)ihi * stride];\n  for (int i0",
+                   "  T b = e[(size_t)ihi * stride];\n  if (ihi >= 0) return b;\n  for (int i0")],
+}
+
+
+def build_signed_variants(_cuda, root):
+    """hess_signed.cu of ``root`` built as each of SIGNED_VARIANTS into
+    _dev/; {name: CDLL}.  Prints ptxas's register and spill report."""
+    import ctypes
+    csrc = os.path.join(root, "periodicschurdecompositions_jl_torch", "csrc")
+    src = open(os.path.join(csrc, "hess_signed.cu")).read()
+    dev = os.path.join(HERE, "_dev")
+    os.makedirs(dev, exist_ok=True)
+    nvcc, procs, libs = _cuda._find_nvcc(), {}, {}
+    for name, subs in SIGNED_VARIANTS.items():
+        text = src
+        for old, new in subs:
+            if old not in text:
+                raise SystemExit(f"--split: {old!r} not in hess_signed.cu")
+            text = text.replace(old, new)
+        cu = os.path.join(dev, f"hess_signed_{name}.cu")
+        open(cu, "w").write(text)
+        procs[name] = subprocess.Popen(
+            [nvcc, *_cuda.NVCC_FLAGS, "-Xptxas", "-v", "-shared", "-I", csrc, "-o",
+             cu[:-3] + ".so", cu], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    for name, pr in procs.items():
+        log = pr.communicate()[0]
+        print(f"nvcc hess_signed.cu {name}: rc {pr.returncode}\n"
+              + "\n".join(x for x in log.splitlines() if "Used" in x or "spill" in x))
+        if pr.returncode:
+            raise SystemExit(log)
+        lib = ctypes.CDLL(os.path.join(dev, f"hess_signed_{name}.so"))
+        vp, i32 = ctypes.c_void_p, ctypes.c_int
+        for fn in (lib.psd_hess_signed, lib.psd_hess_signed_c128):
+            fn.argtypes = [vp, vp, vp, vp, i32, i32, ctypes.POINTER(i32), vp]
+            fn.restype = i32
+        lib.psd_hess_signed_scratch.argtypes = [i32, i32]
+        lib.psd_hess_signed_scratch.restype = ctypes.c_longlong
+        libs[name] = lib
+    return libs
+
+
+def time_signed_variant(torch, _cuda, lib, H1, Q1, sig, reps):
+    """Median CUDA-event time of stage 2 through ``lib``'s entry on copies
+    of stage 1's output (Q1 None: no Q), after a warm-up."""
+    import ctypes
+    p, n, _ = H1.shape
+    cx = H1.is_complex()
+    entry = lib.psd_hess_signed_c128 if cx else lib.psd_hess_signed
+    ws = torch.empty(lib.psd_hess_signed_scratch(n, int(cx)), dtype=torch.uint8,
+                     device=H1.device)
+    st = torch.cuda.current_stream().cuda_stream
+    ts = []
+    for _ in range(reps + 1):
+        H = H1.clone()
+        QT = None if Q1 is None else Q1.transpose(1, 2).contiguous()
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        nl = ctypes.c_int(0)
+        e0.record()
+        rc = entry(H.data_ptr(), None if QT is None else QT.data_ptr(), sig.data_ptr(),
+                   ws.data_ptr(), p, n, ctypes.byref(nl), st)
+        e1.record()
+        torch.cuda.synchronize()
+        _cuda.check(rc, "hess_signed variant")
+        ts.append(e0.elapsed_time(e1))
+    return sorted(ts[1:])[len(ts[1:]) // 2]
 
 
 if __name__ == "__main__":

@@ -14,7 +14,13 @@ long-window check).  The complex shift kernel: 1e-14 relative to the plain
 version's |s|.  The real generalized chase and ladders: 1e-12 on cycles
 whose triangular factors have diagonals of modulus in [1, 2).  The
 reduction kernel, float64 and complex128: 1e-12 relative to max|A| (n <=
-128), similarity residual 2e-13 max|A|, orthonormality 10 eps n.  Kernel G: bit for bit with its
+128), similarity residual 2e-13 max|A|, orthonormality 10 eps n.  The
+signed reduction's stage 2 (csrc/hess_signed.cu): max(1e-12, 10 x the plain
+version's own change under a relative 1e-16 perturbation of A), the chains
+amplifying rounding to ~1e-13 at n=20 and ~2e-12 at n=37 (complex; on a
+planted exact zero, which the chains turn into rounding noise that later
+generations read, O(1): there the similarity contract decides),
+similarity residual 1e-12 max|A|.  Kernel G: bit for bit with its
 plain version and with the numpy host glue (it is written without FMA, in
 numpy's order).
 """
@@ -628,6 +634,100 @@ def test_hess_kernel_refuses_single_precision(cuda, dtype):
     with pytest.raises(ValueError, match="float64 or complex128"):
         hessenberg.phessenberg_core(A)
     assert hessenberg.launches["hess_reduce"] == before
+
+
+ALT4 = (True, False, True, False)
+
+
+def _signed_cycle(S, n, kind, seed):
+    """A cycle for the signed reduction; "zero": the last factor (inverted
+    in ALT4) triangular with an exact zero on its diagonal, which stage 1
+    keeps."""
+    rng = np.random.default_rng(seed)
+    p = len(S)
+    A = rng.standard_normal((p, n, n))
+    if kind == "complex":
+        A = A + 1j * rng.standard_normal((p, n, n))
+    if kind == "zero":
+        A[p - 1] = np.triu(A[p - 1])
+        A[p - 1, 2, 2] = 0.0
+    return A
+
+
+@pytest.mark.parametrize("S,n,kind,want_q", [
+    ((True, False), 3, "real", True), ((True, False), 3, "complex", True),
+    ((True, False, False), 37, "real", True), ((True, False, False), 37, "complex", True),
+    (ALT4, 64, "real", True), (ALT4, 64, "complex", True),
+    ((True, True, True), 40, "real", True), ((True, True, True), 40, "complex", True),
+    ((True,), 20, "real", True), (ALT4, 9, "zero", True),
+    (ALT4, 64, "real", False), ((True, False, False), 37, "complex", False)])
+def test_hess_signed_kernel_matches_plain(cuda, S, n, kind, want_q):
+    """Stage 2 on the card against phessenberg_signed_core_plain: one launch
+    per reduction, the input unchanged, exact zeros, the similarity
+    contract; want_q=False gives the same H."""
+    p = len(S)
+    A = torch.tensor(_signed_cycle(S, n, kind, 100 * p + n), device=cuda)
+    A0 = A.clone()
+    before = hessenberg.launches["hess_signed"]
+    H, Q = hessenberg.phessenberg_signed_core(A, S, want_q=want_q)
+    assert hessenberg.launches["hess_signed"] - before == 1
+    assert torch.equal(A, A0)
+    Hp, Qp = hessenberg.phessenberg_signed_core_plain(A, S, want_q=want_q)
+    pert = torch.tensor(1.0 + 1e-16 * np.random.default_rng(1).standard_normal((p, n, n)),
+                        device=cuda)
+    Hs, Qs = hessenberg.phessenberg_signed_core_plain(A * pert, S, want_q=want_q)
+    scale = float(A.abs().max())
+    tol_h = max(1e-12, 10 * float((Hs - Hp).abs().max()) / scale)
+    assert float((H - Hp).abs().max()) <= tol_h * scale
+    _structure_exact(H)
+    if not want_q:
+        assert Q is None
+        Hq, Q = hessenberg.phessenberg_signed_core(A, S)
+        assert torch.equal(Hq, H)
+    else:
+        tol_q = max(1e-12, 10 * float((Qs - Qp).abs().max()))
+        assert float((Q - Qp).abs().max()) <= tol_q
+    for l in range(p):
+        a, b = (l, (l + 1) % p) if S[l] else ((l + 1) % p, l)
+        R = Q[a].mH @ A[l] @ Q[b] - H[l]
+        assert float(R.abs().max()) <= 1e-12 * scale
+
+
+@pytest.mark.parametrize("kind", ["real", "complex"])
+def test_hess_signed_stage2_makes_no_host_sync(cuda, kind):
+    A = torch.tensor(_signed_cycle(ALT4, 48, kind, 9), device=cuda)
+    H, Q = hessenberg.phessenberg_signed_core(A, ALT4)   # builds; caches the signature
+    H1, Q1 = hessenberg._signed_stage1(A, ALT4, True)
+    sig = sweep_cx._signature(ALT4, A.device)
+    torch.cuda.synchronize()
+    before = hessenberg.launches["hess_signed"]
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        hessenberg.signed_stage2_cuda(H1, Q1, sig)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert hessenberg.launches["hess_signed"] - before == 1
+    assert torch.equal(hessenberg._scrub(H1), H) and torch.equal(Q1, Q)
+
+
+@pytest.mark.parametrize("n", [1, 2])
+def test_hess_signed_launches_nothing_without_chains(cuda, n):
+    A = torch.tensor(_signed_cycle(ALT4, n, "complex", 4), device=cuda)
+    before = hessenberg.launches["hess_signed"]
+    H, Q = hessenberg.phessenberg_signed_core(A, ALT4)
+    assert hessenberg.launches["hess_signed"] == before
+    Hp, Qp = hessenberg.phessenberg_signed_core_plain(A, ALT4)
+    assert torch.equal(H, Hp) and torch.equal(Q, Qp)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.complex64])
+def test_hess_signed_refuses_single_precision(cuda, dtype):
+    A = torch.tensor(_signed_cycle(ALT4, 6, "complex", 3), device=cuda)
+    A = A.to(dtype) if dtype.is_complex else A.real.to(dtype)
+    before = hessenberg.launches["hess_signed"]
+    with pytest.raises(ValueError, match="float64 or complex128"):
+        hessenberg.phessenberg_signed_core(A, ALT4)
+    assert hessenberg.launches["hess_signed"] == before
 
 
 @pytest.mark.parametrize("cfg", [AlgoConfig(), AlgoConfig(slicot_convg=True),
