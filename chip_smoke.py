@@ -31,7 +31,15 @@ and checks the results:
   the rotation ladders (R) at p=8, n=256 with an alternating signature;
   ``pschur(A, 'R', S)`` on the p=8 n=256 draw of seed 4242 (the source
   configuration: benchmarks/probe_real_gen_ff.py), a profile of its
-  iteration, and a small real ``gpschur`` against numpy's eigenvalues.
+  iteration, and a small real ``gpschur`` against numpy's eigenvalues;
+* the deflation actions (csrc/pqz_deflate.cu: CZSHIFT, DEFLATE_POS,
+  DEFLATE_NEG down and up), float64 on the rg leg's reduction (p=8, n=256)
+  and complex128 on the signed complex leg's (p=8, n=128, and its leading
+  n=127 block), against their plain versions; and the singular leg:
+  ``pschur(A, 'R', S)`` on real p=8 n=256 and complex p=8 n=127 cycles
+  whose reduction keeps exact zeros planted on a direct and an inverted
+  factor's diagonals (``singular_cycle``), which takes DEFLATE_POS and
+  DEFLATE_NEG.
 
 Each kernel's launch counter is set to 0 just before the path that runs it
 and read just after.  Any failure raises (exit code != 0).
@@ -43,6 +51,7 @@ Run from the repository root:  python3 chip_smoke.py
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -1241,6 +1250,22 @@ def cx_kernel_phase(dev, p, n, report):
                         "bound_by": bounds[name][1], "library_ms": None}
 
 
+def cx_draw(p, n, seed):
+    """The complex legs' draw (benchmarks/probe_complex_ff.py:35-36)."""
+    rng = np.random.default_rng(seed)
+    return rng.standard_normal((p, n, n)) + 1j * rng.standard_normal((p, n, n))
+
+
+def check_deflate_launches(launches, info, where):
+    """Each deflation action an iteration took is one launch of its kernel."""
+    for key, taken in (("deflate_czshift", info["czshift"]),
+                       ("deflate_pos", info["deflate_pos"]),
+                       ("deflate_neg", info["deflate_neg"])):
+        if launches[key] != taken:
+            raise AssertionError(f"{key} launched {launches[key]} times for {taken} "
+                                 f"actions on {where}")
+
+
 def cx_backerr(A, T, Z, S, left=False):
     """max_l max|Ahat - A| / max|A| with the signature and orientation."""
     p = T.shape[0]
@@ -1258,14 +1283,13 @@ def cx_e2e_case(dev, p, n, seed, S, lr):
     """pschur on a complex cycle through the public entry point."""
     import torch
     import periodicschurdecompositions_jl_torch as pt
-    from periodicschurdecompositions_jl_torch.ops import hessenberg, pqz_complex, sweep_cx
-    rng = np.random.default_rng(seed)
-    A = rng.standard_normal((p, n, n)) + 1j * rng.standard_normal((p, n, n))
+    from periodicschurdecompositions_jl_torch.ops import (hessenberg, pqz_complex, pqz_deflate,
+                                                         sweep_cx)
+    A = cx_draw(p, n, seed)
     At = torch.tensor(A, device=dev)
-    for k in sweep_cx.launches:
-        sweep_cx.launches[k] = 0
-    for k in hessenberg.launches:
-        hessenberg.launches[k] = 0
+    for d in (sweep_cx.launches, hessenberg.launches, pqz_deflate.launches):
+        for k in d:
+            d[k] = 0
     t0 = time.perf_counter()
     P = pt.pschur(At, lr, S=S)
     torch.cuda.synchronize()
@@ -1273,6 +1297,7 @@ def cx_e2e_case(dev, p, n, seed, S, lr):
     launches = {**sweep_cx.launches, "hess_reduce_c128": hessenberg.launches["hess_reduce"],
                 "hess_signed_c128": hessenberg.launches["hess_signed"]}
     info = dict(pqz_complex.last_info)
+    deflate_launches = dict(pqz_deflate.launches)
     T = P.Ts.cpu().numpy()
     Z = P.Zs.cpu().numpy()
     Sg = (True,) * p if S is None else S
@@ -1285,7 +1310,7 @@ def cx_e2e_case(dev, p, n, seed, S, lr):
          f"{info['iterate_s']:.3f} s), niter {info['niter']}, sweeps {info['sweeps']}, "
          f"exceptional {info['exceptional']}, czshift {info['czshift']}, backerr {be:.3e}, "
          f"check_psd ok={ok} orth {rep['orthonormality']:.3e} (bound {orth_bound:.3e}) "
-         f"residual {rep['residual_rel']:.3e}; launches {launches}")
+         f"residual {rep['residual_rel']:.3e}; launches {launches}, {deflate_launches}")
     if not ok:
         raise AssertionError(f"check_psd failed: {rep}")
     if not (be <= 1e-12):
@@ -1294,6 +1319,7 @@ def cx_e2e_case(dev, p, n, seed, S, lr):
         raise AssertionError("orthonormality above 10 eps n")
     if not (np.all(np.isfinite(vals)) and vals.shape == (n,)):
         raise AssertionError("eigenvalues not finite or of the wrong shape")
+    check_deflate_launches(deflate_launches, info, "the complex path")
     # the reduction kernel runs once when every factor is direct; a signature
     # takes the signed reduction, whose stage 2 is one launch
     expect = {"hess_reduce_c128": 1 if S is None else 0,
@@ -1301,6 +1327,7 @@ def cx_e2e_case(dev, p, n, seed, S, lr):
     for k, v in launches.items():
         if (v != expect[k]) if k in expect else v <= 0:
             raise AssertionError(f"kernel {k} launched {v} times on the complex path")
+    launches["deflate_czshift_c128"] = deflate_launches["deflate_czshift"]
     return launches
 
 
@@ -1313,9 +1340,7 @@ def cx_iteration_profile(dev, p, n, seed):
     from torch.profiler import ProfilerActivity, profile
     from periodicschurdecompositions_jl_torch.ops.hessenberg import phessenberg_core
     from periodicschurdecompositions_jl_torch.ops.pqz_complex import pqz_complex_core
-    rng = np.random.default_rng(seed)
-    A = rng.standard_normal((p, n, n)) + 1j * rng.standard_normal((p, n, n))
-    H, Q = phessenberg_core(torch.tensor(A, device=dev))
+    H, Q = phessenberg_core(torch.tensor(cx_draw(p, n, seed), device=dev))
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1606,10 +1631,12 @@ def rg_e2e_case(dev, p, n, seed):
     one launch of hess_signed; the direct reduction kernel none."""
     import torch
     import periodicschurdecompositions_jl_torch as pt
-    from periodicschurdecompositions_jl_torch.ops import hessenberg, pqz_real, rgopen, sweep_rg
+    from periodicschurdecompositions_jl_torch.ops import (hessenberg, pqz_deflate, pqz_real,
+                                                         rgopen, sweep_rg)
     A, S = rg_draw(p, n, seed)
     At = torch.tensor(A, device=dev)
-    counters = (sweep_rg.launches, rgopen.launches, hessenberg.launches)
+    counters = (sweep_rg.launches, rgopen.launches, hessenberg.launches,
+                pqz_deflate.launches)
     kept = {}
     reduce = hessenberg.phessenberg_signed_core
 
@@ -1627,7 +1654,8 @@ def rg_e2e_case(dev, p, n, seed):
         wall = time.perf_counter() - t0
     finally:
         hessenberg.phessenberg_signed_core = reduce
-    launches = {k: v for d in counters for k, v in d.items()}
+    launches = {k: v for d in counters[:3] for k, v in d.items()}
+    deflate_launches = dict(pqz_deflate.launches)
     hess_reduce = launches.pop("hess_reduce")
     info = dict(pqz_real.last_info)
     T = P.Ts.cpu().numpy()
@@ -1651,7 +1679,7 @@ def rg_e2e_case(dev, p, n, seed):
          f"{be:.3e} (per factor {', '.join(f'{x:.2e}' for x in per)}), check_psd ok={ok} "
          f"orth {rep['orthonormality']:.3e} (bound {orth_bound:.3e}) residual "
          f"{rep['residual_rel']:.3e}; eigenvalues vs T's diagonal blocks {eig_err:.3e}; "
-         f"launches {launches}")
+         f"launches {launches}, {deflate_launches}")
     if not ok:
         raise AssertionError(f"check_psd failed: {rep}")
     if not (be <= 1e-12):
@@ -1668,6 +1696,10 @@ def rg_e2e_case(dev, p, n, seed):
     if hess_reduce != 0:
         raise AssertionError(f"the direct reduction kernel launched {hess_reduce} times on "
                              f"the real generalized path")
+    check_deflate_launches(deflate_launches, info, "the real generalized path")
+    if deflate_launches["deflate_czshift"] <= 0:
+        raise AssertionError("no controlled zero shift on the real generalized path")
+    launches["deflate_czshift"] = deflate_launches["deflate_czshift"]
     return launches, kept["HQ"]
 
 
@@ -1715,6 +1747,246 @@ def rg_small_check(dev):
         raise AssertionError("small real gpschur check failed")
 
 
+# ---------------------------------------------------------------------------
+# deflation actions (csrc/pqz_deflate.cu)
+
+
+@contextlib.contextmanager
+def rotation_work(cplx):
+    """Counts, in a run of the plain deflation actions, the entries their
+    2x2 updates touch (each read once and written once: bytes) and update
+    (with repeats; a rotation's update of an entry is 3 real operations, a
+    complex one 4x that), by wrapping the ``rowsk`` and ``colsk`` that
+    ``ops/pqz_deflate.py`` calls.  Yields a dict that holds ``bytes`` and
+    ``flops`` after the block."""
+    from periodicschurdecompositions_jl_torch.ops import pqz_deflate
+    from periodicschurdecompositions_jl_torch.ops.rotations import _clamp, _span
+    masks, updated, out = {}, [0], {}
+    rowsk, colsk = pqz_deflate.rowsk, pqz_deflate.colsk
+
+    def mark(M, r0, r1, c0, c1):
+        m = masks.setdefault(M.data_ptr(), np.zeros(M.shape, bool))
+        m[r0:r1, c0:c1] = True
+        updated[0] += (r1 - r0) * max(c1 - c0, 0)
+
+    def rows(M, i, R, lo=None, hi=None):
+        a, b = _span(lo, hi, M.shape[1])
+        i = _clamp(i, 0, M.shape[0] - 2)
+        mark(M, i, i + 2, a, b)
+        return rowsk(M, i, R, lo, hi)
+
+    def cols(M, j, R, lo=None, hi=None):
+        a, b = _span(lo, hi, M.shape[0])
+        j = _clamp(j, 0, M.shape[1] - 2)
+        mark(M, a, b, j, j + 2)
+        return colsk(M, j, R, lo, hi)
+    pqz_deflate.rowsk, pqz_deflate.colsk = rows, cols
+    try:
+        yield out
+    finally:
+        pqz_deflate.rowsk, pqz_deflate.colsk = rowsk, colsk
+    size = 16 if cplx else 8
+    out["bytes"] = 2 * size * int(sum(m.sum() for m in masks.values()))
+    out["flops"] = 3 * updated[0] * (4 if cplx else 1)
+
+
+def cx_signed_reduction(dev):
+    """The signed complex leg's reduction (p=8 n=128, alternating S)."""
+    import torch
+    from periodicschurdecompositions_jl_torch.ops import hessenberg
+    A = torch.tensor(cx_draw(P_CX, N_CX_SIGNED, SEED_CX), device=dev)
+    return hessenberg.phessenberg_signed_core(A, alternating(P_CX))
+
+
+def pqz_deflate_cases(rg_hq, cx_hq):
+    """(name, H, Z, action, args, zero) of deflate_actions_phase: the rg
+    leg's reduction (float64, p=8 n=256) and the signed complex leg's
+    (complex128, p=8 n=128), alternating S (factor 2 direct, 1, 3 and 5
+    inverted).  args: CZSHIFT's window (jlo, ilast), else (jlo, ldef, jdef,
+    ilast); zero: the diagonal entry (l, j) set to an exact zero, for
+    DEFLATE_POS / DEFLATE_NEG the one they deflate, for CZSHIFT one of a
+    direct factor inside the window (its fill is exactly zero: the identity
+    branch, the flag set)."""
+    out = []
+    for kind, (H, Z), (w, zero_c, pos, down, up) in (
+            ("real", rg_hq, ((37, 200), 101, 100, 180, 60)),
+            ("complex", cx_hq, ((20, 100), 51, 50, 90, 30))):
+        n = H.shape[1]
+        out += [(f"{kind} czshift", H, Z, "czshift", (0, n - 1), None),
+                (f"{kind} czshift", H, Z, "czshift", w, None),
+                (f"{kind} czshift, zero", H, Z, "czshift", w, (2, zero_c)),
+                (f"{kind} pos", H, Z, "pos", (0, 2, pos, n - 1), (2, pos)),
+                (f"{kind} neg down", H, Z, "neg", (0, 1, down, n - 1), (1, down)),
+                (f"{kind} neg up", H, Z, "neg", (0, 3, up, n - 1), (3, up))]
+    # odd n (the complex rotations' storage stays 16-byte aligned): the
+    # leading block of the complex reduction, still Hessenberg-triangular
+    m = cx_hq[0].shape[1] - 1
+    Ho, Zo = (t[:, :m, :m].contiguous() for t in cx_hq)
+    out += [("complex czshift, odd n", Ho, Zo, "czshift", (0, m - 1), None),
+            ("complex pos, odd n", Ho, Zo, "pos", (0, 2, 50, m - 1), (2, 50)),
+            ("complex neg down, odd n", Ho, Zo, "neg", (0, 1, 90, m - 1), (1, 90))]
+    return out
+
+
+def deflate_actions_phase(dev, report, rg_hq):
+    """The deflation actions (csrc/pqz_deflate.cu), float64 and complex128,
+    against their plain versions on the card, on the states of
+    pqz_deflate_cases.
+
+    1. max|dH|/max|H| and max|dZ| within max(1e-12, 10 sens), sens being the
+       plain version's change when H is perturbed by a relative 1e-16 (the
+       chains of generations amplify rounding);
+    2. every exact zero of the plain version's H kept, a zero of the
+       kernel's alone only where the plain entry is within the tolerance (a
+       fused product can round an entry that is zero in exact arithmetic to
+       exactly 0), and the same CZSHIFT flag (set on the
+       planted zero);
+    3. one call adds one launch to its counter.
+    Prints the kernel's time (CUDA events, the median of three calls on
+    copies, through DeflateCores: Z's transposes and CZSHIFT's flag read
+    included), the plain version's wall, and the bound of the work the
+    plain run counts (rotation_work).  The report takes each action's first
+    float64 case at p=8 n=256, and its first complex128 case at p=8 n=128
+    (``deflate_*_c128``).
+    """
+    import torch
+    from periodicschurdecompositions_jl_torch.ops import pqz_deflate
+    S = alternating(P_RG)
+    eps = float(np.finfo(np.float64).eps)
+    worst = {}
+    for name, H0, Z0, action, args, zero in pqz_deflate_cases(rg_hq, cx_signed_reduction(dev)):
+        p, n, _ = H0.shape
+        key = f"deflate_{action}"
+        entry = key + ("_c128" if H0.is_complex() else "")
+        H0 = H0.clone()
+        if zero is not None:
+            H0[zero[0], zero[1], zero[1]] = 0.0
+        cores = pqz_deflate.DeflateCores(p, S, True, eps,
+                                         float(np.finfo(np.float64).tiny) * n / eps)
+
+        def run(route, H):
+            H, Z = H.clone(), Z0.clone()
+            out = getattr(cores, f"{action}_core{route}")(H, Z, *args)
+            return H, Z, (out[2] if action == "czshift" else None)
+        before = pqz_deflate.launches[key]
+        Hk, Zk, fk = run("", H0)
+        if pqz_deflate.launches[key] - before != 1:
+            raise AssertionError(f"{name}: {pqz_deflate.launches[key] - before} launches "
+                                 f"counted, 1 expected")
+        res = {}
+        t_plain = wall_ms(lambda: res.update(out=run("_plain", H0)))
+        Hp, Zp, fp = res.pop("out")
+        pert = torch.tensor(1.0 + 1e-16 * np.random.default_rng(1).standard_normal(
+            (p, n, n)), device=dev)
+        with rotation_work(H0.is_complex()) as work:
+            Hs, Zs, _ = run("_plain", H0 * pert)
+        scale = float(H0.abs().max())
+        sens = max(float((Hs - Hp).abs().max()) / scale, float((Zs - Zp).abs().max()))
+        tol = max(1e-12, 10 * sens)
+        dh = float((Hk - Hp).abs().max()) / scale
+        dz = float((Zk - Zp).abs().max())
+        ts = []
+        for _ in range(3):
+            Hc, Zc = H0.clone(), Z0.clone()
+            torch.cuda.synchronize()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            getattr(cores, f"{action}_core")(Hc, Zc, *args)
+            e1.record()
+            torch.cuda.synchronize()
+            ts.append(e0.elapsed_time(e1))
+        ms = float(np.median(ts))
+        bms, bby = bound(work["bytes"], work["flops"])
+        _log(f"deflate {name} {args}: vs {action}_core_plain max|dH|/max|H| {dh:.3e} "
+             f"max|dZ| {dz:.3e} (1e-16 sensitivity {sens:.3e}, tolerance {tol:.3e}); "
+             f"zflag {fk} / plain {fp}; kernel {ms:.3f} ms (1 launch), plain "
+             f"{t_plain:.1f} ms, bound {bms * 1e3:.3f} us ({bby}; {work['bytes']} bytes, "
+             f"{work['flops']} flops)")
+        if not (dh <= tol and dz <= tol):
+            raise AssertionError(f"{key} disagrees with the plain version, {name}: "
+                                 f"{dh:.3e} {dz:.3e}")
+        zk, zp = Hk == 0, Hp == 0
+        if not (bool(zk[zp].all()) and bool((Hp[zk & ~zp].abs() <= tol * scale).all())):
+            raise AssertionError(f"{key} {name}: the plain version's exact zeros are not "
+                                 f"kept, or a zero of the kernel alone is above rounding")
+        if fk != fp or (zero is not None and action == "czshift" and not fk):
+            raise AssertionError(f"{key} {name}: zflag {fk}, plain {fp}")
+        worst[entry] = max(worst.get(entry, 0.0), dh, dz)
+        if entry not in report:
+            report[entry] = {
+                "name": entry, "route": "cuda",
+                "source": "periodicschurdecompositions_jl_torch/csrc/pqz_deflate.cu",
+                # make_deflate_cores' jnp cores of the JAX package (no Pallas kernel)
+                "replaces": "periodicschurdecompositions_jl_tpu/ops/pqz_deflate.py:"
+                            + {"czshift": "454", "pos": "73", "neg": "266"}[action],
+                "ms": ms, "plain_ms": t_plain, "bound_ms": bms, "bound_by": bby,
+                "library_ms": None}
+    for key, err in worst.items():
+        report[key]["max_abs_err"] = err
+
+
+def singular_cycle(kind, p, n, seed):
+    """A cycle with alternating S whose reduction keeps exact zeros planted
+    on the diagonals of factor 2 (direct) at n // 3 and factor 5 (inverted)
+    at 2n // 3: every factor is A_l = R_l J, R_0 Hessenberg, R_l upper
+    triangular, J the column reversal.  The signed reduction takes each
+    inverted factor's RQ through the QR of A_l^H J = J R_l^H J, which is
+    triangular, so every Householder reflection and every stage-2 rotation
+    is diagonal and the reduced factors are the R_l up to diagonal
+    unitaries, zeros included.  (A zero planted on a plain triangular
+    factor does not survive that RQ: the reduction moves it.)"""
+    rng = np.random.default_rng(seed)
+    R = rng.standard_normal((p, n, n))
+    if kind == "complex":
+        R = R + 1j * rng.standard_normal((p, n, n))
+    R = np.stack([np.triu(R[l], -1 if l == 0 else 0) for l in range(p)])
+    R[2, n // 3, n // 3] = 0.0
+    R[5, 2 * n // 3, 2 * n // 3] = 0.0
+    return R[:, :, ::-1].copy()
+
+
+def deflate_leg(dev):
+    """The singular leg, DEFLATE_POS and DEFLATE_NEG on the main path:
+    ``pschur(A, 'R', S)`` with alternating S on ``singular_cycle`` draws,
+    real p=8 n=256 and complex p=8 n=127 (odd n).  Each run is checked by
+    check_psd and its backward error, must take both actions, and each
+    action it takes is one launch.  The counters are set to 0 just before
+    each run and read just after; returns them (the complex run's under
+    ``deflate_*_c128``)."""
+    import torch
+    import periodicschurdecompositions_jl_torch as pt
+    from periodicschurdecompositions_jl_torch.ops import pqz_complex, pqz_deflate, pqz_real
+    S = alternating(P_RG)
+    out = {}
+    for kind, n, core, tag in (("real", N_RG, pqz_real, ""),
+                               ("complex", N_CX_SIGNED - 1, pqz_complex, "_c128")):
+        A = singular_cycle(kind, P_RG, n, SEED_RG)
+        At = torch.tensor(A, device=dev)
+        for k in pqz_deflate.launches:
+            pqz_deflate.launches[k] = 0
+        t0 = time.perf_counter()
+        P = pt.pschur(At, "R", S=S)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(pqz_deflate.launches)
+        info = dict(core.last_info)
+        ok, rep = pt.check_psd(P, A, tol=200.0)
+        be = cx_backerr(A, P.Ts.cpu().numpy(), P.Zs.cpu().numpy(), S)
+        _log(f"singular leg: pschur {kind} p={P_RG} n={n} (exact zeros on factor 2 at "
+             f"{n // 3}, factor 5 at {2 * n // 3}): wall {wall:.3f} s, niter {info['niter']}, "
+             f"sweeps {info['sweeps']}, czshift {info['czshift']}, deflate_pos "
+             f"{info['deflate_pos']}, deflate_neg {info['deflate_neg']}, check_psd ok={ok}, "
+             f"backerr {be:.3e}; launches {launches}")
+        if not (ok and be <= 1e-12):
+            raise AssertionError(f"singular leg {kind}: check_psd {rep}, backerr {be:.3e}")
+        if not (info["deflate_pos"] >= 1 and info["deflate_neg"] >= 1):
+            raise AssertionError(f"singular leg {kind}: DEFLATE_POS / DEFLATE_NEG not taken")
+        check_deflate_launches(launches, info, f"the singular leg ({kind})")
+        out.update({k + tag: v for k, v in launches.items()})
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1760,12 +2032,17 @@ def main() -> int:
     cx_iteration_profile(dev, P_CX, N_CX, SEED_CX)
     cx_signed = cx_e2e_case(dev, P_CX, N_CX_SIGNED, SEED_CX, alternating(P_CX), "R")
     launches["hess_signed_c128"] = cx_signed["hess_signed_c128"]
+    launches["deflate_czshift_c128"] += cx_signed["deflate_czshift_c128"]
 
     rg_kernel_phase(dev, P_RG, N_RG, report)
     rg_small_check(dev)
     rg_launches, rg_hq = rg_e2e_case(dev, P_RG, N_RG, SEED_RG)
     launches.update(rg_launches)
     rg_iteration_profile(dev, alternating(P_RG), rg_hq)
+    deflate_actions_phase(dev, report, rg_hq)
+    dl = deflate_leg(dev)
+    for k in ("deflate_pos", "deflate_neg", "deflate_pos_c128", "deflate_neg_c128"):
+        launches[k] = dl[k]
 
     kernels = []
     for name in ("sweep_generate", "sweep_generate_mb", "sweep_left", "sweep_right",
@@ -1773,7 +2050,10 @@ def main() -> int:
                  "qz_sweep_generate", "qz_sweep_left", "qz_sweep_right", "qz_shift",
                  "rg_sweep_generate", "rg_sweep_left", "rg_sweep_right", "rg_ladder",
                  "hess_reduce", "hess_reduce_c128", "hess_signed", "hess_signed_c128",
-                 "glue"):
+                 "glue", "deflate_czshift", "deflate_pos", "deflate_neg",
+                 "deflate_czshift_c128", "deflate_pos_c128", "deflate_neg_c128"):
+        if launches[name] <= 0:
+            raise AssertionError(f"kernel {name} launched no time on its path")
         kernels.append({**report[name], "launches": launches[name]})
     _log(f"chip_smoke: {time.perf_counter() - t_start:.1f} s from the kernel build to here")
     print(json.dumps({"kernels": kernels}))

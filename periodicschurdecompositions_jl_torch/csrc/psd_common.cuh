@@ -253,4 +253,82 @@ __device__ __forceinline__ void givens_cx(double2 f, double2 g, double& c,
   }
 }
 
+// ---- Givens chains (hess_signed.cu, pqz_deflate.cu): scalars T = double or
+// double2 (complex128), c real; every 2x2 product written out with
+// __fma_rn / __dmul_rn, so that no contraction is left to nvcc ----
+
+constexpr int kBatch = 8;  // loads in flight per thread in a chain
+
+__device__ __forceinline__ double cj(double x) { return x; }
+__device__ __forceinline__ double2 cj(double2 x) { return make_double2(x.x, -x.y); }
+__device__ __forceinline__ double ng(double x) { return -x; }
+__device__ __forceinline__ double2 ng(double2 x) { return make_double2(-x.x, -x.y); }
+
+// s * b, rounded as written
+__device__ __forceinline__ double prod(double s, double b) { return __dmul_rn(s, b); }
+__device__ __forceinline__ double2 prod(double2 s, double2 b) {
+  return make_double2(__fma_rn(s.x, b.x, -__dmul_rn(s.y, b.y)),
+                      __fma_rn(s.x, b.y, __dmul_rn(s.y, b.x)));
+}
+
+// c * a + t (c real)
+__device__ __forceinline__ double axpy(double c, double a, double t) {
+  return __fma_rn(c, a, t);
+}
+__device__ __forceinline__ double2 axpy(double c, double2 a, double2 t) {
+  return make_double2(__fma_rn(c, a.x, t.x), __fma_rn(c, a.y, t.y));
+}
+
+// lmat(c, s) on a row pair: (a, b) <- (c a + s b, c b - conj(s) a)
+template <class T>
+__device__ __forceinline__ void rot(double c, T s, T& a, T& b) {
+  const T a0 = a;
+  a = axpy(c, a0, prod(s, b));
+  b = axpy(c, b, ng(prod(cj(s), a0)));
+}
+
+// rmat_adj(c, s) on a column pair: (x, y) <- (c x + conj(s) y, c y - s x)
+template <class T>
+__device__ __forceinline__ void rot_r(double c, T s, T& x, T& y) {
+  rot(c, cj(s), x, y);
+}
+
+__device__ __forceinline__ void gen(double f, double g, double& c, double& s, double& r) {
+  givens_r(f, g, c, s, r);
+}
+__device__ __forceinline__ void gen(double2 f, double2 g, double& c, double2& s,
+                                    double2& r) {
+  givens_cx(f, g, c, s, r);
+}
+
+// A chain of rotations on the entries e[ihi], e[ihi-1], ... of one column
+// (stride n: row updates, lmat(gc[i], gs[i]) on rows i-1, i) or one row
+// (stride 1: column updates, rmat_adj(gc[i], gs[i]) on columns i-1, i), for
+// i = ihi down to lo; e[i] is final after step i, e[i-1] is carried.
+// Returns the carried entry (e[lo-1]'s new value) for the caller to store.
+// Each entry is read before any step writes it, so a batch's loads are
+// issued together.
+template <bool kRight, class T>
+__device__ __forceinline__ T chain(T* e, size_t stride, int ihi, int lo, const double* gc,
+                                   const T* gs) {
+  T b = e[(size_t)ihi * stride];
+  for (int i0 = ihi; i0 >= lo; i0 -= kBatch) {
+    const int m = i0 - lo + 1 < kBatch ? i0 - lo + 1 : kBatch;
+    T a[kBatch];
+#pragma unroll
+    for (int t = 0; t < kBatch; ++t)
+      if (t < m) a[t] = e[(size_t)(i0 - 1 - t) * stride];
+#pragma unroll
+    for (int t = 0; t < kBatch; ++t) {
+      if (t < m) {
+        const int i = i0 - t;
+        rot(gc[i], kRight ? cj(gs[i]) : gs[i], a[t], b);
+        e[(size_t)i * stride] = b;
+        b = a[t];
+      }
+    }
+  }
+  return b;
+}
+
 }  // namespace psd

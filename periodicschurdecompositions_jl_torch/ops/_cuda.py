@@ -95,6 +95,17 @@ def _declare(lib):
     lib.psd_hess_signed_scratch.restype = ctypes.c_longlong
     lib.psd_glue.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, i32, i32,
                              f64, f64, f64, vp]
+    lib.psd_deflate_czshift.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32, i32, f64, f64,
+                                        ctypes.POINTER(i32), vp]
+    lib.psd_deflate_czshift_c128.argtypes = lib.psd_deflate_czshift.argtypes
+    lib.psd_deflate_pos.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, i32,
+                                    ctypes.POINTER(i32), vp]
+    lib.psd_deflate_pos_c128.argtypes = lib.psd_deflate_pos.argtypes
+    lib.psd_deflate_neg.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, i32, i32,
+                                    ctypes.POINTER(i32), vp]
+    lib.psd_deflate_neg_c128.argtypes = lib.psd_deflate_neg.argtypes
+    lib.psd_deflate_scratch.argtypes = [i32, i32]
+    lib.psd_deflate_scratch.restype = ctypes.c_longlong
     for fn in (lib.psd_sweep_generate, lib.psd_sweep_generate_mb, lib.psd_sweep_left,
                lib.psd_sweep_right, lib.psd_deflate2x2,
                lib.psd_qz_sweep_generate, lib.psd_qz_sweep_left,
@@ -102,7 +113,9 @@ def _declare(lib):
                lib.psd_rg_sweep_generate, lib.psd_rg_sweep_left,
                lib.psd_rg_sweep_right, lib.psd_rg_ladder,
                lib.psd_hess_reduce, lib.psd_hess_reduce_c128, lib.psd_hess_signed,
-               lib.psd_hess_signed_c128, lib.psd_glue):
+               lib.psd_hess_signed_c128, lib.psd_glue, lib.psd_deflate_czshift,
+               lib.psd_deflate_czshift_c128, lib.psd_deflate_pos, lib.psd_deflate_pos_c128,
+               lib.psd_deflate_neg, lib.psd_deflate_neg_c128):
         fn.restype = i32
     lib.psd_error_string.argtypes = [i32]
     lib.psd_error_string.restype = ctypes.c_char_p

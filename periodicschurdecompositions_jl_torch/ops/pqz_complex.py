@@ -22,8 +22,9 @@ Division of labour (as in ``ops/pqr_real.py``):
     4 SWEEP        one single-shift QZ sweep over the window
 
 * SWEEP runs ``ops.sweep_cx.qz_shift`` (kernel S) into a device buffer and
-  then ``ops.sweep_cx.qz_sweep`` (kernels A, B0, B) on it; the rare actions
-  1-3 run as torch ops on the device (``ops.pqz_deflate``).
+  then ``ops.sweep_cx.qz_sweep`` (kernels A, B0, B) on it; the actions
+  1-3 are one launch each of ``csrc/pqz_deflate.cu`` on the card
+  (``ops.pqz_deflate``); CZSHIFT reads back one flag.
 
 Exceptional shifts (every 10th iteration since the last split) are random
 rotations.  The JAX package splits a PRNG key on every sweep and draws

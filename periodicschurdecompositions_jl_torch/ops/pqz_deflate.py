@@ -10,24 +10,43 @@ exploited instead of a shifted sweep (reference src/generalized.jl):
   chased off the bottom or the top of the window;
 * ``czshift_core`` (:356-448): the controlled zero shift.
 
-All three are rare actions and run as plain torch on the tensors' device,
-in place.  The JAX package runs its loops over all n steps with masks and
-switches over the factor kind; here the active ranges and the factor kinds
-are host integers, so the loops are Python loops over the active steps.
-Each rotation is generated on the host from the entries it reads, fetched
-in one transfer (``givens_host``, the same operations as the JAX
-``givens``), which also decides the controlled zero shift's data-dependent
-masks; the 2x2 updates run on the device.  Indices are clamped exactly as
-the JAX package's ``getel``/``rowsk`` clamp them.
+All three act in place on the contiguous (p, n, n) stacks H and Z.
+
+* A float64 or complex128 CUDA tensor launches the action's kernel of
+  ``csrc/pqz_deflate.cu`` (the JAX package runs the actions in jnp inside
+  its jitted cores, with no Pallas kernel): one launch of one block
+  generates every rotation and applies every update on the card.
+  ``pos_core`` and ``neg_core`` read nothing back; ``czshift_core`` reads
+  one device int, the flag that its final chain holds an identity rotation.
+  ``neg_core`` chooses the direction of its chase on the host, from
+  integers.  Other dtypes on the card raise.
+* A CPU tensor takes ``pos_core_plain``, ``neg_core_plain`` and
+  ``czshift_core_plain``, the card-side reference too.  The JAX package
+  runs its loops over all n steps with masks and switches over the factor
+  kind; here the active ranges and the factor kinds are host integers, so
+  the loops are Python loops over the active steps.  Each rotation is
+  generated on the host from the entries it reads, fetched in one transfer
+  (``givens_host``, the same operations as the JAX ``givens``), which also
+  decides the controlled zero shift's data-dependent masks; the 2x2
+  updates run as torch products.
+
+Indices are clamped exactly as the JAX package's ``getel``/``rowsk`` clamp
+them, in both versions.  ``launches`` counts the kernels' launches (one per
+action on the card, either instance), as the C entry points report them.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Sequence
 
 import torch
 
+from . import _cuda
 from .rotations import (colsk, givens_at, givens_host, lmat_host, rmat_adj_host,
                         rowsk, setel)
+from .sweep_cx import _signature
+
+launches = {"deflate_czshift": 0, "deflate_pos": 0, "deflate_neg": 0}
 
 
 def _lmat(H, c, s):
@@ -38,6 +57,26 @@ def _rmat_adj(H, c, s):
     return torch.tensor(rmat_adj_host(c, s), dtype=H.dtype, device=H.device)
 
 
+def _bottom(jlo, jdef, ilast):
+    """DEFLATE_NEG chases the zero off the bottom of the window when it lies
+    past the window's middle, else off the top."""
+    return float(jdef + 1) > float(ilast - jlo + 1) / 2
+
+
+def _on_card(H, what):
+    """True for a float64 / complex128 CUDA tensor, False for a CPU one."""
+    if H.device.type == "cpu":
+        return False
+    if H.device.type != "cuda":
+        raise ValueError(f"{what}: unsupported device {H.device}")
+    if H.dtype not in (torch.float64, torch.complex128):
+        raise ValueError(f"{what}: H on the card must be float64 or complex128, "
+                         f"got {H.dtype}")
+    if not H.is_contiguous():
+        raise ValueError(f"{what}: H must be contiguous (the action is in place)")
+    return True
+
+
 class DeflateCores:
     """The three deflation actions for one (p, S) problem."""
 
@@ -45,6 +84,62 @@ class DeflateCores:
                  ulp: float, smlnum: float):
         self.p, self.S = p, tuple(bool(x) for x in S)
         self.want_z, self.ulp, self.smlnum = want_z, ulp, smlnum
+
+    # ------------------------------------------------------------------
+    # the routes: the kernel on the card, the plain version on the CPU
+    def pos_core(self, H, Z, jlo: int, ldef: int, jdef: int, ilast: int):
+        """Zero diagonal H[ldef][jdef, jdef] of a direct factor; (H, Z)."""
+        if not _on_card(H, "pos_core"):
+            return self.pos_core_plain(H, Z, jlo, ldef, jdef, ilast)
+        self._launch("pos", H, Z, (jlo, ldef, jdef, ilast))
+        return H, Z
+
+    def neg_core(self, H, Z, jlo: int, ldef: int, jdef: int, ilast: int):
+        """Zero diagonal H[ldef][jdef, jdef] of an inverted factor; (H, Z)."""
+        if not _on_card(H, "neg_core"):
+            return self.neg_core_plain(H, Z, jlo, ldef, jdef, ilast)
+        self._launch("neg", H, Z, (jlo, ldef, jdef, ilast,
+                                   int(_bottom(jlo, jdef, ilast))))
+        return H, Z
+
+    def czshift_core(self, H, Z, jlo: int, ilast: int):
+        """Controlled zero shift on the window [jlo, ilast]; (H, Z, zflag),
+        zflag True when a rotation of the final chain is the identity."""
+        if not _on_card(H, "czshift_core"):
+            return self.czshift_core_plain(H, Z, jlo, ilast)
+        zflag = torch.zeros(1, dtype=torch.int32, device=H.device)
+        self._launch("czshift", H, Z, (jlo, ilast, self.ulp, self.smlnum), zflag)
+        return H, Z, bool(zflag.item())
+
+    def _launch(self, action, H, Z, args, zflag=None):
+        """One launch of ``psd_deflate_<action>`` on H's card.  Z goes to the
+        kernel transposed (its column updates become row updates, whose
+        loads coalesce) and comes back in place."""
+        p, n, _ = H.shape
+        if self.want_z and (Z is None or Z.dtype != H.dtype or Z.device != H.device):
+            raise ValueError(f"{action}: Z must be a {H.dtype} tensor on {H.device}")
+        lib = _cuda.load()
+        cx = H.is_complex()
+        ZT = Z.transpose(1, 2).contiguous() if self.want_z else None
+        ptrs = [H.data_ptr(), None if ZT is None else ZT.data_ptr(),
+                _signature(self.S, H.device).data_ptr()]
+        if action != "neg":
+            ws = torch.empty(lib.psd_deflate_scratch(n, int(cx)), dtype=torch.uint8,
+                             device=H.device)
+            ptrs.append(ws.data_ptr())
+        if zflag is not None:
+            ptrs.append(zflag.data_ptr())
+        entry = getattr(lib, f"psd_deflate_{action}" + ("_c128" if cx else ""))
+        nlaunch = ctypes.c_int(0)
+        with _cuda.on_device(H):
+            rc = entry(*ptrs, p, n, *args, ctypes.byref(nlaunch), _cuda.stream_ptr(H))
+        launches[f"deflate_{action}"] += nlaunch.value
+        _cuda.check(rc, f"deflate_{action}")
+        if ZT is not None:
+            Z.copy_(ZT.transpose(1, 2))
+
+    # ------------------------------------------------------------------
+    # the plain versions
 
     def _zup(self, Z, l, base, c, s):
         """Z[l] <- Z[l] G(base, base+1, c, s)'."""
@@ -56,7 +151,7 @@ class DeflateCores:
             colsk(M, k, _rmat_adj(M, *G[k]))
 
     # ------------------------------------------------------------------
-    def pos_core(self, H, Z, jlo: int, ldef: int, jdef: int, ilast: int):
+    def pos_core_plain(self, H, Z, jlo: int, ldef: int, jdef: int, ilast: int):
         """Zero diagonal H[ldef][jdef, jdef] of a direct factor."""
         p, S, z = self.p, self.S, 0.0
         setel(H[ldef], jdef, jdef, z)
@@ -190,10 +285,10 @@ class DeflateCores:
         rowsk(Hl, j - 1, _lmat(Hl, cn, sn), lo=j)
         return j, cn, sn
 
-    def neg_core(self, H, Z, jlo: int, ldef: int, jdef: int, ilast: int):
+    def neg_core_plain(self, H, Z, jlo: int, ldef: int, jdef: int, ilast: int):
         """Zero diagonal H[ldef][jdef, jdef] of an inverted factor."""
         setel(H[ldef], jdef, jdef, 0.0)
-        if float(jdef + 1) > float(ilast - jlo + 1) / 2:
+        if _bottom(jlo, jdef, ilast):
             self._chase_down(H, Z, jlo, ldef, jdef, ilast)
         else:
             self._chase_up(H, Z, jlo, ldef, jdef, ilast)
@@ -295,7 +390,7 @@ class DeflateCores:
         rowsk(H[ldef], j, _lmat(H[ldef], c2, s2), lo=j + 1)
 
     # ------------------------------------------------------------------
-    def czshift_core(self, H, Z, jlo: int, ilast: int):
+    def czshift_core_plain(self, H, Z, jlo: int, ilast: int):
         """Controlled zero shift on the window [jlo, ilast].
 
         Returns (H, Z, zflag): zflag is True when a rotation of the final

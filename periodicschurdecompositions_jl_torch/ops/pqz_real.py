@@ -31,8 +31,9 @@ Division of labour (as in ``ops/pqz_complex.py``):
 * the 2x2-cycle machinery (``qzrot2x2``, ``rp2x2ssr``, ``eig2x2_product``)
   and the shift (``opening_rotations``) run on host floats: a few flops per
   call on entries the host has already read;
-* the rare actions DEFLATE_POS, DEFLATE_NEG and CZSHIFT run as torch ops on
-  the device (``ops.pqz_deflate``), shared with the complex core.
+* the actions DEFLATE_POS, DEFLATE_NEG and CZSHIFT are one launch each of
+  ``csrc/pqz_deflate.cu`` on the card (``ops.pqz_deflate``, shared with the
+  complex core); CZSHIFT reads back one flag.
 
 Exceptional shifts (every 10th sweep since the last deflation) are random
 rotations: the JAX core splits a PRNG key on every sweep and draws

@@ -38,7 +38,7 @@ enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
 enum cudaDeviceAttr { cudaDevAttrMultiProcessorCount = 16,
                       cudaDevAttrMaxSharedMemoryPerBlockOptin = 97 };
 enum cudaMemcpyKind { cudaMemcpyDeviceToDevice = 3 };
-struct double2 { double x, y; };
+struct alignas(16) double2 { double x, y; };  // CUDA's __align__(16)
 inline double2 make_double2(double a, double b) { return {a, b}; }
 struct dim3 {
   unsigned x, y, z;

@@ -57,8 +57,22 @@ with exact structural zeros, with the scratch in shared memory and in the
 global ws (200 bytes of shared memory), and with a block of 64 threads (each thread several rows
 and columns); about a minute.
 
+``--deflate``: csrc/pqz_deflate.cu, the deflation actions (CZSHIFT,
+DEFLATE_POS, DEFLATE_NEG chasing down and up), float64 and complex128, on
+small periodic Hessenberg-triangular cycles (p = 2 to 5, n = 3 to 100;
+mixed signatures; windows at the matrix's edges and inside it; exact zeros
+planted on a triangular factor's diagonal, so that CZSHIFT takes its
+identity branch; want_z on and off) against the plain versions of
+ops/pqz_deflate.py within max(1e-13, 10 sens) max|H| (sens as for
+``--signed``), with the plain version's exact zeros (``zeros_kept``) and
+the same flag, with the rotations in shared memory and in the global ws
+(200 bytes of shared memory), and with a block of 64 threads; odd n
+included, built with UBSan's alignment check (a misaligned double2 stops
+the run); about a minute.
+
 Run from the repository root:
-  python3 scripts/rehearse_sweep_host.py [--cx | --rg | --hess [--parent FILE] | --signed]
+  python3 scripts/rehearse_sweep_host.py [--cx | --rg | --hess [--parent FILE] | --signed
+                                          | --deflate]
 """
 import argparse
 import ctypes
@@ -82,10 +96,10 @@ from torch_rg_window_host import rg_log_full  # noqa: E402
 from torch_window_host import sweep_log_full  # noqa: E402
 
 
-def build_stub(name, path=None, extra="", sub=()):
+def build_stub(name, path=None, extra="", sub=(), flags=()):
     """csrc/<name>.cu (or the file ``path``) rewritten for the host stub,
     with the source ``extra`` appended and each (old, new) of ``sub``
-    replaced, and built with g++."""
+    replaced, and built with g++ (and ``flags``)."""
     src = open(path or os.path.join(CSRC, name + ".cu")).read() + extra
     for old, new in sub:
         assert old in src, old
@@ -101,8 +115,8 @@ def build_stub(name, path=None, extra="", sub=()):
     cpp, so = os.path.join(OUT, tag + "_stub.cpp"), os.path.join(OUT, f"lib{tag}_stub.so")
     open(cpp, "w").write(src)
     subprocess.run(["g++", "-std=c++20", "-O2", "-ffp-contract=off", "-fPIC", "-shared",
-                    "-I", os.path.join(ROOT, "scripts", "cuda_host_stub"), "-I", CSRC, cpp,
-                    "-o", so, "-lpthread"], check=True)
+                    "-I", os.path.join(ROOT, "scripts", "cuda_host_stub"), "-I", CSRC, *flags,
+                    cpp, "-o", so, "-lpthread"], check=True)
     return ctypes.CDLL(so)
 
 
@@ -466,6 +480,159 @@ def main_signed():
     return 0
 
 
+def deflate_cycle(S, n, kind, seed, zero=None):
+    """A periodic Hessenberg-triangular cycle (H[0] Hessenberg, the others
+    upper triangular) and unitary Z of the scalar kind "real" or "complex";
+    zero = (l, j) plants an exact zero at H[l][j, j]."""
+    rng = np.random.default_rng(seed)
+    p = len(S)
+
+    def draw(*shape):
+        x = rng.standard_normal(shape)
+        return x + 1j * rng.standard_normal(shape) if kind == "complex" else x
+    H = np.stack([np.triu(draw(n, n), -1 if l == 0 else 0) for l in range(p)])
+    if zero is not None:
+        H[zero[0], zero[1], zero[1]] = 0.0
+    Z = np.stack([np.linalg.qr(draw(n, n))[0] for _ in range(p)])
+    return torch.tensor(H), torch.tensor(Z)
+
+
+def zeros_kept(Hk, Hp, tol):
+    """Every exact zero of the plain result Hp is one of the kernel's Hk, and
+    an exact zero of Hk alone stands where |Hp| <= tol: a fused product can
+    round a mathematically zero entry to exactly 0 where the plain
+    version's two roundings leave ~1e-19."""
+    zk, zp = Hk == 0, Hp == 0
+    return bool(zk[zp].all()) and bool((Hp[zk & ~zp].abs() <= tol).all())
+
+
+def deflate_stub(lib, cores, action, H, Z, args):
+    """One action through the stub's C entry on CPU tensors, in place, as
+    DeflateCores._launch drives the card's; returns (launches, zflag)."""
+    from periodicschurdecompositions_jl_torch.ops import pqz_deflate
+    p, n, _ = H.shape
+    cx = H.is_complex()
+    ZT = Z.transpose(1, 2).contiguous() if cores.want_z else None
+    sig = torch.tensor([int(x) for x in cores.S], dtype=torch.int32)
+    ptrs = [H.data_ptr(), None if ZT is None else ZT.data_ptr(), sig.data_ptr()]
+    ws = torch.full((lib.psd_deflate_scratch(n, int(cx)) // 8,), float("nan"),
+                    dtype=torch.float64)
+    zflag = torch.full((1,), -1, dtype=torch.int32)
+    if action == "neg":
+        jlo, ldef, jdef, ilast = args
+        args = (*args, int(pqz_deflate._bottom(jlo, jdef, ilast)))
+    else:
+        ptrs.append(ws.data_ptr())
+    if action == "czshift":
+        ptrs.append(zflag.data_ptr())
+        args = (*args, cores.ulp, cores.smlnum)
+    nl = ctypes.c_int(-1)
+    entry = getattr(lib, f"psd_deflate_{action}" + ("_c128" if cx else ""))
+    rc = entry(*ptrs, p, n, *args, ctypes.byref(nl), None)
+    assert rc == 0, rc
+    if ZT is not None:
+        Z.copy_(ZT.transpose(1, 2))
+    return nl.value, bool(zflag.item())
+
+
+def build_deflate(sub=()):
+    # UBSan's alignment check stops the run at a misaligned double2 access,
+    # which x86 would otherwise tolerate and the card would not
+    lib = build_stub("pqz_deflate", sub=sub,
+                     flags=("-fsanitize=alignment", "-fno-sanitize-recover=alignment"))
+    vp, i32, f64, ip = ctypes.c_void_p, ctypes.c_int, ctypes.c_double, ctypes.POINTER(ctypes.c_int)
+    for cx in ("", "_c128"):
+        getattr(lib, "psd_deflate_czshift" + cx).argtypes = [vp, vp, vp, vp, vp, i32, i32, i32,
+                                                             i32, f64, f64, ip, vp]
+        getattr(lib, "psd_deflate_pos" + cx).argtypes = [vp, vp, vp, vp, i32, i32, i32, i32,
+                                                         i32, i32, ip, vp]
+        getattr(lib, "psd_deflate_neg" + cx).argtypes = [vp, vp, vp, i32, i32, i32, i32, i32,
+                                                         i32, i32, ip, vp]
+    lib.psd_deflate_scratch.argtypes = [i32, i32]
+    lib.psd_deflate_scratch.restype = ctypes.c_longlong
+    return lib
+
+
+def deflate_cases():
+    """(action, S, n, args, zero): the windows, the planted zeros."""
+    alt = lambda p: tuple(l % 2 == 0 for l in range(p))  # noqa: E731
+    return [
+        ("czshift", alt(4), 10, (0, 9), None),
+        ("czshift", (True, True, False), 12, (3, 9), None),
+        ("czshift", alt(2), 3, (0, 2), None),
+        ("czshift", (True, False, True, True, False), 40, (5, 39), None),
+        ("czshift", alt(4), 100, (0, 99), None),
+        ("czshift", alt(4), 47, (0, 46), None),
+        ("czshift", alt(4), 10, (3, 9), (1, 3)),       # inverted (jlo, jlo): identity
+        ("czshift", alt(4), 10, (2, 8), (2, 6)),       # direct (k+1, k+1): identity
+        ("pos", (True, True, False, True), 10, (0, 2, 5, 9), None),
+        ("pos", (True, True, False, True), 10, (0, 3, 0, 9), None),
+        ("pos", (True, True, False, True), 10, (2, 1, 8, 8), None),
+        ("pos", alt(2) + (True,), 9, (1, 2, 8, 8), None),
+        ("pos", (True, True, True, False, True), 70, (0, 2, 33, 69), None),
+        ("pos", alt(4), 47, (0, 2, 20, 46), None),
+        ("neg", alt(4), 10, (0, 1, 7, 9), None),      # down
+        ("neg", alt(4), 10, (0, 3, 1, 9), None),      # up
+        ("neg", alt(4), 10, (0, 1, 9, 9), None),      # down from the last row
+        ("neg", alt(4), 10, (0, 3, 0, 9), None),      # up from the first row
+        ("neg", (True, False, True, False, False), 12, (2, 4, 9, 10), None),
+        ("neg", (True, False, True, False, False), 12, (2, 1, 4, 10), None),
+        ("neg", alt(2), 3, (0, 1, 2, 2), None),
+        ("neg", (True, True, False), 70, (0, 2, 50, 69), None),
+        ("neg", (True, True, False), 70, (0, 2, 12, 69), None),
+    ]
+
+
+def main_deflate():
+    from periodicschurdecompositions_jl_torch.ops import pqz_deflate
+    libs = {"": build_deflate(),
+            ", 64 threads": build_deflate((("constexpr int kMaxThreads = 512;",
+                                            "constexpr int kMaxThreads = 64;"),))}
+    eps = float(np.finfo(np.float64).eps)
+    for (optin, blk) in (("232448", ""), ("200", ""), ("232448", ", 64 threads")):
+        os.environ["STUB_SMEM_OPTIN"] = optin
+        lib = libs[blk]
+        for idx, (action, S, n, args, zero) in enumerate(deflate_cases()):
+            for kind in ("real", "complex"):
+                for want_z in (True, False):
+                    p = len(S)
+                    if action != "czshift":      # the zero the action deflates
+                        zero = (args[1], args[2])
+                    H0, Z0 = deflate_cycle(S, n, kind, 7 * idx + n, zero)
+                    cores = pqz_deflate.DeflateCores(p, S, want_z, eps,
+                                                     float(np.finfo(np.float64).tiny) * n / eps)
+                    plain = getattr(cores, f"{action}_core_plain")
+
+                    def run_plain(H):
+                        H, Z = H.clone(), Z0.clone()
+                        out = plain(H, Z, *args)
+                        return H, Z, (out[2] if action == "czshift" else None)
+                    Hp, Zp, fp = run_plain(H0)
+                    Hk, Zk = H0.clone(), Z0.clone()
+                    nl, fk = deflate_stub(lib, cores, action, Hk, Zk, args)
+                    pert = torch.tensor(1.0 + 1e-16 * np.random.default_rng(1).standard_normal(
+                        (p, n, n)))
+                    Hs, Zs, _ = run_plain(H0 * pert)
+                    scale = float(H0.abs().max())
+                    sens = max(float((Hs - Hp).abs().max()) / scale,
+                               float((Zs - Zp).abs().max()) if want_z else 0.0)
+                    tol = max(1e-13, 10 * sens)
+                    dh = float((Hk - Hp).abs().max()) / scale
+                    dz = float((Zk - Zp).abs().max()) if want_z else 0.0
+                    assert nl == 1, nl
+                    assert dh <= tol and dz <= tol, (action, S, n, args, kind, dh, dz, tol)
+                    assert zeros_kept(Hk, Hp, tol * scale), (action, S, n, args, kind, "zeros")
+                    if not want_z:
+                        assert torch.equal(Zk, Z0), "Z changed without want_z"
+                    if action == "czshift":
+                        assert fk == fp, (action, S, n, args, kind, fk, fp)
+                    print(f"shared memory {optin} B{blk}: {action} S="
+                          f"{''.join('TF'[not x] for x in S)} n={n} {args} {kind} "
+                          f"want_z={want_z}: dH {dh:.2e} dZ {dz:.2e} (tolerance {tol:.2e})"
+                          + (f", zflag {fk}" if action == "czshift" else ""), flush=True)
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--cx", action="store_true")
@@ -473,7 +640,10 @@ def main():
     ap.add_argument("--hess", action="store_true")
     ap.add_argument("--parent", default=None)
     ap.add_argument("--signed", action="store_true")
+    ap.add_argument("--deflate", action="store_true")
     args = ap.parse_args()
+    if args.deflate:
+        return main_deflate()
     if args.signed:
         return main_signed()
     if args.hess:

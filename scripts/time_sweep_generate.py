@@ -83,9 +83,26 @@ identity rotation; the batched update chains cut off) and times stage 2
 through each, with and without Q: an attribution of the kernel's time to
 its serial generations, its updates and Q.
 
+``--deflate``: the deflation actions (``ops/pqz_deflate.py::DeflateCores``:
+csrc/pqz_deflate.cu where the checkout has it, the plain torch version with
+one host read per rotation where it does not) on the states of
+chip_smoke.py's ``deflate_actions_phase``: the rg leg's reduction (kept in
+``--hq`` as for ``--rg``) and the signed complex leg's, CZSHIFT on the
+whole matrix and on an inner window, DEFLATE_POS and DEFLATE_NEG down and
+up; the host clock over one call to ``torch.cuda.synchronize()`` (the
+median of ``--reps`` calls, at most 5, on copies) and hashes of H and Z.
+``--headline`` then times the rg iteration as ``--rg --headline`` does (and
+``--trace`` attributes its host time), the rg leg's ``pschur(A, 'R', S)``,
+the complex leg and the signed complex leg (walls, iteration times, niter,
+CZSHIFT actions).  ``--against DIR``: instead, each action of this
+checkout's kernel library against DIR's (built in a child process; the
+deflation entries must have the same C signatures) in one process, in
+rounds of A, B, B, A with CUDA events around each call (``--reps`` rounds),
+the medians and the hashes of H and Z of both.
+
 Run from the repository root:
-  python3 scripts/time_sweep_generate.py [--cx | --rg | --hess | --signed [--split]]
-      [--root DIR] [--headline]
+  python3 scripts/time_sweep_generate.py [--cx | --rg | --hess | --signed [--split]
+      | --deflate [--against DIR]] [--root DIR] [--headline [--trace]]
 """
 import argparse
 import hashlib
@@ -111,6 +128,8 @@ def main():
     ap.add_argument("--hess", action="store_true")
     ap.add_argument("--signed", action="store_true")
     ap.add_argument("--split", action="store_true")
+    ap.add_argument("--deflate", action="store_true")
+    ap.add_argument("--against", default=None)
     ap.add_argument("--set", action="append", default=[])
     ap.add_argument("--hq", default=os.path.join(HERE, "_dev", "rg_hq.pt"))
     ap.add_argument("--trace", action="store_true")
@@ -129,8 +148,9 @@ def main():
     print(smi)
     lib = _cuda.load()
     out = {"root": os.path.abspath(args.root), "card": smi}
-    (time_signed if args.signed else time_hess if args.hess else time_cx if args.cx
-     else time_rg if args.rg else time_real)(torch, lib, _cuda, args, out)
+    (time_deflate if args.deflate else time_signed if args.signed else time_hess
+     if args.hess else time_cx if args.cx else time_rg if args.rg
+     else time_real)(torch, lib, _cuda, args, out)
     print(json.dumps(out))
     return 0
 
@@ -333,25 +353,125 @@ def time_rg(torch, lib, _cuda, args, out):
         headline_rg(torch, args, out)
 
 
+def time_deflate(torch, lib, _cuda, args, out):
+    import importlib.util
+    import periodicschurdecompositions_jl_torch as pt
+    from periodicschurdecompositions_jl_torch.ops import pqz_complex, pqz_deflate, pqz_real
+    # this checkout's chip_smoke.py (--root's may predate its deflation cases);
+    # it drives the port that --root names
+    spec = importlib.util.spec_from_file_location("chip_smoke_here",
+                                                  os.path.join(HERE, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    alternating, cx_draw = cs.alternating, cs.cx_draw
+    cx_signed_reduction, pqz_deflate_cases = cs.cx_signed_reduction, cs.pqz_deflate_cases
+    out["actions"] = ("csrc/pqz_deflate.cu" if hasattr(pqz_deflate, "launches")
+                      else "plain torch")
+    S = alternating(8)
+    eps = float(np.finfo(np.float64).eps)
+    cases = pqz_deflate_cases(rg_reduction(torch, args, out), cx_signed_reduction("cuda"))
+    if args.against:
+        return deflate_ab(torch, _cuda, pqz_deflate, S, eps, cases, args, out)
+    for name, H0, Z0, action, a, zero in cases:
+        p, n, _ = H0.shape
+        H0 = H0.clone()
+        if zero is not None:
+            H0[zero[0], zero[1], zero[1]] = 0.0
+        cores = pqz_deflate.DeflateCores(p, S, True, eps,
+                                         float(np.finfo(np.float64).tiny) * n / eps)
+        walls = []
+        for _ in range(min(args.reps, 5)):
+            H, Z = H0.clone(), Z0.clone()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            getattr(cores, f"{action}_core")(H, Z, *a)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        tag = f"{name} {a}"
+        out[f"{tag} ms"] = sorted(walls)[len(walls) // 2]
+        out[f"{tag} runs ms"] = walls
+        out[f"{tag} H, Z sha256"] = [sha(H), sha(Z)]
+    if not args.headline:
+        return
+    headline_rg(torch, args, out)
+    headline_cx(torch, out)
+    A = torch.tensor(np.random.default_rng(4242).standard_normal((8, 256, 256)), device="cuda")
+    for tag, A, core in (("rg", A, pqz_real),
+                         ("signed_cx", torch.tensor(cx_draw(8, 128, 777), device="cuda"),
+                          pqz_complex)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pt.pschur(A, "R", S=S)
+        torch.cuda.synchronize()
+        out[f"{tag}_leg_wall_s"] = time.perf_counter() - t0
+        info = core.last_info
+        for k in ("iterate_s", "reduce_s", "niter", "czshift"):
+            out[f"{tag}_leg_{k}"] = info[k]
+
+
+def deflate_ab(torch, _cuda, pqz_deflate, S, eps, cases, args, out):
+    """Each action through this checkout's library (A) and ``args.against``'s
+    (B), swapped in as ``_cuda``'s loaded library, in rounds A, B, B, A."""
+    import ctypes
+    so = subprocess.run(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
+         "from periodicschurdecompositions_jl_torch.ops import _cuda; "
+         "print(_cuda.load()._name)", os.path.abspath(args.against)],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[-1]
+    libs = {"A": _cuda.load(), "B": _cuda._declare(ctypes.CDLL(so))}
+    out["A"], out["B"] = libs["A"]._name, so
+    for name, H0, Z0, action, a, zero in cases:
+        p, n, _ = H0.shape
+        H0 = H0.clone()
+        if zero is not None:
+            H0[zero[0], zero[1], zero[1]] = 0.0
+        cores = pqz_deflate.DeflateCores(p, S, True, eps,
+                                         float(np.finfo(np.float64).tiny) * n / eps)
+        ms, res = {"A": [], "B": []}, {}
+        for tag in "ABBA" * args.reps:
+            _cuda._lib = libs[tag]
+            H, Z = H0.clone(), Z0.clone()
+            torch.cuda.synchronize()
+            e0 = torch.cuda.Event(enable_timing=True)
+            e1 = torch.cuda.Event(enable_timing=True)
+            e0.record()
+            getattr(cores, f"{action}_core")(H, Z, *a)
+            e1.record()
+            torch.cuda.synchronize()
+            ms[tag].append(e0.elapsed_time(e1))
+            res[tag] = [sha(H), sha(Z)]
+        _cuda._lib = libs["A"]
+        tag = f"{name} {a}"
+        out[f"{tag} ms A, B"] = [float(np.median(ms["A"])), float(np.median(ms["B"]))]
+        out[f"{tag} H, Z sha256 A, B"] = [res["A"], res["B"]]
+
+
+def rg_reduction(torch, args, out):
+    """The rg leg's signed reduction (p=8, n=256, seed 4242, alternating S),
+    kept in the file ``args.hq`` for the next turns."""
+    from chip_smoke import alternating
+    from periodicschurdecompositions_jl_torch.ops import hessenberg
+    p, n = 8, 256
+    if os.path.exists(args.hq):
+        out["rg_reduce_s"] = "loaded from " + os.path.relpath(args.hq, HERE)
+        return tuple(t.cuda() for t in torch.load(args.hq))
+    A = torch.tensor(np.random.default_rng(4242).standard_normal((p, n, n)), device="cuda")
+    t0 = time.perf_counter()
+    H, Q = hessenberg.phessenberg_signed_core(A, alternating(p), want_q=True)
+    torch.cuda.synchronize()
+    out["rg_reduce_s"] = time.perf_counter() - t0
+    os.makedirs(os.path.dirname(args.hq), exist_ok=True)
+    torch.save((H.cpu(), Q.cpu()), args.hq)
+    return H, Q
+
+
 def headline_rg(torch, args, out):
     """The real generalized iteration of the rg leg (p=8, n=256, seed 4242,
     alternating S) from its signed reduction, kept in ``args.hq``."""
     from chip_smoke import alternating
-    from periodicschurdecompositions_jl_torch.ops import hessenberg, pqz_real, sweep_rg
-    p, n = 8, 256
-    S = alternating(p)
-    if os.path.exists(args.hq):
-        H, Q = (t.cuda() for t in torch.load(args.hq))
-        out["rg_reduce_s"] = "loaded from " + os.path.relpath(args.hq, HERE)
-    else:
-        A = torch.tensor(np.random.default_rng(4242).standard_normal((p, n, n)),
-                         device="cuda")
-        t0 = time.perf_counter()
-        H, Q = hessenberg.phessenberg_signed_core(A, S, want_q=True)
-        torch.cuda.synchronize()
-        out["rg_reduce_s"] = time.perf_counter() - t0
-        os.makedirs(os.path.dirname(args.hq), exist_ok=True)
-        torch.save((H.cpu(), Q.cpu()), args.hq)
+    from periodicschurdecompositions_jl_torch.ops import pqz_real, sweep_rg
+    S = alternating(8)
+    H, Q = rg_reduction(torch, args, out)
 
     def run():
         return pqz_real.pqz_real_gen_core(H, S, Z=Q, with_info=True)

@@ -20,7 +20,12 @@ version's own change under a relative 1e-16 perturbation of A), the chains
 amplifying rounding to ~1e-13 at n=20 and ~2e-12 at n=37 (complex; on a
 planted exact zero, which the chains turn into rounding noise that later
 generations read, O(1): there the similarity contract decides),
-similarity residual 1e-12 max|A|.  Kernel G: bit for bit with its
+similarity residual 1e-12 max|A|.  The deflation actions
+(csrc/pqz_deflate.cu): the same gate (chains of generations again), the
+plain version's exact zeros (others only where it is at rounding level)
+and the same CZSHIFT flag, at even and odd n, with the rotations in shared
+memory and (past it) in the global scratch; ``pschur`` at odd n takes all
+three actions.  Kernel G: bit for bit with its
 plain version and with the numpy host glue (it is written without FMA, in
 numpy's order).
 """
@@ -31,8 +36,9 @@ import torch
 import periodicschurdecompositions_jl_torch as pt
 from periodicschurdecompositions_jl_torch.config import AlgoConfig
 from periodicschurdecompositions_jl_torch.ops import (_cuda, deflate, glue, hessenberg,
-                                                     pqr_real, pqz_complex, pqz_real,
-                                                     rgopen, sweep, sweep_cx, sweep_rg)
+                                                     pqr_real, pqz_complex, pqz_deflate,
+                                                     pqz_real, rgopen, sweep, sweep_cx,
+                                                     sweep_rg)
 
 pytestmark = pytest.mark.cuda
 
@@ -728,6 +734,207 @@ def test_hess_signed_refuses_single_precision(cuda, dtype):
     with pytest.raises(ValueError, match="float64 or complex128"):
         hessenberg.phessenberg_signed_core(A, ALT4)
     assert hessenberg.launches["hess_signed"] == before
+
+
+def _deflate_cycle(S, n, kind, seed, zero=None):
+    """A periodic Hessenberg-triangular cycle and unitary Z of the scalar
+    kind "real" or "complex"; zero = (l, j) plants an exact zero at
+    H[l][j, j]."""
+    rng = np.random.default_rng(seed)
+
+    def draw(*shape):
+        x = rng.standard_normal(shape)
+        return x + 1j * rng.standard_normal(shape) if kind == "complex" else x
+    H = np.stack([np.triu(draw(n, n), -1 if l == 0 else 0) for l in range(len(S))])
+    if zero is not None:
+        H[zero[0], zero[1], zero[1]] = 0.0
+    Z = np.stack([np.linalg.qr(draw(n, n))[0] for _ in S])
+    return H, Z
+
+
+# (action, S, n, window): (jlo, ldef, jdef, ilast) or CZSHIFT's (jlo, ilast);
+# "czshift_zero" plants an exact zero on the direct factor 2's diagonal
+# inside the window, so CZSHIFT takes its identity branch
+DEFLATE_CASES = {
+    "pos": ("pos", (True, False, True, True), 48, (0, 2, 20, 47)),
+    "pos_edges": ("pos", (True, True, False), 40, (3, 1, 39, 39)),
+    "neg_down": ("neg", ALT4, 48, (0, 1, 40, 47)),
+    "neg_up": ("neg", ALT4, 48, (5, 3, 9, 47)),
+    "neg_edge": ("neg", (True, True, False), 40, (0, 2, 39, 39)),
+    "czshift": ("czshift", (True, False, True, True, False), 64, (0, 63)),
+    "czshift_inner": ("czshift", ALT4, 64, (7, 50)),
+    "czshift_zero": ("czshift", ALT4, 64, (7, 50)),
+    # odd n: the complex rotations' storage must stay 16-byte aligned
+    "pos_odd": ("pos", ALT4, 47, (0, 2, 20, 46)),
+    "neg_odd": ("neg", ALT4, 47, (0, 1, 30, 46)),
+    "czshift_odd": ("czshift", ALT4, 47, (0, 46)),
+}
+
+
+def _deflate_run(cuda, case, kind, want_z=True):
+    """One case through the kernel and the plain version on the card; returns
+    (H0, (H, Z, zflag) of the kernel, of the plain version, tolerance)."""
+    action, S, n, args = DEFLATE_CASES[case]
+    zero = ((2, 20) if case == "czshift_zero" else None) if action == "czshift" \
+        else (args[1], args[2])
+    Hn, Zn = _deflate_cycle(S, n, kind, 11 * n + len(case), zero)
+    H0, Z0 = torch.tensor(Hn, device=cuda), torch.tensor(Zn, device=cuda)
+    eps = float(np.finfo(np.float64).eps)
+    cores = pqz_deflate.DeflateCores(len(S), S, want_z, eps,
+                                     float(np.finfo(np.float64).tiny) * n / eps)
+
+    def run(route, H):
+        H, Z = H.clone(), Z0.clone()
+        out = getattr(cores, f"{action}_core{route}")(H, Z, *args)
+        return H, Z, (out[2] if action == "czshift" else None)
+    before = pqz_deflate.launches[f"deflate_{action}"]
+    kern = run("", H0)
+    assert pqz_deflate.launches[f"deflate_{action}"] - before == 1
+    plain = run("_plain", H0)
+    pert = torch.tensor(1.0 + 1e-16 * np.random.default_rng(1).standard_normal(H0.shape),
+                        device=cuda)
+    Hs, Zs, _ = run("_plain", H0 * pert)
+    scale = float(H0.abs().max())
+    sens = max(float((Hs - plain[0]).abs().max()) / scale,
+               float((Zs - plain[1]).abs().max()) if want_z else 0.0)
+    return H0, Z0, kern, plain, max(1e-12, 10 * sens)
+
+
+@pytest.mark.parametrize("case", list(DEFLATE_CASES))
+@pytest.mark.parametrize("kind", ["real", "complex"])
+def test_deflate_kernels_match_plain(cuda, kind, case):
+    """Each deflation action of csrc/pqz_deflate.cu against its plain
+    version on the card: one launch per call, H and Z within the gate, the
+    plain version's exact zeros (a kernel-only zero where |plain| is at
+    rounding level: a fused product can round an entry that is zero in
+    exact arithmetic to exactly 0) and the same flag."""
+    H0, Z0, (H, Z, f), (Hp, Zp, fp), tol = _deflate_run(cuda, case, kind)
+    scale = float(H0.abs().max())
+    assert float((H - Hp).abs().max()) <= tol * scale
+    assert float((Z - Zp).abs().max()) <= tol
+    zk, zp = H == 0, Hp == 0   # the plain version's zeros, and others only at rounding level
+    assert bool(zk[zp].all()) and bool((Hp[zk & ~zp].abs() <= tol * scale).all())
+    assert f == fp
+    if case.startswith("czshift"):
+        assert f == (case == "czshift_zero")
+
+
+def test_deflate_kernel_without_z(cuda):
+    _, Z0, (H, Z, f), (Hp, _, fp), tol = _deflate_run(cuda, "czshift_zero", "complex",
+                                                       want_z=False)
+    assert torch.equal(Z, Z0) and f and fp
+    assert float((H - Hp).abs().max()) <= tol * float(Hp.abs().max())
+
+
+@pytest.mark.parametrize("kind", ["real", "complex"])
+def test_deflate_kernel_global_rotations(cuda, kind):
+    # the rotations go to the global scratch ws where they do not fit the
+    # shared memory a block may take: the first odd n past it, p=2, windows
+    # of 40 rows at the bottom (the storage is sized by n, not the window);
+    # Z the identity; gated at 1e-12
+    optin = torch.cuda.get_device_properties(cuda).shared_memory_per_block_optin
+    n = (optin // (24 if kind == "complex" else 16) + 1) | 1
+    g = torch.Generator(device=cuda).manual_seed(8)
+    dt = torch.complex128 if kind == "complex" else torch.float64
+    H0 = torch.randn((2, n, n), generator=g, device=cuda, dtype=dt)
+    H0[0] = torch.triu(H0[0], -1)
+    H0[1] = torch.triu(H0[1])
+    S = (True, True)
+    eps = float(np.finfo(np.float64).eps)
+    cores = pqz_deflate.DeflateCores(2, S, True, eps, float(np.finfo(np.float64).tiny) * n / eps)
+    scale = float(H0.abs().max())
+    for action, args in (("czshift", (n - 40, n - 1)), ("pos", (n - 40, 1, n - 20, n - 1))):
+        H0c = H0.clone()
+        if action == "pos":
+            H0c[1, n - 20, n - 20] = 0.0
+        out = {}
+        for route in ("", "_plain"):
+            H = H0c.clone()
+            Z = torch.eye(n, dtype=dt, device=cuda).expand(2, n, n).clone()
+            before = pqz_deflate.launches[f"deflate_{action}"]
+            res = getattr(cores, f"{action}_core{route}")(H, Z, *args)
+            assert pqz_deflate.launches[f"deflate_{action}"] - before == (route == "")
+            out[route] = (H, Z, res[2] if action == "czshift" else None)
+            del H, Z
+        (H, Z, f), (Hp, Zp, fp) = out[""], out["_plain"]
+        assert float((H - Hp).abs().max()) <= 1e-12 * scale
+        assert float((Z - Zp).abs().max()) <= 1e-12 and f == fp
+        zk, zp = H == 0, Hp == 0
+        assert bool(zk[zp].all()) and bool((Hp[zk & ~zp].abs() <= 1e-12 * scale).all())
+        del out, H, Z, Hp, Zp, zk, zp, H0c
+
+
+@pytest.mark.parametrize("kind", ["real", "complex"])
+def test_pschur_takes_the_deflation_kernels(cuda, kind):
+    """pschur(A, 'R', S) at odd n on the card: a cycle whose reduction keeps
+    two planted exact zeros (chip_smoke.singular_cycle) takes DEFLATE_POS
+    and DEFLATE_NEG, and complex draws take CZSHIFT; each action is one
+    launch."""
+    from chip_smoke import singular_cycle
+    p = 8
+    S = tuple(l % 2 == 0 for l in range(p))
+    core = pqz_complex if kind == "complex" else pqz_real
+    draws = [singular_cycle(kind, p, 33, 5)]
+    for n, seed in ((23, 777), (31, 1)) if kind == "complex" else ():
+        rng = np.random.default_rng(seed)
+        draws.append(rng.standard_normal((p, n, n)) + 1j * rng.standard_normal((p, n, n)))
+    taken = {"czshift": 0, "deflate_pos": 0, "deflate_neg": 0}
+    for A in draws:
+        before = dict(pqz_deflate.launches)
+        P = pt.pschur(torch.tensor(A, device=cuda), "R", S=S)
+        info = core.last_info
+        for k in taken:
+            key = "deflate_czshift" if k == "czshift" else k
+            assert pqz_deflate.launches[key] - before[key] == info[k]
+            taken[k] += info[k]
+        ok, rep = pt.check_psd(P, A, tol=200.0)
+        assert ok, rep
+    assert taken["deflate_pos"] >= 1 and taken["deflate_neg"] >= 1
+    if kind == "complex":
+        assert taken["czshift"] >= 1
+
+
+@pytest.mark.parametrize("kind", ["real", "complex"])
+def test_deflate_reads_nothing_back_but_czshift_flag(cuda, kind):
+    import warnings
+    S, n = ALT4, 32
+    Hn, Zn = _deflate_cycle(S, n, kind, 5, (1, 9))
+    H, Z = torch.tensor(Hn, device=cuda), torch.tensor(Zn, device=cuda)
+    eps = float(np.finfo(np.float64).eps)
+    cores = pqz_deflate.DeflateCores(len(S), S, True, eps,
+                                     float(np.finfo(np.float64).tiny) * n / eps)
+    cores.czshift_core(H.clone(), Z.clone(), 0, n - 1)   # builds; caches the signature
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cores.neg_core(H, Z, 0, 1, 9, n - 1)
+        cores.pos_core(H, Z, 0, 2, 20, n - 1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as seen:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            cores.czshift_core(H, Z, 0, n - 1)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    assert len([w for w in seen if "synchroniz" in str(w.message)]) == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.complex64])
+def test_deflate_refuses_single_precision(cuda, dtype):
+    Hn, Zn = _deflate_cycle(ALT4, 8, "complex", 3)
+    H = torch.tensor(Hn, device=cuda)
+    H = H.to(dtype) if dtype.is_complex else H.real.to(dtype)
+    cores = pqz_deflate.DeflateCores(4, ALT4, False, 1e-16, 1e-300)
+    before = dict(pqz_deflate.launches)
+    for call in (lambda: cores.czshift_core(H, None, 0, 7),
+                 lambda: cores.pos_core(H, None, 0, 2, 3, 7),
+                 lambda: cores.neg_core(H, None, 0, 1, 3, 7)):
+        with pytest.raises(ValueError, match="float64 or complex128"):
+            call()
+    assert pqz_deflate.launches == before
 
 
 @pytest.mark.parametrize("cfg", [AlgoConfig(), AlgoConfig(slicot_convg=True),
