@@ -108,6 +108,28 @@ def bound(nbytes, flops):
     return (max(tb, tf) * 1e3, "bytes" if tb >= tf else "operations")
 
 
+def apply_bounds(p, n, m, i, nb=1):
+    """Bounds of B0 (``sweep_left``) and B (``sweep_right``) with nb logs
+    on the window [m, i] of a Hessenberg-triangular cycle, counting the
+    entries that are not structural zeros.  B0 reads the upper parts of
+    rows m..i (from column r-1 of H[0], column r of the other factors, up
+    to column n-1) and the logs, and writes rows m..i from column m in
+    full: its chained left transforms fill every entry below the
+    (sub)diagonal (tests/test_torch_apply_schedule.py shows it), so its
+    output is not banded.  Row i+1, column m-1 and the ghost column come
+    out as they went in.  B reads and writes columns m..i of H's rows 0..i,
+    full after B0, and of Z's rows 0..n-1 (B writes the zeros back), and
+    reads the logs.  15 flops per entry triple and step."""
+    K = i - m
+    upper = sum(n - max(r - 1, m) for r in range(m, i + 1)) + \
+        (p - 1) * sum(n - r for r in range(m, i + 1))
+    logs = 8 * 9 * p * K * nb
+    return {"sweep_left": bound(8 * upper + 8 * p * (i + 1 - m) * (n - m) + logs,
+                                15 * p * (n - m) * K * nb),
+            "sweep_right": bound(2 * 8 * p * (i + 1 + n) * (i + 1 - m) + logs,
+                                 15 * p * (i + 1 + n) * K * nb)}
+
+
 def structure_ok(H):
     Hn = H.cpu().numpy()
     return bool(np.all(np.tril(Hn[0], -2) == 0)
@@ -176,7 +198,8 @@ def sweep_phase(dev, p, n, report):
        when its input is perturbed by a relative 1e-16.  Tolerance:
        max|dH| <= max(1e-12, 10 sens_H) max|H|, max|dZ| <= max(1e-12, 10 sens_Z).
     2. B0 and B against apply_log_plain on the SAME log (kernel A's): no
-       generation chain, tolerance 1e-13 max|H| and 1e-13.
+       generation chain, tolerance 1e-13 max|H| and 1e-13; B with Z == NULL
+       leaves H bit for bit as with Z.
     3. The backward error of the kernel sweep, max|Z H Z' - Z0 H0 Z0'|
        <= 1e-13 max|H0|, and exact structural zeros.
     """
@@ -186,7 +209,7 @@ def sweep_phase(dev, p, n, report):
     Hn, Zn, v0 = mk_sweep_problem(p, n, rng)
     N = n + 1
     windows = [(0, n - 1), (min(37, n - 3), min(300, n - 2)),
-               (min(200, n - 4), min(202, n - 2))]
+               (min(200, n - 4), min(202, n - 2)), (1, min(34, n - 2))]
     lib = _cuda.load()
     st = torch.cuda.current_stream().cuda_stream
     err_a = err_b = 0.0
@@ -221,6 +244,14 @@ def sweep_phase(dev, p, n, report):
                     "sweep_left")
         _cuda.check(lib.psd_sweep_right(Hb.data_ptr(), Zb.data_ptr(), R.data_ptr(),
                                         p, N, m, i, 1, st), "sweep_right")
+        # kernel B without Z (Z == NULL) leaves H as with Z
+        Hnz = H0.clone()
+        _cuda.check(lib.psd_sweep_left(Hnz.data_ptr(), R.data_ptr(), p, N, m, i, 1, st),
+                    "sweep_left")
+        _cuda.check(lib.psd_sweep_right(Hnz.data_ptr(), None, R.data_ptr(), p, N, m, i, 1,
+                                        st), "sweep_right")
+        if not torch.equal(Hnz, Hb):
+            raise AssertionError(f"B with Z == NULL changed H on [{m}, {i}]")
         Ha, Za = H0.clone(), Z0.clone()
         t_apply = wall_ms(lambda: sweep.apply_log_plain(Ha, Za, R, m, i, want_z=True))
         db = max(float((Hb - Ha).abs().max()) / scale, float((Zb - Za).abs().max()))
@@ -229,8 +260,9 @@ def sweep_phase(dev, p, n, report):
         _log(f"sweep window [{m}, {i}]: vs chase_sweep_plain max|dH|/max|H| {dh:.3e} "
              f"max|dZ| {dz:.3e} (plain's own 1e-16 sensitivity {sens_h:.3e} / "
              f"{sens_z:.3e}; tolerance {tol_h:.3e} / {tol_z:.3e}); B0+B vs "
-             f"apply_log_plain {db:.3e}; backward error kernel {be_k:.3e} plain "
-             f"{be_p:.3e}; plain sweep {t_plain:.1f} ms, plain apply {t_apply:.1f} ms")
+             f"apply_log_plain {db:.3e} (B with Z == NULL: H identical); backward error "
+             f"kernel {be_k:.3e} plain {be_p:.3e}; plain sweep {t_plain:.1f} ms, plain apply "
+             f"{t_apply:.1f} ms")
         if not (dh <= tol_h and dz <= tol_z):
             raise AssertionError(f"sweep kernels disagree with chase_sweep_plain on "
                                  f"[{m}, {i}]: {dh:.3e} {dz:.3e}")
@@ -270,24 +302,21 @@ def sweep_phase(dev, p, n, report):
          f"({ms_a * 1e3 / ((i - m) * p):.4f} us per (step, factor)), B0 {ms_b0:.3f} ms, "
          f"B {ms_b:.3f} ms; plain sweep {times['plain_sweep']:.1f} ms, plain apply (B0+B) "
          f"{times['plain_apply']:.1f} ms")
+    apply_small_check(dev)
     headline_profile(dev)
     src = "periodicschurdecompositions_jl_torch/csrc/sweep.cu"
     # bytes and operations of the window [0, n-1] (K steps): A reads what
     # its generations depend on once, the rows m..i+1 and columns up to i+1
     # on and above the subdiagonal of H[0] and the diagonal of H[1:], and
-    # writes the log; B0 reads and writes rows k..k+2 of every column; B
-    # those of H's rows 0..i and all of Z; a 3x3 application is 15 flops
-    # per entry triple
+    # writes the log; B0 and B as apply_bounds counts them; a 3x3
+    # application is 15 flops per entry triple
     K = i - m
     upper = sum(i + 2 - max(r - 1, m) for r in range(m, i + 2)) + \
         (p - 1) * sum(i + 2 - max(r, m) for r in range(m, i + 2))
     bounds = {
         "sweep_generate": bound(8 * upper + 8 * 9 * p * K,
                                 15 * p * sum(i + 2 - k for k in range(m, i))),
-        "sweep_left": bound(2 * 8 * p * (i + 2 - m) * (N - max(m - 1, 0))
-                            + 8 * 9 * p * K, 15 * p * (N - max(m - 1, 0)) * K),
-        "sweep_right": bound(2 * 8 * p * (i + 1 + N) * (K + 2) + 8 * 9 * p * K,
-                             15 * p * (i + 1 + N) * K)}
+        **apply_bounds(p, n, m, i)}
     for name, ms, rep, err, pms in (
             ("sweep_generate", ms_a,
              "periodicschurdecompositions_jl_tpu/ops/pallas_sweep.py:396", err_a,
@@ -304,11 +333,54 @@ def sweep_phase(dev, p, n, report):
                         "bound_by": bounds[name][1], "library_ms": None}
 
 
+def apply_small_check(dev):
+    """B0 and B at p=1 and p=3, n=101 (one tile column of B0 ragged, B's
+    row tiles ragged), on windows with m = 0, a ragged span, two steps and
+    one step ending at i = N-2: kernel A's log (NB = 1, exact structural
+    zeros) and it followed by random orthogonal logs (NB = 2..4) against
+    apply_log_plain (1e-13), and B with Z == NULL against the with-Z H, bit
+    for bit.""" 
+    import torch
+    from periodicschurdecompositions_jl_torch.ops import _cuda, sweep
+    lib = _cuda.load()
+    st = torch.cuda.current_stream().cuda_stream
+    worst = 0.0
+    for p, n in ((1, 101), (3, 101)):
+        N = n + 1
+        Hn, Zn, v0 = mk_sweep_problem(p, n, np.random.default_rng(100 + p))
+        for (m, i) in ((0, n - 1), (1, 34), (50, 52), (n - 2, n - 1)):
+            H0 = torch.tensor(Hn, device=dev)  # H0[0, m, m-1] != 0: B0 must keep it
+            Z0 = torch.tensor(Zn, device=dev)
+            q, _ = np.linalg.qr(np.random.default_rng(m).standard_normal((4, p, N, 3, 3)))
+            R4 = torch.tensor(q.reshape(4, p, N, 9), device=dev)
+            R4[0] = sweep.sweep_generate(H0, m, i, v0)
+            for nb in (1, 2, 3, 4):
+                Hb, Zb, Hz = H0.clone(), Z0.clone(), H0.clone()
+                for Hx, Zx in ((Hb, Zb), (Hz, None)):
+                    _cuda.check(lib.psd_sweep_left(Hx.data_ptr(), R4.data_ptr(), p, N, m, i,
+                                                   nb, st), "sweep_left")
+                    _cuda.check(lib.psd_sweep_right(Hx.data_ptr(), None if Zx is None
+                                                    else Zx.data_ptr(), R4.data_ptr(), p, N,
+                                                    m, i, nb, st), "sweep_right")
+                Ha, Za = H0.clone(), Z0.clone()
+                sweep.apply_log_plain(Ha, Za, R4, m, i, want_z=True, nb=nb)
+                d = max(float((Hb - Ha).abs().max()) / float(H0.abs().max()),
+                        float((Zb - Za).abs().max()))
+                # a random log mixes row i+1 into the window (kernel A's ends
+                # with a 2-reflector), so exact zeros are checked on A's only
+                if not (d <= 1e-13 and torch.equal(Hz, Hb) and (nb > 1 or structure_ok(Hb))):
+                    raise AssertionError(f"B0/B at p={p} n={n} [{m}, {i}] NB={nb}: {d:.3e}")
+                worst = max(worst, d)
+    _log(f"B0+B at p=1 and p=3, n=101, four windows, NB = 1..4: vs apply_log_plain "
+         f"<= {worst:.3e}, B with Z == NULL bit for bit, exact structural zeros on A's log")
+
+
 def headline_profile(dev):
     """torch.profiler over one real headline ``pschur`` (p=16 n=512, seed
     12345): wall, device busy time and idle share, kernel A's share of the
-    device time and its time per (step, factor) on the leg's windows, and
-    the reduction kernel's (``hess_reduce_kernel``) time."""
+    device time and its time per (step, factor) on the leg's windows, B0's
+    and B's device time and launches, and the reduction kernel's
+    (``hess_reduce_kernel``) time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     import periodicschurdecompositions_jl_torch as pt
@@ -327,11 +399,16 @@ def headline_profile(dev):
     ev = [e for e in prof.key_averages() if "CUDA" in str(e.device_type) and dev_us(e) > 0]
     busy = sum(dev_us(e) for e in ev)
     a_us = sum(dev_us(e) for e in ev if "sweep_generate_kernel" in e.key)
+    b0 = [e for e in ev if "sweep_left_kernel" in e.key]
+    b = [e for e in ev if "sweep_right_kernel" in e.key]
     hess = [e for e in ev if "hess_reduce_kernel" in e.key]
     steps = pqr_real.last_info["sweep_steps"]
     _log(f"profile of one headline pschur: kernel A {a_us / 1e3:.1f} ms, "
          f"{a_us / busy:.1%} of device time, {a_us / (steps * P_HEAD):.4f} us per (step, "
-         f"factor) over {steps} steps; reduction kernel hess_reduce_kernel "
+         f"factor) over {steps} steps; B0 {sum(dev_us(e) for e in b0) / 1e3:.1f} ms in "
+         f"{sum(e.count for e in b0)}, B {sum(dev_us(e) for e in b) / 1e3:.1f} ms in "
+         f"{sum(e.count for e in b)} ({sum(dev_us(e) for e in b0 + b) / busy:.1%} of device "
+         f"time); reduction kernel hess_reduce_kernel "
          f"{sum(dev_us(e) for e in hess) / 1e3:.1f} ms in {sum(e.count for e in hess)} "
          f"in the trace (reduction {pqr_real.last_info['reduce_s'] * 1e3:.1f} ms on the "
          f"host clock); {profile_line(prof, wall)}")
@@ -361,8 +438,8 @@ def mb_phase(dev, p, n, report):
     1. The sweep against chase_sweep_mb_plain (tick order), gated as in
        sweep_phase at max(1e-12, 10 sens), sens the plain version's own
        change under a relative 1e-16 input perturbation.
-    2. B0 and B (bulge-major) against apply_log_plain on A-mb's own log:
-       1e-13.
+    2. B0 and B (all the bulges' logs in one pass) against apply_log_plain
+       on A-mb's own log, and with its first 2 and 3 bulges' logs: 1e-13.
     3. Backward error <= 1e-13 max|H0|, exact structural zeros, want_z=False
        leaves H identical.
     4. Times at the full window [0, n-1] with four bulges: A-mb, and the
@@ -416,6 +493,19 @@ def mb_phase(dev, p, n, report):
         Ha, Za = H0.clone(), Z0.clone()
         sweep.apply_log_plain(Ha, Za, R, m, i, want_z=True, nb=nbact)
         db = max(float((Hb - Ha).abs().max()) / scale, float((Zb - Za).abs().max()))
+        for nb in range(2, nbact):  # B0 and B with the first nb of the bulges' logs
+            Hx, Zx, Hy, Zy = H0.clone(), Z0.clone(), H0.clone(), Z0.clone()
+            _cuda.check(lib.psd_sweep_left(Hx.data_ptr(), R.data_ptr(), p, N, m, i, nb, st),
+                        "sweep_left")
+            _cuda.check(lib.psd_sweep_right(Hx.data_ptr(), Zx.data_ptr(), R.data_ptr(), p, N,
+                                            m, i, nb, st), "sweep_right")
+            sweep.apply_log_plain(Hy, Zy, R, m, i, want_z=True, nb=nb)
+            dx = max(float((Hx - Hy).abs().max()) / scale, float((Zx - Zy).abs().max()))
+            _log(f"mb B0+B with {nb} of the {nbact} bulges' logs on [{m}, {i}]: vs "
+                 f"apply_log_plain {dx:.3e}")
+            if not (dx <= 1e-13 and structure_ok(Hx)):
+                raise AssertionError(f"mb B0/B with {nb} logs disagree with apply_log_plain")
+            db = max(db, dx)
         be_k = recon_err(H0, Z0, Hk, Zk)
         Hnz = H0.clone()
         sweep.chase_sweep_mb(Hnz, None, m, i, v0, sig, nbact, nb=MB_NB, gap=MB_GAP,

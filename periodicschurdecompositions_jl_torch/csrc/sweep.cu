@@ -66,16 +66,21 @@
 // Logs: R (NB, p, N, 9), bulge b's slice laid out as the one-bulge log.
 //
 // sweep_left and sweep_right apply the log to H (and Z) with full
-// parallelism; they are bound by memory traffic over p N^2 float64 (each
-// thread walks one column or one row through all steps, keeping two of the
-// three live entries in registers), bulge-major for NB > 1: bulge 0's
-// whole log, then bulge 1's.  Deferring the left and right products past
-// the generation is exact because left and right multiplications commute,
-// and bulge-major order is exact because with GAP >= 3 a transform of
-// bulge b commutes with every later transform of the bulges ahead of it;
-// the reference's forced zeros re-emerge as roundoff below the
-// (sub)diagonal, and sweep_right writes them as exact zeros.
+// parallelism, one thread per column or row, through tiles staged in shared
+// memory by cp.async; they are bound by memory traffic (see the note above
+// sweep_left_kernel).  With NB > 1 they run the bulges' logs in one pass,
+// bulge b two steps behind bulge b-1, which gives every entry the
+// operations of the bulge-major order (bulge 0's whole log, then bulge
+// 1's).  Deferring the left and right products past the generation is
+// exact because left and right multiplications commute, and bulge-major
+// order is exact because with GAP >= 3 a transform of bulge b commutes
+// with every later transform of the bulges ahead of it; the reference's
+// forced zeros re-emerge as roundoff below the (sub)diagonal, and
+// sweep_right writes them as exact zeros.
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+
+#include <atomic>
 
 #include "psd_common.cuh"
 
@@ -83,7 +88,6 @@ namespace {
 
 constexpr int kGenThreads = 512;
 constexpr int kMaxBatch = 30;  // kernel A: L + 2 <= 32 window columns, one per lane
-constexpr int kApplyThreads = 128;
 constexpr int kMaxNb = 4;  // bulges of sweep_generate_mb (shift window 2 NB <= 8)
 
 // v0 of the leading bulge and the shifts (rt1r, rt1i, rt2r) of the others,
@@ -510,86 +514,348 @@ sweep_generate_mb_kernel(double* __restrict__ C, double* __restrict__ R, int p,
   }
 }
 
-// B0: rows k..k+2 of every H[f] <- F[f,k]^T rows, for k = m..i-1, for the
-// logs of bulges 0..nb-1 in turn (log stride p N 9).  One thread per
-// (factor, column >= m-1).  Column m-1 of factor 0 keeps its value at k == m
-// (the window-boundary subdiagonal, reference rowsk lo=k).
-__global__ void __launch_bounds__(kApplyThreads)
-sweep_left_kernel(double* __restrict__ H, const double* __restrict__ R, int p,
-                  int N, int m, int i, int nb) {
-  const int f = blockIdx.y;
-  const int c0 = max(m - 1, 0);
-  const int c = c0 + blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= N) return;
-  double* col = H + (size_t)f * N * N + c;
-  for (int b = 0; b < nb; ++b) {
-    const double* Rf = R + ((size_t)b * p + f) * N * 9;
-    double x0 = col[(size_t)m * N];
-    double x1 = col[(size_t)(m + 1) * N];
-    for (int k = m; k < i; ++k) {
-      const double x2 = col[(size_t)(k + 2) * N];
-      const double* Fk = Rf + (size_t)k * 9;
-      double F[9];
-#pragma unroll
-      for (int q = 0; q < 9; ++q) F[q] = __ldg(Fk + q);
-      double o0, o1, o2;
-      apply_ft(F, x0, x1, x2, o0, o1, o2);
-      if (f == 0 && k == m && c == m - 1) {
-        o0 = x0;
-        o1 = x1;
-        o2 = x2;
-      }
-      col[(size_t)k * N] = o0;
-      x0 = o1;
-      x1 = o2;
-    }
-    col[(size_t)i * N] = x0;
-    col[(size_t)(i + 1) * N] = x1;
+// Kernels B0 and B.  Both walk lines (B0: the columns >= max(m-1, 0) of
+// every H[f]; B: the rows 0..i of H[g] and all rows of Z[g]) along the
+// positions m..i+1 (B0: rows, B: columns).  Step k of a line maps its
+// entries (x0, x1, x2) at positions k..k+2 to
+//   o_j = dot3(x0, x1, x2; F[j], F[3+j], F[6+j]),  j = 0, 1, 2
+// (B0: F^T on rows, B: F on columns; the same products), writes o0 at k and
+// carries (o1, o2) to the next step.  The NB logs run in one pass, bulge b
+// two steps behind bulge b-1: at tick t bulge b takes its step k = t - 2b,
+// which reads position k+2 just as bulge b-1 finished it (its step k+2,
+// the same tick), so every entry sees bulge 0's steps, then bulge 1's, ...,
+// exactly as in one walk per bulge, and the entry passes from bulge to
+// bulge in a register.  A bulge outside its steps m..i-1 passes its
+// entries on unchanged (a delay of two ticks), which also loads its first
+// pair (x0, x1) = positions (m, m+1) and flushes its last at i, i+1.  So
+// the line is read once and written once whatever NB.
+//
+// Each block stages its lines in chunks of kApplyChunk positions through
+// a ring of shared-memory slots filled by 8-byte cp.async (16-byte ones
+// would need 16-byte aligned rows, which an odd N does not give), kAhead
+// chunks in flight ahead of the one in use, each chunk with the log rows
+// its ticks read (NB x (kApplyChunk + 2 NB) rows of 9 doubles, staged at a
+// pitch of 10 so that they load as double2).  The shared memory a block
+// takes depends on these sizes and NB only, never on N or p, so no path
+// with global windows is needed.  Ragged tiles, chunks and spans are
+// masked; p = 1 (B's source factor (g+1) mod p = g), m = 0, i = N-2 and
+// windows of one or two steps take the same code.
+//
+// One thread per line leaves an H100 with only ~2 (B0) or ~4 (B) walking
+// warps per SM at p=16, n=512, each a latency-bound chain, so a block has
+// kApplyThreads threads: warp 0 walks, and all of them issue the copies and
+// (B) write finished chunks back, which would otherwise sit on the walk's
+// path.  A chunk whose ticks all lie inside every bulge's steps runs from
+// registers: its entries are read before its first tick and its outputs
+// stored after its last, so the log rows load ahead of the arithmetic.
+//
+// The three-term sums are written out with __fma_rn/__dmul_rn in the order
+// nvcc contracted the earlier kernels' `x0 * F[0] + x1 * F[3] + x2 * F[6]`
+// (both the B0 and the B form): the middle product rounded, the first fused
+// onto it, then the third.  So every entry goes through the same operations
+// in the same order as before this design, bit for bit
+// (scripts/time_sweep_generate.py --apply prints the hashes).
+//
+// B0 (replaces the JAX package's ops/pallas_sweep.py:796
+// _make_left_kernel): a block owns kLeftCols columns of one factor, one per
+// lane of warp 0, and walks their rows down through the ring; its stores
+// are rows of consecutive columns, coalesced, straight to device memory.  B
+// (replaces ops/pallas_sweep.py:988 _make_apply_kernel): a block owns
+// kRightRows rows of one target, one per lane, and walks the columns;
+// the row pitch in shared memory is odd, so the lanes' 8-byte accesses to
+// one column of 32 rows fall in distinct banks.  A finished column goes
+// back into its slot, and a chunk goes back to device memory as coalesced
+// row segments once the next chunk's ticks have finished it (kApplyChunk >=
+// 2 NB), with the structural zeros of H's rows m+1..i written exactly.
+// What bounds both: bytes.  B0 reads the upper parts of its rows (its
+// input is zero below the (sub)diagonal) and writes the rows in full: its
+// chained left transforms fill every entry below the (sub)diagonal, so it
+// cannot stop at a band, and B, whose input that is, reads whole rows and
+// writes the zeros back.  At p=16, n=512 on [0, 511] that is 15.2 us (B0)
+// and 40.2 us (B) (chip_smoke.py::apply_bounds); 15 flops per entry and
+// step need ~1 us at the FP64 rate.  Measured there (NVIDIA H100 80GB
+// HBM3, 700 W, scripts/time_sweep_generate.py --apply): B0 0.040 ms, B
+// 0.071 ms with one log (38% and 56% of the bound; the design before, one
+// walk per bulge, 0.24 and 0.36 ms), 0.103 and 0.133 ms with four (1.02
+// and 2.97 ms before).
+
+constexpr int kApplyChunk = 16;  // positions per chunk (>= 2 kMaxNb)
+constexpr int kAhead = 3;        // chunks in flight ahead of the one in use
+constexpr int kLeftCols = 32;    // B0: columns per block, one per thread of warp 0
+constexpr int kRightRows = 32;   // B: rows per block, one per thread of warp 0
+constexpr int kApplyThreads = 128;  // per block: warp 0 walks, all copy and write back
+constexpr int kRightPitch = kApplyChunk + 1;  // odd: conflict-free columns
+constexpr int kLogPitch = 10;    // doubles per staged log row (16-byte rows)
+static_assert(kApplyChunk >= 2 * kMaxNb, "a chunk is finished by the next one's ticks");
+static_assert(kRightPitch % 2 == 1, "B's row pitch must be odd");
+static_assert(kApplyThreads % 32 == 0 && kApplyThreads >= kLeftCols &&
+                  kApplyThreads >= kRightRows, "the walking lanes are the block's first");
+
+// o0 of x0 * f0 + x1 * f1 + x2 * f2, rounded as nvcc contracted it
+__device__ __forceinline__ double dot3(double x0, double x1, double x2, double f0,
+                                       double f1, double f2) {
+  return __fma_rn(x2, f2, __fma_rn(x0, f0, __dmul_rn(x1, f1)));
+}
+
+// Doubles of the staged log rows of one chunk, NB bulges.
+__host__ __device__ constexpr int log_slot_doubles(int nb) {
+  return nb * (kApplyChunk + 2 * nb) * kLogPitch;
+}
+
+// Shared memory of B0 and B (bytes): kAhead + 1 (B0) or kAhead + 2 (B, the
+// previous chunk waits for its write-back) tile slots, kAhead + 1 log slots.
+constexpr size_t left_smem(int nb) {
+  return sizeof(double) * ((size_t)(kAhead + 1) * kApplyChunk * kLeftCols +
+                           (size_t)(kAhead + 1) * log_slot_doubles(nb));
+}
+constexpr size_t right_smem(int nb) {
+  return sizeof(double) * ((size_t)(kAhead + 2) * kRightRows * kRightPitch +
+                           (size_t)(kAhead + 1) * log_slot_doubles(nb));
+}
+static_assert((kApplyChunk * kLeftCols) % 2 == 0 && (kRightRows * kRightPitch) % 2 == 0,
+              "the log slots must start 16-byte aligned");
+
+// Stage the log rows chunk j's ticks read: bulge b's step k = q0 - 2 - 2b +
+// s at row s < kApplyChunk + 2 NB (for every tick t of the chunk, s = t - q0
+// + 2 whatever b), for the steps m..i-1 only.  src: the factor whose log.
+template <int kNb>
+__device__ __forceinline__ void stage_logs(double* Lg, const double* __restrict__ R,
+                                           int p, int N, int src, int m, int i, int q0) {
+  constexpr int LW = kApplyChunk + 2 * kNb;
+  for (int e = threadIdx.x; e < kNb * LW * 9; e += blockDim.x) {
+    const int b = e / (LW * 9), s = (e / 9) % LW, q = e % 9;
+    const int k = q0 - 2 - 2 * b + s;
+    if (k >= m && k < i)
+      __pipeline_memcpy_async(Lg + (b * LW + s) * kLogPitch + q,
+                              R + (((size_t)b * p + src) * N + k) * 9 + q, sizeof(double));
   }
 }
 
+// Step k of a bulge on its carried pair (x0, x1) and the entry x at
+// position k+2, with the staged log row F: returns o0, carries (o1, o2).
+__device__ __forceinline__ double apply_step(double& x0, double& x1, double x,
+                                             const double* F) {
+  const double2* F2 = reinterpret_cast<const double2*>(F);
+  const double2 f01 = F2[0], f23 = F2[1], f45 = F2[2], f67 = F2[3];
+  const double o0 = dot3(x0, x1, x, f01.x, f23.y, f67.x);
+  const double n1 = dot3(x0, x1, x, f01.y, f45.x, f67.y);
+  const double n2 = dot3(x0, x1, x, f23.x, f45.y, F[8]);
+  x0 = n1;
+  x1 = n2;
+  return o0;
+}
+
+// One tick t of a line: x enters bulge 0 (the entry at position t+2), each
+// bulge takes its step t - 2b (or passes its entries on), and the entry that
+// leaves the last bulge, at position t - 2(NB-1), is returned.  Lg: the
+// chunk's staged log rows, s = t - q0 + 2; keep: the step m is the
+// identity (B0's window-boundary column).
+template <int kNb>
+__device__ __forceinline__ double apply_tick(double x, double (&x0)[kNb], double (&x1)[kNb],
+                                             const double* Lg, int s, int t, int m, int i,
+                                             bool keep) {
+  constexpr int LW = kApplyChunk + 2 * kNb;
+#pragma unroll
+  for (int b = 0; b < kNb; ++b) {
+    const int k = t - 2 * b;
+    double o0;
+    if (k >= m && k < i && !(keep && k == m)) {
+      o0 = apply_step(x0[b], x1[b], x, Lg + (b * LW + s) * kLogPitch);
+    } else {
+      o0 = x0[b];
+      x0[b] = x1[b];
+      x1[b] = x;
+    }
+    x = o0;
+  }
+  return x;
+}
+
+// A chunk's kApplyChunk ticks when every bulge is inside its steps m..i-1
+// at each of them (no pass-on, no boundary column): the chunk's entries
+// enter in registers (xin[u]: position q0+u) and its outputs leave in
+// registers (out[u]: position q0 - 2 NB + u), so no shared-memory store
+// sits between two ticks and the log rows load ahead of the arithmetic.
+template <int kNb>
+__device__ __forceinline__ void steady_ticks(const double (&xin)[kApplyChunk],
+                                             double (&out)[kApplyChunk], double (&x0)[kNb],
+                                             double (&x1)[kNb], const double* Lg) {
+  constexpr int LW = kApplyChunk + 2 * kNb;
+#pragma unroll
+  for (int u = 0; u < kApplyChunk; ++u) {
+    double x = xin[u];
+#pragma unroll
+    for (int b = 0; b < kNb; ++b)
+      x = apply_step(x0[b], x1[b], x, Lg + (b * LW + u) * kLogPitch);
+    out[u] = x;
+  }
+}
+
+// The walk of one line over chunk j's ticks, and after the last chunk the
+// drain that flushes the bulges' positions up to i+1.  in(u) reads the
+// chunk's position q0+u; out(d, x) takes the finished entry at position
+// q0+d >= m (d >= -2 NB: the chunk before).  keep: the step m is the
+// identity (B0's window-boundary column).
+template <int kNb, class In, class Out>
+__device__ __forceinline__ void walk_chunk(int j, int nch, int m, int i, const double* Lg,
+                                           bool keep, double (&x0)[kNb], double (&x1)[kNb],
+                                           In in, Out out) {
+  constexpr int W = kApplyChunk;
+  const int q0 = m + j * W, w = min(W, i + 2 - q0);
+  if (w == W && j * W > 2 * kNb && q0 + W - 2 <= i) {  // every bulge inside its steps
+    double xin[W], y[W];
+#pragma unroll
+    for (int u = 0; u < W; ++u) xin[u] = in(u);
+    steady_ticks<kNb>(xin, y, x0, x1, Lg);
+#pragma unroll
+    for (int u = 0; u < W; ++u) out(u - 2 * kNb, y[u]);
+  } else {
+    for (int t = q0 - 2; t < q0 + w - 2; ++t) {
+      const double x = apply_tick<kNb>(in(t + 2 - q0), x0, x1, Lg, t + 2 - q0, t, m, i, keep);
+      const int r = t - 2 * (kNb - 1);
+      if (r >= m) out(r - q0, x);
+    }
+  }
+  if (j == nch - 1) {
+    for (int t = i; t < i + 2 * kNb; ++t) {
+      const double x = apply_tick<kNb>(0.0, x0, x1, Lg, t + 2 - q0, t, m, i, keep);
+      const int r = t - 2 * (kNb - 1);
+      if (r >= m) out(r - q0, x);
+    }
+  }
+}
+
+// A block's ring of nch chunks: copy(j) issues chunk j's asynchronous
+// copies (tile and log rows), one commit group per chunk, kAhead chunks
+// ahead of the one in use; walk(j) runs on the first `lines` threads once
+// chunk j has landed, after(j) on every thread after it.
+template <class Copy, class Walk, class After>
+__device__ __forceinline__ void apply_ring(int nch, int lines, Copy copy, Walk walk,
+                                           After after) {
+  for (int j = 0; j < kAhead; ++j) {
+    if (j < nch) copy(j);
+    __pipeline_commit();
+  }
+  for (int j = 0; j < nch; ++j) {
+    __pipeline_wait_prior(kAhead - 1);
+    __syncthreads();  // chunk j has landed; the slot chunk j + kAhead takes is free
+    if (j + kAhead < nch) copy(j + kAhead);
+    __pipeline_commit();
+    if (threadIdx.x < lines) walk(j);
+    after(j);
+  }
+}
+
+// B0: rows k..k+2 of every H[f] <- F[f,k]^T rows, for k = m..i-1, for the
+// logs of bulges 0..kNb-1 (log stride p N 9).  Block (x, f): columns
+// max(m-1, 0) + x kLeftCols + threadIdx.x of H[f].  Column m-1 of factor 0
+// keeps its value at k == m (the window-boundary subdiagonal, reference
+// rowsk lo=k).
+template <int kNb>
+__global__ void __launch_bounds__(kApplyThreads)
+sweep_left_kernel(double* __restrict__ H, const double* __restrict__ R, int p, int N,
+                  int m, int i) {
+  constexpr int W = kApplyChunk, NT = kAhead + 1, NL = kAhead + 1;
+  extern __shared__ double smem[];
+  double* tiles = smem;                             // NT x W rows x kLeftCols
+  double* logs = smem + NT * W * kLeftCols;         // NL x log_slot_doubles
+  const int f = blockIdx.y, tid = threadIdx.x;
+  const int cb = max(m - 1, 0) + blockIdx.x * kLeftCols;  // the tile's first column
+  const int nc = min(kLeftCols, N - cb);
+  double* Hf = H + (size_t)f * N * N + cb;
+  const int nch = (i + 2 - m + W - 1) / W;
+  auto copy = [&](int j) {  // chunk j's rows
+    const int q0 = m + j * W, w = min(W, i + 2 - q0);
+    double* T = tiles + (j % NT) * W * kLeftCols;
+    for (int e = tid; e < w * kLeftCols; e += kApplyThreads)
+      if (e % kLeftCols < nc)
+        __pipeline_memcpy_async(T + e, Hf + (size_t)(q0 + e / kLeftCols) * N + e % kLeftCols,
+                                sizeof(double));
+    stage_logs<kNb>(logs + (j % NL) * log_slot_doubles(kNb), R, p, N, f, m, i, q0);
+  };
+  const bool keep = f == 0 && cb + tid == m - 1;
+  double x0[kNb], x1[kNb];
+#pragma unroll
+  for (int b = 0; b < kNb; ++b) x0[b] = x1[b] = 0.0;
+  auto walk = [&](int j) {  // stores: rows of consecutive columns, coalesced
+    const double* T = tiles + (j % NT) * W * kLeftCols + tid;
+    double* out = Hf + (size_t)(m + j * W) * N + tid;
+    walk_chunk<kNb>(
+        j, nch, m, i, logs + (j % NL) * log_slot_doubles(kNb), keep, x0, x1,
+        [&](int u) { return T[u * kLeftCols]; },
+        [&](int d, double x) {
+          if (tid < nc) out[(ptrdiff_t)d * N] = x;
+        });
+  };
+  apply_ring(nch, kLeftCols, copy, walk, [](int) {});
+}
+
 // B: columns k..k+2 <- columns F for k = m..i-1, for the logs of bulges
-// 0..kNb-1 in turn.  blockIdx.z == 0: H[g] rows 0..i with the log of factor
-// (g+1) mod p, then the structural zeros of rows m..i written exactly;
-// blockIdx.z == 1: Z[g], all rows, own log.  The bulge count is a template
-// argument: with a run-time count nvcc compiles the row walk into code that
-// ran 3x slower on an H100, with or without an unroll pragma on the walk.
+// 0..kNb-1.  Block (x, g, 0): rows x kRightRows + threadIdx.x <= i of H[g]
+// with the log of factor (g+1) mod p, then the structural zeros of rows
+// m+1..i written exactly; block (x, g, 1): rows of Z[g], all N, own log.
 template <int kNb>
 __global__ void __launch_bounds__(kApplyThreads)
 sweep_right_kernel(double* __restrict__ H, double* __restrict__ Z,
                    const double* __restrict__ R, int p, int N, int m, int i) {
-  const int g = blockIdx.y;
+  constexpr int W = kApplyChunk, P = kRightPitch, NT = kAhead + 2, NL = kAhead + 1;
+  extern __shared__ double smem[];
+  double* tiles = smem;                         // NT x kRightRows x P
+  double* logs = smem + NT * kRightRows * P;    // NL x log_slot_doubles
+  const int g = blockIdx.y, tid = threadIdx.x;
   const bool isz = blockIdx.z == 1;
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
   const int nrows = isz ? N : i + 1;
-  if (r >= nrows) return;
+  const int r0 = blockIdx.x * kRightRows;
+  if (r0 >= nrows) return;
+  const int nr = min(kRightRows, nrows - r0);
   const int src = isz ? g : (g + 1) % p;
-  double* row = (isz ? Z : H) + (size_t)g * N * N + (size_t)r * N;
-#pragma unroll
-  for (int b = 0; b < kNb; ++b) {
-    const double* Rs = R + ((size_t)b * p + src) * N * 9;
-    double x0 = row[m];
-    double x1 = row[m + 1];
-    for (int k = m; k < i; ++k) {
-      const double x2 = row[k + 2];
-      const double* Fk = Rs + (size_t)k * 9;
-      double F[9];
-#pragma unroll
-      for (int q = 0; q < 9; ++q) F[q] = __ldg(Fk + q);
-      row[k] = x0 * F[0] + x1 * F[3] + x2 * F[6];
-      const double n1 = x0 * F[1] + x1 * F[4] + x2 * F[7];
-      const double n2 = x0 * F[2] + x1 * F[5] + x2 * F[8];
-      x0 = n1;
-      x1 = n2;
+  double* A = (isz ? Z : H) + (size_t)g * N * N + (size_t)r0 * N;
+  const int nch = (i + 2 - m + W - 1) / W;
+  auto copy = [&](int j) {  // chunk j's row segments, into chunk j-2's slot
+    const int q0 = m + j * W, w = min(W, i + 2 - q0);
+    double* T = tiles + (j % NT) * kRightRows * P;
+    for (int e = tid; e < nr * W; e += kApplyThreads)
+      if (e % W < w)
+        __pipeline_memcpy_async(T + (e / W) * P + e % W, A + (size_t)(e / W) * N + q0 + e % W,
+                                sizeof(double));
+    stage_logs<kNb>(logs + (j % NL) * log_slot_doubles(kNb), R, p, N, src, m, i, q0);
+  };
+  // chunk j's finished columns back to device memory, zeros below the
+  // (sub)diagonal of H's rows m+1..i in their place
+  auto write_back = [&](int j) {
+    const int q0 = m + j * W, w = min(W, i + 2 - q0);
+    const double* T = tiles + (j % NT) * kRightRows * P;
+    for (int e = tid; e < nr * W; e += kApplyThreads) {
+      const int rr = e / W, cc = e % W, r = r0 + rr;
+      if (cc >= w) continue;
+      const bool zero = !isz && r > m && q0 + cc < (g == 0 ? r - 1 : r);
+      A[(size_t)rr * N + q0 + cc] = zero ? 0.0 : T[rr * P + cc];
     }
-    row[i] = x0;
-    row[i + 1] = x1;
-  }
-  if (!isz && r > m) {
-    // below the subdiagonal of H[0] / the diagonal of H[1..p-1]
-    const int cend = (g == 0) ? r - 1 : r;
-    for (int c = (g == 0) ? max(m - 1, 0) : m; c < cend; ++c) row[c] = 0.0;
-  }
+  };
+  double x0[kNb], x1[kNb];
+#pragma unroll
+  for (int b = 0; b < kNb; ++b) x0[b] = x1[b] = 0.0;
+  // a finished column goes back into its slot: this chunk's or, for the
+  // positions the last bulge leaves behind (kApplyChunk >= 2 NB), the one
+  // before, indexed from q0
+  auto walk = [&](int j) {
+    double* T = tiles + (j % NT) * kRightRows * P + tid * P;
+    double* Tp = tiles + ((j + NT - 1) % NT) * kRightRows * P + tid * P + W;
+    walk_chunk<kNb>(
+        j, nch, m, i, logs + (j % NL) * log_slot_doubles(kNb), false, x0, x1,
+        [&](int u) { return T[u]; },
+        [&](int d, double x) {
+          if (d >= 0) T[d] = x;
+          else Tp[d] = x;
+        });
+  };
+  apply_ring(nch, kRightRows, copy, walk, [&](int j) {
+    __syncthreads();  // chunk j-1 (and at the end chunk j) finished
+    if (j >= 1) write_back(j - 1);
+    if (j == nch - 1) write_back(j);
+  });
+  if (!isz && g == 0 && m >= 1 && tid < nr && r0 + tid > m)
+    A[(size_t)tid * N + m - 1] = 0.0;  // column m-1 below the subdiagonal
 }
 
 struct GenPlan {
@@ -606,6 +872,43 @@ cudaError_t gen_plan(int p, GenPlan& plan) {
       kMaxBatch, [p](int l) { return gen_window_doubles(p, l) * sizeof(double); }, L);
   plan = {L > 0 ? L : kMaxBatch, L == 0};
   return e;
+}
+
+// Launch an apply kernel with `smem` bytes of shared memory.  Above 48 KB
+// a kernel needs the opt-in, which holds for the device it was asked on:
+// asked once per kernel and device (bit d of `asked`).
+template <class Kernel, class... Args>
+cudaError_t launch_apply(Kernel kernel, size_t smem, std::atomic<unsigned long long>& asked,
+                         dim3 grid, cudaStream_t st, Args... args) {
+  if (smem > 48 * 1024) {
+    int d = 0;
+    cudaError_t e = cudaGetDevice(&d);
+    if (e != cudaSuccess) return e;
+    const unsigned long long bit = 1ULL << (d % 64);
+    if (!(asked.load() & bit)) {
+      e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      if (e != cudaSuccess) return e;
+      asked.fetch_or(bit);
+    }
+  }
+  kernel<<<grid, kApplyThreads, smem, st>>>(args...);
+  return cudaGetLastError();
+}
+
+template <int kNb>
+cudaError_t launch_left(dim3 grid, cudaStream_t st, double* H, const double* R, int p,
+                        int N, int m, int i) {
+  static std::atomic<unsigned long long> asked{0};
+  return launch_apply(sweep_left_kernel<kNb>, left_smem(kNb), asked, grid, st, H, R, p, N, m,
+                      i);
+}
+
+template <int kNb>
+cudaError_t launch_right(dim3 grid, cudaStream_t st, double* H, double* Z, const double* R,
+                         int p, int N, int m, int i) {
+  static std::atomic<unsigned long long> asked{0};
+  return launch_apply(sweep_right_kernel<kNb>, right_smem(kNb), asked, grid, st, H, Z, R, p,
+                      N, m, i);
 }
 
 }  // namespace
@@ -669,27 +972,31 @@ int psd_sweep_generate_mb(const double* H, double* C, double* R, int p, int N,
 int psd_sweep_left(double* H, const double* R, int p, int N, int m, int i,
                    int nb, void* stream) {
   const int ncols = N - max(m - 1, 0);
-  dim3 grid((ncols + kApplyThreads - 1) / kApplyThreads, p);
-  sweep_left_kernel<<<grid, kApplyThreads, 0, (cudaStream_t)stream>>>(H, R, p, N,
-                                                                     m, i, nb);
-  return (int)cudaGetLastError();
+  dim3 grid((ncols + kLeftCols - 1) / kLeftCols, p);
+  cudaStream_t st = (cudaStream_t)stream;
+  static_assert(kMaxNb == 4, "one instantiation of each apply kernel per bulge count");
+  switch (nb) {
+    case 1: return (int)launch_left<1>(grid, st, H, R, p, N, m, i);
+    case 2: return (int)launch_left<2>(grid, st, H, R, p, N, m, i);
+    case 3: return (int)launch_left<3>(grid, st, H, R, p, N, m, i);
+    case 4: return (int)launch_left<4>(grid, st, H, R, p, N, m, i);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 // Kernel B, in place on H and (when Z != NULL) Z: the logs of bulges
 // 0..nb-1.
 int psd_sweep_right(double* H, double* Z, const double* R, int p, int N, int m,
                     int i, int nb, void* stream) {
-  dim3 grid((N + kApplyThreads - 1) / kApplyThreads, p, Z ? 2 : 1);
+  dim3 grid((N + kRightRows - 1) / kRightRows, p, Z ? 2 : 1);
   cudaStream_t st = (cudaStream_t)stream;
-  static_assert(kMaxNb == 4, "one instantiation of sweep_right_kernel per bulge count");
   switch (nb) {
-    case 1: sweep_right_kernel<1><<<grid, kApplyThreads, 0, st>>>(H, Z, R, p, N, m, i); break;
-    case 2: sweep_right_kernel<2><<<grid, kApplyThreads, 0, st>>>(H, Z, R, p, N, m, i); break;
-    case 3: sweep_right_kernel<3><<<grid, kApplyThreads, 0, st>>>(H, Z, R, p, N, m, i); break;
-    case 4: sweep_right_kernel<4><<<grid, kApplyThreads, 0, st>>>(H, Z, R, p, N, m, i); break;
+    case 1: return (int)launch_right<1>(grid, st, H, Z, R, p, N, m, i);
+    case 2: return (int)launch_right<2>(grid, st, H, Z, R, p, N, m, i);
+    case 3: return (int)launch_right<3>(grid, st, H, Z, R, p, N, m, i);
+    case 4: return (int)launch_right<4>(grid, st, H, Z, R, p, N, m, i);
     default: return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -26,8 +26,10 @@ columns behind bulge b-1 (``AlgoConfig.nbulges > 1``; the JAX package's
   - ``sweep_left`` applies the logged F^T to rows k..k+2 of every H[f];
   - ``sweep_right`` applies the logged F to columns k..k+2 of H[f-1]
     (rows 0..i; H[p-1] takes factor 0's log) and of Z[f], and writes the
-    structural zeros below the (sub)diagonal exactly.  Both take the
-    bulges' logs one after the other (bulge-major).
+    structural zeros below the (sub)diagonal exactly.  Both stage their
+    tiles in shared memory and run the bulges' logs in one pass, bulge b
+    two steps behind bulge b-1, which gives each entry the bulge-major
+    order (bulge 0's whole log, then bulge 1's) bit for bit.
 
   Deferring the left and right applications is exact because left and
   right products commute (and, for NB bulges with gap >= 3, because a

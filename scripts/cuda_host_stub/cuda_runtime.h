@@ -6,7 +6,8 @@
 // __syncthreads and __syncwarp are std::barriers, __shared__ is static
 // (shared by concurrent blocks: a cooperative kernel keeps its shared data
 // in the dynamic buffer), __shfl_sync goes through a per-warp slot array,
-// and the dynamic shared memory is a buffer of each block filled with NaN.
+// the dynamic shared memory is a buffer of each block filled with NaN, and
+// cp.async copies at once (cuda_pipeline.h).
 // STUB_SMEM_OPTIN sets the shared memory a block may take (default 232448
 // bytes, an H100's), STUB_SMS the number of SMs (default 2) and
 // STUB_BLOCKS_PER_SM the occupancy (default 2).  It checks a kernel's logic
@@ -17,6 +18,7 @@
 #include <barrier>
 #include <cfloat>
 #include <cmath>
+#include <map>
 #include <cstdlib>
 #include <cstring>
 #include <memory>
@@ -62,7 +64,13 @@ struct stub_block {
 inline thread_local stub_block* stub_blk;
 inline thread_local double* stub_dyn_smem;
 inline std::barrier<>* stub_grid_bar;
-inline size_t stub_max_dyn = 48 * 1024;
+// the opt-in shared memory of each kernel, as the card keeps it per function
+inline std::map<const void*, size_t> stub_max_dyn;
+template <class F>
+size_t stub_dyn_limit(F f) {
+  const auto it = stub_max_dyn.find(reinterpret_cast<const void*>(f));
+  return it == stub_max_dyn.end() ? 48 * 1024 : it->second;
+}
 inline void __syncthreads() { stub_blk->bar.arrive_and_wait(); }
 inline void __syncwarp(unsigned = 0xffffffffu) { stub_blk->wbar[threadIdx.x / 32]->arrive_and_wait(); }
 inline double __shfl_sync(unsigned, double v, int src) {
@@ -80,6 +88,14 @@ inline double __shfl_xor_sync(unsigned m, double v, int o) {
 inline double __fma_rn(double a, double b, double c) { return a * b + c; }
 inline double __dmul_rn(double a, double b) { return a * b; }
 inline double __dadd_rn(double a, double b) { return a + b; }
+// cp.async (<cuda_pipeline.h>): synchronous stand-ins, each copy done when
+// issued (the earliest an asynchronous copy may land), so a slot refilled
+// while another thread still reads it shows in the result
+inline void __pipeline_memcpy_async(void* dst, const void* src, size_t n, size_t = 0) {
+  std::memcpy(dst, src, n);
+}
+inline void __pipeline_commit() {}
+inline void __pipeline_wait_prior(size_t) {}
 inline double __ldg(const double* p) { return *p; }
 inline double2 __ldg(const double2* p) { return *p; }
 inline int __ldg(const int* p) { return *p; }
@@ -102,8 +118,8 @@ cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* n, F, int, size_t
   return cudaSuccess;
 }
 template <class F>
-cudaError_t cudaFuncSetAttribute(F, cudaFuncAttribute, int v) {
-  stub_max_dyn = (size_t)v;
+cudaError_t cudaFuncSetAttribute(F f, cudaFuncAttribute, int v) {
+  stub_max_dyn[reinterpret_cast<const void*>(f)] = (size_t)v;
   return cudaSuccess;
 }
 inline cudaError_t cudaMemcpy2DAsync(void* dst, size_t dp, const void* src, size_t sp,
@@ -134,7 +150,7 @@ void stub_run(dim3 g, dim3 b, size_t smem, unsigned b0, unsigned b1, F body) {
 }
 template <class K, class... A>
 void stub_launch(K kernel, dim3 g, dim3 b, size_t smem, cudaStream_t, A... args) {
-  if (smem > 48 * 1024 && smem > stub_max_dyn) std::abort();  // refused launch
+  if (smem > stub_dyn_limit(kernel)) std::abort();  // refused launch
   blockDim = b;
   gridDim = g;
   for (unsigned k = 0; k < g.x * g.y * g.z; ++k)
@@ -149,7 +165,7 @@ void stub_call(void (*kernel)(A...), void** args, std::index_sequence<I...>) {
 template <class... A>
 cudaError_t stub_launch_coop(void (*kernel)(A...), dim3 g, dim3 b, void** args, size_t smem,
                              cudaStream_t) {
-  if (smem > 48 * 1024 && smem > stub_max_dyn) return cudaErrorInvalidValue;
+  if (smem > stub_dyn_limit(kernel)) return cudaErrorInvalidValue;
   const unsigned nb = g.x * g.y * g.z;
   if ((int)nb > stub_env("STUB_SMS", 2) * stub_env("STUB_BLOCKS_PER_SM", 2))
     return cudaErrorCooperativeLaunchTooLarge;

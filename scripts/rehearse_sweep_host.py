@@ -14,7 +14,12 @@ under ``_dev/`` and drives it through ctypes on CPU tensors:
 
 at three shared-memory limits: an H100's (windows in shared memory, batches
 of up to 30 steps), 3000 bytes (short batches) and 600 bytes (the windows in
-the global scratch).  Needs g++ with C++20; takes about a minute.
+the global scratch); then B0 and B bit for bit against the numpy model of
+tests/torch_apply_host.py (their tiles, chunks and two-step bulge skew) on
+kernel A's log and on A-mb's log of four bulges (NB = 1..4), with and
+without Z, including ragged tiles, chunks and spans and p = 1 (the stub's
+cp.async copies at once).  Built with UBSan's alignment check.  Needs g++
+with C++20; takes about a minute.
 
 ``--cx``: the same for csrc/sweep_cx.cu: the complex kernel A's log against
 the numpy model of tests/torch_cx_window_host.py, bit for bit, for
@@ -93,6 +98,8 @@ from chip_smoke import mk_cx_problem  # noqa: E402
 from periodicschurdecompositions_jl_torch.ops import rgopen, sweep, sweep_cx, sweep_rg  # noqa: E402
 from torch_cx_window_host import qz_log_full  # noqa: E402
 from torch_rg_window_host import rg_log_full  # noqa: E402
+from torch_apply_host import apply_model  # noqa: E402
+from torch_mb_host import mb_sig  # noqa: E402
 from torch_window_host import sweep_log_full  # noqa: E402
 
 
@@ -108,7 +115,7 @@ def build_stub(name, path=None, extra="", sub=(), flags=()):
     src = src.replace("extern __shared__ double smem[];", "double* smem = stub_dyn_smem;")
     src = src.replace("extern __shared__ double2 smem[];",
                       "double2* smem = (double2*)stub_dyn_smem;")
-    src = re.sub(r"([A-Za-z_][A-Za-z_0-9]*(?:<\d+>)?)<<<(.*?)>>>\(", r"stub_launch(\1, \2, ",
+    src = re.sub(r"([A-Za-z_][A-Za-z_0-9]*(?:<\w+>)?)<<<(.*?)>>>\(", r"stub_launch(\1, \2, ",
                  src, flags=re.S)
     os.makedirs(OUT, exist_ok=True)
     tag = name + ("_sub" if sub else "")
@@ -121,7 +128,7 @@ def build_stub(name, path=None, extra="", sub=(), flags=()):
 
 
 def build():
-    lib = build_stub("sweep")
+    lib = build_stub("sweep", flags=ALIGN)
     vp, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     lib.psd_sweep_generate.argtypes = [vp, vp, vp, i32, i32, i32, i32, f64, f64, f64, vp]
     lib.psd_sweep_generate_scratch.argtypes = [i32, i32]
@@ -131,6 +138,11 @@ def build():
     lib.psd_sweep_left.argtypes = [vp, vp, i32, i32, i32, i32, i32, vp]
     lib.psd_sweep_right.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, vp]
     return lib
+
+
+# UBSan's alignment check: a misaligned double2 load stops the run (x86
+# would tolerate it, an H100 would not)
+ALIGN = ("-fsanitize=alignment", "-fno-sanitize-recover=alignment")
 
 
 def problem(p, n, seed):
@@ -176,6 +188,52 @@ def check(lib, p, n, m, i):
     Hp, Zp = torch.tensor(H), torch.tensor(Z)
     sweep.chase_sweep_plain(Hp, Zp, m, i, v0, want_z=True)
     return float((Hb - Hp).abs().max()) / np.abs(H).max(), float((Zb - Zp).abs().max())
+
+
+def apply_sizes():
+    """The apply kernels' tile and chunk sizes, read from csrc/sweep.cu."""
+    src = open(os.path.join(CSRC, "sweep.cu")).read()
+
+    def get(key):
+        return int(re.search(rf"constexpr int {key} = (\d+);", src).group(1))
+    return {"cols": get("kLeftCols"), "rows": get("kRightRows"), "chunk": get("kApplyChunk")}
+
+
+def check_apply(lib, p, n, m, i, sizes):
+    """B0 then B through the stub, bit for bit against the numpy model of
+    tests/torch_apply_host.py, with and without Z: on kernel A's log (NB =
+    1) and on A-mb's log of four bulges (gap 3), its first NB = 1..4
+    bulges.  Returns the number of runs."""
+    H, Z, v0 = problem(p, n, p * 31 + n + m)
+    if m > 0:
+        H[0, m, m - 1] = 0.0
+    H[0, i + 1, i] = 0.0
+    N = n + 1
+    Ht = torch.tensor(H)
+    work = torch.full((lib.psd_sweep_generate_scratch(p, N),), float("nan"), dtype=torch.float64)
+    R = torch.full((p, N, 9), float("nan"), dtype=torch.float64)
+    assert lib.psd_sweep_generate(Ht.data_ptr(), work.data_ptr(), R.data_ptr(), p, N, m, i,
+                                  *map(float, v0), None) == 0
+    sig = mb_sig(np.random.default_rng(n + m), 4)
+    vals = list(map(float, v0)) + [float(x) for s3 in sig for x in s3]
+    Rm = torch.full((4, p, N, 9), float("nan"), dtype=torch.float64)
+    C = torch.empty((p, N, N), dtype=torch.float64)
+    assert lib.psd_sweep_generate_mb(Ht.data_ptr(), C.data_ptr(), Rm.data_ptr(), p, N, m, i, 4,
+                                     3, 4, (ctypes.c_double * len(vals))(*vals), None) == 0
+    assert not torch.isnan(Rm[:, :, m:i]).any(), "A-mb's log has NaNs"
+    runs = 0
+    for L, nb in [(R, 1)] + [(Rm, nb) for nb in (1, 2, 3, 4)]:
+        for want_z in (True, False):
+            Hb = torch.tensor(H)
+            Zb = torch.tensor(Z) if want_z else None
+            assert lib.psd_sweep_left(Hb.data_ptr(), L.data_ptr(), p, N, m, i, nb, None) == 0
+            assert lib.psd_sweep_right(Hb.data_ptr(), Zb.data_ptr() if want_z else None,
+                                       L.data_ptr(), p, N, m, i, nb, None) == 0
+            Hm, Zm = apply_model(H, Z if want_z else None, L.numpy(), m, i, nb, **sizes)
+            assert np.array_equal(Hb.numpy(), Hm), (p, n, m, i, nb, want_z, "H")
+            assert not want_z or np.array_equal(Zb.numpy(), Zm), (p, n, m, i, nb, "Z")
+            runs += 1
+    return runs
 
 
 def build_cx():
@@ -661,6 +719,24 @@ def main():
             dh, dz = check(lib, p, n, m, i)
             print(f"shared memory {optin} B, p={p} n={n} [{m}, {i}]: A's log == the model's, "
                   f"A-mb(1 bulge) == A; B0+B vs chase_sweep_plain dH {dh:.2e} dZ {dz:.2e}",
+                  flush=True)
+    # the source's sizes, then the tightest chunk (2 kMaxNb) with 8-line tiles
+    tight = build_stub("sweep", flags=ALIGN, sub=[
+        ("constexpr int kApplyChunk = ", "constexpr int kApplyChunk = 8; //"),
+        ("constexpr int kLeftCols = ", "constexpr int kLeftCols = 8; //"),
+        ("constexpr int kRightRows = ", "constexpr int kRightRows = 8; //")])
+    for fn in ("psd_sweep_generate", "psd_sweep_generate_scratch", "psd_sweep_generate_mb",
+               "psd_sweep_left", "psd_sweep_right"):
+        getattr(tight, fn).argtypes = getattr(lib, fn).argtypes
+        getattr(tight, fn).restype = getattr(lib, fn).restype
+    for lb in (lib, tight):
+        sizes = apply_sizes() if lb is lib else {"cols": 8, "rows": 8, "chunk": 8}
+        for (p, n, m, i) in [(1, 12, 0, 11), (2, 14, 2, 12), (3, 40, 0, 39), (16, 37, 5, 33),
+                             (4, 8, 2, 4), (2, 6, 2, 3), (5, 70, 3, 66), (1, 40, 20, 39),
+                             (3, 33, 1, 32), (2, 45, 0, 44)]:
+            runs = check_apply(lb, p, n, m, i, sizes)
+            print(f"p={p} n={n} [{m}, {i}]: B0+B == the numpy model bit for bit in {runs} "
+                  f"runs (A's log; A-mb's, NB = 1..4; with and without Z; {sizes})",
                   flush=True)
     return 0
 

@@ -100,9 +100,29 @@ deflation entries must have the same C signatures) in one process, in
 rounds of A, B, B, A with CUDA events around each call (``--reps`` rounds),
 the medians and the hashes of H and Z of both.
 
+``--apply``: kernels B0 and B (csrc/sweep.cu::psd_sweep_left and
+psd_sweep_right) on the problem of chip_smoke.py's ``sweep_phase`` (p=16,
+n=512, ``default_rng(2024)``, the window's boundary subdiagonals set to
+zero), on the windows [0, 511], [37, 300] and [200, 202]: NB=1 on kernel
+A's log and NB=4 on A-mb's log of four bulges (gap 3, the driver's window
+shifts, ``pqr_real.window_shifts``), and on [0, 511] also NB=2 and 3 (the
+first bulges of that log).  For each: the sha256 of H and Z after one B0 +
+B on fresh copies (equal hashes: bit-identical results) and the time of B0
+and of B with CUDA events (mean of ``--reps`` launches after a warm-up, on
+a copy that takes them one after the other), each beside its bound
+(chip_smoke.py's ``apply_bounds``, from this checkout); on [0, 511] also three
+one-log launches with bulges 0, 1 and 2's logs, and NB=3 with bulge 0's log
+three times (what the NB logs cost).  Prints ptxas's register and
+spill report of the apply kernels (sweep.cu of ``--root`` built alone with
+``-Xptxas -v`` into _dev/).  ``--set NAME=VALUE`` (repeatable) times B0 and
+B of a copy of that sweep.cu with ``constexpr int NAME`` rewritten (for
+example ``--set kAhead=6``) instead.  ``--headline`` adds one real headline
+``pschur`` (wall, niter, sweeps, hashes of T and Z) and the device time of
+kernels A, B0 and B in a second run under the CUDA profiler.
+
 Run from the repository root:
   python3 scripts/time_sweep_generate.py [--cx | --rg | --hess | --signed [--split]
-      | --deflate [--against DIR]] [--root DIR] [--headline [--trace]]
+      | --deflate [--against DIR] | --apply] [--root DIR] [--headline [--trace]]
 """
 import argparse
 import hashlib
@@ -129,6 +149,7 @@ def main():
     ap.add_argument("--signed", action="store_true")
     ap.add_argument("--split", action="store_true")
     ap.add_argument("--deflate", action="store_true")
+    ap.add_argument("--apply", action="store_true")
     ap.add_argument("--against", default=None)
     ap.add_argument("--set", action="append", default=[])
     ap.add_argument("--hq", default=os.path.join(HERE, "_dev", "rg_hq.pt"))
@@ -148,7 +169,8 @@ def main():
     print(smi)
     lib = _cuda.load()
     out = {"root": os.path.abspath(args.root), "card": smi}
-    (time_deflate if args.deflate else time_signed if args.signed else time_hess
+    (time_apply if args.apply else time_deflate if args.deflate else time_signed
+     if args.signed else time_hess
      if args.hess else time_cx if args.cx else time_rg if args.rg
      else time_real)(torch, lib, _cuda, args, out)
     print(json.dumps(out))
@@ -203,7 +225,7 @@ def headline_real(torch, out):
                      device="cuda")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    pt.pschur(A, "R")
+    P = pt.pschur(A, "R")
     torch.cuda.synchronize()
     out["headline_wall_s"] = time.perf_counter() - t0
     info = pqr_real.last_info
@@ -211,6 +233,7 @@ def headline_real(torch, out):
     out["headline_iterate_s"] = info["iterate_s"]
     out["headline_niter"] = info["niter"]
     out["headline_sweeps"] = info["sweeps"]
+    out["headline_T_sha256"], out["headline_Z_sha256"] = sha(P.Ts), sha(P.Zs)
 
 
 def time_cx(torch, lib, _cuda, args, out):
@@ -270,6 +293,151 @@ def headline_cx(torch, out):
     out["cx_leg_reduce_s"] = info["reduce_s"]
     out["cx_leg_niter"] = info["niter"]
     out["cx_leg_sweeps"] = info["sweeps"]
+
+
+def ptxas_report(_cuda, root, name, keys, sets=()):
+    """csrc/<name>.cu of ``root`` (each ``constexpr int`` of ``sets``
+    rewritten) built alone with ``-Xptxas -v`` into _dev/<name>_<tag>.cubin:
+    {kernel: "N registers, stack frame and spill bytes"} for the kernels
+    whose mangled names hold one of ``keys``."""
+    import re
+    csrc = os.path.join(root, "periodicschurdecompositions_jl_torch", "csrc")
+    dev = os.path.join(HERE, "_dev")
+    os.makedirs(dev, exist_ok=True)
+    tag = hashlib.sha256((os.path.abspath(root) + " ".join(sets)).encode()).hexdigest()[:8]
+    cu = os.path.join(dev, f"{name}_{tag}.cu")
+    open(cu, "w").write(set_constexprs(open(os.path.join(csrc, name + ".cu")).read(), sets,
+                                       name + ".cu"))
+    log = subprocess.run([_cuda._find_nvcc(), *_cuda.NVCC_FLAGS, "-Xptxas", "-v", "-cubin",
+                          "-I", csrc, "-o", cu[:-3] + ".cubin", cu], capture_output=True,
+                         text=True, check=True).stderr
+    rep, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = m.group(1)
+            continue
+        if fn and any(k in fn for k in keys):
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes "
+                          r"spill loads", line)
+            if m:
+                rep[fn] = f"stack {m.group(1)} B, spill {m.group(2)}/{m.group(3)} B"
+            m = re.search(r"Used (\d+) registers", line)
+            if m:
+                short = re.sub(r".*?(sweep_(?:left|right)_kernel(?:ILi\d+E)?).*", r"\1", fn)
+                rep[short] = f"{m.group(1)} registers, " + rep.pop(fn, "")
+                fn = None
+    return rep
+
+
+def time_apply(torch, lib, _cuda, args, out):
+    import ctypes
+    import importlib.util
+    from periodicschurdecompositions_jl_torch.ops import pqr_real, sweep
+    # this checkout's chip_smoke.py (its apply_bounds; --root's may predate it)
+    spec = importlib.util.spec_from_file_location("chip_smoke_here",
+                                                  os.path.join(HERE, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    MB_GAP, mk_sweep_problem = cs.MB_GAP, cs.mk_sweep_problem
+    p, n = 16, 512
+    N = n + 1
+    out["ptxas"] = ptxas_report(_cuda, args.root, "sweep", ("sweep_left", "sweep_right"),
+                                args.set)
+    print("ptxas:", json.dumps(out["ptxas"]), flush=True)
+    alib = lib
+    if args.set:  # B0 and B of a copy of sweep.cu with constexprs rewritten
+        alib = build_variant(_cuda, args.root, "sweep", args.set)
+        vp, i32 = ctypes.c_void_p, ctypes.c_int
+        alib.psd_sweep_left.argtypes = [vp, vp, i32, i32, i32, i32, i32, vp]
+        alib.psd_sweep_right.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, vp]
+        out["set"] = args.set
+    Hn, Zn, v0 = mk_sweep_problem(p, n, np.random.default_rng(2024))
+    Z0 = torch.tensor(Zn, device="cuda")
+    st = torch.cuda.current_stream().cuda_stream
+
+    def left(H, R, m, i, nb):
+        _cuda.check(alib.psd_sweep_left(H.data_ptr(), R.data_ptr(), p, N, m, i, nb, st),
+                    "sweep_left")
+
+    def right(H, Z, R, m, i, nb):
+        _cuda.check(alib.psd_sweep_right(H.data_ptr(), Z.data_ptr(), R.data_ptr(), p, N, m,
+                                         i, nb, st), "sweep_right")
+    out.update(p=p, n=n)
+    for (m, i) in ((0, n - 1), (37, 300), (200, 202)):
+        H0 = torch.tensor(Hn, device="cuda")
+        if m > 0:
+            H0[0, m, m - 1] = 0.0
+        H0[0, i + 1, i] = 0.0
+        R1 = sweep.sweep_generate(H0, m, i, v0)
+        sig = pqr_real.window_shifts(H0, i, 4)
+        vals = [float(x) for x in v0] + [float(x) for s3 in sig for x in s3]
+        R4 = torch.empty((4, p, N, 9), dtype=torch.float64, device="cuda")
+        C = torch.empty((p, N, N), dtype=torch.float64, device="cuda")
+        _cuda.check(lib.psd_sweep_generate_mb(H0.data_ptr(), C.data_ptr(), R4.data_ptr(), p, N,
+                                              m, i, 4, MB_GAP, 4,
+                                              (ctypes.c_double * len(vals))(*vals), st),
+                    "sweep_generate_mb")
+        runs = [(1, R1), (4, R4)] + ([(2, R4), (3, R4)] if m == 0 else [])
+        for nb, R in runs:
+            key = f"[{m},{i}] nb{nb}"
+            H, Z = H0.clone(), Z0.clone()
+            left(H, R, m, i, nb)
+            right(H, Z, R, m, i, nb)
+            out[f"H_sha256 {key}"], out[f"Z_sha256 {key}"] = sha(H), sha(Z)
+            H, Z = H0.clone(), Z0.clone()
+            out[f"B0_ms {key}"] = event_ms(torch, lambda: left(H, R, m, i, nb), args.reps)
+            out[f"B_ms {key}"] = event_ms(torch, lambda: right(H, Z, R, m, i, nb), args.reps)
+            bnd = cs.apply_bounds(p, n, m, i, nb)
+            for k, name in (("B0", "sweep_left"), ("B", "sweep_right")):
+                out[f"{k}_bound_us {key}"] = bnd[name][0] * 1e3
+                out[f"{k}_of_bound {key}"] = bnd[name][0] / out[f"{k}_ms {key}"]
+            print(f"{key}: B0 {out[f'B0_ms {key}']:.4f} ms ({out[f'B0_of_bound {key}']:.1%} of "
+                  f"{out[f'B0_bound_us {key}']:.3f} us), B {out[f'B_ms {key}']:.4f} ms "
+                  f"({out[f'B_of_bound {key}']:.1%} of {out[f'B_bound_us {key}']:.3f} us), "
+                  f"H {out[f'H_sha256 {key}']} Z {out[f'Z_sha256 {key}']}", flush=True)
+        if m == 0:  # what NB logs cost: three one-log launches, one log three times
+            H, Z = H0.clone(), Z0.clone()
+            out[f"B0_ms [{m},{i}] 3x nb1"] = event_ms(
+                torch, lambda: [left(H, R4[b], m, i, 1) for b in range(3)], args.reps)
+            out[f"B_ms [{m},{i}] 3x nb1"] = event_ms(
+                torch, lambda: [right(H, Z, R4[b], m, i, 1) for b in range(3)], args.reps)
+            R000 = R4[:1].repeat(3, 1, 1, 1).contiguous()
+            out[f"B0_ms [{m},{i}] nb3 log0x3"] = event_ms(
+                torch, lambda: left(H, R000, m, i, 3), args.reps)
+            out[f"B_ms [{m},{i}] nb3 log0x3"] = event_ms(
+                torch, lambda: right(H, Z, R000, m, i, 3), args.reps)
+            print(" ".join(f"{k} {v:.4f}" for k, v in out.items() if "3x" in k or "x3" in k),
+                  flush=True)
+    for k in ("B0", "B"):
+        out[f"{k} nb4/nb1 [0,{n - 1}]"] = out[f"{k}_ms [0,{n - 1}] nb4"] / out[
+            f"{k}_ms [0,{n - 1}] nb1"]
+    if args.headline:
+        headline_real(torch, out)
+        headline_apply_profile(torch, out)
+
+
+def headline_apply_profile(torch, out):
+    """One more headline pschur under the CUDA profiler: the device time of
+    kernels A, B0 and B and of the whole run, and their launches."""
+    from torch.profiler import ProfilerActivity, profile
+    import periodicschurdecompositions_jl_torch as pt
+    A = torch.tensor(np.random.default_rng(12345).standard_normal((16, 512, 512)),
+                     device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        pt.pschur(A, "R")
+        torch.cuda.synchronize()
+    ev = [e for e in prof.key_averages() if "CUDA" in str(e.device_type)]
+
+    def us(e):
+        return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
+    out["headline_device_ms"] = sum(us(e) for e in ev) / 1e3
+    for tag, key in (("A", "sweep_generate_kernel"), ("B0", "sweep_left_kernel"),
+                     ("B", "sweep_right_kernel")):
+        sel = [e for e in ev if key in e.key]
+        out[f"headline_{tag}_device_ms"] = sum(us(e) for e in sel) / 1e3
+        out[f"headline_{tag}_launches"] = sum(e.count for e in sel)
 
 
 def set_constexprs(src, sets, fname):

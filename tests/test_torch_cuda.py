@@ -186,6 +186,32 @@ def test_mb_sweep_kernels_match_plain(cuda, p, n, m, i, nb, nbact):
     assert torch.equal(Hb, Hk) and torch.equal(Zb, Zk)
 
 
+@pytest.mark.parametrize("nb", [1, 2, 3, 4])
+@pytest.mark.parametrize("p,n,m,i", [(1, 45, 0, 44), (3, 70, 1, 34), (2, 33, 30, 32),
+                                     (3, 40, 38, 39)])
+def test_apply_kernels_every_nb(cuda, p, n, m, i, nb):
+    """B0 + B with nb random orthogonal logs at ragged tiles and spans
+    against apply_log_plain (1e-13); B with Z == NULL leaves H as with Z."""
+    Hn, Zn, _ = _problem(p, n, p * 10 + n + nb)
+    N = n + 1
+    q, _ = np.linalg.qr(np.random.default_rng(nb).standard_normal((nb, p, N, 3, 3)))
+    R = torch.tensor(q.reshape(nb, p, N, 9), device=cuda)
+    H0, Z0 = torch.tensor(Hn, device=cuda), torch.tensor(Zn, device=cuda)
+    lib = _cuda.load()
+    st = torch.cuda.current_stream().cuda_stream
+    Hb, Zb, Hz = H0.clone(), Z0.clone(), H0.clone()
+    for Hx, Zx in ((Hb, Zb), (Hz, None)):
+        _cuda.check(lib.psd_sweep_left(Hx.data_ptr(), R.data_ptr(), p, N, m, i, nb, st), "left")
+        _cuda.check(lib.psd_sweep_right(Hx.data_ptr(), None if Zx is None else Zx.data_ptr(),
+                                        R.data_ptr(), p, N, m, i, nb, st), "right")
+    Ha, Za = H0.clone(), Z0.clone()
+    sweep.apply_log_plain(Ha, Za, R, m, i, want_z=True, nb=nb)
+    torch.cuda.synchronize()
+    assert float((Hb - Ha).abs().max()) <= 1e-13 * float(H0.abs().max())
+    assert float((Zb - Za).abs().max()) <= 1e-13
+    assert torch.equal(Hz, Hb)
+
+
 @pytest.mark.parametrize("p,n,m,i", [(1, 20, 0, 19), (3, 24, 5, 20)])
 def test_mb_kernels_with_one_bulge_are_the_single_sweep(cuda, p, n, m, i):
     Hn, Zn, v0 = _problem(p, n, p * 100 + n)
