@@ -414,7 +414,7 @@ def headline_profile(dev):
          f"host clock); {profile_line(prof, wall)}")
 
 
-def mb_generate(lib, st, H, m, i, v0, sig, nb, nbact):
+def mb_generate(lib, st, H, m, i, v0, sig, nb, nbact, gap=MB_GAP):
     """Kernel A-mb straight through its C entry point; returns its log."""
     import ctypes
     import torch
@@ -422,22 +422,130 @@ def mb_generate(lib, st, H, m, i, v0, sig, nb, nbact):
     p, N, _ = H.shape
     vals = [float(x) for x in v0] + [float(x) for s3 in sig for x in s3]
     R = torch.empty((nbact, p, N, 9), dtype=torch.float64, device=H.device)
-    C = torch.empty((p, N, N), dtype=torch.float64, device=H.device)
-    _cuda.check(lib.psd_sweep_generate_mb(H.data_ptr(), C.data_ptr(), R.data_ptr(), p, N, m,
-                                          i, nb, MB_GAP, nbact,
+    work = torch.empty(lib.psd_sweep_generate_mb_scratch(p, N, nb, gap), dtype=torch.float64,
+                       device=H.device)
+    _cuda.check(lib.psd_sweep_generate_mb(H.data_ptr(), work.data_ptr(), R.data_ptr(), p, N, m,
+                                          i, nb, gap, nbact,
                                           (ctypes.c_double * len(vals))(*vals), st),
                 "sweep_generate_mb")
     return R
 
 
-def mb_phase(dev, p, n, report):
-    """Kernels A-mb -> B0 -> B (NB = 4 bulges, GAP = 3) against the plain
-    versions, on two windows the plain version can afford: [0, 127] with
-    four active bulges and [200, 263] with two.
+def mb_bound(p, n, m, i, nb, nbact, gap):
+    """(bound_ms, bound_by) of A-mb on [m, i], and the bytes of the earlier
+    reckoning.  Bytes: the entries its logs depend on, read once (per
+    column c <= i+1 the rows from max(m, c - 2 - lowext), where the band
+    updates reach, down to the (sub)diagonal, lowext = (nb-1) gap), and
+    the nbact logs written; operations: 15 flops per entry triple of each
+    bulge's left transforms on columns k..i+1 and band updates.  The
+    earlier reckoning read rows m..i+1 in full."""
+    lowext, K, N = (nb - 1) * gap, i - m, n + 1
+    cols = range(m, i + 2)
+    nz = sum(max(min(c + 1, i + 1) - max(m, c - 2 - lowext) + 1, 0) for c in cols) + \
+        (p - 1) * sum(max(min(c, i + 1) - max(m, c - 2 - lowext) + 1, 0) for c in cols)
+    logs = 8 * 9 * p * K * nbact
+    band = sum(min(k + 3, i) - max(m, k - lowext) + 1 for k in range(m, i))
+    flops = 15 * p * nbact * (sum(i + 2 - k for k in range(m, i)) + band)
+    return bound(8 * nz + logs, flops), 8 * p * N * (i + 2 - m) + logs
 
-    1. The sweep against chase_sweep_mb_plain (tick order), gated as in
-       sweep_phase at max(1e-12, 10 sens), sens the plain version's own
-       change under a relative 1e-16 input perturbation.
+
+def mb_case(dev, lib, st, Hn, Zn, v0, m, i, nbact, gap, label, nb=MB_NB):
+    """A-mb -> B0 -> B on one window against the plain versions (mb_phase's
+    checks 1-3); returns (the sweep's and A-mb's largest error, B0+B's,
+    plain ms)."""
+    import torch
+    from periodicschurdecompositions_jl_torch.ops import _cuda, pqr_real, sweep
+    p, N, _ = Hn.shape
+    H0 = torch.tensor(Hn, device=dev)
+    if m > 0:
+        H0[0, m, m - 1] = 0.0
+    H0[0, i + 1, i] = 0.0
+    Z0 = torch.tensor(Zn, device=dev)
+    sig = pqr_real.window_shifts(H0, i, nb)
+    scale = float(H0.abs().max())
+    Hk, Zk = H0.clone(), Z0.clone()
+    sweep.chase_sweep_mb(Hk, Zk, m, i, v0, sig, nbact, nb=nb, gap=gap, want_z=True)
+    R = mb_generate(lib, st, H0, m, i, v0, sig, nb, nbact, gap)
+    Hh = torch.tensor(Hn, device=dev)
+    if m > 0:
+        Hh[0, m, m - 1] = 0.0
+    Hh[0, i + 1, i] = 0.0
+    if not torch.equal(H0, Hh):
+        raise AssertionError("kernel A-mb wrote its input")
+    Hp, Zp = H0.clone(), Z0.clone()
+    Rp = torch.zeros((nb, p, N, 9), dtype=torch.float64, device=dev)
+    tp = wall_ms(lambda: sweep.chase_sweep_mb_plain(Hp, Zp, m, i, v0, sig, nbact, nb=nb,
+                                                    gap=gap, want_z=True, log=Rp))
+    pert = torch.tensor(1.0 + 1e-16 * np.random.default_rng(1).standard_normal(
+        Hn.shape), device=dev)
+    Hq, Zq = H0 * pert, Z0.clone()
+    Rq = torch.zeros_like(Rp)
+    sweep.chase_sweep_mb_plain(Hq, Zq, m, i, v0, sig, nbact, nb=nb, gap=gap, want_z=True,
+                               log=Rq)
+    sens_h = float((Hq - Hp).abs().max()) / scale
+    sens_z = float((Zq - Zp).abs().max())
+    sens_r = float((Rq - Rp)[:nbact, :, m:i].abs().max())
+    dh = float((Hk - Hp).abs().max()) / scale
+    dz = float((Zk - Zp).abs().max())
+    dr = float((R - Rp[:nbact])[:, :, m:i].abs().max())
+    tol_h, tol_z, tol_r = max(TOL, 10 * sens_h), max(TOL, 10 * sens_z), max(TOL, 10 * sens_r)
+    Hb, Zb = H0.clone(), Z0.clone()
+    _cuda.check(lib.psd_sweep_left(Hb.data_ptr(), R.data_ptr(), p, N, m, i, nbact, st),
+                "sweep_left")
+    _cuda.check(lib.psd_sweep_right(Hb.data_ptr(), Zb.data_ptr(), R.data_ptr(), p, N, m,
+                                    i, nbact, st), "sweep_right")
+    Ha, Za = H0.clone(), Z0.clone()
+    sweep.apply_log_plain(Ha, Za, R, m, i, want_z=True, nb=nbact)
+    db = max(float((Hb - Ha).abs().max()) / scale, float((Zb - Za).abs().max()))
+    for nl in range(2, nbact):  # B0 and B with the first nl of the bulges' logs
+        Hx, Zx, Hy, Zy = H0.clone(), Z0.clone(), H0.clone(), Z0.clone()
+        _cuda.check(lib.psd_sweep_left(Hx.data_ptr(), R.data_ptr(), p, N, m, i, nl, st),
+                    "sweep_left")
+        _cuda.check(lib.psd_sweep_right(Hx.data_ptr(), Zx.data_ptr(), R.data_ptr(), p, N,
+                                        m, i, nl, st), "sweep_right")
+        sweep.apply_log_plain(Hy, Zy, R, m, i, want_z=True, nb=nl)
+        dx = max(float((Hx - Hy).abs().max()) / scale, float((Zx - Zy).abs().max()))
+        _log(f"mb B0+B with {nl} of the {nbact} bulges' logs on [{m}, {i}]: vs "
+             f"apply_log_plain {dx:.3e}")
+        if not (dx <= 1e-13 and structure_ok(Hx)):
+            raise AssertionError(f"mb B0/B with {nl} logs disagree with apply_log_plain")
+        db = max(db, dx)
+    be_k = recon_err(H0, Z0, Hk, Zk)
+    Hnz = H0.clone()
+    sweep.chase_sweep_mb(Hnz, None, m, i, v0, sig, nbact, nb=nb, gap=gap, want_z=False)
+    _log(f"mb sweep {label} p={p} [{m}, {i}], {nbact} of {nb} bulges, gap {gap}: vs "
+         f"chase_sweep_mb_plain max|dH|/max|H| {dh:.3e} max|dZ| {dz:.3e}, A-mb's log "
+         f"{dr:.3e} (plain's own 1e-16 sensitivity {sens_h:.3e} / {sens_z:.3e} / "
+         f"{sens_r:.3e}; tolerance {tol_h:.3e} / {tol_z:.3e} / {tol_r:.3e}); B0+B vs "
+         f"apply_log_plain {db:.3e}; backward error kernel {be_k:.3e}; plain sweep "
+         f"{tp:.1f} ms")
+    if not (dh <= tol_h and dz <= tol_z and dr <= tol_r):
+        raise AssertionError(f"mb sweep kernels disagree with chase_sweep_mb_plain on "
+                             f"{label} [{m}, {i}]: {dh:.3e} {dz:.3e} {dr:.3e}")
+    if not db <= 1e-13:
+        raise AssertionError(f"mb B0/B disagree with apply_log_plain on [{m}, {i}]")
+    if not (torch.equal(Hb, Hk) and torch.equal(Zb, Zk) and torch.equal(Hnz, Hk)):
+        raise AssertionError("the mb wrapper, the direct kernel calls and want_z=False "
+                             "differ")
+    if not be_k <= 1e-13:
+        raise AssertionError(f"mb sweep backward error {be_k:.3e} on [{m}, {i}]")
+    if not (structure_ok(Hk) and structure_ok(Hp)):
+        raise AssertionError(f"mb sweep [{m}, {i}]: structural zeros not exact")
+    return max(dh, dz, dr), db, tp
+
+
+def mb_phase(dev, p, n, report):
+    """Kernels A-mb -> B0 -> B (NB = 4 bulges) against the plain versions,
+    on windows the plain version can afford: at gap 3 [0, 127] with four
+    active bulges and [200, 263] with two; at gap 5 [300, 363] with three;
+    and at p=16, n=100 with two bulges at gap 40, where even one tick's
+    windows exceed a block's shared memory, so A-mb keeps them in its global
+    scratch.
+
+    1. The sweep and A-mb's log against chase_sweep_mb_plain (tick order),
+       gated as in sweep_phase at max(1e-12, 10 sens), sens the plain
+       version's own change under a relative 1e-16 input perturbation; A-mb
+       leaves its input unchanged.
     2. B0 and B (all the bulges' logs in one pass) against apply_log_plain
        on A-mb's own log, and with its first 2 and 3 bulges' logs: 1e-13.
     3. Backward error <= 1e-13 max|H0|, exact structural zeros, want_z=False
@@ -460,75 +568,20 @@ def mb_phase(dev, p, n, report):
     st = torch.cuda.current_stream().cuda_stream
     err_a = err_b = 0.0
     t_plain = None
-    for (m, i, nbact) in ((0, min(127, n - 1), MB_NB), (min(200, n - 64), min(263, n - 1), 2)):
-        H0 = torch.tensor(Hn, device=dev)
-        if m > 0:
-            H0[0, m, m - 1] = 0.0
-        H0[0, i + 1, i] = 0.0
-        Z0 = torch.tensor(Zn, device=dev)
-        sig = pqr_real.window_shifts(H0, i, MB_NB)
-        scale = float(H0.abs().max())
-        Hk, Zk = H0.clone(), Z0.clone()
-        sweep.chase_sweep_mb(Hk, Zk, m, i, v0, sig, nbact, nb=MB_NB, gap=MB_GAP, want_z=True)
-        Hp, Zp = H0.clone(), Z0.clone()
-        tp = wall_ms(lambda: sweep.chase_sweep_mb_plain(Hp, Zp, m, i, v0, sig, nbact, nb=MB_NB,
-                                                        gap=MB_GAP, want_z=True))
+    for (m, i, nbact, gap) in ((0, min(127, n - 1), MB_NB, MB_GAP),
+                               (min(200, n - 64), min(263, n - 1), 2, MB_GAP),
+                               (min(300, n - 64), min(363, n - 1), 3, 5)):
+        da, db, tp = mb_case(dev, lib, st, Hn, Zn, v0, m, i, nbact, gap, "headline draw")
         t_plain = tp if t_plain is None else t_plain
-        pert = torch.tensor(1.0 + 1e-16 * np.random.default_rng(1).standard_normal(
-            Hn.shape), device=dev)
-        Hq, Zq = H0 * pert, Z0.clone()
-        sweep.chase_sweep_mb_plain(Hq, Zq, m, i, v0, sig, nbact, nb=MB_NB, gap=MB_GAP,
-                                   want_z=True)
-        sens_h = float((Hq - Hp).abs().max()) / scale
-        sens_z = float((Zq - Zp).abs().max())
-        dh = float((Hk - Hp).abs().max()) / scale
-        dz = float((Zk - Zp).abs().max())
-        tol_h, tol_z = max(TOL, 10 * sens_h), max(TOL, 10 * sens_z)
-        R = mb_generate(lib, st, H0, m, i, v0, sig, MB_NB, nbact)
-        Hb, Zb = H0.clone(), Z0.clone()
-        _cuda.check(lib.psd_sweep_left(Hb.data_ptr(), R.data_ptr(), p, N, m, i, nbact, st),
-                    "sweep_left")
-        _cuda.check(lib.psd_sweep_right(Hb.data_ptr(), Zb.data_ptr(), R.data_ptr(), p, N, m,
-                                        i, nbact, st), "sweep_right")
-        Ha, Za = H0.clone(), Z0.clone()
-        sweep.apply_log_plain(Ha, Za, R, m, i, want_z=True, nb=nbact)
-        db = max(float((Hb - Ha).abs().max()) / scale, float((Zb - Za).abs().max()))
-        for nb in range(2, nbact):  # B0 and B with the first nb of the bulges' logs
-            Hx, Zx, Hy, Zy = H0.clone(), Z0.clone(), H0.clone(), Z0.clone()
-            _cuda.check(lib.psd_sweep_left(Hx.data_ptr(), R.data_ptr(), p, N, m, i, nb, st),
-                        "sweep_left")
-            _cuda.check(lib.psd_sweep_right(Hx.data_ptr(), Zx.data_ptr(), R.data_ptr(), p, N,
-                                            m, i, nb, st), "sweep_right")
-            sweep.apply_log_plain(Hy, Zy, R, m, i, want_z=True, nb=nb)
-            dx = max(float((Hx - Hy).abs().max()) / scale, float((Zx - Zy).abs().max()))
-            _log(f"mb B0+B with {nb} of the {nbact} bulges' logs on [{m}, {i}]: vs "
-                 f"apply_log_plain {dx:.3e}")
-            if not (dx <= 1e-13 and structure_ok(Hx)):
-                raise AssertionError(f"mb B0/B with {nb} logs disagree with apply_log_plain")
-            db = max(db, dx)
-        be_k = recon_err(H0, Z0, Hk, Zk)
-        Hnz = H0.clone()
-        sweep.chase_sweep_mb(Hnz, None, m, i, v0, sig, nbact, nb=MB_NB, gap=MB_GAP,
-                             want_z=False)
-        _log(f"mb sweep window [{m}, {i}], {nbact} of {MB_NB} bulges, gap {MB_GAP}: vs "
-             f"chase_sweep_mb_plain max|dH|/max|H| {dh:.3e} max|dZ| {dz:.3e} (plain's own "
-             f"1e-16 sensitivity {sens_h:.3e} / {sens_z:.3e}; tolerance {tol_h:.3e} / "
-             f"{tol_z:.3e}); B0+B vs apply_log_plain {db:.3e}; backward error kernel "
-             f"{be_k:.3e}; plain sweep {tp:.1f} ms")
-        if not (dh <= tol_h and dz <= tol_z):
-            raise AssertionError(f"mb sweep kernels disagree with chase_sweep_mb_plain on "
-                                 f"[{m}, {i}]: {dh:.3e} {dz:.3e}")
-        if not db <= 1e-13:
-            raise AssertionError(f"mb B0/B disagree with apply_log_plain on [{m}, {i}]")
-        if not (torch.equal(Hb, Hk) and torch.equal(Zb, Zk) and torch.equal(Hnz, Hk)):
-            raise AssertionError("the mb wrapper, the direct kernel calls and want_z=False "
-                                 "differ")
-        if not be_k <= 1e-13:
-            raise AssertionError(f"mb sweep backward error {be_k:.3e} on [{m}, {i}]")
-        if not (structure_ok(Hk) and structure_ok(Hp)):
-            raise AssertionError(f"mb sweep [{m}, {i}]: structural zeros not exact")
-        err_a = max(err_a, dh, dz)
-        err_b = max(err_b, db)
+        err_a, err_b = max(err_a, da), max(err_b, db)
+    pg, ng, nbg, gapg = 16, 100, 2, 40
+    Hg, Zg, vg = mk_sweep_problem(pg, ng, np.random.default_rng(2028))
+    ring = 1 << ((nbg - 1) * gapg + 2).bit_length()  # carried rows, a power of two
+    if lib.psd_sweep_generate_mb_scratch(pg, ng + 1, nbg, gapg) <= ring * pg * (ng + 1):
+        raise AssertionError(f"the gap={gapg} case does not take A-mb's global windows")
+    da, db, _ = mb_case(dev, lib, st, Hg, Zg, vg, 0, ng - 1, nbg, gapg, "global windows",
+                        nb=nbg)
+    err_a, err_b = max(err_a, da), max(err_b, db)
 
     # times at the full window with four bulges, and the one-bulge A there
     m, i = 0, n - 1
@@ -544,14 +597,13 @@ def mb_phase(dev, p, n, report):
         H.data_ptr(), R.data_ptr(), p, N, m, i, MB_NB, st), "sweep_left"), 5)
     ms_b = event_ms(lambda: _cuda.check(lib.psd_sweep_right(
         H.data_ptr(), Z.data_ptr(), R.data_ptr(), p, N, m, i, MB_NB, st), "sweep_right"), 5)
-    # bytes and operations, reckoned as kernel A's: the window's rows read
-    # once, NB logs written; NB bulges' 3x3 applications
-    K = i - m
-    steps = sum(N - k for k in range(m, i))
-    bms, bby = bound(8 * p * N * (i + 2 - m) + 8 * 9 * p * K * MB_NB, 15 * p * steps * MB_NB)
+    (bms, bby), old_bytes = mb_bound(p, n, m, i, MB_NB, MB_NB, MB_GAP)
+    ticks = i - m + (MB_NB - 1) * MB_GAP
     _log(f"mb kernels at p={p} n={n} window [0, {n - 1}], {MB_NB} bulges: A-mb {ms_mb:.3f} ms "
-         f"(one-bulge A on the same state {ms_a:.3f} ms), B0 {ms_b0:.3f} ms, B {ms_b:.3f} ms "
-         f"({MB_NB} logs each); bound of A-mb {bms * 1e3:.3f} us ({bby}); plain mb sweep "
+         f"({ms_mb * 1e3 / (ticks * p):.4f} us per (tick, factor); one-bulge A on the same "
+         f"state {ms_a:.3f} ms), B0 {ms_b0:.3f} ms, B {ms_b:.3f} ms ({MB_NB} logs each); "
+         f"bound of A-mb {bms * 1e3:.3f} us ({bby}; the earlier reckoning, rows m..i+1 in "
+         f"full: {old_bytes / HBM_BPS * 1e6:.3f} us of bytes); plain mb sweep "
          f"{t_plain:.1f} ms on [0, {min(127, n - 1)}]")
     report["sweep_generate_mb"] = {
         "name": "sweep_generate_mb", "route": "cuda",

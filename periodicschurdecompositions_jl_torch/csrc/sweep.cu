@@ -46,24 +46,47 @@
 // after the other; the update phases took 6% of the kernel.  Spreading a
 // reflector's independent divisions over lanes (shuffles) was slower.
 //
-// sweep_generate_mb keeps the design before the look-ahead window: a
-// working copy C (p, N, N) of rows m..i+1 in global memory, copied from H
-// per sweep, updated by the whole block behind __syncthreads per (tick,
-// factor).  It chases NB such bulges in one pass, bulge b GAP columns
-// behind bulge b-1 (tick kk puts bulge b at k = kk - b*GAP), the tick-order
-// interleaving of the numpy oracle ref_sweep_np_mb (tests of the JAX
-// package).  Per (tick, factor) the NB generations are independent: NB
-// threads generate them at once, then the block applies them in bulge
-// order.  The serial chain is about one bulge's plus (NB-1)*GAP ticks, so
-// NB double shifts cost about the latency of one.  What differs from the
-// one-bulge kernel: the forced structural columns are written into C (a
-// trailing bulge reads them when it reaches those columns), the band
-// updates reach (NB-1)*GAP rows further up (a trailing bulge's left
-// transform mixes its rows across the leading bulges' columns), and a
-// trailing bulge's first column comes from the leading 3x3 of the cycle
-// product at its introduction tick (unscaled: the port's band is float64,
-// so the JAX kernel's power-of-two scale schedule is identically 1 here).
-// Logs: R (NB, p, N, 9), bulge b's slice laid out as the one-bulge log.
+// sweep_generate_mb chases NB such bulges in one pass, bulge b GAP columns
+// behind bulge b-1 (tick kk puts bulge b at k = kk - b*GAP), in the order of
+// the numpy oracle ref_sweep_np_mb (tests of the JAX package): per tick,
+// factor 0 and then p-1..1, the bulges' generations, then their left
+// transforms and band updates.  What differs from one bulge: the forced
+// structural columns are kept (a trailing bulge reads them when it reaches
+// those columns), the band updates reach lowext = (NB-1)*GAP rows further
+// up (a trailing bulge's left transform mixes its rows across the leading
+// bulges' columns), and a trailing bulge's first column comes from the
+// leading 3x3 of the cycle product at its introduction tick (unscaled: the
+// port's band is float64, so the JAX kernel's power-of-two scale schedule
+// is identically 1 here).  Logs: R (NB, p, N, 9), bulge b's slice laid out
+// as the one-bulge log.  It reads H only and runs in one block of
+// kMbThreads threads, on kernel A's look-ahead window
+// (tests/torch_mb_window_host.py models both schedules):
+// * windows: for a batch of L ticks kk0..kk0+L-1 each factor keeps rows
+//   max(m, kk0-lowext)..kk0+L+2 and columns one further left to kk0+L+1
+//   (cut at i+1), (L+lowext+3)^2 doubles, and the batch's NB x L
+//   transforms, in dynamic shared memory (L from p, NB and GAP; global
+//   memory where even L = 1 does not fit);
+// * serial phase: steps (tick, factor) in the reference order.  Lanes
+//   0..NB-1 of warp 0 generate the step's NB transforms at once.  With
+//   p >= 3 lanes 16.. then apply the band rows the next generation reads,
+//   and warps 1..3 apply the rest of the step's updates while warp 0
+//   generates the next step, one barrier of warps 0..3 per step; with
+//   p <= 2 warp 0 applies them itself;
+// * update phase: the columns right of the window receive only left
+//   transforms in a batch.  Those that enter the next window take them at
+//   the batch's end; the others during the next batch, on the warps from 5
+//   on that do not share warp 0's scheduler, from a copy of the batch's
+//   transforms in the scratch.  One thread per (factor, column) applies
+//   them in bulge-major order, in a walk skewed as B0's, the rows handed
+//   from bulge to bulge in registers and those still in flux kept in a ring
+//   of a power of two >= lowext + 3 rows per column in the scratch; columns
+//   right of i+1 are never visited.
+// Every entry of the windows receives the same operations in the same order
+// as on a full working copy, and the sums are written out with __fma_rn /
+// __dmul_rn in the forms nvcc gave the design before the window (its SASS,
+// and its logs for lead_v0's running product), so the logs are that
+// design's bit for bit (scripts/time_sweep_generate.py --mb prints their
+// hashes).
 //
 // sweep_left and sweep_right apply the log to H (and Z) with full
 // parallelism, one thread per column or row, through tiles staged in shared
@@ -89,6 +112,7 @@ namespace {
 constexpr int kGenThreads = 512;
 constexpr int kMaxBatch = 30;  // kernel A: L + 2 <= 32 window columns, one per lane
 constexpr int kMaxNb = 4;  // bulges of sweep_generate_mb (shift window 2 NB <= 8)
+constexpr int kMbThreads = 384;  // A-mb's block: warp 0 generates, the others update
 
 // v0 of the leading bulge and the shifts (rt1r, rt1i, rt2r) of the others,
 // passed by value
@@ -320,41 +344,54 @@ sweep_generate_kernel(const double* __restrict__ H, double* __restrict__ carry,
   }
 }
 
+// The multi-bulge kernel A-mb writes its arithmetic out with __fma_rn and
+// __dmul_rn in the forms nvcc gave the design before the look-ahead window
+// (read from its SASS), so that its logs do not depend on how nvcc contracts
+// them here.  x0 f0 + x1 f1 + x2 f2 with the middle product rounded, the
+// first fused onto it, then the third: F^T on a column's rows k..k+2
+// (f = F[j], F[3+j], F[6+j]), F on a row's columns k..k+2 and lead_v0's
+// products (its running product's form is the one whose results the
+// earlier design's logs reproduce).
+__device__ __forceinline__ double mb_dot3(double x0, double x1, double x2, double f0,
+                                          double f1, double f2) {
+  return __fma_rn(x2, f2, __fma_rn(x0, f0, __dmul_rn(x1, f1)));
+}
+
 // Shifted first column of a trailing bulge, introduced at the window top m:
 // from the leading 3x3 of the cycle product C[0] C[1] ... C[p-1] at rows and
-// columns m..m+2 and the bulge's shifts sg = (rt1r, rt1i, rt2r), normalized
-// by its 1-norm (the JAX kernel's _lead_v0; unscaled, see the header).
-__device__ void lead_v0(const double* C, int p, int N, int m, const double* sg,
+// columns m..m+2 (C0: factor 0's entry (m, m), fstride and ld the factor
+// and row strides) and the bulge's shifts sg = (rt1r, rt1i, rt2r),
+// normalized by its 1-norm (the JAX kernel's _lead_v0; unscaled, see the
+// header).
+__device__ void lead_v0(const double* C0, size_t fstride, int ld, int p, const double* sg,
                         double& x0, double& x1, double& x2) {
-  const size_t NN = (size_t)N * N;
   double T[9] = {1.0, 0.0, 0.0, 0.0, 1.0, 0.0, 0.0, 0.0, 1.0};
   for (int f = 1; f < p; ++f) {
-    const double* B = C + f * NN + (size_t)m * N + m;
+    const double* B = C0 + f * fstride;
     double Tn[9];
 #pragma unroll
     for (int r = 0; r < 3; ++r)
 #pragma unroll
       for (int c = 0; c < 3; ++c)
-        Tn[r * 3 + c] = T[r * 3] * B[c] + T[r * 3 + 1] * B[N + c] +
-                        T[r * 3 + 2] * B[2 * N + c];
+        Tn[r * 3 + c] =
+            mb_dot3(T[r * 3], T[r * 3 + 1], T[r * 3 + 2], B[c], B[ld + c], B[2 * ld + c]);
 #pragma unroll
     for (int q = 0; q < 9; ++q) T[q] = Tn[q];
   }
-  const double* A = C + (size_t)m * N + m;
-  double P[6];  // rows 0..2, columns 0..1 of A T
+  double P[6];  // rows 0..2, columns 0..1 of C[0] T
 #pragma unroll
   for (int r = 0; r < 3; ++r)
 #pragma unroll
     for (int c = 0; c < 2; ++c)
-      P[r * 2 + c] = A[r * N] * T[c] + A[r * N + 1] * T[3 + c] +
-                     A[r * N + 2] * T[6 + c];
+      P[r * 2 + c] = mb_dot3(C0[r * ld], C0[r * ld + 1], C0[r * ld + 2], T[c], T[3 + c],
+                             T[6 + c]);
   const double h11 = P[0], h12 = P[1], h21 = P[2], h22 = P[3], h32 = P[5];
   const double rt1r = sg[0], rt1i = sg[1], rt2r = sg[2];
   const double sv = fabs(h11 - rt2r) + fabs(rt1i) + fabs(h21);
   const double svs = (sv == 0.0) ? 1.0 : sv;
   const double h21s = h21 / svs;
-  double v1 = h21s * h12 + (h11 - rt1r) * ((h11 - rt2r) / svs);
-  v1 = v1 + rt1i * (rt1i / svs);
+  double v1 = __fma_rn(h21s, h12, __dmul_rn(h11 - rt1r, (h11 - rt2r) / svs));
+  v1 = __fma_rn(rt1i, rt1i / svs, v1);
   const double v2 = h21s * (((h11 + h22) - rt1r) - rt2r);
   const double v3 = h21s * h32;
   const double sn = fabs(v1) + fabs(v2) + fabs(v3);
@@ -364,153 +401,477 @@ __device__ void lead_v0(const double* C, int p, int N, int m, const double* sg,
   x2 = v3 / sns;
 }
 
-// Right update of columns k..k+2 of one factor of the working copy by the
-// transforms F[b] of bulges g0..g1-1 (bulge b at k = kk - b*gap), rows
-// max(m, k - lowext)..min(k+3, i): W = lowext + 4 rows per bulge at most.
-__device__ __forceinline__ void band_right_mb(double* Cg, int N, int m, int i,
-                                              int kk, int gap, int g0, int g1,
-                                              int lowext,
-                                              double (*F)[9]) {
-  const int W = lowext + 4;
-  for (int idx = threadIdx.x; idx < (g1 - g0) * W; idx += blockDim.x) {
-    const int b = g0 + idx / W;
-    const int k = kk - b * gap;
-    if (k < m || k >= i) continue;
-    const int r = max(m, k - lowext) + idx % W;
-    if (r > min(k + 3, i)) continue;
-    double* row = Cg + (size_t)r * N + k;
-    double o0, o1, o2;
-    apply_f(F[b], row[0], row[1], row[2], o0, o1, o2);
-    row[0] = o0;
-    row[1] = o1;
-    row[2] = o2;
+// A-mb's geometry for one batch of ticks kk0..kk1-1: per factor an S x S
+// window, S = L + lowext + 3, entry (r, c) at (r - base, c - base + 1) with
+// base = kk0 - lowext, holding rows top..rlast and columns top-1..clast.
+struct MbBatch {
+  int m, i, nb, gap, nbact, L, lowext, S;
+  int kk0, kk1, base, top, rlast, clast;
+  __device__ void place(int k0, int kkend) {
+    kk0 = k0;
+    kk1 = min(k0 + L, kkend);
+    base = k0 - lowext;
+    top = max(m, base);
+    rlast = min(k0 + L + 2, i + 1);
+    clast = min(k0 + L + 1, i + 1);
+  }
+  // factor f's window and the offset of entry (r, c) in it
+  __device__ double* fwin(double* win, int f) const { return win + (size_t)f * S * S; }
+  __device__ int off(int r, int c) const { return (r - base) * S + (c - base + 1); }
+};
+
+// Rows of the ring that holds the rows in flux of a column right of the
+// windows, from the trailing bulge's k to the leading bulge's k+2: at least
+// lowext + 3, a power of two (the ring is indexed by row & (rows - 1)).
+__host__ __device__ inline int mb_ring_rows(int nb, int gap) {
+  int w = 1;
+  while (w < (nb - 1) * gap + 3) w *= 2;
+  return w;
+}
+
+// Kernel A-mb's working set for batch length L, in doubles: per factor the
+// S x S window and the batch's NB x L transforms.
+inline size_t mb_window_doubles(int p, int nb, int gap, int L) {
+  const size_t S = (size_t)L + (size_t)(nb - 1) * gap + 3;
+  return (size_t)p * (S * S + 9 * (size_t)nb * L);
+}
+
+// The offset of the transform of factor f, bulge b at step s of the batch
+// in fs.
+__device__ __forceinline__ size_t mb_fs(const MbBatch& g, int f, int b, int s) {
+  return (((size_t)f * g.nb + b) * g.L + s) * 9;
+}
+
+// o_j = x0 F[j] + x1 F[3+j] + x2 F[6+j], j = 0..2: F^T on a column's rows
+// k..k+2 and F on a row's columns k..k+2.
+__device__ __forceinline__ void mb_apply(const double* F, double x0, double x1, double x2,
+                                         double& o0, double& o1, double& o2) {
+  o0 = mb_dot3(x0, x1, x2, F[0], F[3], F[6]);
+  o1 = mb_dot3(x0, x1, x2, F[1], F[4], F[7]);
+  o2 = mb_dot3(x0, x1, x2, F[2], F[5], F[8]);
+}
+
+// The bulges' places at one tick, the same for every factor: bulge b at
+// k[b], on the windows' row offset roff[b], active (bit b of on) when
+// m <= k[b] < i, with its band rows rlo[b]..rhi[b], max(top, k - lowext)..
+// min(k+3, i).
+struct MbTick {
+  int k[kMaxNb], roff[kMaxNb], rlo[kMaxNb], rhi[kMaxNb];
+  unsigned on;
+};
+
+__device__ __forceinline__ MbTick mb_tick(const MbBatch& g, int kk) {
+  MbTick t;
+  t.on = 0;
+#pragma unroll
+  for (int b = 0; b < kMaxNb; ++b) {
+    t.k[b] = kk - b * g.gap;
+    t.roff[b] = (t.k[b] - g.base) * g.S;
+    t.rlo[b] = max(g.top, t.k[b] - g.lowext);
+    t.rhi[b] = min(t.k[b] + 3, g.i);
+    if (b < g.nbact && t.k[b] >= g.m && t.k[b] < g.i) t.on |= 1u << b;
+  }
+  return t;
+}
+
+// Step (kk, f) of the generation on warp 0's lanes 0..nbact-1 (lane b:
+// bulge b at k = kk - b gap, when m <= k < i): the bulge's transform F of
+// factor f, into the log R and fs, and the entries its generation fixes:
+// factor 0's forced column k-1 (beta, 0, keep), keep being the entry at
+// row k+2 when k == i-1; factor f >= 1's column k, its exact image
+// (beta, 0, 0), and column k+1, F^T with rows k+1..k+2 the second
+// reflector's image (betab, 0) when nr3.  With crit, also the band rows
+// that the next step's generation reads: F on columns k..k+2 of the
+// target's rows k..k+2 (k..k+3 when the target is factor 0, whose
+// generation at the next tick reads column k down to row k+3), cut at i.
+__device__ __forceinline__ void mb_gen(double* win, double* fs, double* __restrict__ R, int p,
+                                       int N, const MbBatch& g, const MbShifts& sh, int kk,
+                                       int f, bool crit) {
+  const int lane = threadIdx.x & 31, S = g.S, s = kk - g.kk0;
+  const int k = kk - lane * g.gap;
+  if (lane < g.nbact && k >= g.m && k < g.i) {
+    const bool nr3 = (g.i - k + 1) >= 3;
+    // with crit, the band rows: loaded before the generation (no one
+    // writes them meanwhile), applied after it
+    const int tgt = (f == 0) ? p - 1 : f - 1;
+    const int nr = crit ? min((tgt == 0) ? 4 : 3, g.i - k + 1) : 0;
+    double* y = g.fwin(win, tgt) + g.off(k, k);
+    double v[4][3];
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      if (r < nr) {
+        v[r][0] = y[r * S];
+        v[r][1] = y[r * S + 1];
+        v[r][2] = y[r * S + 2];
+      }
+    double* Wf = g.fwin(win, f);
+    double M[9];
+    if (f == 0) {
+      double x0, x1, x2, keep = 0.0, beta;
+      if (k > g.m) {  // column k-1, rows k..k+2
+        const double* c0 = Wf + g.off(k, k - 1);
+        x0 = c0[0];
+        x1 = c0[S];
+        x2 = c0[2 * S];
+        if (k == g.i - 1) keep = x2;
+      } else if (lane == 0) {
+        x0 = sh.v0[0];
+        x1 = sh.v0[1];
+        x2 = sh.v0[2];
+      } else {
+        lead_v0(Wf + g.off(g.m, g.m), (size_t)S * S, S, p, sh.sig + 3 * lane, x0, x1, x2);
+      }
+      gen_bulge(x0, x1, x2, nr3, M, beta);
+      if (k > g.m) {  // the forced bulge column, read by the next bulge
+        double* c0 = Wf + g.off(k, k - 1);
+        c0[0] = beta;
+        c0[S] = 0.0;
+        c0[2 * S] = keep;
+      }
+    } else {
+      double* ck = Wf + g.off(k, k);  // columns k, k+1, rows k..k+2
+      const double b0 = ck[1], b1 = ck[S + 1], b2 = ck[2 * S + 1];
+      double beta, betab;
+      gen_fused(ck[0], ck[S], ck[2 * S], b0, b1, b2, nr3, M, beta, betab);
+      ck[0] = beta;
+      ck[S] = 0.0;
+      ck[2 * S] = 0.0;
+      ck[1] = mb_dot3(b0, b1, b2, M[0], M[3], M[6]);
+      ck[S + 1] = nr3 ? betab : mb_dot3(b0, b1, b2, M[1], M[4], M[7]);
+      ck[2 * S + 1] = nr3 ? 0.0 : mb_dot3(b0, b1, b2, M[2], M[5], M[8]);
+    }
+    double* F = fs + mb_fs(g, f, lane, s);
+    double* Rk = R + (size_t)lane * p * N * 9 + ((size_t)f * N + k) * 9;
+#pragma unroll
+    for (int q = 0; q < 9; ++q) {
+      F[q] = M[q];
+      Rk[q] = M[q];
+    }
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      if (r < nr) {
+        y[r * S] = mb_dot3(v[r][0], v[r][1], v[r][2], M[0], M[3], M[6]);
+        y[r * S + 1] = mb_dot3(v[r][0], v[r][1], v[r][2], M[1], M[4], M[7]);
+        y[r * S + 2] = mb_dot3(v[r][0], v[r][1], v[r][2], M[2], M[5], M[8]);
+      }
   }
 }
 
-__global__ void __launch_bounds__(kGenThreads)
-sweep_generate_mb_kernel(double* __restrict__ C, double* __restrict__ R, int p,
-                         int N, int m, int i, int nb, int gap, int nbact,
-                         MbShifts sh) {
-  __shared__ double F[kMaxNb][9];
-  __shared__ double beta_s[kMaxNb];
-  __shared__ double betab_s[kMaxNb];
-  const size_t NN = (size_t)N * N;
-  const size_t RB = (size_t)p * N * 9;  // one bulge's log
-  const int tid = threadIdx.x;
-  const int tgt0 = (p > 1) ? p - 1 : 0;
-  const int lowext = (nb - 1) * gap;
-  // p == 1: a bulge's band update lands on the factor whose rows the next
-  // bulge's left update reads, so the bulges go one at a time, in bulge
-  // order; for p > 1 their rows and columns are disjoint: all at once
-  const int grp = (p > 1) ? nbact : 1;
+// Step (kk, f)'s window updates of bulges b0..b1-1 as items, item e on
+// the thread with e0 <= e, e = e0 mod ne: the (bulge, column) items of the
+// left transforms on columns k+c0..clast (c0 = 0 for factor 0; factor f >=
+// 1 starts at k+2, its columns k and k+1 being mb_gen's) when left, and the
+// (bulge, row) items of the band on the target's rows rlo..rhi outside
+// k..k+rc (the rows mb_gen applied; rc = -1: none) when band.  Bulges'
+// rows, and their band columns, are disjoint, so the items are
+// independent.
+__device__ __forceinline__ void mb_items(double* win, const double* fs, int p,
+                                         const MbBatch& g, const MbTick& t, int kk, int f,
+                                         int b0, int b1, bool left, bool band, int rc, int e0,
+                                         int ne) {
+  const int S = g.S, W = g.lowext + 4, c0 = (f == 0) ? 0 : 2;
+  const int nl = left ? (b1 - b0) * S : 0, n = nl + (band ? (b1 - b0) * W : 0);
+  const double* Fs = fs + mb_fs(g, f, 0, kk - g.kk0);
+  for (int e = e0; e < n; e += ne) {
+    int b;
+    double *p0, *p1, *p2;  // the item's three entries: rows k..k+2 of a column, or
+                           // columns k..k+2 of a row (F^T and F: the same sums)
+    if (e < nl) {
+      b = b0 + e / S;
+      const int c = t.k[b] + c0 + e % S;
+      if (!((t.on >> b) & 1u) || c > g.clast) continue;
+      p0 = g.fwin(win, f) + t.roff[b] + c - g.base + 1;
+      p1 = p0 + S;
+      p2 = p1 + S;
+    } else {
+      b = b0 + (e - nl) / W;
+      const int r = t.rlo[b] + (e - nl) % W;
+      if (!((t.on >> b) & 1u) || r > t.rhi[b] || (r >= t.k[b] && r <= t.k[b] + rc)) continue;
+      p0 = g.fwin(win, (f == 0) ? p - 1 : f - 1) + g.off(r, t.k[b]);
+      p1 = p0 + 1;
+      p2 = p0 + 2;
+    }
+    mb_apply(Fs + b * g.L * 9, *p0, *p1, *p2, *p0, *p1, *p2);
+  }
+}
 
-  for (int kk = m; kk < i + (nbact - 1) * gap; ++kk) {
-    // ---- factor 0: one generating thread per bulge -------------------
-    if (tid < nbact) {
-      const int b = tid, k = kk - b * gap;
-      if (k >= m && k < i) {
-        const bool nr3 = (i - k + 1) >= 3;
-        double x0, x1, x2, keep = 0.0;
-        if (k > m) {
-          const double* c0 = C + (size_t)k * N + (k - 1);
-          x0 = c0[0];
-          x1 = c0[N];
-          x2 = c0[2 * N];
-          if (k == i - 1) keep = x2;
-        } else if (b == 0) {
-          x0 = sh.v0[0];
-          x1 = sh.v0[1];
-          x2 = sh.v0[2];
-        } else {
-          lead_v0(C, p, N, m, sh.sig + 3 * b, x0, x1, x2);
+// Step (kk, f)'s window updates for p <= 2, on warp 0 after mb_gen, lanes
+// as items; with p == 1 the band lands on the factor whose rows the next
+// bulge's left update reads, so the bulges go one at a time.
+__device__ __forceinline__ void mb_window_step(double* win, const double* fs, int p,
+                                               const MbBatch& g, const MbTick& t, int kk,
+                                               int f) {
+  const int lane = threadIdx.x & 31;
+  if (p > 1) {
+    mb_items(win, fs, p, g, t, kk, f, 0, g.nbact, true, true, -1, lane, 32);
+    return;
+  }
+  for (int b = 0; b < g.nbact; ++b) {
+    mb_items(win, fs, p, g, t, kk, f, b, b + 1, true, false, -1, lane, 32);
+    __syncwarp();
+    mb_items(win, fs, p, g, t, kk, f, b, b + 1, false, true, -1, lane, 32);
+    __syncwarp();
+  }
+}
+
+// A-mb's warps: warp 0 generates, warps 1..kMbRestWarps apply the rest of
+// each step (p >= 3), and the warps from 5 on that do not share warp 0's
+// scheduler (not 4j) update the columns right of the windows a batch late.
+constexpr int kMbRestWarps = 3;
+__device__ __forceinline__ bool mb_lag_warp(int w) { return w > 4 && (w & 3) != 0; }
+
+// The barrier of the step group, warps 0..kMbRestWarps.
+__device__ __forceinline__ void mb_step_sync() {
+  asm volatile("bar.sync 1, %0;" ::"r"(32 * (kMbRestWarps + 1)) : "memory");
+}
+
+// The rest of step (kk, f) for p >= 3 on warps 1..kMbRestWarps: its window
+// updates but the band rows mb_gen applied.
+__device__ __forceinline__ void mb_rest(double* win, const double* fs, int p,
+                                        const MbBatch& g, const MbTick& t, int kk, int f) {
+  mb_items(win, fs, p, g, t, kk, f, 0, g.nbact, true, true, (f == 1) ? 3 : 2,
+           (int)threadIdx.x - 32, 32 * kMbRestWarps);
+}
+
+// One batch's ticks on the windows: per step (kk, f), in the order of the
+// design before the window, warp 0 generates (mb_gen).  With p >= 3 warps
+// 1..kMbRestWarps apply the rest of the step before (mb_rest) meanwhile, one
+// barrier of these warps per step, and warp 0 applies only the band rows the next
+// generation reads: exact, because step j's generation reads no entry that
+// step j-1's rest writes (it reads its own bulge's band rows, which step
+// j-1's generation wrote, and the other bulges' bands lie in other
+// columns), and the two touch disjoint entries (three different factors).
+// The one exception is a trailing bulge's introduction, whose lead_v0
+// reads rows m..m+2 of every factor: a barrier first lets step j-1's rest
+// land.  With p <= 2 warp 0 applies all of a step's window updates
+// itself (mb_window_step).
+__device__ __forceinline__ void mb_batch(double* win, double* fs, double* __restrict__ R,
+                                         int p, int N, const MbBatch& g,
+                                         const MbShifts& sh) {
+  const bool piped = p >= 3;
+  if (threadIdx.x >= 32 * ((piped ? kMbRestWarps : 0) + 1)) return;
+  for (int kk = g.kk0; kk < g.kk1; ++kk) {
+    if (piped && kk > g.m && (kk - g.m) % g.gap == 0 && (kk - g.m) / g.gap < g.nbact)
+      mb_step_sync();
+    const MbTick t = mb_tick(g, kk);
+    for (int q = 0; q < p; ++q) {
+      const int f = (q == 0) ? 0 : p - q;
+      if (threadIdx.x < 32) {
+        mb_gen(win, fs, R, p, N, g, sh, kk, f, piped);
+        if (!piped) {
+          __syncwarp();
+          mb_window_step(win, fs, p, g, t, kk, f);
+          __syncwarp();
         }
-        double M[9], beta;
-        gen_bulge(x0, x1, x2, nr3, M, beta);
-        double* Rk = R + b * RB + (size_t)k * 9;
+      }
+      if (!piped) continue;
+      mb_step_sync();
+      if (threadIdx.x >= 32) mb_rest(win, fs, p, g, t, kk, f);
+    }
+  }
+}
+
+// One iteration u of the update phase's walk where every bulge takes a
+// step that is neither its first in the batch nor its step i-1 (so it
+// takes the row below from the bulge ahead, and hands its finished row to
+// the bulge behind): bulge b's F at fb[b] + 9 u; h enters as bulge 0's row
+// k+2 and leaves as the last bulge's finished row.
+template <int kNb>
+__device__ __forceinline__ double mb_steady(double (&x0)[kMaxNb], double (&x1)[kMaxNb],
+                                            const double* const (&fb)[kMaxNb], int u,
+                                            double h) {
 #pragma unroll
-        for (int q = 0; q < 9; ++q) {
-          F[b][q] = M[q];
-          Rk[q] = M[q];
+  for (int b = 0; b < kNb; ++b) {
+    double o0, o1, o2;
+    mb_apply(fb[b] + 9 * u, x0[b], x1[b], h, o0, o1, o2);
+    x0[b] = o1;
+    x1[b] = o2;
+    h = o0;
+  }
+  return h;
+}
+
+// Ring row r of the carried rows of a column (rc: the column's row 0).
+__device__ __forceinline__ double& mb_ring_at(double* rc, int N, int mask, int r) {
+  return rc[(size_t)(r & mask) * N];
+}
+
+// Update phase of one batch: the batch's left transforms on columns c0..c1
+// right of its window, one thread per (factor, column) (thread e0 + j ne
+// takes item j), in
+// bulge-major order (exact: a bulge's rows at a tick are disjoint from the
+// others', and bulge b reaches a row only after bulge b-1 has left it).
+// The walk is skewed as B0's: at iteration u bulge b takes its step u - 2b
+// (if it is one of its steps kb0..kb1-1 in the batch), so the row bulge b
+// needs below its pair, k+2, is the one bulge b-1 finished in the same
+// iteration and passes on in a register.  Each bulge carries its pair in
+// registers from its first step in the batch.  The column's ring holds the
+// rest: rows from the batch before (a bulge's first pair, and the rows
+// below it that bulge b-1 finished then), and every row a bulge finishes
+// that the next bulge does not take in this batch; H gives the rows no
+// transform has touched (bulge 0's row k+2, and its first pair at m).
+// With enter, the columns enter the next window nx: they take their rows
+// top'..kk1+1 from the ring.
+__device__ __forceinline__ void mb_update(const double* __restrict__ H,
+                                          double* __restrict__ ring, double* win,
+                                          const double* __restrict__ fs, int p, int N,
+                                          const MbBatch& g, const MbBatch& nx, int c0, int c1,
+                                          bool enter, int e0, int ne) {
+  const int nc = c1 - c0 + 1;
+  const int mask = mb_ring_rows(g.nb, g.gap) - 1;
+  int kb0[kMaxNb + 1], kb1[kMaxNb + 1];  // bulge b's steps in the batch: kb0..kb1-1
+  int u0 = 1 << 30, u1 = -(1 << 30);
+  int us0 = -(1 << 30), us1 = 1 << 30;  // the iterations mb_steady takes
+#pragma unroll
+  for (int b = 0; b <= kMaxNb; ++b) {
+    kb0[b] = max(g.m, g.kk0 - b * g.gap);
+    kb1[b] = min(g.i, g.kk1 - b * g.gap);
+    if (b >= g.nbact || kb0[b] >= kb1[b]) kb0[b] = kb1[b] = -(1 << 30);  // no steps
+    if (kb0[b] < kb1[b]) {
+      u0 = min(u0, kb0[b] + 2 * b);
+      u1 = max(u1, kb1[b] - 1 + 2 * b);
+    }
+    if (b < g.nbact) {
+      us0 = max(us0, kb0[b] + 2 * b + 1);
+      us1 = min(us1, min(kb1[b], g.i - 1) - 1 + 2 * b);
+    }
+  }
+  for (int t = e0; t < p * max(nc, 0); t += ne) {
+    const int f = t / nc, c = c0 + t % nc;
+    const double* Hc = H + (size_t)f * N * N + c;
+    double* rc = ring + (size_t)f * (mask + 1) * N + c;
+    const double* fb[kMaxNb];  // bulge b's F at iteration u: fb[b] + 9 u
+#pragma unroll
+    for (int b = 0; b < kMaxNb; ++b)
+      fb[b] = fs + mb_fs(g, f, b, 0) + 9 * (b * (g.gap - 2) - g.kk0);
+    double x0[kMaxNb], x1[kMaxNb];
+#pragma unroll
+    for (int b = 0; b < kMaxNb; ++b) x0[b] = x1[b] = 0.0;
+    for (int u = u0; u <= u1; ++u) {
+      // bulge 0's row k+2 comes from H: no transform has touched it
+      const double h0 = (u < kb1[0]) ? Hc[(size_t)(u + 2) * N] : 0.0;
+      if (u >= us0 && u <= us1) {
+        double last;
+        switch (g.nbact) {
+          case 1: last = mb_steady<1>(x0, x1, fb, u, h0); break;
+          case 2: last = mb_steady<2>(x0, x1, fb, u, h0); break;
+          case 3: last = mb_steady<3>(x0, x1, fb, u, h0); break;
+          default: last = mb_steady<4>(x0, x1, fb, u, h0); break;
         }
-        if (k > m) {  // the forced bulge column, read by the next bulge
-          double* c0 = C + (size_t)k * N + (k - 1);
-          c0[0] = beta;
-          c0[N] = 0.0;
-          c0[2 * N] = keep;
+        mb_ring_at(rc, N, mask, u - 2 * (g.nbact - 1)) = last;
+        continue;
+      }
+      double h = 0.0;  // the row bulge b-1 finished at this iteration, if b takes it
+#pragma unroll
+      for (int b = 0; b < kMaxNb; ++b) {
+        const int k = u - 2 * b;
+        if (k < kb0[b] || k >= kb1[b]) continue;
+        if (k == kb0[b]) {  // bulge b's first step in the batch: its pair
+          const bool fresh = b == 0 && g.kk0 == g.m;
+          x0[b] = fresh ? Hc[(size_t)k * N] : mb_ring_at(rc, N, mask, k);
+          x1[b] = fresh ? Hc[(size_t)(k + 1) * N] : mb_ring_at(rc, N, mask, k + 1);
         }
+        const double x2 = (b == 0)                                   ? h0
+                          : (k + 2 >= kb0[b - 1] && k + 2 < kb1[b - 1]) ? h
+                                                                         : mb_ring_at(rc, N, mask, k + 2);
+        double o0, o1, o2;
+        mb_apply(fb[b] + 9 * u, x0[b], x1[b], x2, o0, o1, o2);
+        x0[b] = o1;
+        x1[b] = o2;
+        h = o0;
+        if (!(k - 2 >= kb0[b + 1] && k - 2 < kb1[b + 1]))  // the next bulge does not take it
+          mb_ring_at(rc, N, mask, k) = o0;
+        if (k == g.i - 1) {  // its last step: the next bulge reads rows i, i+1
+          mb_ring_at(rc, N, mask, k + 1) = o1;
+          mb_ring_at(rc, N, mask, k + 2) = o2;
+        }
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < kMaxNb; ++b)  // the pairs of the bulges still under way
+      if (kb0[b] < kb1[b] && kb1[b] <= g.i - 1) {
+        mb_ring_at(rc, N, mask, kb1[b]) = x0[b];
+        mb_ring_at(rc, N, mask, kb1[b] + 1) = x1[b];
+      }
+    if (enter) {
+      double* Wn = nx.fwin(win, f);
+      for (int r = nx.top; r <= g.kk1 + 1; ++r) Wn[nx.off(r, c)] = mb_ring_at(rc, N, mask, r);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kMbThreads)
+sweep_generate_mb_kernel(const double* __restrict__ H, double* __restrict__ ring,
+                         double* __restrict__ gwin, double* __restrict__ R, int p, int N,
+                         int m, int i, int nb, int gap, int nbact, int L, MbShifts sh) {
+  extern __shared__ double smem[];
+  double* win = gwin ? gwin : smem;
+  const int lowext = (nb - 1) * gap, S = L + lowext + 3, kkend = i + (nbact - 1) * gap;
+  double* fs = win + (size_t)p * S * S;
+  MbBatch g{m, i, nb, gap, nbact, L, lowext, S};
+  g.place(m, kkend);
+  // the first windows: rows m..rlast, columns m..clast (column m-1 is
+  // never read)
+  {
+    const int na = g.rlast - m + 1, nw = g.clast - m + 1, per = na * nw;
+    for (int t = threadIdx.x; t < p * per; t += blockDim.x) {
+      const int f = t / per, r = m + (t % per) / nw, c = m + t % nw;
+      g.fwin(win, f)[g.off(r, c)] = H[((size_t)f * N + r) * N + c];
+    }
+  }
+  __syncthreads();
+  // the columns right of the windows take a batch's left transforms during
+  // the next batch, on the lag warps, from a copy of its transforms in fsg;
+  // only the columns that enter the next windows take them at its end
+  double* fsg = ring + (size_t)mb_ring_rows(nb, gap) * p * N;
+  const size_t nfs = (size_t)p * nb * L * 9;
+  const int w = threadIdx.x >> 5, nw = blockDim.x >> 5;
+  int lag_idx = 0, nlag = 0;  // the lag warps' threads
+  for (int v = 5; v < nw; ++v) {
+    if (v == w) lag_idx = nlag;
+    nlag += mb_lag_warp(v) ? 32 : 0;
+  }
+  lag_idx += threadIdx.x & 31;
+  MbBatch gp = g;
+  bool lagging = false;
+  for (;;) {
+    if (lagging && mb_lag_warp(w))
+      mb_update(H, ring, win, fsg, p, N, gp, g, g.clast + 1, i + 1, false, lag_idx, nlag);
+    else
+      mb_batch(win, fs, R, p, N, g, sh);
+    __syncthreads();
+    if (g.kk1 == kkend) break;
+    MbBatch nx = g;
+    nx.place(g.kk1, kkend);
+    // the windows move down and right by L: entry (a, b) <- (a + L, b + L),
+    // in rounds of ascending a S + b (each round reads, then writes, and a
+    // source lies after every destination before it)
+    const int D = S - L, per = D * D;
+    for (int e0 = 0; e0 < p * per; e0 += blockDim.x) {
+      const int e = e0 + threadIdx.x;
+      double* wp = win + (size_t)(e / per) * S * S + (size_t)((e % per) / D) * S + e % D;
+      double v = 0.0;
+      if (e < p * per) v = wp[(size_t)L * S + L];
+      __syncthreads();
+      if (e < p * per) wp[0] = v;
+      __syncthreads();
+    }
+    for (size_t t = threadIdx.x; t < nfs; t += blockDim.x) fsg[t] = fs[t];
+    mb_update(H, ring, win, fs, p, N, g, nx, g.clast + 1, nx.clast, true, threadIdx.x,
+              blockDim.x);
+    // fresh rows of H for the rest of the next windows: below the old
+    // windows' rows, and below the carried rows of the columns that enter
+    for (int c = max(nx.top - 1, m) + w; c <= nx.clast; c += nw) {
+      const int r0 = (c <= g.clast) ? g.rlast + 1 : g.kk1 + 2;
+      for (int t = (threadIdx.x & 31); t < p * max(nx.rlast - r0 + 1, 0); t += 32) {
+        const int na = nx.rlast - r0 + 1, f = t / na, r = r0 + t % na;
+        nx.fwin(win, f)[nx.off(r, c)] = H[((size_t)f * N + r) * N + c];
       }
     }
     __syncthreads();
-    for (int g0 = 0; g0 < nbact; g0 += grp) {
-      const int g1 = min(g0 + grp, nbact);
-      // left: rows k..k+2 of C[0], columns >= k
-      for (int b = g0; b < g1; ++b) {
-        const int k = kk - b * gap;
-        if (k < m || k >= i) continue;
-        double* r0 = C + (size_t)k * N;
-        for (int c = k + tid; c < N; c += blockDim.x) {
-          double o0, o1, o2;
-          apply_ft(F[b], r0[c], r0[c + N], r0[c + 2 * N], o0, o1, o2);
-          r0[c] = o0;
-          r0[c + N] = o1;
-          r0[c + 2 * N] = o2;
-        }
-      }
-      __syncthreads();
-      band_right_mb(C + (size_t)tgt0 * NN, N, m, i, kk, gap, g0, g1, lowext, F);
-      __syncthreads();
-    }
-
-    // ---- factors p-1..1: 3-reflector + 2-reflector, fused, all bulges --
-    for (int f = p - 1; f >= 1; --f) {
-      double* Cf = C + (size_t)f * NN;
-      if (tid < nbact) {
-        const int b = tid, k = kk - b * gap;
-        if (k >= m && k < i) {
-          const bool nr3 = (i - k + 1) >= 3;
-          const double* ck = Cf + (size_t)k * N + k;
-          double beta, betab;
-          gen_fused(ck[0], ck[N], ck[2 * N], ck[1], ck[N + 1], ck[2 * N + 1], nr3,
-                    F[b], beta, betab);
-          double* Rk = R + b * RB + ((size_t)f * N + k) * 9;
-#pragma unroll
-          for (int q = 0; q < 9; ++q) Rk[q] = F[b][q];
-          beta_s[b] = beta;
-          betab_s[b] = betab;
-        }
-      }
-      __syncthreads();
-      // left: F^T on rows k..k+2 of C[f], columns > k; column k takes its
-      // exact image (beta, 0, 0) and, when nr3, column k+1's rows k+1..k+2
-      // the second reflector's (betab, 0)
-      for (int b = 0; b < nbact; ++b) {
-        const int k = kk - b * gap;
-        if (k < m || k >= i) continue;
-        const bool nr3 = (i - k + 1) >= 3;
-        double* r0 = Cf + (size_t)k * N;
-        for (int c = k + tid; c < N; c += blockDim.x) {
-          double o0, o1, o2;
-          if (c == k) {
-            o0 = beta_s[b];
-            o1 = 0.0;
-            o2 = 0.0;
-          } else {
-            apply_ft(F[b], r0[c], r0[c + N], r0[c + 2 * N], o0, o1, o2);
-            if (nr3 && c == k + 1) {
-              o1 = betab_s[b];
-              o2 = 0.0;
-            }
-          }
-          r0[c] = o0;
-          r0[c + N] = o1;
-          r0[c + 2 * N] = o2;
-        }
-      }
-      __syncthreads();
-      band_right_mb(C + (size_t)(f - 1) * NN, N, m, i, kk, gap, 0, nbact, lowext,
-                    F);
-      __syncthreads();
-    }
+    gp = g;
+    lagging = true;
+    g = nx;
   }
 }
 
@@ -874,6 +1235,15 @@ cudaError_t gen_plan(int p, GenPlan& plan) {
   return e;
 }
 
+// The same for kernel A-mb, whose windows grow with (nb - 1) gap.
+cudaError_t mb_plan(int p, int nb, int gap, GenPlan& plan) {
+  int L = 0;
+  const cudaError_t e = psd::longest_batch(
+      kMaxBatch, [=](int l) { return mb_window_doubles(p, nb, gap, l) * sizeof(double); }, L);
+  plan = {L > 0 ? L : kMaxBatch, L == 0};
+  return e;
+}
+
 // Launch an apply kernel with `smem` bytes of shared memory.  Above 48 KB
 // a kernel needs the opt-in, which holds for the device it was asked on:
 // asked once per kernel and device (bit d of `asked`).
@@ -946,25 +1316,44 @@ int psd_sweep_generate(const double* H, double* work, double* R, int p, int N,
   return (int)cudaGetLastError();
 }
 
-// Kernel A for NB bulges.  shifts (host memory): v0 of bulge 0, then
-// (rt1r, rt1i, rt2r) of each of the nb bulges (bulge 0's unused).  R:
-// (nb, p, N, 9) output log, slices 0..nbact-1 written.
-int psd_sweep_generate_mb(const double* H, double* C, double* R, int p, int N,
+// Doubles of the scratch kernel A-mb takes (psd_sweep_generate_mb's work):
+// the carried rows, mb_ring_rows(nb, gap) >= (nb - 1) gap + 3 per (factor,
+// column), a copy of a batch's transforms, and the windows
+// when they do not fit in shared memory; -1 on a bad configuration or a
+// CUDA error.
+long long psd_sweep_generate_mb_scratch(int p, int N, int nb, int gap) {
+  if (nb < 1 || nb > kMaxNb || gap < 3) return -1;
+  GenPlan plan;
+  if (mb_plan(p, nb, gap, plan) != cudaSuccess) return -1;
+  return (long long)mb_ring_rows(nb, gap) * p * N + 9LL * p * nb * plan.L +
+         (plan.global ? (long long)mb_window_doubles(p, nb, gap, plan.L) : 0);
+}
+
+// Kernel A for NB bulges.  H: (p, N, N) input (read only); work:
+// psd_sweep_generate_mb_scratch(p, N, nb, gap) doubles of scratch; shifts
+// (host memory): v0 of bulge 0, then (rt1r, rt1i, rt2r) of each of the nb
+// bulges (bulge 0's unused).  R: (nb, p, N, 9) output log, rows m..i-1 of
+// slices 0..nbact-1 written.
+int psd_sweep_generate_mb(const double* H, double* work, double* R, int p, int N,
                           int m, int i, int nb, int gap, int nbact,
                           const double* shifts, void* stream) {
   if (nb < 1 || nb > kMaxNb || gap < 3 || nbact < 1 || nbact > nb)
     return (int)cudaErrorInvalidValue;
+  GenPlan plan;
+  cudaError_t e = mb_plan(p, nb, gap, plan);
+  if (e != cudaSuccess) return (int)e;
   MbShifts sh;
   for (int q = 0; q < 3; ++q) sh.v0[q] = shifts[q];
   for (int q = 0; q < 3 * kMaxNb; ++q) sh.sig[q] = (q < 3 * nb) ? shifts[3 + q] : 0.0;
-  cudaStream_t st = (cudaStream_t)stream;
-  const size_t pitch = (size_t)N * N * sizeof(double);
-  cudaError_t e = cudaMemcpy2DAsync(C + (size_t)m * N, pitch, H + (size_t)m * N,
-                                    pitch, (size_t)(i + 2 - m) * N * sizeof(double),
-                                    p, cudaMemcpyDeviceToDevice, st);
+  const size_t smem = plan.global ? 0 : mb_window_doubles(p, nb, gap, plan.L) * sizeof(double);
+  e = cudaFuncSetAttribute(sweep_generate_mb_kernel,
+                           cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  sweep_generate_mb_kernel<<<1, kGenThreads, 0, st>>>(C, R, p, N, m, i, nb, gap,
-                                                      nbact, sh);
+  double* gwin = plan.global
+                     ? work + (size_t)mb_ring_rows(nb, gap) * p * N + 9 * (size_t)p * nb * plan.L
+                     : nullptr;
+  sweep_generate_mb_kernel<<<1, kMbThreads, smem, (cudaStream_t)stream>>>(
+      H, work, gwin, R, p, N, m, i, nb, gap, nbact, plan.L, sh);
   return (int)cudaGetLastError();
 }
 

@@ -69,6 +69,8 @@ def _declare(lib):
     lib.psd_sweep_generate_scratch.restype = ctypes.c_longlong
     lib.psd_sweep_generate_mb.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, i32,
                                           i32, ctypes.POINTER(f64), vp]
+    lib.psd_sweep_generate_mb_scratch.argtypes = [i32, i32, i32, i32]
+    lib.psd_sweep_generate_mb_scratch.restype = ctypes.c_longlong
     lib.psd_sweep_left.argtypes = [vp, vp, i32, i32, i32, i32, i32, vp]
     lib.psd_sweep_right.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, vp]
     lib.psd_deflate2x2.argtypes = [vp, vp, i32, i32, i32, i32, i32, i32, i32,

@@ -22,7 +22,9 @@ columns behind bulge b-1 (``AlgoConfig.nbulges > 1``; the JAX package's
     tick kk bulge b is at k = kk - b*gap), generating the NB bulges'
     transforms of a (tick, factor) at once; a trailing bulge's first
     column comes from the leading 3x3 of the cycle product when it enters
-    the window; it writes the log R (NB, p, N, 9);
+    the window; it reads H only, on look-ahead windows that reach
+    (NB-1)*gap rows and columns further up, and writes the log
+    R (NB, p, N, 9);
   - ``sweep_left`` applies the logged F^T to rows k..k+2 of every H[f];
   - ``sweep_right`` applies the logged F to columns k..k+2 of H[f-1]
     (rows 0..i; H[p-1] takes factor 0's log) and of Z[f], and writes the
@@ -348,19 +350,45 @@ def chase_sweep_mb(H, Z, m: int, i: int, v0, sig, nbact: int, *, nb: int, gap: i
         raise ValueError(f"chase_sweep_mb: {len(sig)} shift triples for {nbact} bulges")
     if i == m:
         return H, Z
+    R = sweep_generate_mb(H, m, i, v0, sig, nbact, nb=nb, gap=gap)
+    _apply_log(_cuda.load(), _cuda.stream_ptr(H), H, Z, R, m, i, nbact, want_z)
+    return H, Z
+
+
+def sweep_generate_mb(H, m: int, i: int, v0, sig, nbact: int, *, nb: int, gap: int):
+    """Kernel A-mb alone: the transform logs R (nbact, p, N, 9) of the
+    multi-bulge sweep over [m, i] (arguments as ``chase_sweep_mb``; rows
+    m..i-1 of each bulge's slice are written).  On a CUDA stack it launches
+    the kernel, which reads H only; its scratch is the carried rows (a
+    power of two >= (nb-1) gap + 3 per column: 16 p N doubles at nb=4,
+    gap 3), plus the windows when they do not fit in shared memory.  On a
+    CPU stack: ``chase_sweep_mb_plain``'s logs, H unchanged."""
+    check_mb(nb, gap, nbact)
+    if len(sig) < nbact:
+        raise ValueError(f"sweep_generate_mb: {len(sig)} shift triples for {nbact} bulges")
     p, N, _ = H.shape
-    lib = _cuda.load()
-    st = _cuda.stream_ptr(H)
+    if H.device.type == "cpu":
+        R = torch.zeros((nbact, p, N, 9), dtype=H.dtype)
+        chase_sweep_mb_plain(H.clone(), None, m, i, v0, sig, nbact, nb=nb, gap=gap,
+                             want_z=False, log=R)
+        return R
+    _check_card_args("sweep_generate_mb", H, None, m, i, False)
+    if i == m:
+        raise ValueError("sweep_generate_mb: empty window")
     vals = [float(x) for x in v0]
     for b in range(nb):
         vals += [float(x) for x in sig[b]] if b < len(sig) else [0.0] * 3
     shifts = (ctypes.c_double * len(vals))(*vals)
-    R = torch.empty((nbact, p, N, 9), dtype=torch.float64, device=H.device)
-    C = torch.empty((p, N, N), dtype=torch.float64, device=H.device)
+    lib = _cuda.load()
     with _cuda.on_device(H):
-        _cuda.check(lib.psd_sweep_generate_mb(H.data_ptr(), C.data_ptr(), R.data_ptr(),
-                                              p, N, m, i, nb, gap, nbact, shifts, st),
-                    "sweep_generate_mb")
+        nwork = lib.psd_sweep_generate_mb_scratch(p, N, nb, gap)
+        if nwork < 0:
+            raise RuntimeError("sweep_generate_mb: CUDA error reading the card's shared "
+                               "memory limit")
+        work = torch.empty(nwork, dtype=torch.float64, device=H.device)
+        R = torch.empty((nbact, p, N, 9), dtype=torch.float64, device=H.device)
+        _cuda.check(lib.psd_sweep_generate_mb(H.data_ptr(), work.data_ptr(), R.data_ptr(),
+                                              p, N, m, i, nb, gap, nbact, shifts,
+                                              _cuda.stream_ptr(H)), "sweep_generate_mb")
     launches["sweep_generate_mb"] += 1
-    _apply_log(lib, st, H, Z, R, m, i, nbact, want_z)
-    return H, Z
+    return R

@@ -3,7 +3,8 @@
 // blockDim std::threads, one block after the other (stub_launch) or all
 // blocks at once (stub_launch_coop, for cudaLaunchCooperativeKernel, with a
 // std::barrier over the whole grid for cooperative_groups' grid sync);
-// __syncthreads and __syncwarp are std::barriers, __shared__ is static
+// __syncthreads, __syncwarp and bar.sync with a thread count are
+// std::barriers, __shared__ is static
 // (shared by concurrent blocks: a cooperative kernel keeps its shared data
 // in the dynamic buffer), __shfl_sync goes through a per-warp slot array,
 // the dynamic shared memory is a buffer of each block filled with NaN, and
@@ -22,6 +23,7 @@
 #include <cstdlib>
 #include <cstring>
 #include <memory>
+#include <mutex>
 #include <thread>
 #include <utility>
 #include <vector>
@@ -55,6 +57,8 @@ struct stub_block {
   std::vector<std::unique_ptr<std::barrier<>>> wbar;
   double slots[64][32];
   std::vector<double> dyn;
+  std::mutex named_mu;  // bar.sync with an id and a thread count, made on first use
+  std::map<int, std::unique_ptr<std::barrier<>>> named;
   stub_block(unsigned nt, size_t smem)
       : bar(nt), dyn(smem / sizeof(double) + 1, std::nan("")) {
     for (unsigned w = 0; w < (nt + 31) / 32; ++w)
@@ -72,6 +76,17 @@ size_t stub_dyn_limit(F f) {
   return it == stub_max_dyn.end() ? 48 * 1024 : it->second;
 }
 inline void __syncthreads() { stub_blk->bar.arrive_and_wait(); }
+// `bar.sync id, count;`: the first `count` threads to arrive at barrier id
+inline void stub_bar_sync(int id, int count) {
+  std::barrier<>* b;
+  {
+    std::lock_guard<std::mutex> lock(stub_blk->named_mu);
+    auto& slot = stub_blk->named[id];
+    if (!slot) slot.reset(new std::barrier<>(count));
+    b = slot.get();
+  }
+  b->arrive_and_wait();
+}
 inline void __syncwarp(unsigned = 0xffffffffu) { stub_blk->wbar[threadIdx.x / 32]->arrive_and_wait(); }
 inline double __shfl_sync(unsigned, double v, int src) {
   const int w = threadIdx.x / 32;

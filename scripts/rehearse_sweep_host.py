@@ -28,6 +28,16 @@ and B0 and B on A's log against ``qz_apply_log_plain``, at an H100's shared
 memory, 3000 bytes (short batches; p=16 takes the global windows) and 200
 bytes (the windows in the global scratch for every p).
 
+``--mb``: kernel A-mb of csrc/sweep.cu (multi-bulge generation on
+look-ahead windows) against the numpy model of the order before the window
+(tests/torch_mb_window_host.py, ``sweep_log_mb_full``), bit for bit, H
+unchanged, only the active bulges' rows m..i-1 written: p = 1 to 16, NB =
+2..4 with fewer active bulges, gap 3, 5 and 7, windows with m > 0, ending
+before n-1, shorter than (nbact-1) gap or of the closing step alone, at
+an H100's shared memory, 3000 bytes (short batches; p=16 takes the global
+windows) and 200 bytes (the windows in the global scratch for every p);
+about 2 minutes.
+
 ``--rg``: the same for csrc/sweep_rg.cu: kernel rg A's generation against
 ``psd::givens_r`` bit for bit on operands that take every branch (zeros,
 subnormals, infinities, NaNs), kernel rg A's log against the
@@ -76,8 +86,8 @@ included, built with UBSan's alignment check (a misaligned double2 stops
 the run); about a minute.
 
 Run from the repository root:
-  python3 scripts/rehearse_sweep_host.py [--cx | --rg | --hess [--parent FILE] | --signed
-                                          | --deflate]
+  python3 scripts/rehearse_sweep_host.py [--mb | --cx | --rg | --hess [--parent FILE]
+                                          | --signed | --deflate]
 """
 import argparse
 import ctypes
@@ -100,6 +110,7 @@ from torch_cx_window_host import qz_log_full  # noqa: E402
 from torch_rg_window_host import rg_log_full  # noqa: E402
 from torch_apply_host import apply_model  # noqa: E402
 from torch_mb_host import mb_sig  # noqa: E402
+from torch_mb_window_host import sweep_log_mb_full  # noqa: E402
 from torch_window_host import sweep_log_full  # noqa: E402
 
 
@@ -112,6 +123,8 @@ def build_stub(name, path=None, extra="", sub=(), flags=()):
         assert old in src, old
         src = src.replace(old, new)
     src = src.replace("cudaLaunchCooperativeKernel((void*)kernel,", "stub_launch_coop(kernel,")
+    src = re.sub(r'asm volatile\("bar\.sync (\d+), %0;" ::"r"\((.*)\) : "memory"\);',
+                 r"stub_bar_sync(\1, \2);", src)
     src = src.replace("extern __shared__ double smem[];", "double* smem = stub_dyn_smem;")
     src = src.replace("extern __shared__ double2 smem[];",
                       "double2* smem = (double2*)stub_dyn_smem;")
@@ -135,6 +148,8 @@ def build():
     lib.psd_sweep_generate_scratch.restype = ctypes.c_longlong
     lib.psd_sweep_generate_mb.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, i32, i32,
                                           ctypes.POINTER(f64), vp]
+    lib.psd_sweep_generate_mb_scratch.argtypes = [i32, i32, i32, i32]
+    lib.psd_sweep_generate_mb_scratch.restype = ctypes.c_longlong
     lib.psd_sweep_left.argtypes = [vp, vp, i32, i32, i32, i32, i32, vp]
     lib.psd_sweep_right.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, vp]
     return lib
@@ -161,6 +176,23 @@ def problem(p, n, seed):
     return H, Z, v0 / np.abs(v0).sum()
 
 
+def mb_stub(lib, Ht, m, i, v0, sig, nb, gap, nbact):
+    """Kernel A-mb through the stub's C entry (NaN-filled scratch and log);
+    returns the log (nb, p, N, 9) and checks that H is unchanged."""
+    p, N, _ = Ht.shape
+    H0 = Ht.clone()
+    work = torch.full((lib.psd_sweep_generate_mb_scratch(p, N, nb, gap),), float("nan"),
+                      dtype=torch.float64)
+    R = torch.full((nb, p, N, 9), float("nan"), dtype=torch.float64)
+    vals = list(map(float, v0)) + [float(x) for s3 in sig for x in s3]
+    vals += [0.0] * (3 + 3 * nb - len(vals))
+    assert lib.psd_sweep_generate_mb(Ht.data_ptr(), work.data_ptr(), R.data_ptr(), p, N, m, i,
+                                     nb, gap, nbact, (ctypes.c_double * len(vals))(*vals),
+                                     None) == 0
+    assert torch.equal(Ht, H0), "kernel A-mb wrote H"
+    return R
+
+
 def check(lib, p, n, m, i):
     H, Z, v0 = problem(p, n, p * 31 + n)
     if m > 0:
@@ -175,11 +207,7 @@ def check(lib, p, n, m, i):
     assert torch.equal(Ht, torch.tensor(H)), "kernel A wrote H"
     Rf, _ = sweep_log_full(H, m, i, list(v0))
     assert np.array_equal(R.numpy()[:, m:i], Rf[:, m:i]), "kernel A's log != the model's"
-    C = torch.empty((p, N, N), dtype=torch.float64)
-    Rm = torch.empty((1, p, N, 9), dtype=torch.float64)
-    sh = (ctypes.c_double * 6)(*map(float, v0), 0.0, 0.0, 0.0)
-    assert lib.psd_sweep_generate_mb(Ht.data_ptr(), C.data_ptr(), Rm.data_ptr(), p, N, m, i, 1,
-                                     3, 1, sh, None) == 0
+    Rm = mb_stub(lib, Ht, m, i, v0, [(0.0, 0.0, 0.0)], 1, 3, 1)
     assert torch.equal(Rm[0, :, m:i], R[:, m:i]), "A-mb with one bulge != A"
     Hb, Zb = torch.tensor(H), torch.tensor(Z)
     assert lib.psd_sweep_left(Hb.data_ptr(), R.data_ptr(), p, N, m, i, 1, None) == 0
@@ -188,6 +216,47 @@ def check(lib, p, n, m, i):
     Hp, Zp = torch.tensor(H), torch.tensor(Z)
     sweep.chase_sweep_plain(Hp, Zp, m, i, v0, want_z=True)
     return float((Hb - Hp).abs().max()) / np.abs(H).max(), float((Zb - Zp).abs().max())
+
+
+def check_mb(lib, p, n, m, i, nb, nbact, gap):
+    """Kernel A-mb through the stub against the numpy model of the order
+    before the look-ahead window (tests/torch_mb_window_host.py), bit for
+    bit, H unchanged; rows outside m..i-1 and slices nbact.. untouched."""
+    H, _, v0 = problem(p, n, p * 31 + n + nb + gap)
+    if m > 0:
+        H[0, m, m - 1] = 0.0
+    H[0, i + 1, i] = 0.0
+    sig = mb_sig(np.random.default_rng(p + n + m), nb)
+    R = mb_stub(lib, torch.tensor(H), m, i, v0, sig, nb, gap, nbact).numpy()
+    Rf, _ = sweep_log_mb_full(H, m, i, v0, sig, nb, gap, nbact)
+    assert np.array_equal(R[:nbact, :, m:i], Rf[:nbact, :, m:i]), \
+        (p, n, m, i, nb, nbact, gap, "A-mb's log != the model's")
+    assert np.isnan(R[:, :, :m]).all() and np.isnan(R[:, :, i:]).all()
+    assert np.isnan(R[nbact:]).all()
+
+
+# (p, n, m, i, nb, nbact, gap): p = 1, where the band update lands on the
+# factor the next bulge reads; m > 0; windows shorter than (nbact-1) gap;
+# nbact < nb; gap 5 and 7; the closing step alone; odd and even n; inner
+# windows (i < n-1) with fewer active bulges than configured
+MB_CASES = [(1, 13, 0, 12, 2, 2, 3), (1, 40, 2, 37, 4, 4, 3), (1, 11, 2, 7, 4, 4, 5),
+            (2, 15, 0, 14, 3, 3, 3), (2, 41, 3, 40, 3, 3, 5), (2, 16, 1, 15, 4, 2, 5),
+            (3, 14, 2, 12, 4, 4, 3), (3, 12, 4, 8, 4, 4, 3), (5, 37, 1, 36, 4, 3, 3),
+            (5, 9, 0, 8, 2, 1, 3), (16, 40, 0, 39, 4, 4, 3), (16, 37, 5, 33, 4, 4, 3),
+            (3, 9, 5, 6, 3, 3, 3), (4, 70, 3, 66, 4, 4, 3), (2, 45, 0, 44, 4, 4, 7),
+            (2, 40, 10, 30, 4, 2, 3), (16, 70, 20, 60, 4, 2, 3), (5, 50, 2, 47, 4, 4, 5),
+            (3, 60, 0, 59, 3, 3, 7), (4, 31, 1, 29, 4, 3, 5)]
+
+
+def main_mb():
+    lib = build()
+    for optin in ("232448", "3000", "200"):
+        os.environ["STUB_SMEM_OPTIN"] = optin
+        for case in MB_CASES:
+            check_mb(lib, *case)
+            print(f"shared memory {optin} B, (p, n, m, i, nb, nbact, gap) = {case}: A-mb's log "
+                  f"== the model's", flush=True)
+    return 0
 
 
 def apply_sizes():
@@ -215,11 +284,7 @@ def check_apply(lib, p, n, m, i, sizes):
     assert lib.psd_sweep_generate(Ht.data_ptr(), work.data_ptr(), R.data_ptr(), p, N, m, i,
                                   *map(float, v0), None) == 0
     sig = mb_sig(np.random.default_rng(n + m), 4)
-    vals = list(map(float, v0)) + [float(x) for s3 in sig for x in s3]
-    Rm = torch.full((4, p, N, 9), float("nan"), dtype=torch.float64)
-    C = torch.empty((p, N, N), dtype=torch.float64)
-    assert lib.psd_sweep_generate_mb(Ht.data_ptr(), C.data_ptr(), Rm.data_ptr(), p, N, m, i, 4,
-                                     3, 4, (ctypes.c_double * len(vals))(*vals), None) == 0
+    Rm = mb_stub(lib, Ht, m, i, v0, sig, 4, 3, 4)
     assert not torch.isnan(Rm[:, :, m:i]).any(), "A-mb's log has NaNs"
     runs = 0
     for L, nb in [(R, 1)] + [(Rm, nb) for nb in (1, 2, 3, 4)]:
@@ -699,7 +764,10 @@ def main():
     ap.add_argument("--parent", default=None)
     ap.add_argument("--signed", action="store_true")
     ap.add_argument("--deflate", action="store_true")
+    ap.add_argument("--mb", action="store_true")
     args = ap.parse_args()
+    if args.mb:
+        return main_mb()
     if args.deflate:
         return main_deflate()
     if args.signed:
@@ -726,7 +794,7 @@ def main():
         ("constexpr int kLeftCols = ", "constexpr int kLeftCols = 8; //"),
         ("constexpr int kRightRows = ", "constexpr int kRightRows = 8; //")])
     for fn in ("psd_sweep_generate", "psd_sweep_generate_scratch", "psd_sweep_generate_mb",
-               "psd_sweep_left", "psd_sweep_right"):
+               "psd_sweep_generate_mb_scratch", "psd_sweep_left", "psd_sweep_right"):
         getattr(tight, fn).argtypes = getattr(lib, fn).argtypes
         getattr(tight, fn).restype = getattr(lib, fn).restype
     for lb in (lib, tight):

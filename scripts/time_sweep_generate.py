@@ -120,9 +120,26 @@ example ``--set kAhead=6``) instead.  ``--headline`` adds one real headline
 ``pschur`` (wall, niter, sweeps, hashes of T and Z) and the device time of
 kernels A, B0 and B in a second run under the CUDA profiler.
 
+``--mb``: kernel A-mb (csrc/sweep.cu::psd_sweep_generate_mb) alone on the
+problem of chip_smoke.py's ``mb_phase`` (p=16, n=512, ``default_rng(2027)``,
+gap 3, the driver's window shifts ``pqr_real.window_shifts``): [0, 511]
+with NB = 1..4 bulges, [0, 127] with four and [200, 263] with two of four,
+the mean of ``--reps`` launches after a warm-up (CUDA events) and a hash of
+each log.  ``--against DIR``: DIR's library (built in a child process) and
+this checkout's in turns, parent / change / change / parent, in one
+process.  The scratch is a (p, N, N) buffer, enough for either design.
+``--set NAME=VALUE`` (repeatable) adds A-mb of a copy of sweep.cu with
+``constexpr int NAME`` rewritten to the turns (parent, change, set, set,
+change, parent).  ``--headline`` then runs the mb headline leg (``pschur_real_pipeline``,
+p=16, n=512, seed 12345, nbulges=4): wall, iteration, niter, sweeps,
+hashes of T and Z, the host time of the shift solve (``_mb_shifts``), and
+under the CUDA profiler the device time and launches of A-mb, B0, B, G, D
+and the reduction, and the idle share.
+
 Run from the repository root:
   python3 scripts/time_sweep_generate.py [--cx | --rg | --hess | --signed [--split]
-      | --deflate [--against DIR] | --apply] [--root DIR] [--headline [--trace]]
+      | --deflate [--against DIR] | --apply | --mb [--against DIR]] [--root DIR]
+      [--headline [--trace]]
 """
 import argparse
 import hashlib
@@ -150,6 +167,7 @@ def main():
     ap.add_argument("--split", action="store_true")
     ap.add_argument("--deflate", action="store_true")
     ap.add_argument("--apply", action="store_true")
+    ap.add_argument("--mb", action="store_true")
     ap.add_argument("--against", default=None)
     ap.add_argument("--set", action="append", default=[])
     ap.add_argument("--hq", default=os.path.join(HERE, "_dev", "rg_hq.pt"))
@@ -169,7 +187,7 @@ def main():
     print(smi)
     lib = _cuda.load()
     out = {"root": os.path.abspath(args.root), "card": smi}
-    (time_apply if args.apply else time_deflate if args.deflate else time_signed
+    (time_mb if args.mb else time_apply if args.apply else time_deflate if args.deflate else time_signed
      if args.signed else time_hess
      if args.hess else time_cx if args.cx else time_rg if args.rg
      else time_real)(torch, lib, _cuda, args, out)
@@ -373,7 +391,7 @@ def time_apply(torch, lib, _cuda, args, out):
         sig = pqr_real.window_shifts(H0, i, 4)
         vals = [float(x) for x in v0] + [float(x) for s3 in sig for x in s3]
         R4 = torch.empty((4, p, N, 9), dtype=torch.float64, device="cuda")
-        C = torch.empty((p, N, N), dtype=torch.float64, device="cuda")
+        C = torch.empty((p, N, N), dtype=torch.float64, device="cuda")  # scratch of either design
         _cuda.check(lib.psd_sweep_generate_mb(H0.data_ptr(), C.data_ptr(), R4.data_ptr(), p, N,
                                               m, i, 4, MB_GAP, 4,
                                               (ctypes.c_double * len(vals))(*vals), st),
@@ -415,6 +433,202 @@ def time_apply(torch, lib, _cuda, args, out):
     if args.headline:
         headline_real(torch, out)
         headline_apply_profile(torch, out)
+
+
+def mb_windows(n):
+    """(m, i, nb, nbact) of ``--mb``: [0, n-1] with NB = 1..4 (all active),
+    and chip_smoke.py's mb_phase windows [0, 127] (four bulges) and
+    [200, 263] (two of four)."""
+    return [(0, n - 1, nb, nb) for nb in (1, 2, 3, 4)] + [(0, 127, 4, 4), (200, 263, 4, 2)]
+
+
+def time_mb(torch, lib, _cuda, args, out):
+    """Kernel A-mb alone on mb_phase's draw (p=16, n=512, default_rng(2027)),
+    gap 3, the driver's window shifts; with ``--against DIR`` in rounds of
+    parent (DIR's library) and change (this checkout's), P C C P, each the
+    mean of ``--reps`` launches after a warm-up, CUDA events.  The scratch
+    is a (p, N, N) buffer: the working copy of the design before the
+    look-ahead window, more than the carried rows of the window's."""
+    import ctypes
+    from chip_smoke import mk_sweep_problem
+    from periodicschurdecompositions_jl_torch.ops import pqr_real
+    p, n = 16, 512
+    N = n + 1
+    libs = {"change": lib}
+    if args.against:
+        so = subprocess.run(
+            [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
+             "from periodicschurdecompositions_jl_torch.ops import _cuda; "
+             "print(_cuda.load()._name)", os.path.abspath(args.against)],
+            capture_output=True, text=True, check=True).stdout.strip().splitlines()[-1]
+        libs["parent"] = ctypes.CDLL(so)
+        libs["parent"].psd_sweep_generate_mb.argtypes = lib.psd_sweep_generate_mb.argtypes
+        libs["parent"].psd_sweep_generate_mb.restype = ctypes.c_int
+        out["parent"] = so
+    if args.set:  # A-mb of a copy of sweep.cu with constexprs rewritten, in the turns
+        libs["set"] = build_variant(_cuda, HERE, "sweep", args.set)
+        libs["set"].psd_sweep_generate_mb.argtypes = lib.psd_sweep_generate_mb.argtypes
+        out["set"] = args.set
+    order = ["parent", "change", "change", "parent"] if args.against else ["change"]
+    if args.set:
+        order = order[:len(order) // 2] + ["set", "set"] + order[len(order) // 2:]
+    Hn, _, v0 = mk_sweep_problem(p, n, np.random.default_rng(2027))
+    st = torch.cuda.current_stream().cuda_stream
+    work = torch.empty((p, N, N), dtype=torch.float64, device="cuda")
+    out.update(p=p, n=n, gap=3, order=order)
+    for (m, i, nb, nbact) in mb_windows(n):
+        H = torch.tensor(Hn, device="cuda")
+        if m > 0:
+            H[0, m, m - 1] = 0.0
+        H[0, i + 1, i] = 0.0
+        sig = pqr_real.window_shifts(H, i, nb)
+        vals = [float(x) for x in v0] + [float(x) for s3 in sig for x in s3]
+        shifts = (ctypes.c_double * len(vals))(*vals)
+        R = torch.empty((nb, p, N, 9), dtype=torch.float64, device="cuda")
+        key = f"[{m},{i}] nb{nb} nbact{nbact}"
+        for tag in order:
+            def call():
+                _cuda.check(libs[tag].psd_sweep_generate_mb(
+                    H.data_ptr(), work.data_ptr(), R.data_ptr(), p, N, m, i, nb, 3, nbact,
+                    shifts, st), "sweep_generate_mb")
+            out.setdefault(f"{tag} A-mb ms {key}", []).append(event_ms(torch, call, args.reps))
+            out[f"{tag} R_sha256 {key}"] = sha(R[:nbact, :, m:i])
+        ticks = i - m + (nbact - 1) * 3
+        ms = out[f"change A-mb ms {key}"]
+        out[f"change us per (tick, factor) {key}"] = min(ms) * 1e3 / (ticks * p)
+        print(key + ": " + ", ".join(f"{t} {out[f'{t} A-mb ms {key}']} ms R "
+                                     f"{out[f'{t} R_sha256 {key}']}" for t in libs), flush=True)
+    if args.split:
+        split_mb(torch, _cuda, lib, args, Hn, v0, out)
+    if args.headline:
+        headline_mb(torch, out)
+
+
+# --mb --split: copies of sweep.cu with parts of A-mb cut, as (regex,
+# replacement) pairs (their logs are wrong; only their times count): the
+# rest warps' work (mb_rest), and also the band rows and window updates that
+# warp 0 applies after its generations
+MB_REST = (r"\n      if \(threadIdx\.x >= 32\) mb_rest\([^;]*;", "")
+MB_WARP0 = (r"crit \? min\(|\bmb_window_step\((?=win)",
+            lambda m: "false ? min(" if "crit" in m.group(0) else "if (0) mb_window_step(")
+MB_CUTS = {"no rest warps": [MB_REST], "generations only": [MB_REST, MB_WARP0]}
+
+
+def split_mb(torch, _cuda, lib, args, Hn, v0, out):
+    """A-mb of this checkout with the cuts of MB_CUTS, each built alone
+    into _dev/ (in parallel), at [0, 511] with NB = 1 and 4: where its time
+    goes (the generations' chain, the updates on its path, the rest).  The
+    scratch is zeroed, so a cut that leaves it unwritten reads zeros."""
+    import ctypes
+    from periodicschurdecompositions_jl_torch.ops import pqr_real
+    csrc = os.path.join(HERE, "periodicschurdecompositions_jl_torch", "csrc")
+    src = open(os.path.join(csrc, "sweep.cu")).read()
+    dev = os.path.join(HERE, "_dev")
+    os.makedirs(dev, exist_ok=True)
+    import re
+    cuts = {}
+    for name, subs in MB_CUTS.items():
+        cut = src
+        for old, new in subs:
+            cut, k = re.subn(old, new, cut)
+            if k == 0:
+                raise SystemExit(f"--split: {old!r} not in sweep.cu")
+        cuts[name] = cut
+    procs = {}
+    for name, cut in cuts.items():
+        cu = os.path.join(dev, "sweep_mb_" + name.replace(" ", "_") + ".cu")
+        open(cu, "w").write(cut)
+        procs[name] = (cu, subprocess.Popen(
+            [_cuda._find_nvcc(), *_cuda.NVCC_FLAGS, "-shared", "-I", csrc, "-o",
+             cu[:-3] + ".so", cu], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {"source": lib}
+    for name, (cu, pr) in procs.items():
+        log = pr.communicate()[0]
+        if pr.returncode:
+            raise SystemExit(log)
+        libs[name] = ctypes.CDLL(cu[:-3] + ".so")
+        libs[name].psd_sweep_generate_mb.argtypes = lib.psd_sweep_generate_mb.argtypes
+    p, n = Hn.shape[0], Hn.shape[1] - 1
+    N = n + 1
+    st = torch.cuda.current_stream().cuda_stream
+    H = torch.tensor(Hn, device="cuda")
+    H[0, n, n - 1] = 0.0
+    work = torch.zeros((p, N, N), dtype=torch.float64, device="cuda")
+    for nb in (1, 4):
+        sig = pqr_real.window_shifts(H, n - 1, nb)
+        vals = [float(x) for x in v0] + [float(x) for s3 in sig for x in s3]
+        shifts = (ctypes.c_double * len(vals))(*vals)
+        R = torch.empty((nb, p, N, 9), dtype=torch.float64, device="cuda")
+        for name, lb in libs.items():
+            def call():
+                work.zero_()
+                _cuda.check(lb.psd_sweep_generate_mb(H.data_ptr(), work.data_ptr(), R.data_ptr(),
+                                                     p, N, 0, n - 1, nb, 3, nb, shifts, st),
+                            "sweep_generate_mb")
+            out[f"split [0,{n - 1}] nb{nb} {name} ms"] = event_ms(torch, call, args.reps)
+        print(f"split nb{nb}: " + ", ".join(f"{k} {out[f'split [0,{n - 1}] nb{nb} {k} ms']:.3f}"
+                                          for k in libs) + " ms", flush=True)
+
+
+def headline_mb(torch, out):
+    """The mb headline leg (p=16, n=512, seed 12345, nbulges=4, gap 3):
+    ``pschur_real_pipeline`` after a small warm-up: wall, iteration,
+    niter, sweeps, hashes of T and Z, the host time of the shift solve
+    (``pqr_real._mb_shifts``: the window gather, its copy to the host and
+    ``ops/smallschur.py``), then once more under the CUDA profiler: device
+    time and launches by kernel, and the idle share of the wall."""
+    from torch.profiler import ProfilerActivity, profile
+    from chip_smoke import dev_us
+    from periodicschurdecompositions_jl_torch.config import AlgoConfig
+    from periodicschurdecompositions_jl_torch.ops import pqr_real
+    cfg = AlgoConfig(nbulges=4, bulge_gap=3)
+    shift_s = []
+    solve = pqr_real._mb_shifts
+
+    def timed(*a, **k):
+        t0 = time.perf_counter()
+        r = solve(*a, **k)
+        shift_s.append(time.perf_counter() - t0)
+        return r
+    pqr_real._mb_shifts = timed
+    pqr_real.pschur_real_pipeline(torch.tensor(
+        np.random.default_rng(0).standard_normal((2, 32, 32)), device="cuda"), "R", cfg=cfg)
+    A = torch.tensor(np.random.default_rng(12345).standard_normal((16, 512, 512)),
+                     device="cuda")
+    shift_s.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    P = pqr_real.pschur_real_pipeline(A, "R", cfg=cfg)
+    torch.cuda.synchronize()
+    out["mb_leg_wall_s"] = time.perf_counter() - t0
+    info = pqr_real.last_info
+    for k in ("reduce_s", "iterate_s", "niter", "sweeps", "bulges"):
+        out[f"mb_leg_{k}"] = info[k]
+    out["mb_leg_shift_solve_s"], out["mb_leg_shift_solves"] = sum(shift_s), len(shift_s)
+    out["mb_leg_T_sha256"], out["mb_leg_Z_sha256"] = sha(P.Ts), sha(P.Zs)
+    pqr_real._mb_shifts = solve
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pqr_real.pschur_real_pipeline(A, "R", cfg=cfg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ev = [e for e in prof.key_averages() if "CUDA" in str(e.device_type) and dev_us(e) > 0]
+    busy = sum(dev_us(e) for e in ev) / 1e3
+    out["mb_leg_profiled_wall_s"], out["mb_leg_device_ms"] = wall, busy
+    out["mb_leg_idle_share"] = 1 - busy / 1e3 / wall
+    for tag, key in (("A-mb", "sweep_generate_mb_kernel"), ("B0", "sweep_left_kernel"),
+                     ("B", "sweep_right_kernel"), ("G", "glue_kernel"),
+                     ("D", "deflate2x2_kernel"), ("reduction", "hess_reduce_kernel")):
+        sel = [e for e in ev if key in e.key]
+        out[f"mb_leg_{tag}_device_ms"] = sum(dev_us(e) for e in sel) / 1e3
+        out[f"mb_leg_{tag}_launches"] = sum(e.count for e in sel)
+    named = ("sweep_generate_mb_kernel", "sweep_left_kernel", "sweep_right_kernel",
+             "glue_kernel", "deflate2x2_kernel", "hess_reduce_kernel")
+    out["mb_leg_other_device_ms"] = sum(dev_us(e) for e in ev
+                                        if not any(k in e.key for k in named)) / 1e3
+    print("mb leg: " + ", ".join(f"{k[7:]} {v}" for k, v in out.items()
+                                 if k.startswith("mb_leg_")), flush=True)
 
 
 def headline_apply_profile(torch, out):

@@ -131,25 +131,30 @@ def test_sweep_kernel_global_windows(cuda):
     _structure_exact(Hk)
 
 
-def _mb_generate(H, m, i, v0, sig, nb, nbact):
-    """The multi-bulge kernels straight through the C entry points; returns
-    A-mb's log."""
+def _mb_generate(H, m, i, v0, sig, nb, nbact, gap=3):
+    """Kernel A-mb straight through its C entry point; returns its log."""
     import ctypes
     p, N, _ = H.shape
     lib = _cuda.load()
     st = torch.cuda.current_stream().cuda_stream
     vals = [float(x) for x in v0] + [float(x) for s3 in sig for x in s3]
     R = torch.empty((nbact, p, N, 9), dtype=torch.float64, device=H.device)
-    C = torch.empty((p, N, N), dtype=torch.float64, device=H.device)
-    _cuda.check(lib.psd_sweep_generate_mb(H.data_ptr(), C.data_ptr(), R.data_ptr(), p, N,
-                                          m, i, nb, 3, nbact,
+    work = torch.empty(lib.psd_sweep_generate_mb_scratch(p, N, nb, gap), dtype=torch.float64,
+                       device=H.device)
+    _cuda.check(lib.psd_sweep_generate_mb(H.data_ptr(), work.data_ptr(), R.data_ptr(), p, N,
+                                          m, i, nb, gap, nbact,
                                           (ctypes.c_double * len(vals))(*vals), st), "mb")
     return R
 
 
-@pytest.mark.parametrize("p,n,m,i,nb,nbact", [
-    (1, 20, 0, 19, 2, 2), (3, 40, 3, 37, 4, 4), (4, 24, 1, 22, 3, 2), (2, 30, 5, 26, 4, 4)])
-def test_mb_sweep_kernels_match_plain(cuda, p, n, m, i, nb, nbact):
+@pytest.mark.parametrize("p,n,m,i,nb,nbact,gap", [
+    (1, 20, 0, 19, 2, 2, 3), (3, 40, 3, 37, 4, 4, 3), (4, 24, 1, 22, 3, 2, 3),
+    (2, 30, 5, 26, 4, 4, 3),
+    (2, 41, 3, 40, 3, 3, 5),   # gap 5, odd n
+    (3, 25, 2, 8, 4, 4, 3),    # 6 steps, shorter than (nbact-1) gap = 9
+    (1, 33, 0, 32, 4, 4, 3),   # p = 1 with four bulges
+    (4, 31, 1, 29, 4, 3, 5)])  # gap 5, nbact < nb
+def test_mb_sweep_kernels_match_plain(cuda, p, n, m, i, nb, nbact, gap):
     Hn, Zn, v0 = _problem(p, n, p * 100 + n + nb)
     sig = [tuple(0.5 * np.random.default_rng(b).standard_normal(3)) for b in range(nb)]
     if m > 0:
@@ -157,20 +162,25 @@ def test_mb_sweep_kernels_match_plain(cuda, p, n, m, i, nb, nbact):
     H0, Z0 = torch.tensor(Hn, device=cuda), torch.tensor(Zn, device=cuda)
     before = sweep.launches["sweep_generate_mb"]
     Hk, Zk = H0.clone(), Z0.clone()
-    sweep.chase_sweep_mb(Hk, Zk, m, i, v0, sig, nbact, nb=nb, gap=3, want_z=True)
+    sweep.chase_sweep_mb(Hk, Zk, m, i, v0, sig, nbact, nb=nb, gap=gap, want_z=True)
     assert sweep.launches["sweep_generate_mb"] == before + 1
     Hp, Zp = H0.clone(), Z0.clone()
-    sweep.chase_sweep_mb_plain(Hp, Zp, m, i, v0, sig, nbact, nb=nb, gap=3, want_z=True)
+    Rp = torch.zeros((nb, p, n + 1, 9), dtype=torch.float64, device=cuda)
+    sweep.chase_sweep_mb_plain(Hp, Zp, m, i, v0, sig, nbact, nb=nb, gap=gap, want_z=True,
+                               log=Rp)
     torch.cuda.synchronize()
     scale = float(H0.abs().max())
     assert float((Hk - Hp).abs().max()) <= 1e-12 * scale
     assert float((Zk - Zp).abs().max()) <= 1e-12
     _structure_exact(Hk)
     Hz = H0.clone()
-    sweep.chase_sweep_mb(Hz, None, m, i, v0, sig, nbact, nb=nb, gap=3, want_z=False)
+    sweep.chase_sweep_mb(Hz, None, m, i, v0, sig, nbact, nb=nb, gap=gap, want_z=False)
     assert torch.equal(Hz, Hk)
-    # B0 + B (bulge-major) on A-mb's own log against apply_log_plain
-    R = _mb_generate(H0, m, i, v0, sig, nb, nbact)
+    # A-mb reads H only; its log against the plain version's; B0 + B
+    # (bulge-major) on it against apply_log_plain
+    R = _mb_generate(H0, m, i, v0, sig, nb, nbact, gap)
+    assert torch.equal(H0, torch.tensor(Hn, device=cuda))
+    assert float((R - Rp[:nbact])[:, :, m:i].abs().max()) <= 1e-12
     lib = _cuda.load()
     st = torch.cuda.current_stream().cuda_stream
     Hb, Zb = H0.clone(), Z0.clone()
@@ -184,6 +194,35 @@ def test_mb_sweep_kernels_match_plain(cuda, p, n, m, i, nb, nbact):
     assert float((Hb - Ha).abs().max()) <= 1e-13 * scale
     assert float((Zb - Za).abs().max()) <= 1e-13
     assert torch.equal(Hb, Hk) and torch.equal(Zb, Zk)
+
+
+def test_mb_sweep_kernel_global_windows(cuda):
+    # p = 150, four bulges at gap 3: even one tick's windows exceed a
+    # block's shared memory, so A-mb keeps them in its global scratch.  The
+    # chained generations amplify rounding, so the gate is chip_smoke.py's:
+    # 10x the plain version's own change under a relative 1e-16 input
+    # perturbation, and at least 1e-12
+    p, n, m, i, nb = 150, 12, 0, 11, 4
+    Hn, Zn, v0 = _problem(p, n, 11)
+    sig = [tuple(0.5 * np.random.default_rng(b).standard_normal(3)) for b in range(nb)]
+    lib = _cuda.load()
+    ring = 1 << ((nb - 1) * 3 + 2).bit_length()  # carried rows per column, a power of two
+    assert lib.psd_sweep_generate_mb_scratch(p, n + 1, nb, 3) > ring * p * (n + 1)
+    H0, Z0 = torch.tensor(Hn, device=cuda), torch.tensor(Zn, device=cuda)
+    Hk, Zk = H0.clone(), Z0.clone()
+    sweep.chase_sweep_mb(Hk, Zk, m, i, v0, sig, nb, nb=nb, gap=3, want_z=True)
+    Hp, Zp = H0.clone(), Z0.clone()
+    sweep.chase_sweep_mb_plain(Hp, Zp, m, i, v0, sig, nb, nb=nb, gap=3, want_z=True)
+    pert = torch.tensor(1.0 + 1e-16 * np.random.default_rng(1).standard_normal(Hn.shape),
+                        device=cuda)
+    Hq, Zq = H0 * pert, Z0.clone()
+    sweep.chase_sweep_mb_plain(Hq, Zq, m, i, v0, sig, nb, nb=nb, gap=3, want_z=True)
+    scale = float(H0.abs().max())
+    tol_h = max(1e-12, 10 * float((Hq - Hp).abs().max()) / scale)
+    tol_z = max(1e-12, 10 * float((Zq - Zp).abs().max()))
+    assert float((Hk - Hp).abs().max()) <= tol_h * scale
+    assert float((Zk - Zp).abs().max()) <= tol_z
+    _structure_exact(Hk)
 
 
 @pytest.mark.parametrize("nb", [1, 2, 3, 4])

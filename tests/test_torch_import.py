@@ -59,9 +59,9 @@ def test_cuda_loader_raises_without_nvcc(monkeypatch, tmp_path):
     assert _cuda._lib is None
 
 
-@pytest.mark.parametrize("fn", ["sweep", "sweep_mb", "deflate", "qz_sweep", "qz_shift",
-                                "qz_sweep_generate", "rg_chase", "rg_ladder", "hess",
-                                "glue"])
+@pytest.mark.parametrize("fn", ["sweep", "sweep_mb", "sweep_generate_mb", "deflate",
+                                "qz_sweep", "qz_shift", "qz_sweep_generate", "rg_chase",
+                                "rg_ladder", "hess", "glue"])
 def test_wrappers_refuse_other_devices(fn):
     H = torch.zeros((2, 5, 5), dtype=torch.float64, device="meta")
     Hc = torch.zeros((2, 5, 5), dtype=torch.complex128, device="meta")
@@ -71,6 +71,9 @@ def test_wrappers_refuse_other_devices(fn):
         elif fn == "sweep_mb":
             sweep.chase_sweep_mb(H, None, 0, 3, [1.0, 0.0, 0.0], [(0.0, 0.0, 0.0)] * 2, 2,
                                  nb=2, gap=3, want_z=False)
+        elif fn == "sweep_generate_mb":
+            sweep.sweep_generate_mb(H, 0, 3, [1.0, 0.0, 0.0], [(0.0, 0.0, 0.0)] * 2, 2,
+                                    nb=2, gap=3)
         elif fn == "deflate":
             deflate.deflate2x2(H, None, 2, -1, -1, 1.0, 0.0, False, False,
                                1e-300, want_z=False)
