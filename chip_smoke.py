@@ -130,6 +130,31 @@ def apply_bounds(p, n, m, i, nb=1):
                                  15 * p * (i + 1 + n) * K * nb)}
 
 
+def cx_apply_bounds(p, n, m, i):
+    """Bounds of the complex B0 (``qz_sweep_left``) and B
+    (``qz_sweep_right``) on the window [m, i], complex128 (16 B), counting
+    the entries that are not structural zeros.  B0 reads the upper parts of
+    rows m..i of its columns >= m (from column r-1 of H[0], column r of the
+    other factors) and the 4 L entries of each logged step, and writes rows
+    m..i from column m in full (its chained left rotations fill the entries
+    below the (sub)diagonal).  B reads and writes columns m..i of H's rows
+    0..i and of Z's rows 0..n-1, and reads the 8 R and ZR entries of each
+    step.  A complex 2x2 application is 28 flops per entry pair."""
+    K = i - m
+    upper = sum(n - max(r - 1, m) for r in range(m, i + 1)) + \
+        (p - 1) * sum(n - r for r in range(m, i + 1))
+    return {"qz_sweep_left": bound(16 * upper + 16 * p * (K + 1) * (n - m) + 16 * 4 * p * K,
+                                   28 * p * (n - m) * K),
+            "qz_sweep_right": bound(2 * 16 * p * (i + 1 + n) * (K + 1) + 16 * 8 * p * K,
+                                    28 * p * (i + 1 + n) * K)}
+
+
+def sha(t):
+    """sha256 prefix of a tensor's bytes (equal: bit-identical)."""
+    import hashlib
+    return hashlib.sha256(t.contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
+
+
 def structure_ok(H):
     Hn = H.cpu().numpy()
     return bool(np.all(np.tril(Hn[0], -2) == 0)
@@ -1290,9 +1315,12 @@ def cx_kernel_phase(dev, p, n, report):
         Hb, Zb = H0.clone(), Z0.clone()
         _cuda.check(lib.psd_qz_sweep_left(Hb.data_ptr(), log.data_ptr(), p, n, m, i,
                                           st), "qz_sweep_left")
+        h_b0 = sha(Hb)
         _cuda.check(lib.psd_qz_sweep_right(Hb.data_ptr(), Zb.data_ptr(),
                                            log.data_ptr(), p, n, m, i, st),
                     "qz_sweep_right")
+        _log(f"cx B0/B window [{m}, {i}] (sha256 prefixes, equal across versions when bit "
+             f"for bit): H after B0 {h_b0}, after B {sha(Hb)}, Z after B {sha(Zb)}")
         Ha, Za = H0.clone(), Z0.clone()
         t_apply = wall_ms(lambda: sweep_cx.qz_apply_log_plain(Ha, Za, log, m, i,
                                                               want_z=True))
@@ -1374,10 +1402,7 @@ def cx_kernel_phase(dev, p, n, report):
     bounds = {
         "qz_sweep_generate": bound(16 * upper + 16 * (12 * p + 1) * K,
                                    28 * p * sum(i + 1 - k for k in range(m, i))),
-        "qz_sweep_left": bound(2 * 16 * p * (K + 1) * (n - m) + 16 * 4 * p * K,
-                               28 * p * (n - m) * K),
-        "qz_sweep_right": bound(2 * 16 * p * (i + 1 + n) * (K + 1) + 16 * 8 * p * K,
-                                28 * p * (i + 1 + n) * K),
+        **cx_apply_bounds(p, n, m, i),
         "qz_shift": bound(16 * (2 * p + 1) + 32, 60 * p)}
     src = "periodicschurdecompositions_jl_torch/csrc/sweep_cx.cu"
     rep = "periodicschurdecompositions_jl_tpu/ops/pallas_sweep_cx.py:"

@@ -57,25 +57,32 @@
 //   factor), 959 of them the generation, at p=8 n=256 on an H100).
 //   Handing the generation's operands over by shuffles instead of shared
 //   memory, and spreading the log stores over lanes, made it slower.
-// * qz_sweep_left / qz_sweep_right apply the logged rotations with full
-//   parallelism (one thread per (factor, column) or (factor, row), each
-//   walking all steps with one live entry in a register).  They are bound
-//   by memory traffic over p n^2 complex128.  Deferring the left and right
-//   products past the generation is exact (left and right multiplications
-//   commute) provided every rotation acts on the FULL rows and columns: the
-//   interleaved order's bounds skip entries that are zero only in that
-//   order.  The column m-1 of H[0] (the window's boundary subdiagonal) is
-//   never touched.  qz_sweep_right writes the structural zeros exactly and
-//   the regenerated subdiagonal entries H[0][k, k-1] = r from the log.
+// * qz_sweep_left / qz_sweep_right (B0, B) apply the logged rotations:
+//   deferring the left and right products past the generation is exact
+//   (left and right multiplications commute) provided every rotation acts
+//   on the FULL rows and columns: the interleaved order's bounds skip
+//   entries that are zero only in that order.  Each block walks 16 lines
+//   (B0: columns of one factor, B: rows of one target), one per lane of
+//   warp 0, with one live entry in a register, through a ring of chunks of
+//   32 (B0) or 24 (B) positions that all four warps stage in shared
+//   memory by 16-byte cp.async ahead of the walk, with the log entries each
+//   chunk's steps read; B0 stores rows of consecutive columns straight to
+//   device memory, B writes each finished chunk back as coalesced row
+//   segments, with the structural zeros and the logged subdiagonal
+//   H[0][k, k-1] = r in the same pass (the design note above
+//   qz_left_kernel).  What bounds them:
+//   bytes, p n^2 complex128 read and written once; the walk is a chain of
+//   i-m dependent 2x2 steps per line.  The column m-1 of H[0] (the
+//   window's boundary subdiagonal) is never touched.
 // * qz_shift is a chain of p Givens generations on a few scalars: one
 //   thread, bound by launch latency.
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include "psd_common.cuh"
 
 namespace {
 
-using psd::cadd;
 using psd::cconj;
 using psd::cmul;
 using psd::cneg;
@@ -102,24 +109,6 @@ __device__ __forceinline__ void put_rmat_adj(double2* E, double c, double2 s) {
   E[1] = cneg(s);
   E[2] = cconj(s);
   E[3] = make_double2(c, 0.0);
-}
-
-// (x0, x1) <- M (x0, x1)^T for a row-major 2x2 M
-__device__ __forceinline__ void left2(const double2* M, double2& x0,
-                                      double2& x1) {
-  const double2 y0 = cadd(cmul(M[0], x0), cmul(M[1], x1));
-  const double2 y1 = cadd(cmul(M[2], x0), cmul(M[3], x1));
-  x0 = y0;
-  x1 = y1;
-}
-
-// (x0, x1) <- (x0, x1) M for a row-major 2x2 M
-__device__ __forceinline__ void right2(const double2* M, double2& x0,
-                                       double2& x1) {
-  const double2 y0 = cadd(cmul(x0, M[0]), cmul(x1, M[2]));
-  const double2 y1 = cadd(cmul(x0, M[1]), cmul(x1, M[3]));
-  x0 = y0;
-  x1 = y1;
 }
 
 // Kernel A's working set for batch length L, in bytes: per factor the
@@ -384,65 +373,265 @@ qz_generate_kernel(const double2* __restrict__ H, double2* __restrict__ carry,
   }
 }
 
-// B0: rows k, k+1 of every H[f] <- L[f, k] rows, for k = m..i-1.  One thread
-// per (factor, column >= m); column m-1 (the boundary subdiagonal of H[0])
-// is never touched.
-__global__ void __launch_bounds__(kApplyThreads)
-qz_left_kernel(double2* __restrict__ H, const double2* __restrict__ Lg, int n,
-               int m, int i) {
-  const int f = blockIdx.y;
-  const int c = m + blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= n) return;
-  double2* col = H + (size_t)f * n * n + c;
-  const double2* Ef = Lg + (size_t)f * n * kLog;
-  double2 x0 = col[(size_t)m * n];
-  for (int k = m; k < i; ++k) {
-    double2 x1 = col[(size_t)(k + 1) * n];
-    const double2* E = Ef + (size_t)k * kLog;
-    double2 M[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) M[q] = __ldg(E + q);
-    left2(M, x0, x1);
-    col[(size_t)k * n] = x0;
-    x0 = x1;
+// Kernels B0 and B.  Both walk lines (B0: the columns >= m of every H[f];
+// B: the rows 0..i of H[g] and all rows of Z[g]) along the positions m..i
+// (B0: rows, B: columns).  Step k of a line maps its entries (x0, x1) at
+// positions k, k+1 by the logged 2x2 M (B0: M rows on the left, B: M
+// columns on the right), writes the first at k and carries the second to
+// step k+1; after step i-1 the carried entry is position i.  Column m-1 of
+// H[0] (the window's boundary subdiagonal) is never touched.
+//
+// Each block stages its lines in chunks of W positions (B0: kLeftChunk, B:
+// kRightChunk) through a ring of shared-memory slots filled by 16-byte
+// cp.async (a complex128 entry is 16 bytes, so every copy is aligned
+// whatever n), kAhead chunks in flight ahead of the one in use, each chunk
+// with the log entries its steps read (W steps of 4 complex128: L, R or
+// ZR).  Chunk j's steps are q0-1..q0+w-2 (q0 = m + j W, w its positions),
+// so its first step finishes the last position of chunk j-1.  The shared
+// memory a block takes depends on these sizes only, never on n or p.
+// Ragged tiles, chunks and spans are masked; p = 1, m = 0, i = n-1 and
+// windows of one or two steps take the same code.
+//
+// A block has kApplyThreads threads: warp 0 walks, one line per lane, and
+// all of them issue the copies and (B) write finished chunks back, which
+// would otherwise sit on the walk's path.  A chunk whose steps all lie
+// inside m..i-1 runs from registers: its entries are read before its first
+// step (and B's outputs stored after its last), so the log entries load
+// ahead of the arithmetic.  A step costs ~50-90 ns on a walking lane and a
+// chunk a barrier and the ring's bookkeeping on top, so long chunks and
+// many blocks win: at p=8 n=256, 16 lines a block give 128 (B0) and 256
+// (B) blocks; B's chunk is shorter than B0's because its outputs wait in
+// registers (254 of them at 24 positions).
+//
+// The complex products are written out with __fma_rn/__dmul_rn as nvcc
+// contracted them in the kernels before this design (one thread per line,
+// psd::cmul and psd::cadd; read off their SASS): each part fuses its first
+// product, the sums are plain (cmul_a, cadd_a).  So every entry goes
+// through the same operations in the same order as before, bit for bit
+// (scripts/time_sweep_generate.py --cx --apply prints the hashes).
+//
+// B0 (replaces the JAX package's ops/pallas_sweep_cx.py:507
+// _make_qz_left_kernel): a block owns kLeftCols columns of one factor, one
+// per lane of warp 0, and walks their rows down through the ring; its
+// stores are rows of consecutive columns, coalesced, straight to device
+// memory.  B (replaces ops/pallas_sweep_cx.py:549 _make_qz_apply_kernel): a
+// block owns kRightRows rows of one target, one per lane (H[g] rows 0..i
+// with R of factor g, or Z[g] rows 0..n-1 with ZR), and walks the columns;
+// the row pitch in shared memory is odd in 16-byte entries, so a
+// quarter-warp's accesses to one column fall in distinct banks.  A chunk
+// goes back to device memory as coalesced row segments once the next
+// chunk's first step has finished it, with H's structural zeros and the
+// logged subdiagonal H[0][r, r-1] = r (m < r < i) written exactly in the
+// same pass.  What bounds both: bytes (chip_smoke.py::cx_apply_bounds) and
+// the walk's chain of i-m dependent steps; times in PERF.md §6.
+
+constexpr int kLeftChunk = 32;   // B0: positions per chunk
+constexpr int kRightChunk = 24;  // B: positions per chunk (its outputs wait in registers)
+constexpr int kAhead = 2;        // chunks in flight ahead of the one in use
+constexpr int kLeftCols = 16;    // B0: columns per block, one per lane of warp 0
+constexpr int kRightRows = 16;   // B: rows per block, one per lane of warp 0
+constexpr int kRightPitch = kRightChunk | 1;  // odd: conflict-free columns
+constexpr int kStep = 4;         // complex128 entries of one step's 2x2
+static_assert(kRightPitch % 2 == 1, "B's row pitch must be odd");
+static_assert(kApplyThreads % 32 == 0 && kApplyThreads >= kLeftCols &&
+                  kApplyThreads >= kRightRows && kLeftCols <= 32 && kRightRows <= 32,
+              "the walking lanes are warp 0's");
+
+// Shared memory of B0 and B (bytes): kAhead + 1 (B0) or kAhead + 2 (B, the
+// previous chunk waits for its write-back) tile slots, kAhead + 1 log slots.
+constexpr size_t left_smem() {
+  return sizeof(double2) * ((size_t)(kAhead + 1) * kLeftChunk * kLeftCols +
+                            (size_t)(kAhead + 1) * kLeftChunk * kStep);
+}
+constexpr size_t right_smem() {
+  return sizeof(double2) * ((size_t)(kAhead + 2) * kRightRows * kRightPitch +
+                            (size_t)(kAhead + 1) * kRightChunk * kStep);
+}
+static_assert(left_smem() <= 48 * 1024 && right_smem() <= 48 * 1024,
+              "the apply kernels launch without the shared-memory opt-in");
+
+// Stage the log entries chunk j's steps read (at offset `at` of the log
+// row: 0 L, 4 R, 8 ZR): step k = q0 - 1 + s at slot row s < W, for the
+// steps m..i-1 only.  src: the factor whose log.
+template <int W>
+__device__ __forceinline__ void stage_log(double2* Ls, const double2* __restrict__ Lg, int n,
+                                          int src, int at, int m, int i, int q0) {
+  for (int e = threadIdx.x; e < W * kStep; e += blockDim.x) {
+    const int k = q0 - 1 + e / kStep;
+    if (k >= m && k < i)
+      __pipeline_memcpy_async(Ls + e, Lg + ((size_t)src * n + k) * kLog + at + e % kStep,
+                              sizeof(double2));
   }
-  col[(size_t)i * n] = x0;
 }
 
-// B: columns k, k+1 <- columns M for k = m..i-1.  blockIdx.z == 0: H[g]
-// rows 0..i with R[g, k], then (rows m+1..i) the structural zeros and the
-// regenerated subdiagonal of H[0], written exactly; blockIdx.z == 1: Z[g],
-// all rows, with ZR[g, k].
+// (x0, x1) <- M (x0, x1)^T for a row-major 2x2 M (B0)
+__device__ __forceinline__ double2 left_step(double2& x0, double2 x1, const double2* M) {
+  const double2 y0 = cadd_a(cmul_a(M[0], x0), cmul_a(M[1], x1));
+  x0 = cadd_a(cmul_a(M[2], x0), cmul_a(M[3], x1));
+  return y0;
+}
+
+// (x0, x1) <- (x0, x1) M for a row-major 2x2 M (B)
+__device__ __forceinline__ double2 right_step(double2& x0, double2 x1, const double2* M) {
+  const double2 y0 = cadd_a(cmul_a(x0, M[0]), cmul_a(x1, M[2]));
+  x0 = cadd_a(cmul_a(x0, M[1]), cmul_a(x1, M[3]));
+  return y0;
+}
+
+// The walk of one line over chunk j's steps (staged log Ls), and after the
+// last chunk the carried entry to position i.  in(u) reads the chunk's
+// position q0+u; out(d, x) takes the finished entry at position q0+d (d >=
+// -1: the chunk before); x0: the carried entry.
+template <bool kLeft, int W, class In, class Out>
+__device__ __forceinline__ void walk_chunk(int j, int nch, int m, int i, const double2* Ls,
+                                           double2& x0, In in, Out out) {
+  const int q0 = m + j * W, w = min(W, i + 1 - q0);
+  if (j > 0 && w == W) {  // steps q0-1..q0+W-2, all inside m..i-1
+    double2 xin[W];
+#pragma unroll
+    for (int u = 0; u < W; ++u) xin[u] = in(u);
+    if constexpr (kLeft) {  // a store to device memory cannot alias a staged entry
+#pragma unroll
+      for (int u = 0; u < W; ++u) out(u - 1, left_step(x0, xin[u], Ls + u * kStep));
+    } else {  // the outputs go back into shared memory after the last step
+      double2 y[W];
+#pragma unroll
+      for (int u = 0; u < W; ++u) y[u] = right_step(x0, xin[u], Ls + u * kStep);
+#pragma unroll
+      for (int u = 0; u < W; ++u) out(u - 1, y[u]);
+    }
+  } else {
+    int u = 0;
+    if (j == 0) x0 = in(u++);  // position m: no step reads it as x1
+    for (; u < w; ++u) {
+      const double2* M = Ls + u * kStep;  // step q0 - 1 + u
+      out(u - 1, kLeft ? left_step(x0, in(u), M) : right_step(x0, in(u), M));
+    }
+  }
+  if (j == nch - 1) out(w - 1, x0);
+}
+
+// A block's ring of nch chunks: copy(j) issues chunk j's asynchronous
+// copies (tile and log entries), one commit group per chunk, kAhead chunks
+// ahead of the one in use; walk(j) runs on the first `lines` threads once
+// chunk j has landed, after(j) on every thread after it.
+template <class Copy, class Walk, class After>
+__device__ __forceinline__ void apply_ring(int nch, int lines, Copy copy, Walk walk,
+                                           After after) {
+  for (int j = 0; j < kAhead; ++j) {
+    if (j < nch) copy(j);
+    __pipeline_commit();
+  }
+  for (int j = 0; j < nch; ++j) {
+    __pipeline_wait_prior(kAhead - 1);
+    __syncthreads();  // chunk j has landed; the slot chunk j + kAhead takes is free
+    if (j + kAhead < nch) copy(j + kAhead);
+    __pipeline_commit();
+    if (threadIdx.x < lines) walk(j);
+    after(j);
+  }
+}
+
+// B0: rows k, k+1 of every H[f] <- L[f, k] rows, for k = m..i-1.  Block (x,
+// f): columns m + x kLeftCols + threadIdx.x of H[f].
+__global__ void __launch_bounds__(kApplyThreads)
+qz_left_kernel(double2* __restrict__ H, const double2* __restrict__ Lg, int n, int m,
+               int i) {
+  constexpr int W = kLeftChunk, NT = kAhead + 1, NL = kAhead + 1;
+  extern __shared__ double2 smem[];
+  double2* tiles = smem;                         // NT x W rows x kLeftCols
+  double2* logs = smem + NT * W * kLeftCols;     // NL x W steps
+  const int f = blockIdx.y, tid = threadIdx.x;
+  const int cb = m + blockIdx.x * kLeftCols;     // the tile's first column
+  const int nc = min(kLeftCols, n - cb);
+  double2* Hf = H + (size_t)f * n * n + cb;
+  const int nch = (i + 1 - m + W - 1) / W;
+  auto copy = [&](int j) {  // chunk j's rows
+    const int q0 = m + j * W, w = min(W, i + 1 - q0);
+    double2* T = tiles + (j % NT) * W * kLeftCols;
+    for (int e = tid; e < w * kLeftCols; e += kApplyThreads)
+      if (e % kLeftCols < nc)
+        __pipeline_memcpy_async(T + e, Hf + (size_t)(q0 + e / kLeftCols) * n + e % kLeftCols,
+                                sizeof(double2));
+    stage_log<W>(logs + (j % NL) * W * kStep, Lg, n, f, 0, m, i, q0);
+  };
+  double2 x0 = czero();
+  auto walk = [&](int j) {  // stores: rows of consecutive columns, coalesced
+    const double2* T = tiles + (j % NT) * W * kLeftCols + tid;
+    double2* out = Hf + (size_t)(m + j * W) * n + tid;
+    walk_chunk<true, W>(
+        j, nch, m, i, logs + (j % NL) * W * kStep, x0, [&](int u) { return T[u * kLeftCols]; },
+        [&](int d, double2 x) {
+          if (tid < nc) out[(ptrdiff_t)d * n] = x;
+        });
+  };
+  apply_ring(nch, kLeftCols, copy, walk, [](int) {});
+}
+
+// B: columns k, k+1 <- columns M for k = m..i-1.  Block (x, g, 0): rows x
+// kRightRows + threadIdx.x <= i of H[g] with R[g, k], then (rows m+1..i) the
+// structural zeros and the logged subdiagonal of H[0], written exactly;
+// block (x, g, 1): rows of Z[g], all n, with ZR[g, k].
 __global__ void __launch_bounds__(kApplyThreads)
 qz_right_kernel(double2* __restrict__ H, double2* __restrict__ Z,
                 const double2* __restrict__ Lg, int n, int m, int i) {
-  const int g = blockIdx.y;
+  constexpr int W = kRightChunk, P = kRightPitch, NT = kAhead + 2, NL = kAhead + 1;
+  extern __shared__ double2 smem[];
+  double2* tiles = smem;                         // NT x kRightRows x P
+  double2* logs = smem + NT * kRightRows * P;    // NL x W steps
+  const int g = blockIdx.y, tid = threadIdx.x;
   const bool isz = blockIdx.z == 1;
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
   const int nrows = isz ? n : i + 1;
-  if (r >= nrows) return;
-  double2* row = (isz ? Z : H) + (size_t)g * n * n + (size_t)r * n;
-  const double2* Eg = Lg + (size_t)g * n * kLog + (isz ? 8 : 4);
-  double2 x0 = row[m];
-  for (int k = m; k < i; ++k) {
-    double2 x1 = row[k + 1];
-    const double2* E = Eg + (size_t)k * kLog;
-    double2 M[4];
-#pragma unroll
-    for (int q = 0; q < 4; ++q) M[q] = __ldg(E + q);
-    right2(M, x0, x1);
-    row[k] = x0;
-    x0 = x1;
-  }
-  row[i] = x0;
-  if (!isz && r > m) {
-    if (g == 0) {
-      for (int c = m; c < r - 1; ++c) row[c] = czero();
-      if (r < i) row[r - 1] = __ldg(Lg + (size_t)r * kLog + 12);
-    } else {
-      for (int c = m; c < r; ++c) row[c] = czero();
+  const int r0 = blockIdx.x * kRightRows;
+  if (r0 >= nrows) return;
+  const int nr = min(kRightRows, nrows - r0);
+  double2* A = (isz ? Z : H) + (size_t)g * n * n + (size_t)r0 * n;
+  const int nch = (i + 1 - m + W - 1) / W;
+  auto copy = [&](int j) {  // chunk j's row segments (its slot's chunk was written back)
+    const int q0 = m + j * W, w = min(W, i + 1 - q0);
+    double2* T = tiles + (j % NT) * kRightRows * P;
+    for (int e = tid; e < nr * W; e += kApplyThreads)
+      if (e % W < w)
+        __pipeline_memcpy_async(T + (e / W) * P + e % W, A + (size_t)(e / W) * n + q0 + e % W,
+                                sizeof(double2));
+    stage_log<W>(logs + (j % NL) * W * kStep, Lg, n, g, isz ? 8 : 4, m, i, q0);
+  };
+  // chunk j's finished columns back to device memory; in H's rows m+1..i
+  // the zeros below the (sub)diagonal and H[0]'s logged subdiagonal in
+  // their place
+  auto write_back = [&](int j) {
+    const int q0 = m + j * W, w = min(W, i + 1 - q0);
+    const double2* T = tiles + (j % NT) * kRightRows * P;
+    for (int e = tid; e < nr * W; e += kApplyThreads) {
+      const int rr = e / W, cc = e % W, r = r0 + rr, c = q0 + cc;
+      if (cc >= w) continue;
+      double2 x = T[rr * P + cc];
+      if (!isz && r > m) {
+        if (c < (g == 0 ? r - 1 : r)) x = czero();
+        else if (g == 0 && c == r - 1 && r < i) x = __ldg(Lg + (size_t)r * kLog + 12);
+      }
+      A[(size_t)rr * n + c] = x;
     }
-  }
+  };
+  double2 x0 = czero();
+  // a finished column goes back into its slot: this chunk's or, for the
+  // position the chunk's first step finishes, the one before (indexed from
+  // q0)
+  auto walk = [&](int j) {
+    double2* T = tiles + (j % NT) * kRightRows * P + tid * P;
+    double2* Tp = tiles + ((j + NT - 1) % NT) * kRightRows * P + tid * P + W;
+    walk_chunk<false, W>(
+        j, nch, m, i, logs + (j % NL) * W * kStep, x0, [&](int u) { return T[u]; },
+        [&](int d, double2 x) {
+          if (d >= 0) T[d] = x;
+          else Tp[d] = x;
+        });
+  };
+  apply_ring(nch, kRightRows, copy, walk, [&](int j) {
+    __syncthreads();  // chunk j-1 (and at the end chunk j) finished
+    if (j >= 1) write_back(j - 1);
+    if (j == nch - 1) write_back(j);
+  });
 }
 
 // S: the shift rotation of one sweep (act_sweep's chain): Givens through
@@ -532,8 +721,8 @@ int psd_qz_sweep_generate(const void* H, void* work, void* Lg, const void* cs,
 // Kernel B0, in place on H.
 int psd_qz_sweep_left(void* H, const void* Lg, int p, int n, int m, int i,
                       void* stream) {
-  dim3 grid((n - m + kApplyThreads - 1) / kApplyThreads, p);
-  qz_left_kernel<<<grid, kApplyThreads, 0, (cudaStream_t)stream>>>(
+  dim3 grid((n - m + kLeftCols - 1) / kLeftCols, p);
+  qz_left_kernel<<<grid, kApplyThreads, left_smem(), (cudaStream_t)stream>>>(
       (double2*)H, (const double2*)Lg, n, m, i);
   return (int)cudaGetLastError();
 }
@@ -541,8 +730,8 @@ int psd_qz_sweep_left(void* H, const void* Lg, int p, int n, int m, int i,
 // Kernel B, in place on H and (when Z != NULL) Z.
 int psd_qz_sweep_right(void* H, void* Z, const void* Lg, int p, int n, int m,
                        int i, void* stream) {
-  dim3 grid((n + kApplyThreads - 1) / kApplyThreads, p, Z ? 2 : 1);
-  qz_right_kernel<<<grid, kApplyThreads, 0, (cudaStream_t)stream>>>(
+  dim3 grid((n + kRightRows - 1) / kRightRows, p, Z ? 2 : 1);
+  qz_right_kernel<<<grid, kApplyThreads, right_smem(), (cudaStream_t)stream>>>(
       (double2*)H, (double2*)Z, (const double2*)Lg, n, m, i);
   return (int)cudaGetLastError();
 }

@@ -26,7 +26,12 @@ the numpy model of tests/torch_cx_window_host.py, bit for bit, for
 alternating, all-direct and all-inverse (but S[0]) signatures, H unchanged,
 and B0 and B on A's log against ``qz_apply_log_plain``, at an H100's shared
 memory, 3000 bytes (short batches; p=16 takes the global windows) and 200
-bytes (the windows in the global scratch for every p).
+bytes (the windows in the global scratch for every p); then B0 and B bit
+for bit against the numpy model of tests/torch_cx_apply_host.py, after B0
+and after B, with and without Z, structural zeros exact, at the source's
+tile and chunk sizes and at 8-line tiles with chunks of 7 (B0) and 5 (B)
+positions two chunks ahead (ragged tiles, chunks and spans); about 2-3
+minutes.
 
 ``--mb``: kernel A-mb of csrc/sweep.cu (multi-bulge generation on
 look-ahead windows) against the numpy model of the order before the window
@@ -109,6 +114,8 @@ from periodicschurdecompositions_jl_torch.ops import rgopen, sweep, sweep_cx, sw
 from torch_cx_window_host import qz_log_full  # noqa: E402
 from torch_rg_window_host import rg_log_full  # noqa: E402
 from torch_apply_host import apply_model  # noqa: E402
+from torch_cx_apply_host import model_left, replay_left  # noqa: E402
+from torch_cx_apply_host import apply_model as cx_apply_model  # noqa: E402
 from torch_mb_host import mb_sig  # noqa: E402
 from torch_mb_window_host import sweep_log_mb_full  # noqa: E402
 from torch_window_host import sweep_log_full  # noqa: E402
@@ -361,7 +368,78 @@ def main_cx():
             print(f"shared memory {optin} B, p={p} n={n} [{m}, {i}] S {kind}: cx A's log == "
                   f"the model's; B0+B vs qz_apply_log_plain dH {dh:.2e} dZ {dz:.2e}",
                   flush=True)
+    os.environ["STUB_SMEM_OPTIN"] = "232448"
+    # the source's sizes, then chunks of 7 (B0) and 5 (B) positions, 8-line
+    # tiles, two chunks ahead
+    tight = build_stub("sweep_cx", sub=[
+        ("constexpr int kLeftChunk = ", "constexpr int kLeftChunk = 7; //"),
+        ("constexpr int kRightChunk = ", "constexpr int kRightChunk = 5; //"),
+        ("constexpr int kAhead = ", "constexpr int kAhead = 2; //"),
+        ("constexpr int kLeftCols = ", "constexpr int kLeftCols = 8; //"),
+        ("constexpr int kRightRows = ", "constexpr int kRightRows = 8; //")])
+    for fn in ("psd_qz_sweep_generate", "psd_qz_sweep_generate_scratch", "psd_qz_sweep_left",
+               "psd_qz_sweep_right"):
+        getattr(tight, fn).argtypes = getattr(lib, fn).argtypes
+        getattr(tight, fn).restype = getattr(lib, fn).restype
+    for lb in (lib, tight):
+        sizes = cx_apply_sizes() if lb is lib else {"cols": 8, "rows": 8, "chunk": 5,
+                                                    "left_chunk": 7, "ahead": 2}
+        for (p, n, m, i, kind) in cases + [(1, 40, 20, 39, "direct"), (3, 33, 1, 32, "alt"),
+                                           (2, 45, 0, 44, "alt"), (3, 17, 6, 7, "direct")]:
+            runs = check_cx_apply(lb, p, n, m, i, sig(kind, p), sizes)
+            print(f"p={p} n={n} [{m}, {i}] S {kind}: cx B0 and B == the numpy model bit for "
+                  f"bit in {runs} runs (after B0, after B; with and without Z; {sizes})",
+                  flush=True)
     return 0
+
+
+def cx_apply_sizes():
+    """The complex apply kernels' tile, chunk and ring sizes, read from
+    csrc/sweep_cx.cu."""
+    src = open(os.path.join(CSRC, "sweep_cx.cu")).read()
+
+    def get(key):
+        return int(re.search(rf"constexpr int {key} = (\d+);", src).group(1))
+    return {"cols": get("kLeftCols"), "rows": get("kRightRows"), "chunk": get("kRightChunk"),
+            "left_chunk": get("kLeftChunk"), "ahead": get("kAhead")}
+
+
+def check_cx_apply(lib, p, n, m, i, S, sizes):
+    """cx B0, then B, through the stub on kernel A's log, bit for bit against
+    the numpy model of tests/torch_cx_apply_host.py after each kernel, with
+    and without Z; structural zeros exact.  Returns the number of runs."""
+    H, Z, cs = mk_cx_problem(p, n, np.random.default_rng(p * 17 + n + m))
+    if m > 0:
+        H[0, m, m - 1] = 0.0
+    if i + 1 < n:
+        H[0, i + 1, i] = 0.0
+    Ht, cst = torch.tensor(H), torch.tensor(cs)
+    Sd = torch.tensor([int(x) for x in S], dtype=torch.int32)
+    work = torch.full((lib.psd_qz_sweep_generate_scratch(p, n),), complex(np.nan, np.nan),
+                      dtype=torch.complex128)
+    log = torch.full((p, n, sweep_cx.LOG), complex(np.nan, np.nan), dtype=torch.complex128)
+    assert lib.psd_qz_sweep_generate(Ht.data_ptr(), work.data_ptr(), log.data_ptr(),
+                                     cst.data_ptr(), Sd.data_ptr(), p, n, m, i, None) == 0
+    Hl = model_left(H, log.numpy(), m, i, cols=sizes["cols"], chunk=sizes["left_chunk"],
+                    ahead=sizes["ahead"])
+    assert np.array_equal(Hl, replay_left(H, log.numpy(), m, i))
+    runs = 0
+    for want_z in (True, False):
+        Hb = torch.tensor(H)
+        Zb = torch.tensor(Z) if want_z else None
+        assert lib.psd_qz_sweep_left(Hb.data_ptr(), log.data_ptr(), p, n, m, i, None) == 0
+        assert np.array_equal(Hb.numpy(), Hl), (p, n, m, i, "H after B0")
+        assert lib.psd_qz_sweep_right(Hb.data_ptr(), Zb.data_ptr() if want_z else None,
+                                      log.data_ptr(), p, n, m, i, None) == 0
+        Hm, Zm = cx_apply_model(H, Z if want_z else None, log.numpy(), m, i, **sizes)
+        assert np.array_equal(Hb.numpy(), Hm), (p, n, m, i, want_z, "H after B")
+        assert not want_z or np.array_equal(Zb.numpy(), Zm), (p, n, m, i, "Z after B")
+        Hn = Hb.numpy()
+        for r in range(m + 1, i + 1):
+            assert not Hn[0, r, m:r - 1].any() and not Hn[1:, r, m:r].any(), (p, n, m, i, r)
+        assert np.array_equal(Hn[0, :, :m], H[0, :, :m]), "B0/B touched H[0] left of m"
+        runs += 1
+    return runs
 
 
 # kernel rg A's generation and psd::givens_r side by side, for the special

@@ -120,6 +120,24 @@ example ``--set kAhead=6``) instead.  ``--headline`` adds one real headline
 ``pschur`` (wall, niter, sweeps, hashes of T and Z) and the device time of
 kernels A, B0 and B in a second run under the CUDA profiler.
 
+``--cx --apply``: the complex B0 and B (csrc/sweep_cx.cu::psd_qz_sweep_left
+and psd_qz_sweep_right) on the draw of chip_smoke.py's ``cx_kernel_phase``
+(p=8, n=256, ``default_rng(2025)``, windows [0, 255], [37, 200], [120,
+122]; and p=8, n=128 on [0, 127], the signed complex leg's shape), each
+with an alternating and an all-direct signature, on kernel A's own log:
+the sha256 of H after B0, of H and Z after B and of H after B without Z,
+and the time of B0 and of B (CUDA events, mean of ``--reps`` launches),
+each beside chip_smoke.py's ``cx_apply_bounds``, and ptxas's register
+report.  ``--against DIR``: DIR's library (built in a child process) and
+this checkout's in turns, parent / change / change / parent, in one
+process; each ``--variant NAME=V,NAME=V`` (repeatable) adds a copy of
+sweep_cx.cu with those constexprs rewritten between the changes.
+``--headline`` then runs the complex leg and the signed complex leg of
+chip_smoke.py through the checkout's package (``--root``): wall,
+iteration, niter, sweeps, hashes of T and Z, and under the CUDA profiler
+the device time and launches of cx A, B0, B and S and the idle share
+(run once with ``--root DIR`` for the parent's).
+
 ``--mb``: kernel A-mb (csrc/sweep.cu::psd_sweep_generate_mb) alone on the
 problem of chip_smoke.py's ``mb_phase`` (p=16, n=512, ``default_rng(2027)``,
 gap 3, the driver's window shifts ``pqr_real.window_shifts``): [0, 511]
@@ -137,9 +155,9 @@ under the CUDA profiler the device time and launches of A-mb, B0, B, G, D
 and the reduction, and the idle share.
 
 Run from the repository root:
-  python3 scripts/time_sweep_generate.py [--cx | --rg | --hess | --signed [--split]
-      | --deflate [--against DIR] | --apply | --mb [--against DIR]] [--root DIR]
-      [--headline [--trace]]
+  python3 scripts/time_sweep_generate.py [--cx [--apply [--against DIR] [--variant ...]]
+      | --rg | --hess | --signed [--split] | --deflate [--against DIR] | --apply
+      | --mb [--against DIR]] [--root DIR] [--headline [--trace]]
 """
 import argparse
 import hashlib
@@ -170,6 +188,7 @@ def main():
     ap.add_argument("--mb", action="store_true")
     ap.add_argument("--against", default=None)
     ap.add_argument("--set", action="append", default=[])
+    ap.add_argument("--variant", action="append", default=[])
     ap.add_argument("--hq", default=os.path.join(HERE, "_dev", "rg_hq.pt"))
     ap.add_argument("--trace", action="store_true")
     ap.add_argument("--trace-out", default=os.path.join(HERE, "_dev", "rg_trace.txt"))
@@ -187,7 +206,8 @@ def main():
     print(smi)
     lib = _cuda.load()
     out = {"root": os.path.abspath(args.root), "card": smi}
-    (time_mb if args.mb else time_apply if args.apply else time_deflate if args.deflate else time_signed
+    (time_mb if args.mb else time_cx_apply if args.apply and args.cx else
+     time_apply if args.apply else time_deflate if args.deflate else time_signed
      if args.signed else time_hess
      if args.hess else time_cx if args.cx else time_rg if args.rg
      else time_real)(torch, lib, _cuda, args, out)
@@ -342,7 +362,8 @@ def ptxas_report(_cuda, root, name, keys, sets=()):
                 rep[fn] = f"stack {m.group(1)} B, spill {m.group(2)}/{m.group(3)} B"
             m = re.search(r"Used (\d+) registers", line)
             if m:
-                short = re.sub(r".*?(sweep_(?:left|right)_kernel(?:ILi\d+E)?).*", r"\1", fn)
+                short = re.sub(r".*?((?:sweep|qz)_(?:left|right)_kernel(?:ILi\d+E)?).*",
+                               r"\1", fn)
                 rep[short] = f"{m.group(1)} registers, " + rep.pop(fn, "")
                 fn = None
     return rep
@@ -435,6 +456,167 @@ def time_apply(torch, lib, _cuda, args, out):
         headline_apply_profile(torch, out)
 
 
+# --cx --apply: (p, n, windows) of cx_kernel_phase's draw (default_rng(2025))
+# at the complex leg's shape and at the signed complex leg's
+CX_APPLY_SHAPES = ((8, 256, ((0, 255), (37, 200), (120, 122))), (8, 128, ((0, 127),)))
+
+
+def parent_lib(against, decl):
+    """``against``'s kernel library, built in a child process; the C entries
+    of ``decl`` get this checkout's argument types."""
+    import ctypes
+    so = subprocess.run(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
+         "from periodicschurdecompositions_jl_torch.ops import _cuda; "
+         "print(_cuda.load()._name)", os.path.abspath(against)],
+        capture_output=True, text=True, check=True).stdout.strip().splitlines()[-1]
+    lb = ctypes.CDLL(so)
+    for fn in decl:
+        getattr(lb, fn).argtypes = decl[fn].argtypes
+        getattr(lb, fn).restype = ctypes.c_int
+    return lb, so
+
+
+def time_cx_apply(torch, lib, _cuda, args, out):
+    """cx B0 and B (psd_qz_sweep_left / psd_qz_sweep_right) on
+    cx_kernel_phase's draw, alternating and all-direct S, on kernel A's own
+    log: hashes of H after B0, of H and Z after B, and of H after B without
+    Z; the time of B0 and of B (CUDA events, mean of ``--reps`` launches
+    after a warm-up) beside chip_smoke.py's bounds; with ``--against DIR``
+    in turns parent / change / change / parent in one process, and each
+    ``--variant`` (a copy of sweep_cx.cu with its constexprs rewritten)
+    between the changes."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("chip_smoke_here",
+                                                  os.path.join(HERE, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    decl = {fn: getattr(lib, fn) for fn in ("psd_qz_sweep_left", "psd_qz_sweep_right")}
+    libs = {"change": lib}
+    if args.against:
+        libs["parent"], out["parent"] = parent_lib(args.against, decl)
+    variants = [v.split(",") for v in args.variant]
+    for v in variants:
+        libs[" ".join(v)] = build_variant(_cuda, args.root, "sweep_cx", v)
+        for fn in decl:
+            getattr(libs[" ".join(v)], fn).argtypes = decl[fn].argtypes
+    order = ["parent", "change"] if args.against else ["change"]
+    order += [" ".join(v) for v in variants]
+    order += order[::-1]
+    out["order"] = order
+    out["ptxas"] = ptxas_report(_cuda, args.root, "sweep_cx", ("qz_left", "qz_right"))
+    if args.against:
+        out["ptxas parent"] = ptxas_report(_cuda, args.against, "sweep_cx",
+                                           ("qz_left", "qz_right"))
+    for v in variants:
+        out[f"ptxas {' '.join(v)}"] = ptxas_report(_cuda, args.root, "sweep_cx",
+                                                  ("qz_left", "qz_right"), v)
+    print("ptxas:", json.dumps({k: v for k, v in out.items() if k.startswith("ptxas")}),
+          flush=True)
+    st = torch.cuda.current_stream().cuda_stream
+    equal = True
+    for (p, n, windows) in CX_APPLY_SHAPES:
+        Hn, Zn, csn = cs.mk_cx_problem(p, n, np.random.default_rng(2025))
+        cst = torch.tensor(csn, device="cuda")
+        Z0 = torch.tensor(Zn, device="cuda")
+        for sname, S in (("alt", cs.alternating(p)), ("direct", (True,) * p)):
+            for (m, i) in windows:
+                H0 = torch.tensor(Hn, device="cuda")
+                if m > 0:
+                    H0[0, m, m - 1] = 0.0
+                if i + 1 < n:
+                    H0[0, i + 1, i] = 0.0
+                from periodicschurdecompositions_jl_torch.ops import sweep_cx
+                log = sweep_cx.qz_sweep_generate(H0, m, i, cst, S)
+                key = f"p{p} n{n} {sname} [{m},{i}]"
+
+                def left(lb, H):
+                    _cuda.check(lb.psd_qz_sweep_left(H.data_ptr(), log.data_ptr(), p, n, m, i,
+                                                     st), "qz_sweep_left")
+
+                def right(lb, H, Z):
+                    _cuda.check(lb.psd_qz_sweep_right(H.data_ptr(), None if Z is None else
+                                                      Z.data_ptr(), log.data_ptr(), p, n, m,
+                                                      i, st), "qz_sweep_right")
+                hashes = {}
+                for tag in order:
+                    if tag not in hashes:
+                        H, Z = H0.clone(), Z0.clone()
+                        left(libs[tag], H)
+                        hb0 = sha(H)
+                        right(libs[tag], H, Z)
+                        Hn_ = H0.clone()
+                        left(libs[tag], Hn_)
+                        right(libs[tag], Hn_, None)
+                        hashes[tag] = (hb0, sha(H), sha(Z), sha(Hn_))
+                        out[f"{tag} hashes {key}"] = " ".join(hashes[tag])
+                    H, Z = H0.clone(), Z0.clone()
+                    out.setdefault(f"{tag} B0_ms {key}", []).append(
+                        event_ms(torch, lambda: left(libs[tag], H), args.reps))
+                    out.setdefault(f"{tag} B_ms {key}", []).append(
+                        event_ms(torch, lambda: right(libs[tag], H, Z), args.reps))
+                same = len(set(hashes.values())) == 1
+                equal &= same
+                bnd = cs.cx_apply_bounds(p, n, m, i)
+                for k, name in (("B0", "qz_sweep_left"), ("B", "qz_sweep_right")):
+                    out[f"{k}_bound_us {key}"] = bnd[name][0] * 1e3
+                    out[f"change {k}_of_bound {key}"] = bnd[name][0] / min(
+                        out[f"change {k}_ms {key}"])
+                print(f"{key}: " + "; ".join(
+                    f"{t} B0 {out[f'{t} B0_ms {key}']} B {out[f'{t} B_ms {key}']} ms"
+                    for t in libs) + f"; bounds B0 {out[f'B0_bound_us {key}']:.3f} B "
+                    f"{out[f'B_bound_us {key}']:.3f} us; change at "
+                    f"{out[f'change B0_of_bound {key}']:.1%} / "
+                    f"{out[f'change B_of_bound {key}']:.1%}; hashes "
+                    f"{'equal' if same else 'DIFFER: ' + str(hashes)}", flush=True)
+    out["hashes_equal"] = equal
+    if args.headline:
+        headline_cx_profile(torch, out)
+
+
+def headline_cx_profile(torch, out):
+    """The complex leg (p=8, n=256, seed 777, no signature) and the signed
+    complex leg (p=8, n=128, alternating S) of chip_smoke.py, each after a
+    small warm-up: wall, iteration, niter, sweeps, hashes of T and Z; then
+    once more under the CUDA profiler: the device time and launches of cx A,
+    B0, B and S and the idle share of the wall."""
+    from torch.profiler import ProfilerActivity, profile
+    import periodicschurdecompositions_jl_torch as pt
+    from chip_smoke import alternating, cx_draw, dev_us
+    from periodicschurdecompositions_jl_torch.ops import pqz_complex
+    rng = np.random.default_rng(0)
+    pt.pschur(torch.tensor(rng.standard_normal((2, 16, 16))
+                           + 1j * rng.standard_normal((2, 16, 16)), device="cuda"), "R")
+    for leg, n, S in (("cx", 256, None), ("signed cx", 128, alternating(8))):
+        A = torch.tensor(cx_draw(8, n, 777), device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        P = pt.pschur(A, "R", S=S)
+        torch.cuda.synchronize()
+        out[f"{leg} wall_s"] = time.perf_counter() - t0
+        info = pqz_complex.last_info
+        for k in ("reduce_s", "iterate_s", "niter", "sweeps"):
+            out[f"{leg} {k}"] = info[k]
+        out[f"{leg} T_sha256"], out[f"{leg} Z_sha256"] = sha(P.Ts), sha(P.Zs)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            pt.pschur(A, "R", S=S)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        ev = [e for e in prof.key_averages() if "CUDA" in str(e.device_type) and dev_us(e) > 0]
+        busy = sum(dev_us(e) for e in ev) / 1e3
+        out[f"{leg} profiled_wall_s"], out[f"{leg} device_ms"] = wall, busy
+        out[f"{leg} idle_share"] = 1 - busy / 1e3 / wall
+        for tag, key in (("A", "qz_generate_kernel"), ("B0", "qz_left_kernel"),
+                         ("B", "qz_right_kernel"), ("S", "qz_shift_kernel")):
+            sel = [e for e in ev if key in e.key]
+            out[f"{leg} {tag}_device_ms"] = sum(dev_us(e) for e in sel) / 1e3
+            out[f"{leg} {tag}_launches"] = sum(e.count for e in sel)
+        print(f"{leg} leg: " + ", ".join(f"{k[len(leg) + 1:]} {v}" for k, v in out.items()
+                                         if k.startswith(leg + " ")), flush=True)
+
+
 def mb_windows(n):
     """(m, i, nb, nbact) of ``--mb``: [0, n-1] with NB = 1..4 (all active),
     and chip_smoke.py's mb_phase windows [0, 127] (four bulges) and
@@ -456,15 +638,8 @@ def time_mb(torch, lib, _cuda, args, out):
     N = n + 1
     libs = {"change": lib}
     if args.against:
-        so = subprocess.run(
-            [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
-             "from periodicschurdecompositions_jl_torch.ops import _cuda; "
-             "print(_cuda.load()._name)", os.path.abspath(args.against)],
-            capture_output=True, text=True, check=True).stdout.strip().splitlines()[-1]
-        libs["parent"] = ctypes.CDLL(so)
-        libs["parent"].psd_sweep_generate_mb.argtypes = lib.psd_sweep_generate_mb.argtypes
-        libs["parent"].psd_sweep_generate_mb.restype = ctypes.c_int
-        out["parent"] = so
+        libs["parent"], out["parent"] = parent_lib(
+            args.against, {"psd_sweep_generate_mb": lib.psd_sweep_generate_mb})
     if args.set:  # A-mb of a copy of sweep.cu with constexprs rewritten, in the turns
         libs["set"] = build_variant(_cuda, HERE, "sweep", args.set)
         libs["set"].psd_sweep_generate_mb.argtypes = lib.psd_sweep_generate_mb.argtypes

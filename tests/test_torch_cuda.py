@@ -373,7 +373,12 @@ def _cx_problem(p, n, seed):
     (4, 40, (True, False, True, False), 0, 39), (3, 12, (True, True, False), 4, 6),
     (3, 24, (True, True, True), 5, 20),
     (1, 70, (True,), 2, 66),                    # p = 1: 64 steps, batches of 30
-    (8, 48, (True,) + (False,) * 7, 5, 44)])    # S all False but S[0]: 30 + 9 steps
+    (8, 48, (True,) + (False,) * 7, 5, 44),     # S all False but S[0]: 30 + 9 steps
+    # B0/B's 16-position chunks and 32-line tiles: p = 1 across both edges;
+    # a window across one chunk edge; odd n with a one-line last tile and a
+    # ragged last chunk; one step at a tile edge
+    (1, 100, (True,), 15, 80), (2, 70, (True, False), 3, 20),
+    (3, 65, (True, True, False), 0, 64), (2, 34, (True, False), 32, 33)])
 def test_cx_sweep_kernels_match_plain(cuda, p, n, S, m, i):
     Hn, Zn, cs = _cx_problem(p, n, p * 100 + n)
     if i + 1 < n:
@@ -402,6 +407,27 @@ def test_cx_sweep_kernels_match_plain(cuda, p, n, S, m, i):
     sweep_cx.qz_sweep_plain(H0.clone(), None, m, i, cst, S, want_z=False, log=logp)
     assert float((log[:, m:i, :12] - logp[:, m:i, :12]).abs().max()) <= 1e-12
     assert float((log[0, m:i, 12] - logp[0, m:i, 12]).abs().max()) <= 1e-12 * scale
+    # B0 and B alone on that log, with and without Z: against
+    # qz_apply_log_plain, the logged subdiagonal written exactly
+    lib, st = _cuda.load(), torch.cuda.current_stream().cuda_stream
+    Ha, Za = H0.clone(), Z0.clone()
+    sweep_cx.qz_apply_log_plain(Ha, Za, log, m, i, want_z=True)
+    for want_z in (True, False):
+        Hb, Zb = H0.clone(), Z0.clone()
+        _cuda.check(lib.psd_qz_sweep_left(Hb.data_ptr(), log.data_ptr(), p, n, m, i, st),
+                    "qz_sweep_left")
+        _cuda.check(lib.psd_qz_sweep_right(Hb.data_ptr(), Zb.data_ptr() if want_z else None,
+                                           log.data_ptr(), p, n, m, i, st), "qz_sweep_right")
+        torch.cuda.synchronize()
+        assert float((Hb - Ha).abs().max()) <= 1e-13 * scale
+        if want_z:
+            assert float((Zb - Za).abs().max()) <= 1e-13
+        else:
+            assert torch.equal(Zb, Z0)
+        _structure_exact(Hb)
+        assert torch.equal(Hb[0, :, :m], H0[0, :, :m])
+        r = torch.arange(m + 1, i, device=cuda)
+        assert torch.equal(Hb[0, r, r - 1], log[0, m + 1:i, 12])
 
 
 def test_cx_sweep_kernel_global_windows(cuda):
