@@ -1569,6 +1569,81 @@ def rg_structure_ok(H, i):
                 and all(np.all(np.tril(Hn[f], -1) == 0) for f in range(1, Hn.shape[0])))
 
 
+def rg_upper(p, lo, hi, clast):
+    """Entries of rows lo..hi, columns up to clast, that are not structural
+    zeros after the rg opening: from column r-1 in H[0] (plus the opening's
+    three bulge entries) and from column r in the other factors."""
+    rows = range(lo, hi + 1)
+    return (sum(clast + 2 - max(r, lo) for r in rows) + 3
+            + (p - 1) * sum(max(clast + 1 - r, 0) for r in rows))
+
+
+def rg_apply_bounds(p, n, m, i):
+    """Bounds of rg B0 (``rg_sweep_left``) and rg B (``rg_sweep_right``) on
+    the window [m, i] (K = i-1-m steps), float64, counting the entries that
+    are not structural zeros.  B0 reads the upper parts of rows m..i and
+    the log's L, and writes those rows, which it fills from column m-1 in
+    H[0] and from column m in the others, a 3x3 application being 15 flops
+    per entry triple.  B reads and writes columns m..i of H's rows 0..i and
+    of all of Z, and reads R and ZR."""
+    K = i - 1 - m
+    return {"rg_sweep_left": bound(8 * rg_upper(p, m, i, n - 1)
+                                   + 8 * (i + 1 - m) * (p * (n - m) + 1) + 8 * 9 * p * K,
+                                   15 * p * (n - m + 1) * K),
+            "rg_sweep_right": bound(2 * 8 * p * (i + 1 + n) * (i + 1 - m) + 8 * 18 * p * K,
+                                    15 * p * (i + 1 + n) * K)}
+
+
+def rg_apply_odd_n(dev, lib, st):
+    """rg B0 and B at an odd n (p=3 n=129, alternating S: rows that are not
+    16-byte aligned, ragged tiles and chunks) on the full window [1, 128]
+    and a one-step one [60, 62], on kernel rg A's log, against
+    rg_apply_log_plain: 1e-13, exact structural zeros with the closing
+    bulge kept, the regenerated r exact, and without Z the same H.
+    Returns the largest difference."""
+    import torch
+    from periodicschurdecompositions_jl_torch.ops import _cuda, rgopen, sweep_rg
+    p, n = 3, 129
+    S = alternating(p)
+    Hn, Zn, rotn = mk_rg_problem(p, n, np.random.default_rng(2026))
+    err = 0.0
+    for (m, i) in ((1, n - 1), (60, 62)):
+        H0, Z0 = torch.tensor(Hn, device=dev), torch.tensor(Zn, device=dev)
+        if m > 1:
+            H0[0, m - 1, m - 2] = 0.0
+        if i + 1 < n:
+            H0[0, i + 1, i] = 0.0
+        rgopen.rg_ladder_plain(H0, Z0, "open", m - 1, i, torch.tensor(rotn, device=dev), S,
+                               want_z=True)
+        log = sweep_rg.rg_sweep_generate(H0, m, i, S)
+        Ha, Za = H0.clone(), Z0.clone()
+        sweep_rg.rg_apply_log_plain(Ha, Za, log, m, i, want_z=True)
+        Hs = []
+        for Z in (Z0.clone(), None):
+            Hb = H0.clone()
+            _cuda.check(lib.psd_rg_sweep_left(Hb.data_ptr(), log.data_ptr(), p, n, m, i, st),
+                        "rg_sweep_left")
+            _cuda.check(lib.psd_rg_sweep_right(Hb.data_ptr(), None if Z is None else
+                                               Z.data_ptr(), log.data_ptr(), p, n, m, i, st),
+                        "rg_sweep_right")
+            Hs.append((Hb, Z))
+        (Hb, Zb), (Hnz, _) = Hs
+        e = max(float((Hb - Ha).abs().max()) / float(H0.abs().max()),
+                float((Zb - Za).abs().max()))
+        err = max(err, e)
+        r = torch.arange(m, i - 1, device=dev)
+        if not (torch.equal(Hnz, Hb) and rg_structure_ok(Hb, i)
+                and torch.equal(Hb[0, r, r - 1], log[0, m:i - 1, 27])
+                and torch.equal(Hb[:, :, :m - 1], H0[:, :, :m - 1])):
+            raise AssertionError(f"rg B0/B at p={p} n={n} [{m}, {i}]: structure, logged r "
+                                 f"or the run without Z wrong")
+        _log(f"rg B0/B at p={p} n={n} window [{m}, {i}] vs rg_apply_log_plain: {e:.3e}; "
+             f"H after B {sha(Hb)}")
+    if not err <= 1e-13:
+        raise AssertionError(f"rg B0/B disagree with rg_apply_log_plain at n={n}: {err:.3e}")
+    return err
+
+
 def rg_kernel_phase(dev, p, n, report):
     """Kernels rg A -> B0 -> B and R against the plain versions, alternating S.
 
@@ -1624,8 +1699,11 @@ def rg_kernel_phase(dev, p, n, report):
         Hb, Zb = H0.clone(), Z0.clone()
         _cuda.check(lib.psd_rg_sweep_left(Hb.data_ptr(), log.data_ptr(), p, n, m, i, st),
                     "rg_sweep_left")
+        h_b0 = sha(Hb)
         _cuda.check(lib.psd_rg_sweep_right(Hb.data_ptr(), Zb.data_ptr(), log.data_ptr(),
                                            p, n, m, i, st), "rg_sweep_right")
+        _log(f"rg B0/B window [{m}, {i}] (sha256 prefixes, equal across versions when bit "
+             f"for bit): H after B0 {h_b0}, after B {sha(Hb)}, Z after B {sha(Zb)}")
         Ha, Za = H0.clone(), Z0.clone()
         t_apply = wall_ms(lambda: sweep_rg.rg_apply_log_plain(Ha, Za, log, m, i,
                                                               want_z=True))
@@ -1660,6 +1738,8 @@ def rg_kernel_phase(dev, p, n, report):
             if not torch.equal(Hnz, Hk):
                 raise AssertionError("rg want_z=False chase changed H")
             _log("rg chase want_z=False: H identical to want_z=True")
+
+    err_b = max(err_b, rg_apply_odd_n(dev, lib, st))
 
     # 4. kernel R against rg_ladder_plain
     H = torch.tensor(Hn, device=dev)
@@ -1719,28 +1799,17 @@ def rg_kernel_phase(dev, p, n, report):
     # applies two 2-row rotations per (step, factor) to columns j..i (12
     # flops per column).  Columns right of i never reach a generation (an
     # earlier count took them in; at the full window i = n-1 the two
-    # agree).  B0 reads the upper
-    # parts of rows m..i and the log's L, and writes those rows, which it
-    # fills from column m-1 in H[0] and from column m in the others, a 3x3
-    # application being 15 flops per entry triple.  B reads and writes
-    # columns m..i of H's rows 0..i and of all of Z, and reads R and ZR.  R
-    # (open at 0) reads and writes rows j..j+2 and Z's columns j..j+2 of
-    # every factor, and H[0]'s columns j..j+2 (rows 0..ilast); two rotations
-    # per entry triple are 4 flops per entry.
+    # agree).  B0 and B: rg_apply_bounds.  R (open at 0) reads and writes
+    # rows j..j+2 and Z's columns j..j+2 of every factor, and H[0]'s columns
+    # j..j+2 (rows 0..ilast); two rotations per entry triple are 4 flops per
+    # entry.
     K = i - 1 - m
-
-    def upper(lo, hi, clast):
-        rows = range(lo, hi + 1)
-        return (sum(clast + 2 - max(r, lo) for r in rows) + 3
-                + (p - 1) * sum(max(clast + 1 - r, 0) for r in rows))
     ent_r = p * (3 * n + 3 * n) + 3 * n
     bounds = {
-        "rg_sweep_generate": bound(8 * upper(m, min(i + 1, n - 1), i) + 8 * (27 * p + 1) * K,
+        "rg_sweep_generate": bound(8 * rg_upper(p, m, min(i + 1, n - 1), i)
+                                   + 8 * (27 * p + 1) * K,
                                    12 * p * sum(i + 1 - j for j in range(m, i - 1))),
-        "rg_sweep_left": bound(8 * upper(m, i, n - 1) + 8 * (i + 1 - m) * (p * (n - m) + 1)
-                               + 8 * 9 * p * K, 15 * p * (n - m + 1) * K),
-        "rg_sweep_right": bound(2 * 8 * p * (i + 1 + n) * (i + 1 - m) + 8 * 18 * p * K,
-                                15 * p * (i + 1 + n) * K),
+        **rg_apply_bounds(p, n, m, i),
         "rg_ladder": bound(2 * 8 * ent_r + 32, 4 * ent_r)}
     src = "periodicschurdecompositions_jl_torch/csrc/"
     rep = "periodicschurdecompositions_jl_tpu/ops/"

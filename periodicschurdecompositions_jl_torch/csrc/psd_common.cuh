@@ -6,8 +6,10 @@
 // (the generations set the backward error).
 #pragma once
 
-#include <cfloat>
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
+
+#include <cfloat>
 
 namespace psd {
 
@@ -329,6 +331,38 @@ __device__ __forceinline__ T chain(T* e, size_t stride, int ihi, int lo, const d
     }
   }
   return b;
+}
+
+// x0 * f0 + x1 * f1 + x2 * f2 with the middle product rounded, the first
+// fused onto it, then the third: the form nvcc gave that sum (and `f0 * x0
+// + ...`) in the earlier designs of the real and real generalized sweep
+// kernels (their SASS).  Written out, so that a redesign keeps their
+// results bit for bit whatever nvcc would contract now.
+__device__ __forceinline__ double dot3(double x0, double x1, double x2, double f0,
+                                       double f1, double f2) {
+  return __fma_rn(x2, f2, __fma_rn(x0, f0, __dmul_rn(x1, f1)));
+}
+
+// The ring of the apply kernels B0 and B (sweep.cu, sweep_cx.cu,
+// sweep_rg.cu): a block's nch chunks, copy(j) issuing chunk j's
+// asynchronous copies (tile and log entries), one commit group per chunk,
+// kAhead chunks ahead of the one in use; walk(j) runs on the first `lines`
+// threads once chunk j has landed, after(j) on every thread after it.
+template <int kAhead, class Copy, class Walk, class After>
+__device__ __forceinline__ void apply_ring(int nch, int lines, Copy copy, Walk walk,
+                                           After after) {
+  for (int j = 0; j < kAhead; ++j) {
+    if (j < nch) copy(j);
+    __pipeline_commit();
+  }
+  for (int j = 0; j < nch; ++j) {
+    __pipeline_wait_prior(kAhead - 1);
+    __syncthreads();  // chunk j has landed; the slot chunk j + kAhead takes is free
+    if (j + kAhead < nch) copy(j + kAhead);
+    __pipeline_commit();
+    if (threadIdx.x < lines) walk(j);
+    after(j);
+  }
 }
 
 }  // namespace psd

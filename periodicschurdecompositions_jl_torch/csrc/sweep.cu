@@ -347,15 +347,10 @@ sweep_generate_kernel(const double* __restrict__ H, double* __restrict__ carry,
 // The multi-bulge kernel A-mb writes its arithmetic out with __fma_rn and
 // __dmul_rn in the forms nvcc gave the design before the look-ahead window
 // (read from its SASS), so that its logs do not depend on how nvcc contracts
-// them here.  x0 f0 + x1 f1 + x2 f2 with the middle product rounded, the
-// first fused onto it, then the third: F^T on a column's rows k..k+2
-// (f = F[j], F[3+j], F[6+j]), F on a row's columns k..k+2 and lead_v0's
-// products (its running product's form is the one whose results the
-// earlier design's logs reproduce).
-__device__ __forceinline__ double mb_dot3(double x0, double x1, double x2, double f0,
-                                          double f1, double f2) {
-  return __fma_rn(x2, f2, __fma_rn(x0, f0, __dmul_rn(x1, f1)));
-}
+// them here: psd::dot3 for F^T on a column's rows k..k+2 (f = F[j],
+// F[3+j], F[6+j]), F on a row's columns k..k+2 and lead_v0's products (its
+// running product's form is the one whose results the earlier design's
+// logs reproduce).
 
 // Shifted first column of a trailing bulge, introduced at the window top m:
 // from the leading 3x3 of the cycle product C[0] C[1] ... C[p-1] at rows and
@@ -374,7 +369,7 @@ __device__ void lead_v0(const double* C0, size_t fstride, int ld, int p, const d
 #pragma unroll
       for (int c = 0; c < 3; ++c)
         Tn[r * 3 + c] =
-            mb_dot3(T[r * 3], T[r * 3 + 1], T[r * 3 + 2], B[c], B[ld + c], B[2 * ld + c]);
+            psd::dot3(T[r * 3], T[r * 3 + 1], T[r * 3 + 2], B[c], B[ld + c], B[2 * ld + c]);
 #pragma unroll
     for (int q = 0; q < 9; ++q) T[q] = Tn[q];
   }
@@ -383,8 +378,8 @@ __device__ void lead_v0(const double* C0, size_t fstride, int ld, int p, const d
   for (int r = 0; r < 3; ++r)
 #pragma unroll
     for (int c = 0; c < 2; ++c)
-      P[r * 2 + c] = mb_dot3(C0[r * ld], C0[r * ld + 1], C0[r * ld + 2], T[c], T[3 + c],
-                             T[6 + c]);
+      P[r * 2 + c] = psd::dot3(C0[r * ld], C0[r * ld + 1], C0[r * ld + 2], T[c], T[3 + c],
+                               T[6 + c]);
   const double h11 = P[0], h12 = P[1], h21 = P[2], h22 = P[3], h32 = P[5];
   const double rt1r = sg[0], rt1i = sg[1], rt2r = sg[2];
   const double sv = fabs(h11 - rt2r) + fabs(rt1i) + fabs(h21);
@@ -446,9 +441,9 @@ __device__ __forceinline__ size_t mb_fs(const MbBatch& g, int f, int b, int s) {
 // k..k+2 and F on a row's columns k..k+2.
 __device__ __forceinline__ void mb_apply(const double* F, double x0, double x1, double x2,
                                          double& o0, double& o1, double& o2) {
-  o0 = mb_dot3(x0, x1, x2, F[0], F[3], F[6]);
-  o1 = mb_dot3(x0, x1, x2, F[1], F[4], F[7]);
-  o2 = mb_dot3(x0, x1, x2, F[2], F[5], F[8]);
+  o0 = psd::dot3(x0, x1, x2, F[0], F[3], F[6]);
+  o1 = psd::dot3(x0, x1, x2, F[1], F[4], F[7]);
+  o2 = psd::dot3(x0, x1, x2, F[2], F[5], F[8]);
 }
 
 // The bulges' places at one tick, the same for every factor: bulge b at
@@ -536,9 +531,9 @@ __device__ __forceinline__ void mb_gen(double* win, double* fs, double* __restri
       ck[0] = beta;
       ck[S] = 0.0;
       ck[2 * S] = 0.0;
-      ck[1] = mb_dot3(b0, b1, b2, M[0], M[3], M[6]);
-      ck[S + 1] = nr3 ? betab : mb_dot3(b0, b1, b2, M[1], M[4], M[7]);
-      ck[2 * S + 1] = nr3 ? 0.0 : mb_dot3(b0, b1, b2, M[2], M[5], M[8]);
+      ck[1] = psd::dot3(b0, b1, b2, M[0], M[3], M[6]);
+      ck[S + 1] = nr3 ? betab : psd::dot3(b0, b1, b2, M[1], M[4], M[7]);
+      ck[2 * S + 1] = nr3 ? 0.0 : psd::dot3(b0, b1, b2, M[2], M[5], M[8]);
     }
     double* F = fs + mb_fs(g, f, lane, s);
     double* Rk = R + (size_t)lane * p * N * 9 + ((size_t)f * N + k) * 9;
@@ -550,9 +545,9 @@ __device__ __forceinline__ void mb_gen(double* win, double* fs, double* __restri
 #pragma unroll
     for (int r = 0; r < 4; ++r)
       if (r < nr) {
-        y[r * S] = mb_dot3(v[r][0], v[r][1], v[r][2], M[0], M[3], M[6]);
-        y[r * S + 1] = mb_dot3(v[r][0], v[r][1], v[r][2], M[1], M[4], M[7]);
-        y[r * S + 2] = mb_dot3(v[r][0], v[r][1], v[r][2], M[2], M[5], M[8]);
+        y[r * S] = psd::dot3(v[r][0], v[r][1], v[r][2], M[0], M[3], M[6]);
+        y[r * S + 1] = psd::dot3(v[r][0], v[r][1], v[r][2], M[1], M[4], M[7]);
+        y[r * S + 2] = psd::dot3(v[r][0], v[r][1], v[r][2], M[2], M[5], M[8]);
       }
   }
 }
@@ -952,12 +947,6 @@ static_assert(kRightPitch % 2 == 1, "B's row pitch must be odd");
 static_assert(kApplyThreads % 32 == 0 && kApplyThreads >= kLeftCols &&
                   kApplyThreads >= kRightRows, "the walking lanes are the block's first");
 
-// o0 of x0 * f0 + x1 * f1 + x2 * f2, rounded as nvcc contracted it
-__device__ __forceinline__ double dot3(double x0, double x1, double x2, double f0,
-                                       double f1, double f2) {
-  return __fma_rn(x2, f2, __fma_rn(x0, f0, __dmul_rn(x1, f1)));
-}
-
 // Doubles of the staged log rows of one chunk, NB bulges.
 __host__ __device__ constexpr int log_slot_doubles(int nb) {
   return nb * (kApplyChunk + 2 * nb) * kLogPitch;
@@ -998,9 +987,9 @@ __device__ __forceinline__ double apply_step(double& x0, double& x1, double x,
                                              const double* F) {
   const double2* F2 = reinterpret_cast<const double2*>(F);
   const double2 f01 = F2[0], f23 = F2[1], f45 = F2[2], f67 = F2[3];
-  const double o0 = dot3(x0, x1, x, f01.x, f23.y, f67.x);
-  const double n1 = dot3(x0, x1, x, f01.y, f45.x, f67.y);
-  const double n2 = dot3(x0, x1, x, f23.x, f45.y, F[8]);
+  const double o0 = psd::dot3(x0, x1, x, f01.x, f23.y, f67.x);
+  const double n1 = psd::dot3(x0, x1, x, f01.y, f45.x, f67.y);
+  const double n2 = psd::dot3(x0, x1, x, f23.x, f45.y, F[8]);
   x0 = n1;
   x1 = n2;
   return o0;
@@ -1086,27 +1075,6 @@ __device__ __forceinline__ void walk_chunk(int j, int nch, int m, int i, const d
   }
 }
 
-// A block's ring of nch chunks: copy(j) issues chunk j's asynchronous
-// copies (tile and log rows), one commit group per chunk, kAhead chunks
-// ahead of the one in use; walk(j) runs on the first `lines` threads once
-// chunk j has landed, after(j) on every thread after it.
-template <class Copy, class Walk, class After>
-__device__ __forceinline__ void apply_ring(int nch, int lines, Copy copy, Walk walk,
-                                           After after) {
-  for (int j = 0; j < kAhead; ++j) {
-    if (j < nch) copy(j);
-    __pipeline_commit();
-  }
-  for (int j = 0; j < nch; ++j) {
-    __pipeline_wait_prior(kAhead - 1);
-    __syncthreads();  // chunk j has landed; the slot chunk j + kAhead takes is free
-    if (j + kAhead < nch) copy(j + kAhead);
-    __pipeline_commit();
-    if (threadIdx.x < lines) walk(j);
-    after(j);
-  }
-}
-
 // B0: rows k..k+2 of every H[f] <- F[f,k]^T rows, for k = m..i-1, for the
 // logs of bulges 0..kNb-1 (log stride p N 9).  Block (x, f): columns
 // max(m-1, 0) + x kLeftCols + threadIdx.x of H[f].  Column m-1 of factor 0
@@ -1148,7 +1116,7 @@ sweep_left_kernel(double* __restrict__ H, const double* __restrict__ R, int p, i
           if (tid < nc) out[(ptrdiff_t)d * N] = x;
         });
   };
-  apply_ring(nch, kLeftCols, copy, walk, [](int) {});
+  psd::apply_ring<kAhead>(nch, kLeftCols, copy, walk, [](int) {});
 }
 
 // B: columns k..k+2 <- columns F for k = m..i-1, for the logs of bulges
@@ -1210,7 +1178,7 @@ sweep_right_kernel(double* __restrict__ H, double* __restrict__ Z,
           else Tp[d] = x;
         });
   };
-  apply_ring(nch, kRightRows, copy, walk, [&](int j) {
+  psd::apply_ring<kAhead>(nch, kRightRows, copy, walk, [&](int j) {
     __syncthreads();  // chunk j-1 (and at the end chunk j) finished
     if (j >= 1) write_back(j - 1);
     if (j == nch - 1) write_back(j);

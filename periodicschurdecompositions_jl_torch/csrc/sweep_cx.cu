@@ -511,27 +511,6 @@ __device__ __forceinline__ void walk_chunk(int j, int nch, int m, int i, const d
   if (j == nch - 1) out(w - 1, x0);
 }
 
-// A block's ring of nch chunks: copy(j) issues chunk j's asynchronous
-// copies (tile and log entries), one commit group per chunk, kAhead chunks
-// ahead of the one in use; walk(j) runs on the first `lines` threads once
-// chunk j has landed, after(j) on every thread after it.
-template <class Copy, class Walk, class After>
-__device__ __forceinline__ void apply_ring(int nch, int lines, Copy copy, Walk walk,
-                                           After after) {
-  for (int j = 0; j < kAhead; ++j) {
-    if (j < nch) copy(j);
-    __pipeline_commit();
-  }
-  for (int j = 0; j < nch; ++j) {
-    __pipeline_wait_prior(kAhead - 1);
-    __syncthreads();  // chunk j has landed; the slot chunk j + kAhead takes is free
-    if (j + kAhead < nch) copy(j + kAhead);
-    __pipeline_commit();
-    if (threadIdx.x < lines) walk(j);
-    after(j);
-  }
-}
-
 // B0: rows k, k+1 of every H[f] <- L[f, k] rows, for k = m..i-1.  Block (x,
 // f): columns m + x kLeftCols + threadIdx.x of H[f].
 __global__ void __launch_bounds__(kApplyThreads)
@@ -565,7 +544,7 @@ qz_left_kernel(double2* __restrict__ H, const double2* __restrict__ Lg, int n, i
           if (tid < nc) out[(ptrdiff_t)d * n] = x;
         });
   };
-  apply_ring(nch, kLeftCols, copy, walk, [](int) {});
+  psd::apply_ring<kAhead>(nch, kLeftCols, copy, walk, [](int) {});
 }
 
 // B: columns k, k+1 <- columns M for k = m..i-1.  Block (x, g, 0): rows x
@@ -627,7 +606,7 @@ qz_right_kernel(double2* __restrict__ H, double2* __restrict__ Z,
           else Tp[d] = x;
         });
   };
-  apply_ring(nch, kRightRows, copy, walk, [&](int j) {
+  psd::apply_ring<kAhead>(nch, kRightRows, copy, walk, [&](int j) {
     __syncthreads();  // chunk j-1 (and at the end chunk j) finished
     if (j >= 1) write_back(j - 1);
     if (j == nch - 1) write_back(j);

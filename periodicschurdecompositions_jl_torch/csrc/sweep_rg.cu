@@ -67,16 +67,16 @@
 //   H100: ~2180 cycles per (step, factor); with the clock64 counters of
 //   scripts/profile_sweep_generate.py --rg, 2368, 1281 of them the two
 //   generations).
-// * rg_sweep_left / rg_sweep_right apply the logged 3x3 transforms with full
-//   parallelism (one thread per (factor, column) or (factor, row), each
-//   walking all steps with two live entries in registers).  They are bound
-//   by memory traffic over p n^2 float64.  Deferring the left and right
-//   products past the generation is exact (left and right multiplications
-//   commute) provided every transform acts on the FULL rows and columns:
-//   the interleaved order's bounds skip entries that are zero only in that
-//   order.  Columns left of m-1 are never touched.  rg_sweep_right then
-//   writes the window's structural zeros exactly, keeping the closing bulge
-//   H[0][i, i-2], and the regenerated H[0][j, j-1] = r from the log.
+// * rg_sweep_left / rg_sweep_right (B0 and B) apply the logged 3x3
+//   transforms.  Deferring the left and right products past the generation
+//   is exact (left and right multiplications commute) provided every
+//   transform acts on the FULL rows and columns: the interleaved order's
+//   bounds skip entries that are zero only in that order.  Columns left of
+//   m-1 are never touched.  Their design is the one of csrc/sweep.cu's and
+//   csrc/sweep_cx.cu's B0/B (see the comment above rg_left_kernel): one
+//   walking warp per tile of lines, the positions staged in shared memory
+//   by cp.async.
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include "psd_common.cuh"
@@ -427,73 +427,284 @@ rg_generate_kernel(const double* __restrict__ H, double* __restrict__ carry,
   }
 }
 
-// B0: rows j..j+2 of every H[f] <- L[f, j] rows, for j = m..i-2.  One thread
-// per (factor, column >= m-1).
-__global__ void __launch_bounds__(kApplyThreads)
-rg_left_kernel(double* __restrict__ H, const double* __restrict__ Lg, int n,
-               int m, int i) {
-  const int f = blockIdx.y;
-  const int c = m - 1 + blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= n) return;
-  double* col = H + (size_t)f * n * n + c;
-  const double* Ef = Lg + (size_t)f * n * kLog;
-  double x0 = col[(size_t)m * n], x1 = col[(size_t)(m + 1) * n];
-  for (int j = m; j <= i - 2; ++j) {
-    const double x2 = col[(size_t)(j + 2) * n];
-    const double* E = Ef + (size_t)j * kLog;
-    double M[9];
-#pragma unroll
-    for (int q = 0; q < 9; ++q) M[q] = __ldg(E + q);
-    const double y0 = M[0] * x0 + M[1] * x1 + M[2] * x2;
-    const double y1 = M[3] * x0 + M[4] * x1 + M[5] * x2;
-    const double y2 = M[6] * x0 + M[7] * x1 + M[8] * x2;
-    col[(size_t)j * n] = y0;
-    x0 = y1;
-    x1 = y2;
+// Kernels B0 and B.  Both walk lines (B0: the columns >= m-1 of every H[f];
+// B: the rows 0..i of H[g] and all rows of Z[g]) along the positions m..i
+// (B0: rows, B: columns).  Step j = m..i-2 of a line maps its entries (x0,
+// x1, x2) at positions j..j+2 by the logged 3x3 M (B0: L's rows on the
+// left, B: R's or ZR's columns on the right), writes the first output at j
+// and carries the other two to step j+1; after step i-2 the carried pair
+// is positions i-1, i.
+//
+// Each block stages its lines in chunks of W positions (B0: kLeftChunk, B:
+// kRightChunk) through a ring of shared-memory slots filled by 8-byte
+// cp.async (a row of H is 16-byte aligned only for even n), kAhead chunks
+// in flight ahead of the one in use, each chunk with the log entries its
+// steps read (W rows of 9 doubles, staged at a pitch of kLogPitch so that
+// they load as double2; a step's 28 logged doubles put R at byte 72, so the
+// entries are copied one by one).  Chunk j's steps are q0-2..q0+w-3 (q0 = m
+// + j W, w its positions): its first two steps finish the last two
+// positions of chunk j-1.  The shared memory a block takes depends on
+// these sizes only, never on n or p.  Ragged tiles, chunks and spans are
+// masked; windows of one or two steps take the same code.
+//
+// A block has kApplyThreads threads: warp 0 walks, one line per lane, and
+// all of them issue the copies and (B) write finished chunks back, which
+// would otherwise sit on the walk's path.  A chunk whose steps all lie
+// inside m..i-2 runs from registers: its entries are read before its first
+// step (and B's outputs stored after its last), so the log entries load
+// ahead of the arithmetic.  A step costs tens of ns on a walking lane and
+// a chunk a barrier and the ring's bookkeeping on top, so long chunks and
+// many blocks win: at p=8 n=256, 16 lines a block give 128 (B0) and 256
+// (B) blocks; of the chunks tried (16 to 64 positions, scripts/
+// time_sweep_generate.py --rg --apply --variant), 64 (B0) and 32 (B) were
+// the fastest without spills.
+//
+// The three-term sums are written out with __fma_rn/__dmul_rn in the order
+// nvcc contracted `M[0] * x0 + M[1] * x1 + M[2] * x2` (B0) and `x0 * M[0] +
+// x1 * M[3] + x2 * M[6]` (B) in the kernels before this design (one thread
+// per line; their SASS): the middle product rounded, the first fused onto
+// it, then the third.  So every entry goes through the same operations in
+// the same order as before, bit for bit (scripts/time_sweep_generate.py
+// --rg --apply prints the hashes).
+//
+// B0 (replaces the JAX package's ops/pallas_sweep_rg.py:372
+// _make_rg_left_kernel): a block owns kLeftCols columns of one factor, one
+// per lane of warp 0, from column m-1 (the bulge column) on, and walks their
+// rows down through the ring; its stores are rows of consecutive columns,
+// coalesced, straight to device memory.  B (replaces
+// ops/pallas_sweep_rg.py:409 _make_rg_apply_kernel): a block owns
+// kRightRows rows of one target, one per lane (H[g] rows 0..i with R of
+// factor g, or Z[g] rows 0..n-1 with ZR), and walks the columns; the row
+// pitch in shared memory is odd, so the lanes' 8-byte accesses to one
+// column fall in distinct banks.  A chunk goes back to device memory as
+// coalesced row segments once the next chunk's first two steps have
+// finished it, with H's structural zeros (rows r >= m: in H[0] left of
+// r-1, in row i left of i-2, keeping the closing bulge H[0][i, i-2]; in
+// H[g>0] left of r) and the regenerated H[0][r, r-1] = log r (r <= i-2)
+// written exactly in the same pass; column m-1, outside the walked
+// positions, takes its zeros and H[0][m, m-1] after the ring.  What bounds
+// both: bytes (chip_smoke.py's rg bounds) and the walk's chain of i-1-m
+// dependent steps; times in PERF.md §6.
+
+constexpr int kLeftChunk = 64;   // B0: positions per chunk
+constexpr int kRightChunk = 32;  // B: positions per chunk (its outputs wait in registers)
+constexpr int kAhead = 2;        // chunks in flight ahead of the one in use
+constexpr int kLeftCols = 16;    // B0: columns per block, one per lane of warp 0
+constexpr int kRightRows = 16;   // B: rows per block, one per lane of warp 0
+constexpr int kRightPitch = kRightChunk | 1;  // odd: conflict-free columns
+constexpr int kLogPitch = 10;    // doubles per staged log row (16-byte rows)
+static_assert(kLeftChunk >= 2 && kRightChunk >= 2,
+              "a chunk's first two steps finish the chunk before");
+static_assert(kRightPitch % 2 == 1, "B's row pitch must be odd");
+static_assert(kApplyThreads % 32 == 0 && kApplyThreads >= kLeftCols &&
+                  kApplyThreads >= kRightRows && kLeftCols <= 32 && kRightRows <= 32,
+              "the walking lanes are warp 0's");
+
+// Shared memory of B0 and B (bytes): kAhead + 1 (B0) or kAhead + 2 (B, the
+// previous chunk waits for its write-back) tile slots, kAhead + 1 log slots.
+constexpr size_t left_smem() {
+  return sizeof(double) * ((size_t)(kAhead + 1) * kLeftChunk * kLeftCols +
+                           (size_t)(kAhead + 1) * kLeftChunk * kLogPitch);
+}
+constexpr size_t right_smem() {
+  return sizeof(double) * ((size_t)(kAhead + 2) * kRightRows * kRightPitch +
+                           (size_t)(kAhead + 1) * kRightChunk * kLogPitch);
+}
+static_assert(left_smem() <= 48 * 1024 && right_smem() <= 48 * 1024,
+              "the apply kernels launch without the shared-memory opt-in");
+static_assert((kLeftChunk * kLeftCols) % 2 == 0 && (kRightRows * kRightPitch) % 2 == 0,
+              "the log slots must start 16-byte aligned");
+
+// Stage the log entries chunk j's steps read (at offset `at` of the log
+// row: 0 L, 9 R, 18 ZR): step k = q0 - 2 + s at slot row s < W, for the
+// steps m..i-2 only.  src: the factor whose log.
+template <int W>
+__device__ __forceinline__ void stage_log(double* Ls, const double* __restrict__ Lg, int n,
+                                          int src, int at, int m, int i, int q0) {
+  for (int e = threadIdx.x; e < W * 9; e += blockDim.x) {
+    const int s = e / 9, q = e % 9, k = q0 - 2 + s;
+    if (k >= m && k <= i - 2)
+      __pipeline_memcpy_async(Ls + s * kLogPitch + q, Lg + ((size_t)src * n + k) * kLog + at + q,
+                              sizeof(double));
   }
-  col[(size_t)(i - 1) * n] = x0;
-  col[(size_t)i * n] = x1;
 }
 
-// B: columns j..j+2 <- columns M for j = m..i-2.  blockIdx.z == 0: H[g]
-// rows 0..i with R[g, j], then (rows m..i) the structural zeros, keeping
-// the closing bulge H[0][i, i-2], and the regenerated H[0][j, j-1], written
-// exactly; blockIdx.z == 1: Z[g], all rows, with ZR[g, j].
+// (x0, x1, x) <- M (x0, x1, x)^T for the staged row-major 3x3 M (B0):
+// returns the first output, carries the other two
+__device__ __forceinline__ double left_step(double& x0, double& x1, double x, const double* F) {
+  const double2* F2 = reinterpret_cast<const double2*>(F);
+  const double2 f01 = F2[0], f23 = F2[1], f45 = F2[2], f67 = F2[3];
+  const double y0 = psd::dot3(x0, x1, x, f01.x, f01.y, f23.x);
+  const double y1 = psd::dot3(x0, x1, x, f23.y, f45.x, f45.y);
+  const double y2 = psd::dot3(x0, x1, x, f67.x, f67.y, F[8]);
+  x0 = y1;
+  x1 = y2;
+  return y0;
+}
+
+// (x0, x1, x) <- (x0, x1, x) M for the staged row-major 3x3 M (B)
+__device__ __forceinline__ double right_step(double& x0, double& x1, double x,
+                                             const double* F) {
+  const double2* F2 = reinterpret_cast<const double2*>(F);
+  const double2 f01 = F2[0], f23 = F2[1], f45 = F2[2], f67 = F2[3];
+  const double y0 = psd::dot3(x0, x1, x, f01.x, f23.y, f67.x);
+  const double y1 = psd::dot3(x0, x1, x, f01.y, f45.x, f67.y);
+  const double y2 = psd::dot3(x0, x1, x, f23.x, f45.y, F[8]);
+  x0 = y1;
+  x1 = y2;
+  return y0;
+}
+
+// The walk of one line over chunk j's steps (staged log Ls), and after the
+// last chunk the carried pair to positions i-1, i.  in(u) reads the chunk's
+// position q0+u; out(d, x) takes the finished entry at position q0+d (d >=
+// -2: the chunk before); (x0, x1): the carried pair.
+template <bool kLeft, int W, class In, class Out>
+__device__ __forceinline__ void walk_chunk(int j, int nch, int m, int i, const double* Ls,
+                                           double& x0, double& x1, In in, Out out) {
+  const int q0 = m + j * W, w = min(W, i + 1 - q0);
+  if (j > 0 && w == W) {  // steps q0-2..q0+W-3, all inside m..i-2
+    double xin[W];
+#pragma unroll
+    for (int u = 0; u < W; ++u) xin[u] = in(u);
+    if constexpr (kLeft) {  // a store to device memory cannot alias a staged entry
+#pragma unroll
+      for (int u = 0; u < W; ++u) out(u - 2, left_step(x0, x1, xin[u], Ls + u * kLogPitch));
+    } else {  // the outputs go back into shared memory after the last step
+      double y[W];
+#pragma unroll
+      for (int u = 0; u < W; ++u) y[u] = right_step(x0, x1, xin[u], Ls + u * kLogPitch);
+#pragma unroll
+      for (int u = 0; u < W; ++u) out(u - 2, y[u]);
+    }
+  } else {
+    int u = 0;
+    if (j == 0) {  // positions m, m+1: no step reads them as x
+      x0 = in(0);
+      x1 = in(1);
+      u = 2;
+    }
+    for (; u < w; ++u) {
+      const double* F = Ls + u * kLogPitch;  // step q0 - 2 + u
+      out(u - 2, kLeft ? left_step(x0, x1, in(u), F) : right_step(x0, x1, in(u), F));
+    }
+  }
+  if (j == nch - 1) {
+    out(w - 2, x0);
+    out(w - 1, x1);
+  }
+}
+
+// B0: rows j..j+2 of every H[f] <- L[f, j] rows, for j = m..i-2.  Block (x,
+// f): columns m - 1 + x kLeftCols + threadIdx.x of H[f].
+__global__ void __launch_bounds__(kApplyThreads)
+rg_left_kernel(double* __restrict__ H, const double* __restrict__ Lg, int n, int m, int i) {
+  constexpr int W = kLeftChunk, NT = kAhead + 1, NL = kAhead + 1;
+  extern __shared__ double smem[];
+  double* tiles = smem;                          // NT x W rows x kLeftCols
+  double* logs = smem + NT * W * kLeftCols;      // NL x W steps x kLogPitch
+  const int f = blockIdx.y, tid = threadIdx.x;
+  const int cb = m - 1 + blockIdx.x * kLeftCols;  // the tile's first column
+  const int nc = min(kLeftCols, n - cb);
+  double* Hf = H + (size_t)f * n * n + cb;
+  const int nch = (i + 1 - m + W - 1) / W;
+  auto copy = [&](int j) {  // chunk j's rows
+    const int q0 = m + j * W, w = min(W, i + 1 - q0);
+    double* T = tiles + (j % NT) * W * kLeftCols;
+    for (int e = tid; e < w * kLeftCols; e += kApplyThreads)
+      if (e % kLeftCols < nc)
+        __pipeline_memcpy_async(T + e, Hf + (size_t)(q0 + e / kLeftCols) * n + e % kLeftCols,
+                                sizeof(double));
+    stage_log<W>(logs + (j % NL) * W * kLogPitch, Lg, n, f, 0, m, i, q0);
+  };
+  double x0 = 0.0, x1 = 0.0;
+  auto walk = [&](int j) {  // stores: rows of consecutive columns, coalesced
+    const double* T = tiles + (j % NT) * W * kLeftCols + tid;
+    double* out = Hf + (size_t)(m + j * W) * n + tid;
+    walk_chunk<true, W>(
+        j, nch, m, i, logs + (j % NL) * W * kLogPitch, x0, x1,
+        [&](int u) { return T[u * kLeftCols]; },
+        [&](int d, double x) {
+          if (tid < nc) out[(ptrdiff_t)d * n] = x;
+        });
+  };
+  psd::apply_ring<kAhead>(nch, kLeftCols, copy, walk, [](int) {});
+}
+
+// B: columns j..j+2 <- columns M for j = m..i-2.  Block (x, g, 0): rows x
+// kRightRows + threadIdx.x <= i of H[g] with R[g, j], then (rows m..i) the
+// structural zeros, keeping the closing bulge H[0][i, i-2], and the
+// regenerated H[0][r, r-1], written exactly; block (x, g, 1): rows of
+// Z[g], all n, with ZR[g, j].
 __global__ void __launch_bounds__(kApplyThreads)
 rg_right_kernel(double* __restrict__ H, double* __restrict__ Z,
                 const double* __restrict__ Lg, int n, int m, int i) {
-  const int g = blockIdx.y;
+  constexpr int W = kRightChunk, P = kRightPitch, NT = kAhead + 2, NL = kAhead + 1;
+  extern __shared__ double smem[];
+  double* tiles = smem;                          // NT x kRightRows x P
+  double* logs = smem + NT * kRightRows * P;     // NL x W steps x kLogPitch
+  const int g = blockIdx.y, tid = threadIdx.x;
   const bool isz = blockIdx.z == 1;
-  const int r = blockIdx.x * blockDim.x + threadIdx.x;
   const int nrows = isz ? n : i + 1;
-  if (r >= nrows) return;
-  double* row = (isz ? Z : H) + (size_t)g * n * n + (size_t)r * n;
-  const double* Eg = Lg + (size_t)g * n * kLog + (isz ? 18 : 9);
-  double x0 = row[m], x1 = row[m + 1];
-  for (int j = m; j <= i - 2; ++j) {
-    const double x2 = row[j + 2];
-    const double* E = Eg + (size_t)j * kLog;
-    double M[9];
-#pragma unroll
-    for (int q = 0; q < 9; ++q) M[q] = __ldg(E + q);
-    const double y0 = x0 * M[0] + x1 * M[3] + x2 * M[6];
-    const double y1 = x0 * M[1] + x1 * M[4] + x2 * M[7];
-    const double y2 = x0 * M[2] + x1 * M[5] + x2 * M[8];
-    row[j] = y0;
-    x0 = y1;
-    x1 = y2;
-  }
-  row[i - 1] = x0;
-  row[i] = x1;
-  if (!isz && r >= m) {
-    if (g == 0) {
-      const int hi = (r < i) ? r - 1 : i - 2;  // (i, i-2) is the closing bulge
-      for (int c = m - 1; c < hi; ++c) row[c] = 0.0;
-      if (r <= i - 2) row[r - 1] = __ldg(Lg + (size_t)r * kLog + 27);
-    } else {
-      for (int c = m - 1; c < r; ++c) row[c] = 0.0;
+  const int r0 = blockIdx.x * kRightRows;
+  if (r0 >= nrows) return;
+  const int nr = min(kRightRows, nrows - r0);
+  double* A = (isz ? Z : H) + (size_t)g * n * n + (size_t)r0 * n;
+  const int nch = (i + 1 - m + W - 1) / W;
+  auto copy = [&](int j) {  // chunk j's row segments (its slot's chunk was written back)
+    const int q0 = m + j * W, w = min(W, i + 1 - q0);
+    double* T = tiles + (j % NT) * kRightRows * P;
+    for (int e = tid; e < nr * W; e += kApplyThreads)
+      if (e % W < w)
+        __pipeline_memcpy_async(T + (e / W) * P + e % W, A + (size_t)(e / W) * n + q0 + e % W,
+                                sizeof(double));
+    stage_log<W>(logs + (j % NL) * W * kLogPitch, Lg, n, g, isz ? 18 : 9, m, i, q0);
+  };
+  // chunk j's finished columns back to device memory; in H's rows m..i the
+  // structural zeros and H[0]'s regenerated subdiagonal in their place
+  auto write_back = [&](int j) {
+    const int q0 = m + j * W, w = min(W, i + 1 - q0);
+    const double* T = tiles + (j % NT) * kRightRows * P;
+    for (int e = tid; e < nr * W; e += kApplyThreads) {
+      const int rr = e / W, cc = e % W, r = r0 + rr, c = q0 + cc;
+      if (cc >= w) continue;
+      double x = T[rr * P + cc];
+      if (!isz && r >= m) {
+        if (g > 0) {
+          if (c < r) x = 0.0;
+        } else if (c < (r < i ? r - 1 : i - 2)) {  // (i, i-2) is the closing bulge
+          x = 0.0;
+        } else if (c == r - 1 && r <= i - 2) {
+          x = __ldg(Lg + (size_t)r * kLog + 27);
+        }
+      }
+      A[(size_t)rr * n + c] = x;
     }
-  }
+  };
+  double x0 = 0.0, x1 = 0.0;
+  // a finished column goes back into its slot: this chunk's or, for the two
+  // positions the chunk's first steps finish, the one before (indexed from
+  // q0)
+  auto walk = [&](int j) {
+    double* T = tiles + (j % NT) * kRightRows * P + tid * P;
+    double* Tp = tiles + ((j + NT - 1) % NT) * kRightRows * P + tid * P + W;
+    walk_chunk<false, W>(
+        j, nch, m, i, logs + (j % NL) * W * kLogPitch, x0, x1,
+        [&](int u) { return T[u]; },
+        [&](int d, double x) {
+          if (d >= 0) T[d] = x;
+          else Tp[d] = x;
+        });
+  };
+  psd::apply_ring<kAhead>(nch, kRightRows, copy, walk, [&](int j) {
+    __syncthreads();  // chunk j-1 (and at the end chunk j) finished
+    if (j >= 1) write_back(j - 1);
+    if (j == nch - 1) write_back(j);
+  });
+  // column m-1 of H's rows m..i: zeros, and H[0][m, m-1] regenerated
+  if (!isz && tid < nr && r0 + tid >= m)
+    A[(size_t)tid * n + m - 1] =
+        (g == 0 && r0 + tid == m) ? __ldg(Lg + (size_t)m * kLog + 27) : 0.0;
 }
 
 struct GenPlan {
@@ -547,20 +758,23 @@ int psd_rg_sweep_generate(const void* H, void* work, void* Lg, const int* S, int
   return (int)cudaGetLastError();
 }
 
-// Kernel rg B0, in place on H.
+// Kernel rg B0, in place on H.  No step (i - 2 < m): nothing to do.
 int psd_rg_sweep_left(void* H, const void* Lg, int p, int n, int m, int i,
                       void* stream) {
-  dim3 grid((n - m + 1 + kApplyThreads - 1) / kApplyThreads, p);
-  rg_left_kernel<<<grid, kApplyThreads, 0, (cudaStream_t)stream>>>(
+  if (i - 2 < m) return 0;
+  dim3 grid((n - m + 1 + kLeftCols - 1) / kLeftCols, p);
+  rg_left_kernel<<<grid, kApplyThreads, left_smem(), (cudaStream_t)stream>>>(
       (double*)H, (const double*)Lg, n, m, i);
   return (int)cudaGetLastError();
 }
 
-// Kernel rg B, in place on H and (when Z != NULL) Z.
+// Kernel rg B, in place on H and (when Z != NULL) Z.  No step: nothing to
+// do (as rg_apply_log_plain).
 int psd_rg_sweep_right(void* H, void* Z, const void* Lg, int p, int n, int m,
                        int i, void* stream) {
-  dim3 grid((n + kApplyThreads - 1) / kApplyThreads, p, Z ? 2 : 1);
-  rg_right_kernel<<<grid, kApplyThreads, 0, (cudaStream_t)stream>>>(
+  if (i - 2 < m) return 0;
+  dim3 grid((n + kRightRows - 1) / kRightRows, p, Z ? 2 : 1);
+  rg_right_kernel<<<grid, kApplyThreads, right_smem(), (cudaStream_t)stream>>>(
       (double*)H, (double*)Z, (const double*)Lg, n, m, i);
   return (int)cudaGetLastError();
 }

@@ -51,7 +51,13 @@ alternating, all-direct and all-inverse (but S[0]) signatures on the state
 the opening ladder leaves, H unchanged, and B0 and B on A's log against
 ``rg_apply_log_plain``, at an H100's shared memory, 3000 bytes (short
 batches; p=16 takes the global windows) and 200 bytes (the windows in the
-global scratch for every p); about a minute.
+global scratch for every p); then rg B0 and rg B bit for bit against the
+numpy model of tests/torch_rg_apply_host.py on rg A's log, after B0 and
+after B, with and without Z, structural zeros and the logged r exact,
+the closing bulge kept, at the source's tile and chunk sizes and at
+8-line tiles with chunks of 7 (B0) and 5 (B) positions two chunks ahead
+(ragged tiles, chunks and spans, odd n, windows of one and two steps);
+about two minutes.
 
 ``--hess``: csrc/hess.cu, the reduction in one cooperative launch (the
 stub runs every block at once, with a std::barrier for the grid sync), on
@@ -116,6 +122,7 @@ from torch_rg_window_host import rg_log_full  # noqa: E402
 from torch_apply_host import apply_model  # noqa: E402
 from torch_cx_apply_host import model_left, replay_left  # noqa: E402
 from torch_cx_apply_host import apply_model as cx_apply_model  # noqa: E402
+import torch_rg_apply_host  # noqa: E402
 from torch_mb_host import mb_sig  # noqa: E402
 from torch_mb_window_host import sweep_log_mb_full  # noqa: E402
 from torch_window_host import sweep_log_full  # noqa: E402
@@ -468,7 +475,7 @@ def check_givens(lib):
 
 
 def build_rg():
-    lib = build_stub("sweep_rg", extra=GIVENS_PAIR)
+    lib = build_stub("sweep_rg", extra=GIVENS_PAIR, flags=ALIGN)
     lib.stub_givens_pair.argtypes = [ctypes.c_double, ctypes.c_double, ctypes.c_void_p]
     vp, i32 = ctypes.c_void_p, ctypes.c_int
     lib.psd_rg_sweep_generate.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, vp]
@@ -527,7 +534,88 @@ def main_rg():
             print(f"shared memory {optin} B, p={p} n={n} [{m}, {i}] S {kind}: rg A's log == "
                   f"the model's; B0+B vs rg_apply_log_plain dH {dh:.2e} dZ {dz:.2e}",
                   flush=True)
+    os.environ["STUB_SMEM_OPTIN"] = "232448"
+    # the source's sizes, then chunks of 7 (B0) and 5 (B) positions, 8-line
+    # tiles, two chunks ahead
+    tight = build_stub("sweep_rg", flags=ALIGN, sub=[
+        ("constexpr int kLeftChunk = ", "constexpr int kLeftChunk = 7; //"),
+        ("constexpr int kRightChunk = ", "constexpr int kRightChunk = 5; //"),
+        ("constexpr int kAhead = ", "constexpr int kAhead = 2; //"),
+        ("constexpr int kLeftCols = ", "constexpr int kLeftCols = 8; //"),
+        ("constexpr int kRightRows = ", "constexpr int kRightRows = 8; //")])
+    for fn in ("psd_rg_sweep_generate", "psd_rg_sweep_generate_scratch", "psd_rg_sweep_left",
+               "psd_rg_sweep_right"):
+        getattr(tight, fn).argtypes = getattr(lib, fn).argtypes
+        getattr(tight, fn).restype = getattr(lib, fn).restype
+    for lb in (lib, tight):
+        sizes = rg_apply_sizes() if lb is lib else {"cols": 8, "rows": 8, "chunk": 5,
+                                                    "left_chunk": 7, "ahead": 2}
+        for (p, n, m, i, kind) in cases + [(2, 41, 20, 40, "direct"), (3, 33, 1, 32, "alt"),
+                                           (8, 45, 1, 44, "alt"), (3, 17, 6, 8, "direct"),
+                                           (2, 29, 9, 12, "alt"), (3, 129, 1, 128, "alt")]:
+            runs = check_rg_apply(lb, p, n, m, i, sig(kind, p), sizes)
+            print(f"p={p} n={n} [{m}, {i}] S {kind}: rg B0 and B == the numpy model bit for "
+                  f"bit in {runs} runs (after B0, after B; with and without Z; {sizes})",
+                  flush=True)
     return 0
+
+
+def rg_apply_sizes():
+    """The rg apply kernels' tile, chunk and ring sizes, read from
+    csrc/sweep_rg.cu."""
+    src = open(os.path.join(CSRC, "sweep_rg.cu")).read()
+
+    def get(key):
+        return int(re.search(rf"constexpr int {key} = (\d+);", src).group(1))
+    return {"cols": get("kLeftCols"), "rows": get("kRightRows"), "chunk": get("kRightChunk"),
+            "left_chunk": get("kLeftChunk"), "ahead": get("kAhead")}
+
+
+def check_rg_apply(lib, p, n, m, i, S, sizes):
+    """rg B0, then B, through the stub on rg A's log, bit for bit against
+    the numpy model of tests/torch_rg_apply_host.py after each kernel, with
+    and without Z; structural zeros and the logged r exact, the closing
+    bulge kept.  Returns the number of runs."""
+    from chip_smoke import mk_rg_problem
+    H, Z, rot = mk_rg_problem(p, n, np.random.default_rng(p * 17 + n + m))
+    if m > 1:
+        H[0, m - 1, m - 2] = 0.0
+    if i + 1 < n:
+        H[0, i + 1, i] = 0.0
+    Ht, Zt = torch.tensor(H), torch.tensor(Z)
+    rgopen.rg_ladder_plain(Ht, Zt, "open", m - 1, i, torch.tensor(rot), S, want_z=True)
+    H, Z = Ht.numpy().copy(), Zt.numpy().copy()
+    Sd = torch.tensor([int(x) for x in S], dtype=torch.int32)
+    work = torch.full((lib.psd_rg_sweep_generate_scratch(p, n),), float("nan"),
+                      dtype=torch.float64)
+    log = torch.full((p, n, sweep_rg.LOG), float("nan"), dtype=torch.float64)
+    assert lib.psd_rg_sweep_generate(Ht.data_ptr(), work.data_ptr(), log.data_ptr(),
+                                     Sd.data_ptr(), p, n, m, i, None) == 0
+    lg = log.numpy()
+    Hl = torch_rg_apply_host.model_left(H, lg, m, i, cols=sizes["cols"],
+                                        chunk=sizes["left_chunk"], ahead=sizes["ahead"])
+    assert np.array_equal(Hl, torch_rg_apply_host.replay_left(H, lg, m, i))
+    runs = 0
+    for want_z in (True, False):
+        Hb = torch.tensor(H)
+        Zb = torch.tensor(Z) if want_z else None
+        assert lib.psd_rg_sweep_left(Hb.data_ptr(), log.data_ptr(), p, n, m, i, None) == 0
+        assert np.array_equal(Hb.numpy(), Hl), (p, n, m, i, "H after B0")
+        assert lib.psd_rg_sweep_right(Hb.data_ptr(), Zb.data_ptr() if want_z else None,
+                                      log.data_ptr(), p, n, m, i, None) == 0
+        Hm, Zm = torch_rg_apply_host.apply_model(H, Z if want_z else None, lg, m, i, **sizes)
+        assert np.array_equal(Hb.numpy(), Hm), (p, n, m, i, want_z, "H after B")
+        assert not want_z or np.array_equal(Zb.numpy(), Zm), (p, n, m, i, "Z after B")
+        Hn = Hb.numpy()
+        assert Hn[0, i, i - 2] != 0.0, "the closing bulge was lost"
+        for r in range(m, i + 1):
+            assert not Hn[0, r, m - 1:(r - 1 if r < i else i - 2)].any(), (p, n, m, i, r)
+            assert not Hn[1:, r, m - 1:r].any(), (p, n, m, i, r)
+            if r <= i - 2:
+                assert Hn[0, r, r - 1] == lg[0, r, 27], (p, n, m, i, r)
+        assert np.array_equal(Hn[:, :, :m - 1], H[:, :, :m - 1]), "B0/B touched H left of m-1"
+        runs += 1
+    return runs
 
 
 def build_hess(name, path=None):

@@ -138,6 +138,19 @@ iteration, niter, sweeps, hashes of T and Z, and under the CUDA profiler
 the device time and launches of cx A, B0, B and S and the idle share
 (run once with ``--root DIR`` for the parent's).
 
+``--rg --apply``: rg B0 and rg B (csrc/sweep_rg.cu::psd_rg_sweep_left and
+psd_rg_sweep_right) as ``--cx --apply`` does cx B0 and B, on the draw of
+chip_smoke.py's ``rg_kernel_phase`` (p=8, n=256, ``default_rng(2026)``,
+the window's boundaries deflated, the opening ladder applied; windows [1,
+255], [38, 200], [121, 124]; and p=3, n=129 on [1, 128], its odd-n case),
+alternating and all-direct S, on kernel rg A's own log, bounds from
+chip_smoke.py's ``rg_apply_bounds``.  ``--headline`` then runs the rg leg
+of chip_smoke.py (``pschur(A, 'R', S)``, p=8, n=256, seed 4242,
+alternating S): wall, reduction, iteration, niter, sweeps, hashes of T and
+Z, and under the CUDA profiler the device time and launches of rg A, B0,
+B, R and CZSHIFT and the idle share (run once with ``--root DIR`` for the
+parent's).
+
 ``--mb``: kernel A-mb (csrc/sweep.cu::psd_sweep_generate_mb) alone on the
 problem of chip_smoke.py's ``mb_phase`` (p=16, n=512, ``default_rng(2027)``,
 gap 3, the driver's window shifts ``pqr_real.window_shifts``): [0, 511]
@@ -156,8 +169,9 @@ and the reduction, and the idle share.
 
 Run from the repository root:
   python3 scripts/time_sweep_generate.py [--cx [--apply [--against DIR] [--variant ...]]
-      | --rg | --hess | --signed [--split] | --deflate [--against DIR] | --apply
-      | --mb [--against DIR]] [--root DIR] [--headline [--trace]]
+      | --rg [--apply [--against DIR] [--variant ...]] | --hess | --signed [--split]
+      | --deflate [--against DIR] | --apply | --mb [--against DIR]] [--root DIR]
+      [--headline [--trace]]
 """
 import argparse
 import hashlib
@@ -207,8 +221,8 @@ def main():
     lib = _cuda.load()
     out = {"root": os.path.abspath(args.root), "card": smi}
     (time_mb if args.mb else time_cx_apply if args.apply and args.cx else
-     time_apply if args.apply else time_deflate if args.deflate else time_signed
-     if args.signed else time_hess
+     time_rg_apply if args.apply and args.rg else time_apply if args.apply else
+     time_deflate if args.deflate else time_signed if args.signed else time_hess
      if args.hess else time_cx if args.cx else time_rg if args.rg
      else time_real)(torch, lib, _cuda, args, out)
     print(json.dumps(out))
@@ -362,7 +376,7 @@ def ptxas_report(_cuda, root, name, keys, sets=()):
                 rep[fn] = f"stack {m.group(1)} B, spill {m.group(2)}/{m.group(3)} B"
             m = re.search(r"Used (\d+) registers", line)
             if m:
-                short = re.sub(r".*?((?:sweep|qz)_(?:left|right)_kernel(?:ILi\d+E)?).*",
+                short = re.sub(r".*?((?:sweep|qz|rg)_(?:left|right)_kernel(?:ILi\d+E)?).*",
                                r"\1", fn)
                 rep[short] = f"{m.group(1)} registers, " + rep.pop(fn, "")
                 fn = None
@@ -477,6 +491,85 @@ def parent_lib(against, decl):
     return lb, so
 
 
+def load_chip_smoke():
+    """This checkout's chip_smoke.py (its bounds and draws), whatever --root."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location("chip_smoke_here",
+                                                  os.path.join(HERE, "chip_smoke.py"))
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    return cs
+
+
+def apply_libs(_cuda, lib, args, name, entries, keys, out):
+    """The libraries of an --apply comparison of csrc/<name>.cu's B0 and B
+    (C entries ``entries``): this checkout's ("change"), ``--against``'s
+    ("parent", built in a child process) and each ``--variant`` (a copy of
+    the source with its constexprs rewritten); the turns parent / change /
+    variants / change / parent, and ptxas's report of each (kernels whose
+    names hold one of ``keys``).  Returns (libs, order)."""
+    decl = {fn: getattr(lib, fn) for fn in entries}
+    libs = {"change": lib}
+    if args.against:
+        libs["parent"], out["parent"] = parent_lib(args.against, decl)
+    variants = [v.split(",") for v in args.variant]
+    for v in variants:
+        libs[" ".join(v)] = build_variant(_cuda, args.root, name, v)
+        for fn in decl:
+            getattr(libs[" ".join(v)], fn).argtypes = decl[fn].argtypes
+    order = ["parent", "change"] if args.against else ["change"]
+    order += [" ".join(v) for v in variants]
+    order += order[::-1]
+    out["order"] = order
+    out["ptxas"] = ptxas_report(_cuda, args.root, name, keys)
+    if args.against:
+        out["ptxas parent"] = ptxas_report(_cuda, args.against, name, keys)
+    for v in variants:
+        out[f"ptxas {' '.join(v)}"] = ptxas_report(_cuda, args.root, name, keys, v)
+    print("ptxas:", json.dumps({k: v for k, v in out.items() if k.startswith("ptxas")}),
+          flush=True)
+    return libs, order
+
+
+def apply_turns(torch, libs, order, key, H0, Z0, left, right, bnd, reps, out):
+    """One case of an --apply comparison: per library the sha256 of H after
+    B0, of H and Z after B and of H after B without Z (on fresh copies of
+    H0 and Z0), and in each turn of ``order`` the times of B0 and of B
+    (CUDA events, mean of ``reps`` launches after a warm-up); left(lib, H)
+    and right(lib, H, Z or None) launch them; bnd: {"B0": ms, "B": ms}, the
+    bounds.  Prints one line; returns whether every library's hashes
+    agree."""
+    hashes = {}
+    for tag in order:
+        if tag not in hashes:
+            H, Z = H0.clone(), Z0.clone()
+            left(libs[tag], H)
+            hb0 = sha(H)
+            right(libs[tag], H, Z)
+            Hn_ = H0.clone()
+            left(libs[tag], Hn_)
+            right(libs[tag], Hn_, None)
+            hashes[tag] = (hb0, sha(H), sha(Z), sha(Hn_))
+            out[f"{tag} hashes {key}"] = " ".join(hashes[tag])
+        H, Z = H0.clone(), Z0.clone()
+        out.setdefault(f"{tag} B0_ms {key}", []).append(
+            event_ms(torch, lambda: left(libs[tag], H), reps))
+        out.setdefault(f"{tag} B_ms {key}", []).append(
+            event_ms(torch, lambda: right(libs[tag], H, Z), reps))
+    same = len(set(hashes.values())) == 1
+    for k in ("B0", "B"):
+        out[f"{k}_bound_us {key}"] = bnd[k] * 1e3
+        out[f"change {k}_of_bound {key}"] = bnd[k] / min(out[f"change {k}_ms {key}"])
+    print(f"{key}: " + "; ".join(
+        f"{t} B0 {out[f'{t} B0_ms {key}']} B {out[f'{t} B_ms {key}']} ms"
+        for t in libs) + f"; bounds B0 {out[f'B0_bound_us {key}']:.3f} B "
+        f"{out[f'B_bound_us {key}']:.3f} us; change at "
+        f"{out[f'change B0_of_bound {key}']:.1%} / "
+        f"{out[f'change B_of_bound {key}']:.1%}; hashes "
+        f"{'equal' if same else 'DIFFER: ' + str(hashes)}", flush=True)
+    return same
+
+
 def time_cx_apply(torch, lib, _cuda, args, out):
     """cx B0 and B (psd_qz_sweep_left / psd_qz_sweep_right) on
     cx_kernel_phase's draw, alternating and all-direct S, on kernel A's own
@@ -486,33 +579,11 @@ def time_cx_apply(torch, lib, _cuda, args, out):
     in turns parent / change / change / parent in one process, and each
     ``--variant`` (a copy of sweep_cx.cu with its constexprs rewritten)
     between the changes."""
-    import importlib.util
-    spec = importlib.util.spec_from_file_location("chip_smoke_here",
-                                                  os.path.join(HERE, "chip_smoke.py"))
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
-    decl = {fn: getattr(lib, fn) for fn in ("psd_qz_sweep_left", "psd_qz_sweep_right")}
-    libs = {"change": lib}
-    if args.against:
-        libs["parent"], out["parent"] = parent_lib(args.against, decl)
-    variants = [v.split(",") for v in args.variant]
-    for v in variants:
-        libs[" ".join(v)] = build_variant(_cuda, args.root, "sweep_cx", v)
-        for fn in decl:
-            getattr(libs[" ".join(v)], fn).argtypes = decl[fn].argtypes
-    order = ["parent", "change"] if args.against else ["change"]
-    order += [" ".join(v) for v in variants]
-    order += order[::-1]
-    out["order"] = order
-    out["ptxas"] = ptxas_report(_cuda, args.root, "sweep_cx", ("qz_left", "qz_right"))
-    if args.against:
-        out["ptxas parent"] = ptxas_report(_cuda, args.against, "sweep_cx",
-                                           ("qz_left", "qz_right"))
-    for v in variants:
-        out[f"ptxas {' '.join(v)}"] = ptxas_report(_cuda, args.root, "sweep_cx",
-                                                  ("qz_left", "qz_right"), v)
-    print("ptxas:", json.dumps({k: v for k, v in out.items() if k.startswith("ptxas")}),
-          flush=True)
+    from periodicschurdecompositions_jl_torch.ops import sweep_cx
+    cs = load_chip_smoke()
+    libs, order = apply_libs(_cuda, lib, args, "sweep_cx",
+                             ("psd_qz_sweep_left", "psd_qz_sweep_right"),
+                             ("qz_left", "qz_right"), out)
     st = torch.cuda.current_stream().cuda_stream
     equal = True
     for (p, n, windows) in CX_APPLY_SHAPES:
@@ -526,9 +597,7 @@ def time_cx_apply(torch, lib, _cuda, args, out):
                     H0[0, m, m - 1] = 0.0
                 if i + 1 < n:
                     H0[0, i + 1, i] = 0.0
-                from periodicschurdecompositions_jl_torch.ops import sweep_cx
                 log = sweep_cx.qz_sweep_generate(H0, m, i, cst, S)
-                key = f"p{p} n{n} {sname} [{m},{i}]"
 
                 def left(lb, H):
                     _cuda.check(lb.psd_qz_sweep_left(H.data_ptr(), log.data_ptr(), p, n, m, i,
@@ -538,40 +607,98 @@ def time_cx_apply(torch, lib, _cuda, args, out):
                     _cuda.check(lb.psd_qz_sweep_right(H.data_ptr(), None if Z is None else
                                                       Z.data_ptr(), log.data_ptr(), p, n, m,
                                                       i, st), "qz_sweep_right")
-                hashes = {}
-                for tag in order:
-                    if tag not in hashes:
-                        H, Z = H0.clone(), Z0.clone()
-                        left(libs[tag], H)
-                        hb0 = sha(H)
-                        right(libs[tag], H, Z)
-                        Hn_ = H0.clone()
-                        left(libs[tag], Hn_)
-                        right(libs[tag], Hn_, None)
-                        hashes[tag] = (hb0, sha(H), sha(Z), sha(Hn_))
-                        out[f"{tag} hashes {key}"] = " ".join(hashes[tag])
-                    H, Z = H0.clone(), Z0.clone()
-                    out.setdefault(f"{tag} B0_ms {key}", []).append(
-                        event_ms(torch, lambda: left(libs[tag], H), args.reps))
-                    out.setdefault(f"{tag} B_ms {key}", []).append(
-                        event_ms(torch, lambda: right(libs[tag], H, Z), args.reps))
-                same = len(set(hashes.values())) == 1
-                equal &= same
                 bnd = cs.cx_apply_bounds(p, n, m, i)
-                for k, name in (("B0", "qz_sweep_left"), ("B", "qz_sweep_right")):
-                    out[f"{k}_bound_us {key}"] = bnd[name][0] * 1e3
-                    out[f"change {k}_of_bound {key}"] = bnd[name][0] / min(
-                        out[f"change {k}_ms {key}"])
-                print(f"{key}: " + "; ".join(
-                    f"{t} B0 {out[f'{t} B0_ms {key}']} B {out[f'{t} B_ms {key}']} ms"
-                    for t in libs) + f"; bounds B0 {out[f'B0_bound_us {key}']:.3f} B "
-                    f"{out[f'B_bound_us {key}']:.3f} us; change at "
-                    f"{out[f'change B0_of_bound {key}']:.1%} / "
-                    f"{out[f'change B_of_bound {key}']:.1%}; hashes "
-                    f"{'equal' if same else 'DIFFER: ' + str(hashes)}", flush=True)
+                equal &= apply_turns(torch, libs, order, f"p{p} n{n} {sname} [{m},{i}]", H0,
+                                     Z0, left, right, {"B0": bnd["qz_sweep_left"][0],
+                                                       "B": bnd["qz_sweep_right"][0]},
+                                     args.reps, out)
     out["hashes_equal"] = equal
     if args.headline:
         headline_cx_profile(torch, out)
+
+
+# rg B0 and B: rg_kernel_phase's shape and windows, and its odd-n window
+RG_APPLY_SHAPES = ((8, 256, ((1, 255), (38, 200), (121, 124))), (3, 129, ((1, 128),)))
+
+
+def time_rg_apply(torch, lib, _cuda, args, out):
+    """rg B0 and B (psd_rg_sweep_left / psd_rg_sweep_right) on
+    rg_kernel_phase's draw (``default_rng(2026)``, the window's boundaries
+    deflated, the opening ladder applied), alternating and all-direct S,
+    on kernel rg A's own log, as ``time_cx_apply``; bounds from
+    chip_smoke.py's ``rg_apply_bounds``."""
+    from periodicschurdecompositions_jl_torch.ops import sweep_rg
+    cs = load_chip_smoke()
+    libs, order = apply_libs(_cuda, lib, args, "sweep_rg",
+                             ("psd_rg_sweep_left", "psd_rg_sweep_right"),
+                             ("rg_left", "rg_right"), out)
+    st = torch.cuda.current_stream().cuda_stream
+    equal = True
+    for (p, n, windows) in RG_APPLY_SHAPES:
+        for sname, S in (("alt", cs.alternating(p)), ("direct", (True,) * p)):
+            for (m, i) in windows:
+                H0, Z0 = rg_state(torch, p, n, m, i, S)
+                log = sweep_rg.rg_sweep_generate(H0, m, i, S)
+
+                def left(lb, H):
+                    _cuda.check(lb.psd_rg_sweep_left(H.data_ptr(), log.data_ptr(), p, n, m, i,
+                                                     st), "rg_sweep_left")
+
+                def right(lb, H, Z):
+                    _cuda.check(lb.psd_rg_sweep_right(H.data_ptr(), None if Z is None else
+                                                      Z.data_ptr(), log.data_ptr(), p, n, m,
+                                                      i, st), "rg_sweep_right")
+                bnd = cs.rg_apply_bounds(p, n, m, i)
+                equal &= apply_turns(torch, libs, order, f"p{p} n{n} {sname} [{m},{i}]", H0,
+                                     Z0, left, right, {"B0": bnd["rg_sweep_left"][0],
+                                                       "B": bnd["rg_sweep_right"][0]},
+                                     args.reps, out)
+    out["hashes_equal"] = equal
+    if args.headline:
+        headline_rg_profile(torch, out)
+
+
+def headline_rg_profile(torch, out):
+    """The rg leg of chip_smoke.py (``pschur(A, 'R', S)``, p=8, n=256, seed
+    4242, alternating S) after a small warm-up: wall, reduction, iteration,
+    niter, sweeps, hashes of T and Z; then once more under the CUDA
+    profiler: the device time and launches of rg A, B0, B, R and CZSHIFT
+    and the idle share of the wall."""
+    from torch.profiler import ProfilerActivity, profile
+    import periodicschurdecompositions_jl_torch as pt
+    from chip_smoke import dev_us, rg_draw
+    from periodicschurdecompositions_jl_torch.ops import pqz_real
+    Aw, Sw = rg_draw(4, 24, 1)
+    pt.pschur(torch.tensor(Aw, device="cuda"), "R", S=Sw)
+    A, S = rg_draw(8, 256, 4242)
+    A = torch.tensor(A, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    P = pt.pschur(A, "R", S=S)
+    torch.cuda.synchronize()
+    out["rg wall_s"] = time.perf_counter() - t0
+    info = pqz_real.last_info
+    for k in ("reduce_s", "iterate_s", "niter", "sweeps"):
+        out[f"rg {k}"] = info[k]
+    out["rg T_sha256"], out["rg Z_sha256"] = sha(P.Ts), sha(P.Zs)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pt.pschur(A, "R", S=S)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ev = [e for e in prof.key_averages() if "CUDA" in str(e.device_type) and dev_us(e) > 0]
+    busy = sum(dev_us(e) for e in ev) / 1e3
+    out["rg profiled_wall_s"], out["rg device_ms"] = wall, busy
+    out["rg idle_share"] = 1 - busy / 1e3 / wall
+    for tag, key in (("A", "rg_generate_kernel"), ("B0", "rg_left_kernel"),
+                     ("B", "rg_right_kernel"), ("R", "rg_ladder_kernel"),
+                     ("CZSHIFT", "czshift")):
+        sel = [e for e in ev if key in e.key]
+        out[f"rg {tag}_device_ms"] = sum(dev_us(e) for e in sel) / 1e3
+        out[f"rg {tag}_launches"] = sum(e.count for e in sel)
+    print("rg leg: " + ", ".join(f"{k[3:]} {v}" for k, v in out.items()
+                                 if k.startswith("rg ")), flush=True)
 
 
 def headline_cx_profile(torch, out):
@@ -860,18 +987,18 @@ def build_variant(_cuda, root, name, sets):
 
 def rg_state(torch, p, n, m, i, S):
     """rg_kernel_phase's state: its problem with the window's boundaries
-    deflated and the opening ladder applied (H on the card)."""
+    deflated and the opening ladder applied (H and Z on the card)."""
     from chip_smoke import mk_rg_problem
     from periodicschurdecompositions_jl_torch.ops import rgopen
     Hn, Zn, rotn = mk_rg_problem(p, n, np.random.default_rng(2026))
-    H = torch.tensor(Hn, device="cuda")
+    H, Z = torch.tensor(Hn, device="cuda"), torch.tensor(Zn, device="cuda")
     if m > 1:
         H[0, m - 1, m - 2] = 0.0
     if i + 1 < n:
         H[0, i + 1, i] = 0.0
-    rgopen.rg_ladder_plain(H, torch.tensor(Zn, device="cuda"), "open", m - 1, i,
-                           torch.tensor(rotn, device="cuda"), S, want_z=True)
-    return H
+    rgopen.rg_ladder_plain(H, Z, "open", m - 1, i, torch.tensor(rotn, device="cuda"), S,
+                           want_z=True)
+    return H, Z
 
 
 def time_rg(torch, lib, _cuda, args, out):
@@ -892,7 +1019,7 @@ def time_rg(torch, lib, _cuda, args, out):
     for sname, S in (("alt", alternating(p)), ("direct", (True,) * p)):
         Sd = torch.tensor([int(x) for x in S], dtype=torch.int32, device="cuda")
         for (m, i) in ((1, n - 1), (38, 200), (121, 124)):
-            H0 = rg_state(torch, p, n, m, i, S)
+            H0, _ = rg_state(torch, p, n, m, i, S)
             for tag, lb in libs.items():
                 def call():
                     _cuda.check(lb.psd_rg_sweep_generate(H0.data_ptr(), work.data_ptr(),

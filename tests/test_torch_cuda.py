@@ -508,7 +508,12 @@ def _rg_problem(p, n, seed):
     (4, 40, (True, False, True, False), 1, 39), (3, 12, (True, False, True), 5, 8),
     (2, 70, (True, True), 1, 69),                # p = 2: 67 steps, batches of 29
     (3, 70, (True, False, True), 2, 66),
-    (8, 48, (True,) + (False,) * 7, 5, 44)])     # S all False but S[0]: 29 + 9 steps
+    (8, 48, (True,) + (False,) * 7, 5, 44),     # S all False but S[0]: 29 + 9 steps
+    # rg B0/B's tiles of 16 lines and chunks of 32 / 24 positions: odd n
+    # (rows not 16-byte aligned) with ragged tiles and chunks; one step at
+    # the matrix's end; one step inside, across a tile edge
+    (3, 129, (True, False, True), 1, 128), (2, 33, (True, False), 30, 32),
+    (4, 45, (True, False, True, False), 15, 17)])
 def test_rg_chase_kernels_match_plain(cuda, p, n, S, m, i):
     Hn, Zn, rot = _rg_problem(p, n, p * 100 + n)
     if m > 1:
@@ -556,6 +561,15 @@ def test_rg_chase_kernels_match_plain(cuda, p, n, S, m, i):
     torch.cuda.synchronize()
     assert float((Hb - Ha).abs().max()) <= 1e-13 * scale
     assert float((Zb - Za).abs().max()) <= 1e-13
+    # without Z: the same H, Z untouched; the regenerated r exact
+    Hn_, Zn_ = H0.clone(), Z0.clone()
+    _cuda.check(lib.psd_rg_sweep_left(Hn_.data_ptr(), log.data_ptr(), p, n, m, i, st), "left")
+    _cuda.check(lib.psd_rg_sweep_right(Hn_.data_ptr(), None, log.data_ptr(), p, n, m, i, st),
+                "right")
+    torch.cuda.synchronize()
+    assert torch.equal(Hn_, Hb) and torch.equal(Zn_, Z0)
+    r = torch.arange(m, i - 1, device=cuda)
+    assert torch.equal(Hb[0, r, r - 1], log[0, m:i - 1, 27])
 
 
 def test_rg_chase_kernel_global_windows(cuda):
