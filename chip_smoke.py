@@ -677,6 +677,26 @@ def deflate_scalars(H, i):
     return defl2_scalars(D, U, S0, i, p, hnorms, ulp, smlnum)
 
 
+def deflate_bound(p, n):
+    """Kernel D's bound on chainB with every factor in the chain (the timed
+    case): of every factor, H[f]'s rows i-1, i from column i-1 (2(N-i+1)
+    entries) and its columns i-1, i of rows 0..i (2(i+1)), which share the
+    2x2 window, so 2N entries, and Z[f]'s columns i-1, i (2N; N = n+1), each
+    read and written once; a 2x2 application is 6 flops per entry pair,
+    counted once (each further round of the replacement loop applies it
+    again; at the cap of 20 that stays under a fifth of the byte time)."""
+    ent = p * 4 * (n + 1)
+    return bound(2 * 8 * ent, 3 * ent)
+
+
+def ladder_bound(p, n):
+    """Kernel R's bound (open at 0): rows j..j+2 and Z's columns j..j+2 of
+    every factor and H[0]'s columns j..j+2 (rows 0..ilast), read and written
+    once; two rotations per entry triple are 4 flops per entry."""
+    ent_r = p * (3 * n + 3 * n) + 3 * n
+    return bound(2 * 8 * ent_r + 32, 4 * ent_r)
+
+
 def deflate_phase(dev, p, n, report):
     import torch
     from periodicschurdecompositions_jl_torch.ops import deflate
@@ -703,16 +723,16 @@ def deflate_phase(dev, p, n, report):
         t_k = event_ms(lambda: deflate.deflate2x2(Ht, Zt, *args, want_z=True), 5)
         _log(f"deflate {label} (jmin {sc['jmin']}, jmax {sc['jmax']}, replace0 "
              f"{sc['replace0']}): max|dH| {dH:.3e} (scale {scale:.3e}), max|dZ| "
-             f"{dZ:.3e}; kernel {t_k:.4f} ms, plain {t_plain:.2f} ms")
+             f"{dZ:.3e}; kernel {t_k:.4f} ms, plain {t_plain:.2f} ms; H, Z sha256 "
+             f"{sha(Hk)} {sha(Zk)}")
         if not (dH <= TOL * scale and dZ <= TOL):
             raise AssertionError(f"deflate kernel disagrees on {label}")
+        if not torch.equal(Hk == 0, Hp == 0):
+            raise AssertionError(f"deflate kernel on {label}: exact zeros not the plain's")
         worst = max(worst, dH / scale, dZ)
         times[label] = (t_k, t_plain)
     t_k, t_plain = times["chainB"]
-    # rows and columns i-1, i of every H[f] and columns i-1, i of every Z[f],
-    # read and written once; a 2x2 application is 6 flops per entry pair
-    N = n + 1
-    bms, bby = bound(2 * 8 * p * 6 * N, 6 * p * 3 * N)
+    bms, bby = deflate_bound(p, n)
     report["deflate2x2"] = {
         "name": "deflate2x2", "route": "cuda",
         "source": "periodicschurdecompositions_jl_torch/csrc/deflate.cu",
@@ -1655,7 +1675,7 @@ def rg_kernel_phase(dev, p, n, report):
        structural zeros apart from the closing bulge, H[0]'s columns left
        of the bulge column untouched, want_z=False leaves H identical.
     4. R in its three modes (and with want_t=False bounds) against
-       rg_ladder_plain: 1e-13 max|H|.
+       rg_ladder_plain: 1e-13 max|H|, the same exact zeros.
     """
     import torch
     from periodicschurdecompositions_jl_torch.ops import _cuda, rgopen, sweep_rg
@@ -1745,6 +1765,7 @@ def rg_kernel_phase(dev, p, n, report):
     H = torch.tensor(Hn, device=dev)
     Z = torch.tensor(Zn, device=dev)
     err_r = 0.0
+    hashes = []
     spots = [("open", 0, n - 1), ("open", 37, 200), ("close", n - 2, n - 1),
              ("close", 199, 200), ("chain", 100, 101), ("chain", n - 2, n - 1)]
     for mode, j, il in spots:
@@ -1760,8 +1781,12 @@ def rg_kernel_phase(dev, p, n, report):
             rgopen.rg_ladder(Hz, None, mode, j, il, rot, S, want_z=False, **bounds)
             if not torch.equal(Hz, Hk):
                 raise AssertionError(f"rg ladder {mode} want_z=False changed H")
+            if not torch.equal(Hk == 0, Hp == 0):
+                raise AssertionError(f"rg ladder {mode} at {j}: exact zeros not the plain's")
+            hashes.append(f"{mode} {j}{' bounded' if bounds else ''} {sha(Hk)} {sha(Zk)}")
     _log(f"rg ladder kernel vs rg_ladder_plain (open, close, chain; with and without "
-         f"want_t=False bounds): max relative difference {err_r:.3e}")
+         f"want_t=False bounds): max relative difference {err_r:.3e}, exact zeros the "
+         f"plain version's; H, Z sha256 " + "; ".join(hashes))
     if not err_r <= 1e-13:
         raise AssertionError(f"rg ladder kernel disagrees: {err_r:.3e}")
 
@@ -1799,18 +1824,14 @@ def rg_kernel_phase(dev, p, n, report):
     # applies two 2-row rotations per (step, factor) to columns j..i (12
     # flops per column).  Columns right of i never reach a generation (an
     # earlier count took them in; at the full window i = n-1 the two
-    # agree).  B0 and B: rg_apply_bounds.  R (open at 0) reads and writes
-    # rows j..j+2 and Z's columns j..j+2 of every factor, and H[0]'s columns
-    # j..j+2 (rows 0..ilast); two rotations per entry triple are 4 flops per
-    # entry.
+    # agree).  B0 and B: rg_apply_bounds; R: ladder_bound.
     K = i - 1 - m
-    ent_r = p * (3 * n + 3 * n) + 3 * n
     bounds = {
         "rg_sweep_generate": bound(8 * rg_upper(p, m, min(i + 1, n - 1), i)
                                    + 8 * (27 * p + 1) * K,
                                    12 * p * sum(i + 1 - j for j in range(m, i - 1))),
         **rg_apply_bounds(p, n, m, i),
-        "rg_ladder": bound(2 * 8 * ent_r + 32, 4 * ent_r)}
+        "rg_ladder": ladder_bound(p, n)}
     src = "periodicschurdecompositions_jl_torch/csrc/"
     rep = "periodicschurdecompositions_jl_tpu/ops/"
     for name, ms, where, err, pms in (

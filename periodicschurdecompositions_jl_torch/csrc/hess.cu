@@ -373,22 +373,19 @@ template <class T>
 int hess_reduce(T* A, T* Q, T* ws, int p, int n, int* nlaunch, void* stream) {
   *nlaunch = 0;
   if (n < 2) return 0;
-  int dev = 0, nsm = 0, optin = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (!e) e = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
-  if (!e) e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e) return (int)e;
+  auto kernel = hess_reduce_kernel<T>;
   const size_t fixed = kFixed * sizeof(double);
   size_t smem = fixed + (size_t)n * sizeof(T);
-  int gw = smem > (size_t)optin;
-  if (gw) smem = fixed;
-  auto kernel = hess_reduce_kernel<T>;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (!e) e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
+  bool fits = false;
+  cudaError_t e = psd::fit_smem(kernel, smem, fits);
+  int gw = !fits;
+  if (!e && gw) {
+    smem = fixed;
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  }
+  int nblocks = 0;
+  if (!e) e = psd::coop_blocks(kernel, kThreads, smem, max_tiles(p, n, Q != nullptr), nblocks);
   if (e) return (int)e;
-  if (per_sm < 1) return (int)cudaErrorCooperativeLaunchTooLarge;
-  const int tiles = max_tiles(p, n, Q != nullptr);
-  const int nblocks = per_sm * nsm < tiles ? per_sm * nsm : tiles;
   void* args[] = {&A, &Q, &ws, &p, &n, &gw};
   e = cudaLaunchCooperativeKernel((void*)kernel, dim3(nblocks), dim3(kThreads), args, smem,
                                   (cudaStream_t)stream);

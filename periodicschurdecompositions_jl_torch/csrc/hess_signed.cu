@@ -251,16 +251,13 @@ int hess_signed(T* H, T* QT, const int* S, double* ws, int p, int n, int* nlaunc
                 void* stream) {
   *nlaunch = 0;
   if (n <= 2) return 0;
-  int dev = 0, optin = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (!e) e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e) return (int)e;
-  const size_t bytes = scratch_bytes(n, sizeof(T));
-  const int in_smem = bytes <= (size_t)optin;
-  const size_t smem = in_smem ? bytes : 0;
   auto kernel = hess_signed_kernel<T>;
-  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const size_t bytes = scratch_bytes(n, sizeof(T));
+  bool fits = false;
+  cudaError_t e = psd::fit_smem(kernel, bytes, fits);
   if (e) return (int)e;
+  const int in_smem = fits;
+  const size_t smem = in_smem ? bytes : 0;
   kernel<<<1, threads_for(n), smem, (cudaStream_t)stream>>>(H, QT, S, ws, p, n, in_smem);
   e = cudaGetLastError();
   if (e) return (int)e;

@@ -519,13 +519,11 @@ __host__ __device__ constexpr size_t rotation_bytes(int n, size_t tsize) {
 // Shared memory for the rotations of an n-chain, 0 when they go to ws.
 template <class T, class K>
 cudaError_t rotation_smem(K kernel, int n, size_t& smem) {
-  int dev = 0, optin = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (!e) e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (e) return e;
   const size_t bytes = rotation_bytes(n, sizeof(T));
-  smem = bytes <= (size_t)optin ? bytes : 0;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  bool fits = false;
+  const cudaError_t e = psd::fit_smem(kernel, bytes, fits);
+  smem = fits ? bytes : 0;
+  return e;
 }
 
 template <class T>

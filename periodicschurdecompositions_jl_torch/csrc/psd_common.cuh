@@ -13,15 +13,50 @@
 
 namespace psd {
 
+// Host: the shared memory a block of the current device may take (its
+// opt-in limit).
+inline cudaError_t smem_optin(int& optin) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return e;
+}
+
+// Host: whether `bytes` of dynamic shared memory fit a block of the current
+// device; if they do, kernel's limit is raised to them.
+template <class K>
+inline cudaError_t fit_smem(K kernel, size_t bytes, bool& fits) {
+  int optin = 0;
+  cudaError_t e = smem_optin(optin);
+  fits = e == cudaSuccess && bytes <= (size_t)optin;
+  if (fits)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  return e;
+}
+
+// Host: the blocks of a cooperative launch of kernel (threads and smem
+// bytes a block) that the current device holds at once, at most want.
+template <class K>
+inline cudaError_t coop_blocks(K kernel, int threads, size_t smem, long want, int& blocks) {
+  int dev = 0, nsm = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&nsm, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+  if (e != cudaSuccess) return e;
+  if (per_sm < 1) return cudaErrorCooperativeLaunchTooLarge;
+  blocks = (long)per_sm * nsm < want ? per_sm * nsm : (int)want;
+  return cudaSuccess;
+}
+
 // Host: the longest batch length L <= max_batch whose working set bytes(L)
 // fits the shared memory a block of the current device may take; L = 0
 // when not even L = 1 fits.
 template <class Bytes>
 inline cudaError_t longest_batch(int max_batch, Bytes bytes, int& L) {
-  int dev = 0, optin = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess)
-    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  int optin = 0;
+  const cudaError_t e = smem_optin(optin);
   if (e != cudaSuccess) return e;
   for (L = max_batch; L >= 1 && bytes(L) > (size_t)optin; --L) {
   }

@@ -96,9 +96,22 @@ the same flag, with the rotations in shared memory and in the global ws
 included, built with UBSan's alignment check (a misaligned double2 stops
 the run); about a minute.
 
+``--ladders``: csrc/deflate.cu (kernel D) and csrc/rgopen.cu (kernel R)
+against the numpy model of tests/torch_ladder_host.py, bit for bit, on H
+and Z and on H without Z, on every case of
+tests/test_torch_ladder_schedule.py (D: chainA, chainB, a negligible
+trailing diagonal, several rounds, the 20-round cap, p = 1 and 2, i = 1
+and n-1, p = 16; R: its three modes with alternating, all-direct and
+all-inverse signatures, with and without ``rhi``/``clo``, at the first
+and last legal j, p = 2, 4 and 8): the source's build with its
+cooperative grid capped at 4 blocks; 64-thread blocks; one block (every
+line past the first 128 walked grid-stride); up to 32 blocks of 64 threads
+(a line a thread); and at 120 bytes of shared memory, where the parent's
+design runs; about 20 seconds.
+
 Run from the repository root:
   python3 scripts/rehearse_sweep_host.py [--mb | --cx | --rg | --hess [--parent FILE]
-                                          | --signed | --deflate]
+                                          | --signed | --deflate | --ladders]
 """
 import argparse
 import ctypes
@@ -922,6 +935,81 @@ def main_deflate():
     return 0
 
 
+def build_ladders(sub=()):
+    """csrc/deflate.cu and csrc/rgopen.cu for the stub (each (old, new) of
+    ``sub`` replaced in both)."""
+    vp, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    d = build_stub("deflate", flags=ALIGN, sub=sub)
+    d.psd_deflate2x2.argtypes = [vp, vp, i32, i32, i32, i32, i32, i32, i32, f64, f64, f64, vp]
+    r = build_stub("rgopen", flags=ALIGN, sub=sub)
+    r.psd_rg_ladder.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, vp]
+    return d, r
+
+
+def ladder_runs(d, r, tag, d_cases, r_cases):
+    """Kernels D and R of the stub libraries d, r against the numpy model of
+    tests/torch_ladder_host.py, bit for bit (H and Z; H without Z)."""
+    import test_torch_ladder_schedule as cases
+    import torch_ladder_host as lh
+    for name in d_cases:
+        H, Z, args, _ = cases._d_case(name)
+        for want_z in (True, False):
+            Hm, Zm, rounds = lh.deflate_model(H, Z if want_z else None, *args)
+            Hk, Zk = torch.tensor(H), torch.tensor(Z)
+            i, jmin, jmax, cs0, sn0, replace0, finzero, thr = args
+            p, N, _ = H.shape
+            assert d.psd_deflate2x2(Hk.data_ptr(), Zk.data_ptr() if want_z else None, p, N, i,
+                                    int(jmin), int(jmax), int(bool(replace0)),
+                                    int(bool(finzero)), float(cs0), float(sn0), float(thr),
+                                    None) == 0
+            assert np.array_equal(Hk.numpy(), Hm), (tag, name, want_z, "H")
+            assert np.array_equal(Zk.numpy(), Zm if want_z else Z), (tag, name, want_z, "Z")
+        print(f"{tag}: D {name} (p={p} N={N} i={i}, {rounds} round(s)) == the model bit for "
+              "bit, with and without Z", flush=True)
+    for (p, n, mode, j, sig, bounds) in r_cases:
+        H, Z, rot = cases._r_state(p, n, 7 * p + n + j)
+        S = cases._sig(sig, p)
+        ilast = n - 1 if mode != "open" or j % 2 == 0 else min(n - 1, j + 5)
+        if mode == "close":
+            H[0, j + 1, j - 1] = 0.5
+        bd = cases._r_bounds(bounds, mode, j, n)
+        Sd = torch.tensor([int(x) for x in S], dtype=torch.int32)
+        rt = torch.tensor(rot)
+        for want_z in (True, False):
+            Hm, Zm = lh.rg_model(H, Z if want_z else None, mode, j, ilast, rot, S, **bd)
+            Hk, Zk = torch.tensor(H), torch.tensor(Z)
+            assert r.psd_rg_ladder(Hk.data_ptr(), Zk.data_ptr() if want_z else None,
+                                   rt.data_ptr(), Sd.data_ptr(), p, n,
+                                   rgopen.MODES[mode], j, ilast, bd.get("rhi", n),
+                                   bd.get("clo", 0), None) == 0
+            assert np.array_equal(Hk.numpy(), Hm), (tag, p, n, mode, j, sig, bounds, want_z)
+            assert np.array_equal(Zk.numpy(), Zm if want_z else Z), (tag, p, n, mode, j, sig)
+    print(f"{tag}: R on {len(r_cases)} cases == the model bit for bit, with and without Z",
+          flush=True)
+
+
+def main_ladders():
+    import test_torch_ladder_schedule as cases
+    d, r = build_ladders()
+    small = build_ladders((("kThreads = 128;", "kThreads = 64;"),))
+    some = cases.R_CASES[::7]
+    # (SMs, blocks per SM): the cooperative grid's cap; lines past it are
+    # walked grid-stride
+    for optin, grid, libs, d_cases, r_cases, what in (
+            ("232448", (2, 2), (d, r), cases.D_CASES, cases.R_CASES, "source, 4 blocks"),
+            ("232448", (2, 2), small, cases.D_CASES, cases.R_CASES, "64-thread blocks, 4 of them"),
+            ("232448", (1, 1), (d, r), cases.D_CASES, cases.R_CASES, "one block: every line "
+             "past its first 128 grid-stride"),
+            ("232448", (32, 1), small, cases.D_CASES, some, "64-thread blocks, up to 32: a "
+             "line a thread"),
+            ("120", (2, 2), (d, r), cases.D_CASES, some, "120 B of shared memory: the parent's "
+             "design")):
+        os.environ.update(STUB_SMEM_OPTIN=optin, STUB_SMS=str(grid[0]),
+                          STUB_BLOCKS_PER_SM=str(grid[1]))
+        ladder_runs(*libs, what, d_cases, r_cases)
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--cx", action="store_true")
@@ -931,7 +1019,10 @@ def main():
     ap.add_argument("--signed", action="store_true")
     ap.add_argument("--deflate", action="store_true")
     ap.add_argument("--mb", action="store_true")
+    ap.add_argument("--ladders", action="store_true")
     args = ap.parse_args()
+    if args.ladders:
+        return main_ladders()
     if args.mb:
         return main_mb()
     if args.deflate:

@@ -167,10 +167,40 @@ hashes of T and Z, the host time of the shift solve (``_mb_shifts``), and
 under the CUDA profiler the device time and launches of A-mb, B0, B, G, D
 and the reduction, and the idle share.
 
+``--ladders``: kernels D (csrc/deflate.cu::psd_deflate2x2) and R
+(csrc/rgopen.cu::psd_rg_ladder).  D on chip_smoke.py's ``deflate_cases``
+(p=16, n=512, i=300: chainA, chainB, chainB with a negligible trailing
+diagonal) and on chainB with a replacement from the first round (a loop of
+several rounds); R on the draw of chip_smoke.py's ``rg_kernel_phase`` (p=8,
+n=256, ``default_rng(2026)``, alternating S) at its six spots (open at 0
+and 37, close at n-2 and 199, chain at 100 and n-2), each with and without
+``want_t=False`` bounds.  For each case the sha256 of H and Z after one
+call on fresh copies and of H after a call without Z; the time of D on its
+four cases and of R open at 0, close at n-2 and chain at 100 (CUDA events,
+mean of ``--reps`` calls in place after a warm-up; and the device time a
+launch takes under the CUDA profiler, which leaves out the host's launch
+rate through ctypes) beside its bound (chip_smoke.py's ``deflate_bound``
+and ``ladder_bound``), and ptxas's register and spill report.  ``--against
+DIR``: DIR's library (built in a child process) and this checkout's in
+turns, parent / change / change / parent, in one process; each ``--also
+NAME=DIR`` (repeatable) adds DIR's library between the changes, each
+``--variant NAME=V,...`` a copy of the source with those constexprs
+rewritten in both files, and ``--split`` two timing-only copies (thread 0
+skips the chain; no line is loaded or stored, one block), which split a
+launch's time into the chain and the rest; their results are not the
+kernel's, so they are timed but left out of the hashes and of
+``hashes_equal``.  ``--headline`` then runs the real headline
+(wall, niter, hashes of T and Z, and under the CUDA profiler the device
+time of A, B0, B, D and G), the mb headline leg and the rg leg through the
+checkout's package (``--root``), each with its device time by kernel (run
+once with ``--root DIR`` for the parent's).
+
 Run from the repository root:
   python3 scripts/time_sweep_generate.py [--cx [--apply [--against DIR] [--variant ...]]
       | --rg [--apply [--against DIR] [--variant ...]] | --hess | --signed [--split]
-      | --deflate [--against DIR] | --apply | --mb [--against DIR]] [--root DIR]
+      | --deflate [--against DIR] | --apply | --mb [--against DIR]
+      | --ladders [--against DIR] [--also NAME=DIR] [--variant ...] [--split]]
+      [--root DIR]
       [--headline [--trace]]
 """
 import argparse
@@ -200,7 +230,9 @@ def main():
     ap.add_argument("--deflate", action="store_true")
     ap.add_argument("--apply", action="store_true")
     ap.add_argument("--mb", action="store_true")
+    ap.add_argument("--ladders", action="store_true")
     ap.add_argument("--against", default=None)
+    ap.add_argument("--also", action="append", default=[])
     ap.add_argument("--set", action="append", default=[])
     ap.add_argument("--variant", action="append", default=[])
     ap.add_argument("--hq", default=os.path.join(HERE, "_dev", "rg_hq.pt"))
@@ -220,7 +252,7 @@ def main():
     print(smi)
     lib = _cuda.load()
     out = {"root": os.path.abspath(args.root), "card": smi}
-    (time_mb if args.mb else time_cx_apply if args.apply and args.cx else
+    (time_ladders if args.ladders else time_mb if args.mb else time_cx_apply if args.apply and args.cx else
      time_rg_apply if args.apply and args.rg else time_apply if args.apply else
      time_deflate if args.deflate else time_signed if args.signed else time_hess
      if args.hess else time_cx if args.cx else time_rg if args.rg
@@ -950,10 +982,172 @@ def headline_apply_profile(torch, out):
         return getattr(e, "self_device_time_total", 0) or getattr(e, "self_cuda_time_total", 0)
     out["headline_device_ms"] = sum(us(e) for e in ev) / 1e3
     for tag, key in (("A", "sweep_generate_kernel"), ("B0", "sweep_left_kernel"),
-                     ("B", "sweep_right_kernel")):
+                     ("B", "sweep_right_kernel"), ("D", "deflate2x2"), ("G", "glue_kernel")):
         sel = [e for e in ev if key in e.key]
         out[f"headline_{tag}_device_ms"] = sum(us(e) for e in sel) / 1e3
         out[f"headline_{tag}_launches"] = sum(e.count for e in sel)
+
+
+def ladder_cases(torch, cs, _cuda):
+    """--ladders: (kernel, name, H0, Z0, call(lib, H, Z or None), timed)
+    for D's and R's cases; ``call`` launches the C entry."""
+    from periodicschurdecompositions_jl_torch.ops import rgopen
+    st = torch.cuda.current_stream().cuda_stream
+    out = []
+    p, n = 16, 512
+    N = n + 1
+    dcases = cs.deflate_cases(p, n)
+    for label, Hn, Zn, i in dcases + [("chainB-replace",) + dcases[1][1:]]:
+        sc = cs.deflate_scalars(Hn, i)
+        rep = int(sc["replace0"] or label == "chainB-replace")
+        a = (i, int(sc["jmin"]), int(sc["jmax"]), rep, int(sc["finzero"]), float(sc["cs0"]),
+             float(sc["sn0"]), float(sc["thr"]))
+
+        def call(lb, H, Z, a=(p, N) + a):
+            _cuda.check(lb.psd_deflate2x2(H.data_ptr(), None if Z is None else Z.data_ptr(),
+                                          *a, st), "deflate2x2")
+        out.append(("D", f"{label} p{p} n{n} i{i}", torch.tensor(Hn, device="cuda"),
+                    torch.tensor(Zn, device="cuda"), call, True))
+    p, n = 8, 256
+    Hn, Zn, rotn = cs.mk_rg_problem(p, n, np.random.default_rng(2026))
+    S = cs.alternating(p)
+    Sd = torch.tensor([int(x) for x in S], dtype=torch.int32, device="cuda")
+    rot = torch.tensor(rotn, device="cuda")
+    timed = {("open", 0), ("close", n - 2), ("chain", 100)}
+    for mode, j, il in [("open", 0, n - 1), ("open", 37, 200), ("close", n - 2, n - 1),
+                        ("close", 199, 200), ("chain", 100, 101), ("chain", n - 2, n - 1)]:
+        for bd in ({}, {"rhi": il + 1, "clo": max(j - 5, 0)}):
+            def call(lb, H, Z, a=(p, n, rgopen.MODES[mode], j, il, bd.get("rhi", n),
+                                  bd.get("clo", 0))):
+                _cuda.check(lb.psd_rg_ladder(H.data_ptr(), None if Z is None else Z.data_ptr(),
+                                             rot.data_ptr(), Sd.data_ptr(), *a, st), "rg_ladder")
+            out.append(("R", f"{mode} at {j} p{p} n{n}" + (" bounded" if bd else ""),
+                        torch.tensor(Hn, device="cuda"), torch.tensor(Zn, device="cuda"),
+                        call, not bd and (mode, j) in timed))
+    return out
+
+
+# --ladders --split: timing-only copies of deflate.cu and rgopen.cu (their
+# results are not the kernels'): thread 0 skips the chain; no line is
+# loaded or stored and one block runs
+LADDER_NO_CHAIN = [
+    ("bool last = chain_round(W, Lr, p, jmin, fmin, replace, cs0, sn0, thr);",
+     "bool last = true;"),
+    ("    if (mode == 0)\n      chain_open(W, L, R, Sm, p, bx, ilast);\n    else\n"
+     "      chain510(W, E, L, R, Sm, p, mode, bx);", "    (void)bx;")]
+LADDER_NO_LINES = [
+    ("if (k >= (long)p * Lf) return ln;", "return ln;"),
+    ("if (k >= ln.total(p)) return x;", "return x;"),
+    ("const long lines = (long)p * ((N - 1 - i) + (i - 1) + (Z ? N : 0));",
+     "const long lines = 0;"),
+    ("const long lines = ln.total(p);", "const long lines = 0;")]
+SPLIT = ("no chain", "no lines")
+
+
+def ladder_copy(root, tag, subs):
+    """A copy of ``root``'s package under _dev/ladders_<tag>/ with each
+    (old, new) of ``subs`` that occurs in deflate.cu or rgopen.cu replaced
+    there (every one must occur in one of them); its directory."""
+    import shutil
+    pkg = "periodicschurdecompositions_jl_torch"
+    d = os.path.join(HERE, "_dev", f"ladders_{tag}")
+    shutil.rmtree(d, ignore_errors=True)
+    shutil.copytree(os.path.join(root, pkg), os.path.join(d, pkg),
+                    ignore=shutil.ignore_patterns("_build", "__pycache__"))
+    found = set()
+    for name in ("deflate.cu", "rgopen.cu"):
+        path = os.path.join(d, pkg, "csrc", name)
+        src = open(path).read()
+        for old, new in subs:
+            if old in src:
+                src = src.replace(old, new)
+                found.add(old)
+        open(path, "w").write(src)
+    missing = [old for old, _ in subs if old not in found]
+    if missing:
+        raise SystemExit(f"--ladders {tag}: not in deflate.cu or rgopen.cu: {missing}")
+    return d
+
+
+def time_ladders(torch, lib, _cuda, args, out):
+    """Kernels D and R: hashes of H and Z after one call (fresh copies; and
+    H without Z) per library, and in turns parent / change / change /
+    parent the time of the timed cases (CUDA events, mean of ``--reps``
+    calls in place after a warm-up) beside chip_smoke.py's bounds."""
+    cs = load_chip_smoke()
+    from torch.profiler import ProfilerActivity, profile
+    from chip_smoke import dev_us
+    decl = {fn: getattr(lib, fn) for fn in ("psd_deflate2x2", "psd_rg_ladder")}
+    libs = {"change": lib}
+    if args.against:
+        libs["parent"], out["parent"] = parent_lib(args.against, decl)
+    also = dict(a.split("=", 1) for a in args.also)
+    for v in args.variant:  # the source with constexprs rewritten
+        also[v] = ladder_copy(args.root, v.replace("=", "").replace(",", "_"), [
+            (f"constexpr int {kv.split('=')[0]} = ", f"constexpr int {kv.split('=')[0]} = "
+             f"{kv.split('=')[1]}; //") for kv in v.split(",")])
+    if args.split:
+        also["no chain"] = ladder_copy(args.root, "nochain", LADDER_NO_CHAIN)
+        also["no lines"] = ladder_copy(args.root, "nolines", LADDER_NO_LINES)
+    for tag, d in also.items():
+        libs[tag] = parent_lib(d, decl)[0]
+    order = (["parent", "change"] if args.against else ["change"]) + list(also)
+    order += order[::-1]
+    out["order"] = order
+    out["ptxas"] = {k: v for name, keys in (("deflate", ("deflate2x2",)),
+                                            ("rgopen", ("rg_ladder",)))
+                    for k, v in ptxas_report(_cuda, args.root, name, keys).items()}
+    if args.against:
+        out["ptxas parent"] = {k: v for name, keys in (("deflate", ("deflate2x2",)),
+                                                       ("rgopen", ("rg_ladder",)))
+                               for k, v in ptxas_report(_cuda, args.against, name,
+                                                        keys).items()}
+    print("ptxas:", json.dumps({k: v for k, v in out.items() if k.startswith("ptxas")}),
+          flush=True)
+    bounds = {"D": cs.deflate_bound(16, 512)[0], "R": cs.ladder_bound(8, 256)[0]}
+    equal = True
+    for kern, name, H0, Z0, call, timed in ladder_cases(torch, cs, _cuda):
+        hashes = {}
+        for tag in libs:
+            if tag in SPLIT:
+                continue
+            H, Z = H0.clone(), Z0.clone()
+            call(libs[tag], H, Z)
+            Hn_ = H0.clone()
+            call(libs[tag], Hn_, None)
+            hashes[tag] = (sha(H), sha(Z), sha(Hn_))
+            out[f"{tag} hashes {kern} {name}"] = " ".join(hashes[tag])
+        same = len(set(hashes.values())) == 1
+        equal &= same
+        line = f"{kern} {name}: hashes {'equal' if same else 'DIFFER: ' + str(hashes)}"
+        if timed:
+            key = "deflate2x2" if kern == "D" else "rg_ladder"
+            for tag in order:
+                H, Z = H0.clone(), Z0.clone()
+                out.setdefault(f"{tag} {kern}_ms {name}", []).append(
+                    event_ms(torch, lambda: call(libs[tag], H, Z), args.reps))
+                torch.cuda.synchronize()
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(args.reps):
+                        call(libs[tag], H, Z)
+                    torch.cuda.synchronize()
+                ev = [e for e in prof.key_averages() if key in e.key and dev_us(e) > 0]
+                out.setdefault(f"{tag} {kern}_device_us {name}", []).append(
+                    sum(dev_us(e) for e in ev) / max(1, sum(e.count for e in ev)))
+            out[f"{kern}_bound_us"] = bounds[kern] * 1e3
+            line += "; " + "; ".join(
+                f"{t} {out[f'{t} {kern}_ms {name}']} ms (device "
+                f"{out[f'{t} {kern}_device_us {name}']} us)" for t in libs)
+            line += f"; bound {bounds[kern] * 1e3:.3f} us"
+        print(line, flush=True)
+    out["hashes_equal"] = equal
+    if args.headline:
+        headline_real(torch, out)
+        headline_apply_profile(torch, out)
+        print("headline: " + ", ".join(f"{k[9:]} {v}" for k, v in out.items()
+                                       if k.startswith("headline_")), flush=True)
+        headline_mb(torch, out)
+        headline_rg_profile(torch, out)
 
 
 def set_constexprs(src, sets, fname):

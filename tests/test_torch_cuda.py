@@ -25,7 +25,13 @@ similarity residual 1e-12 max|A|.  The deflation actions
 plain version's exact zeros (others only where it is at rounding level)
 and the same CZSHIFT flag, at even and odd n, with the rotations in shared
 memory and (past it) in the global scratch; ``pschur`` at odd n takes all
-three actions.  Kernel G: bit for bit with its
+three actions.  Kernels D and R at the main path's shapes (D at p=16
+n=512, R at p=8 n=256) and at p = 1 (D) and 2 (R): 1e-12 (D) and 1e-13
+(R) against the plain version, the same exact zeros, and H without Z
+identical; launches of either kernel overlapping on two streams give the
+results they give alone, bit for bit; past the default shared memory (p =
+500 to 2500, where the opt-in and the parent's design run): max(1e-12, 10
+x the plain version's sensitivity).  Kernel G: bit for bit with its
 plain version and with the numpy host glue (it is written without FMA, in
 numpy's order).
 """
@@ -312,6 +318,193 @@ def test_deflate_kernel_matches_plain(cuda, case):
     Hz = H0.clone()
     deflate.deflate2x2(Hz, None, *args, want_z=False)
     assert torch.equal(Hz, Hk)
+
+
+def _deflate_args(Hn, i, replace=None):
+    from chip_smoke import deflate_scalars
+    sc = deflate_scalars(Hn, i)
+    rep = sc["replace0"] if replace is None else replace
+    return (i, sc["jmin"], sc["jmax"], sc["cs0"], sc["sn0"], rep, sc["finzero"], sc["thr"])
+
+
+def _ladder_agrees(H0, Z0, run, plain, tol=1e-12):
+    """The kernel (run) against the plain version on copies: within tol of
+    max|H| (tol on Z), the same exact zeros, and without Z the same H."""
+    Hk, Zk = H0.clone(), Z0.clone()
+    run(Hk, Zk)
+    Hp, Zp = H0.clone(), Z0.clone()
+    plain(Hp, Zp)
+    Hz = H0.clone()
+    run(Hz, None)
+    torch.cuda.synchronize()
+    assert float((Hk - Hp).abs().max()) <= tol * float(H0.abs().max())
+    assert float((Zk - Zp).abs().max()) <= tol
+    assert torch.equal(Hk == 0, Hp == 0)
+    assert torch.equal(Hz, Hk)
+
+
+@pytest.mark.parametrize("case", ["chainA", "chainB", "chainB-jmax", "rounds"])
+def test_deflate_kernel_at_the_headline_shape(cuda, case):
+    """Kernel D at p=16 n=512 i=300 on chip_smoke.py's deflate_cases, and on
+    chainB replacing from the first round (a loop of several rounds)."""
+    from chip_smoke import deflate_cases
+    cases = {c[0]: c[1:] for c in deflate_cases(16, 512)}
+    Hn, Zn, i = cases["chainB" if case == "rounds" else case]
+    args = _deflate_args(Hn, i, True if case == "rounds" else None)
+    H0, Z0 = torch.tensor(Hn, device=cuda), torch.tensor(Zn, device=cuda)
+    _ladder_agrees(H0, Z0, lambda H, Z: deflate.deflate2x2(H, Z, *args, want_z=Z is not None),
+                   lambda H, Z: deflate.deflate2x2_plain(H, Z, *args, want_z=True))
+
+
+@pytest.mark.parametrize("i", [1, 6, 10])
+def test_deflate_kernel_with_one_factor(cuda, i):
+    """p = 1: the rotation's rows and columns land on the one factor."""
+    Hn, Zn, _ = _problem(1, 12, 3 + i)
+    if i + 1 < 12:
+        Hn[0, i + 1, i] = 0.0
+    for rep in (False, True):
+        args = _deflate_args(Hn, i, rep)
+        H0, Z0 = torch.tensor(Hn, device=cuda), torch.tensor(Zn, device=cuda)
+        _ladder_agrees(H0, Z0,
+                       lambda H, Z: deflate.deflate2x2(H, Z, *args, want_z=Z is not None),
+                       lambda H, Z: deflate.deflate2x2_plain(H, Z, *args, want_z=True))
+
+
+RG_SPOTS = [("open", 0, 255), ("open", 37, 200), ("close", 254, 255), ("close", 199, 200),
+            ("chain", 100, 101), ("chain", 254, 255)]
+
+
+@pytest.mark.parametrize("mode,j,il", RG_SPOTS)
+def test_rg_ladder_kernel_at_the_rg_shape(cuda, mode, j, il):
+    """Kernel R at p=8 n=256 on chip_smoke.py's six spots, alternating S,
+    with and without want_t=False bounds."""
+    from chip_smoke import alternating, mk_rg_problem
+    Hn, Zn, rotn = mk_rg_problem(8, 256, np.random.default_rng(2026))
+    S = alternating(8)
+    rot = torch.tensor(rotn, device=cuda)
+    H0, Z0 = torch.tensor(Hn, device=cuda), torch.tensor(Zn, device=cuda)
+    for bd in ({}, {"rhi": il + 1, "clo": max(j - 5, 0)}):
+        _ladder_agrees(
+            H0, Z0,
+            lambda H, Z: rgopen.rg_ladder(H, Z, mode, j, il, rot, S, want_z=Z is not None, **bd),
+            lambda H, Z: rgopen.rg_ladder_plain(H, Z, mode, j, il, rot, S, want_z=True, **bd),
+            tol=1e-13)
+
+
+@pytest.mark.parametrize("mode", ["open", "close", "chain"])
+def test_rg_ladder_kernel_with_two_factors(cuda, mode):
+    Hn, Zn, rotn = _rg_problem(2, 11, 4)
+    j = {"open": 0, "close": 9, "chain": 4}[mode]
+    Hn[0, j + 2 if j + 2 < 11 else j + 1, max(j - 1, 0)] = 0.25
+    rot = torch.tensor(rotn, device=cuda)
+    H0, Z0 = torch.tensor(Hn, device=cuda), torch.tensor(Zn, device=cuda)
+    for S in ((True, False), (True, True)):
+        for bd in ({}, {"rhi": j + 2, "clo": j + 1}):
+            _ladder_agrees(
+                H0, Z0,
+                lambda H, Z: rgopen.rg_ladder(H, Z, mode, j, 10, rot, S, want_z=Z is not None,
+                                              **bd),
+                lambda H, Z: rgopen.rg_ladder_plain(H, Z, mode, j, 10, rot, S, want_z=True,
+                                                    **bd), tol=1e-13)
+
+
+@pytest.mark.parametrize("kernel", ["D", "R"])
+def test_ladders_on_two_streams_at_once(cuda, kernel):
+    """Two problems at the main path's shapes, the second without Z (so the
+    two grids differ), each taking the kernel 64 times in place on its own
+    stream, queued behind a ~10 ms spin on both streams so that the two
+    streams' launches run at once: each result is bit for bit the one its
+    launches give alone; alone, the first 8 are within 1e-12 of the plain
+    version's 8 (1e-12 on Z)."""
+    if kernel == "D":
+        from chip_smoke import deflate_cases
+        cases = {c[0]: c[1:] for c in deflate_cases(16, 512)}
+        probs = []
+        for name in ("chainB", "chainA"):
+            Hn, Zn, i = cases[name]
+            args = _deflate_args(Hn, i)
+            probs.append((Hn, Zn, (
+                lambda H, Z, a=args: deflate.deflate2x2(H, Z, *a, want_z=Z is not None),
+                lambda H, Z, a=args: deflate.deflate2x2_plain(H, Z, *a,
+                                                               want_z=Z is not None))))
+    else:
+        from chip_smoke import alternating, mk_rg_problem
+        Hn, Zn, rotn = mk_rg_problem(8, 256, np.random.default_rng(2026))
+        S, rot = alternating(8), torch.tensor(rotn, device=cuda)
+        probs = [(Hn, Zn, tuple(
+            lambda H, Z, f=f, m=mode, j=j, il=il: f(H, Z, m, j, il, rot, S,
+                                                    want_z=Z is not None)
+            for f in (rgopen.rg_ladder, rgopen.rg_ladder_plain)))
+            for mode, j, il in (("open", 0, 255), ("chain", 100, 101))]
+
+    def fresh(Hn, Zn, k):
+        return torch.tensor(Hn, device=cuda), torch.tensor(Zn, device=cuda) if k == 0 else None
+
+    alone, both = [], []
+    for k, (Hn, Zn, (run, ref)) in enumerate(probs):
+        H, Z = fresh(Hn, Zn, k)
+        Hp, Zp = fresh(Hn, Zn, k)
+        for t in range(64):
+            run(H, Z)
+            if t < 8:
+                ref(Hp, Zp)
+            if t == 7:
+                torch.cuda.synchronize()
+                assert float((H - Hp).abs().max()) <= 1e-12 * float(np.abs(Hn).max())
+                assert Z is None or float((Z - Zp).abs().max()) <= 1e-12
+        alone.append((H, Z))
+        both.append(fresh(Hn, Zn, k))
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for s in streams:
+        with torch.cuda.stream(s):
+            torch.cuda._sleep(20_000_000)
+    for _ in range(64):
+        for s, (H, Z), (_, _, (run, _)) in zip(streams, both, probs):
+            with torch.cuda.stream(s):
+                run(H, Z)
+    torch.cuda.synchronize()
+    for (Ha, Za), (Hb, Zb) in zip(alone, both):
+        assert torch.equal(Hb, Ha) and (Za is None or torch.equal(Zb, Za))
+
+
+@pytest.mark.parametrize("kernel,p", [("D", 600), ("D", 2500), ("R", 500), ("R", 2300)])
+def test_ladders_past_the_default_shared_memory(cuda, kernel, p):
+    """Long cycles: the windows past 48 KB of shared memory (the opt-in) and
+    past a block's opt-in (the parent's design), against the plain version
+    within max(1e-12, 10 x its own change under a relative 1e-16
+    perturbation): a chain of p generations amplifies rounding."""
+    if kernel == "D":
+        Hn, Zn, _ = _problem(p, 6, p)
+        Hn[0, 4, 3] = 0.0
+        c, s = np.random.default_rng(p).standard_normal(2)
+        args = (3, -1, -1, c / np.hypot(c, s), s / np.hypot(c, s), False, False, 0.0)
+
+        def plain(H, Z):
+            deflate.deflate2x2_plain(H, Z, *args, want_z=True)
+
+        def run(H, Z):
+            deflate.deflate2x2(H, Z, *args, want_z=Z is not None)
+    else:
+        Hn, Zn, rotn = _rg_problem(p, 6, p)
+        S = tuple(l % 3 != 1 for l in range(p))
+        rot = torch.tensor(rotn, device=cuda)
+
+        def plain(H, Z):
+            rgopen.rg_ladder_plain(H, Z, "open", 1, 5, rot, S, want_z=True)
+
+        def run(H, Z):
+            rgopen.rg_ladder(H, Z, "open", 1, 5, rot, S, want_z=Z is not None)
+    H0, Z0 = torch.tensor(Hn, device=cuda), torch.tensor(Zn, device=cuda)
+    Hp, Zp = H0.clone(), Z0.clone()
+    plain(Hp, Zp)
+    Hq = H0 * torch.tensor(1.0 + 1e-16 * np.random.default_rng(1).standard_normal(Hn.shape),
+                           device=cuda)
+    Zq = Z0.clone()
+    plain(Hq, Zq)
+    sens = max(float((Hq - Hp).abs().max()) / float(H0.abs().max()),
+               float((Zq - Zp).abs().max()))
+    _ladder_agrees(H0, Z0, run, plain, tol=max(1e-12, 10 * sens))
 
 
 @pytest.mark.parametrize("p,n,lr", [(1, 30, "R"), (3, 40, "R"), (4, 24, "L")])
