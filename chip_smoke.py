@@ -18,7 +18,9 @@ and checks the results:
 * real: the kernels of the double-shift sweep, of the multi-bulge sweep
   (4 bulges) and of the 2x2 deflation at p=16, n=512; ``pschur(A, 'R')``
   on the headline draw, kernel G against
-  its plain version on states of that leg's iteration, the same draw
+  its plain version on states of that leg's iteration (and its time alone,
+  through ``glue_cuda`` and as one call of ``glue_products_scan_shift``
+  with the read-back and unpacking), the same draw
   through ``pschur_real_pipeline(A, 'R', cfg=AlgoConfig(nbulges=4))``
   (eigenvalues against the one-bulge leg's), and one 'L' problem with one
   and with two bulges;
@@ -1072,7 +1074,8 @@ def glue_phase(dev, states, report):
     p, N, _ = Hp.shape
     n = N - 1
     # the kernel alone (preallocated buffers, straight through the C entry
-    # point), and the wrapper (buffer allocation, launch; no copy back)
+    # point), glue_cuda (buffer allocation, launch; no copy back) and a whole
+    # call of glue_products_scan_shift
     lib = _cuda.load()
     st = torch.cuda.current_stream().cuda_stream
     k = glue.out_len(p, n)
@@ -1082,6 +1085,15 @@ def glue_phase(dev, states, report):
         Hp.data_ptr(), buf.data_ptr(), buf.data_ptr() + 8 * k, p, n, l, i, its, 0, 0, ulp,
         ulpx, smlnum, st), "glue"), 200)
     ms_wrap = event_ms(lambda: glue.glue_cuda(Hp, n, l, i, its, AlgoConfig()), 200)
+    # one iteration's call, the read-back and the unpacking included (it
+    # waits for its copy: the host clock, median of 200 calls)
+    calls = []
+    bufs = glue.glue_buffers(Hp, n)
+    for _ in range(201):
+        t0 = time.perf_counter()
+        glue.glue_products_scan_shift(Hp, n, l, i, its, AlgoConfig(), bufs)
+        calls.append(time.perf_counter() - t0)
+    us_call = float(np.median(calls[1:])) * 1e6
     # reads the diagonals 0 and 1 of every factor, diagonal 2 of H[1..p-1]
     # and H[0]'s subdiagonal (3 p n doubles), writes the buffer; the band
     # recurrence is 8 flops per (factor, row), the product with H[0] 8 per
@@ -1089,8 +1101,9 @@ def glue_phase(dev, states, report):
     bms, bby = bound(8 * (3 * p * n + glue.out_len(p, n)),
                      8 * p * n + 25 * (i - l) + 80)
     _log(f"kernel G at p={p} n={n} (state {label}): {ms * 1e3:.2f} us per launch "
-         f"({ms_wrap * 1e3:.2f} us through glue_cuda), glue_plain {t_plain:.2f} ms, bound "
-         f"{bms * 1e3:.4f} us ({bby})")
+         f"({ms_wrap * 1e3:.2f} us through glue_cuda, {us_call:.2f} us a call of "
+         f"glue_products_scan_shift with its read-back and unpacking), glue_plain "
+         f"{t_plain:.2f} ms, bound {bms * 1e3:.4f} us ({bby})")
     report["glue"] = {
         "name": "glue", "route": "cuda",
         "source": "periodicschurdecompositions_jl_torch/csrc/glue.cu",
@@ -1193,8 +1206,9 @@ def e2e_case(dev, p, n, seed, lr, nbulges=1, ref_values=None):
 class capture_glue_states:
     """Within the block, keeps a few states of the real iteration for
     glue_phase: the padded stack and l, i, its at kernel G's first call,
-    calls 333 and 666, the first call with its == 10 and the first with
-    its >= 16 (a clone of the stack at each, five in all)."""
+    calls 333 and 666, the first call with its == 10, the first with its >=
+    16 and the first whose lnew > 0 (a clone of the stack at each, six in
+    all)."""
 
     def __enter__(self):
         from periodicschurdecompositions_jl_torch.ops import pqr_real
@@ -1202,14 +1216,17 @@ class capture_glue_states:
         self.states = states = {}
         calls = [0]
 
-        def capture(Hp, n, l, i, its, cfg):
+        def capture(Hp, n, l, i, its, cfg, bufs=None):
             c = calls[0]
             calls[0] += 1
             for label, want in ((f"call {c}", c in (0, 333, 666)), ("its==10", its == 10),
                                 ("its>=16", its >= 16)):
                 if want and label not in states:
                     states[label] = (label, Hp.clone(), l, i, its)
-            return run(Hp, n, l, i, its, cfg)
+            g = run(Hp, n, l, i, its, cfg, bufs)
+            if g.lnew > 0 and "lnew>0" not in states:  # G reads Hp only
+                states["lnew>0"] = ("lnew>0", Hp.clone(), l, i, its)
+            return g
         pqr_real.glue_products_scan_shift = capture
         return self
 

@@ -74,8 +74,10 @@
 //   bytes, p n^2 complex128 read and written once; the walk is a chain of
 //   i-m dependent 2x2 steps per line.  The column m-1 of H[0] (the
 //   window's boundary subdiagonal) is never touched.
-// * qz_shift is a chain of p Givens generations on a few scalars: one
-//   thread, bound by launch latency.
+// * qz_shift is a chain of p Givens generations on a few scalars, bound by
+//   the launch and the chain: the lanes of one warp stage the chain's 2p+1
+//   entries at once, and the warp runs each generation as givens_cx_warp
+//   (the design note above qz_shift_kernel).
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
@@ -614,35 +616,76 @@ qz_right_kernel(double2* __restrict__ H, double2* __restrict__ Z,
 }
 
 // S: the shift rotation of one sweep (act_sweep's chain): Givens through
-// factors p-1..1 following S, then the closing Givens on H[0].
-__global__ void qz_shift_kernel(const double2* __restrict__ H,
-                                double2* __restrict__ cs,
-                                const int* __restrict__ S, int p, int n,
-                                int ifirst, int ilast) {
-  if (threadIdx.x != 0 || blockIdx.x != 0) return;
+// factors p-1..1 following S, then the closing Givens on H[0].  One warp:
+// the lanes stage H[l][ifirst, ifirst], H[l][ilast, ilast] and S[l] of up
+// to kShiftChunk factors (l = p-1 down, a lane every 32nd) and H[0]'s three
+// entries in shared memory by cp.async, all issued at once; after
+// __syncwarp the warp runs the chain on them in the parent's order, a chunk
+// after the other (one chunk up to p = kShiftChunk + 1), each generation
+// as givens_cx_warp (its independent divisions and square roots on
+// different lanes).  The parent ran the chain on one thread: psd::givens_cx
+// in the forms givens_cx_warp writes out, and a * conj(s) as cmul_conj, the
+// closing difference fused (its SASS), so (c, s) stays the parent's bit for
+// bit.
+constexpr int kShiftChunk = 256;
+
+// a * conj(s): the real part's first product fused, the imaginary part's
+// second (the form nvcc gave psd::cmul(a, cconj(s)) in the one-thread S).
+__device__ __forceinline__ double2 cmul_conj(double2 a, double2 s) {
+  return make_double2(__fma_rn(a.x, s.x, __dmul_rn(a.y, s.y)),
+                      __fma_rn(a.y, s.x, -__dmul_rn(a.x, s.y)));
+}
+
+__global__ void __launch_bounds__(32)
+qz_shift_kernel(const double2* __restrict__ H, double2* __restrict__ cs,
+                const int* __restrict__ S, int p, int n, int ifirst, int ilast) {
+  __shared__ double2 hf_s[kShiftChunk], hl_s[kShiftChunk], h0_s[3];
+  __shared__ int S_s[kShiftChunk];
+  const int lane = threadIdx.x;
   const size_t nn = (size_t)n * n;
+  const size_t df = (size_t)ifirst * n + ifirst, dl = (size_t)ilast * n + ilast;
+  if (lane == 0) {  // committed with the first chunk
+    __pipeline_memcpy_async(&h0_s[0], &H[df], sizeof(double2));
+    __pipeline_memcpy_async(&h0_s[1], &H[dl], sizeof(double2));
+    __pipeline_memcpy_async(&h0_s[2], &H[(size_t)(ifirst + 1) * n + ifirst], sizeof(double2));
+  }
   const double2 one = make_double2(1.0, 0.0);
   double c;
   double2 s, r;
-  psd::givens_cx(one, one, c, s, r);
-  for (int l = p - 1; l >= 1; --l) {
-    const double2 hf = H[l * nn + (size_t)ifirst * n + ifirst];
-    const double2 hl = H[l * nn + (size_t)ilast * n + ilast];
-    if (S[l]) {
-      psd::givens_cx(rmul(c, hf), cmul(hl, cconj(s)), c, s, r);
-    } else {
-      psd::givens_cx(rmul(c, hl), cneg(cmul(hf, cconj(s))), c, s, r);
-      s = cneg(s);
+  givens_cx_warp(one, one, c, s, r);
+  for (int hi = p - 1; hi >= 1; hi -= kShiftChunk) {
+    const int cnt = min(hi, kShiftChunk);  // factors hi, hi-1, ..., hi-cnt+1
+    for (int k = lane; k < cnt; k += 32) {
+      const size_t f = (size_t)(hi - k) * nn;
+      __pipeline_memcpy_async(&hf_s[k], &H[f + df], sizeof(double2));
+      __pipeline_memcpy_async(&hl_s[k], &H[f + dl], sizeof(double2));
+      __pipeline_memcpy_async(&S_s[k], &S[hi - k], sizeof(int));
     }
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncwarp();
+    for (int k = 0; k < cnt; ++k) {
+      const double2 hf = hf_s[k], hl = hl_s[k];
+      if (S_s[k]) {
+        givens_cx_warp(rmul(c, hf), cmul_conj(hl, s), c, s, r);
+      } else {
+        givens_cx_warp(rmul(c, hl), cneg(cmul_conj(hf, s)), c, s, r);
+        s = cneg(s);
+      }
+    }
+    __syncwarp();  // the chunk's slots are free again
   }
-  const double2 h0f = H[(size_t)ifirst * n + ifirst];
-  const double2 h0l = H[(size_t)ilast * n + ilast];
-  const double2 h0sub = H[(size_t)(ifirst + 1) * n + ifirst];
-  const double2 t = cmul(h0l, cconj(s));
-  psd::givens_cx(make_double2(c * h0f.x - t.x, c * h0f.y - t.y), rmul(c, h0sub),
-                 c, s, r);
-  cs[0] = make_double2(c, 0.0);
-  cs[1] = s;
+  __pipeline_commit();  // p == 1: H[0]'s entries alone
+  __pipeline_wait_prior(0);
+  __syncwarp();
+  const double2 h0f = h0_s[0], h0l = h0_s[1], h0sub = h0_s[2];
+  const double2 t = cmul_conj(h0l, s);
+  givens_cx_warp(make_double2(__fma_rn(c, h0f.x, -t.x), __fma_rn(c, h0f.y, -t.y)),
+                 rmul(c, h0sub), c, s, r);
+  if (lane == 0) {
+    cs[0] = make_double2(c, 0.0);
+    cs[1] = s;
+  }
 }
 
 struct GenPlan {

@@ -63,32 +63,101 @@ class Glue(NamedTuple):
     S0: np.ndarray
 
 
-def unpack(g: np.ndarray, p: int, n: int, i: int) -> Glue:
+def unpack(g: np.ndarray, p: int, n: int, i: int, entries=None) -> Glue:
+    """The ``Glue`` of the packed buffer ``g``.  The band and ``S0`` (which
+    ``pqr_real_core`` writes) are arrays of their own.  ``D`` and ``U`` are
+    new (p, n) arrays, or, given ``entries`` (a ``_FactorEntries``), its
+    read-only arrays with this call's entries in place of the last call's."""
     lnew = int(g[0])
-    band = g[_HEAD:_HEAD + 3 * n].reshape(3, n)
+    band = g[_HEAD:_HEAD + 3 * n].reshape(3, n).copy()
     fac = g[_HEAD + 3 * n:_HEAD + 3 * n + 3 * p].reshape(p, 3)
     tail = g[_HEAD + 3 * n + 3 * p:]
-    D = np.zeros((p, n))
-    U = np.zeros((p, n))
-    S0 = np.zeros(n)
+    if entries is None:
+        D, U = np.zeros((p, n)), np.zeros((p, n))
+    else:
+        D, U = entries.clear()
     if i >= 1:
         D[:, i - 1] = fac[:, 0]
         U[:, i - 1] = fac[:, 2]
     D[:, i] = fac[:, 1]
+    S0 = np.zeros(n)
     S0[i] = tail[0]
     if lnew >= 1:
         D[0, lnew - 1] = tail[1]
     D[0, lnew] = tail[2]
     S0[lnew] = tail[3]
-    return Glue(lnew, [float(x) for x in g[1:_HEAD]], band[0].copy(),
-                band[1].copy(), band[2].copy(), D, U, S0)
+    if entries is not None:
+        D, U = entries.hand_out(i, lnew)
+    return Glue(lnew, g[1:_HEAD].tolist(), band[0], band[1], band[2], D, U, S0)
+
+
+class _FactorEntries:
+    """The (p, n) arrays ``D`` and ``U`` of ``Glue``, kept from call to call
+    so that an iteration allocates none: ``clear`` zeroes the entries the
+    last call wrote and returns the arrays for writing, ``hand_out``
+    records this call's columns and returns read-only views of them."""
+
+    def __init__(self, p: int, n: int):
+        self.D = np.zeros((p, n))
+        self.U = np.zeros((p, n))
+        self.cols = ()
+        self.views = []
+        for a in (self.D, self.U):
+            v = a.view()
+            v.flags.writeable = False
+            self.views.append(v)
+
+    def clear(self):
+        for c in self.cols:
+            self.D[:, c] = 0.0
+            self.U[:, c] = 0.0
+        return self.D, self.U
+
+    def hand_out(self, i: int, lnew: int):
+        self.cols = tuple({c for c in (i - 1, i, lnew - 1, lnew) if c >= 0})
+        return self.views
+
+
+class _Buffers:
+    """What the glue calls of one ``pqr_real_core`` run reuse (made by
+    ``glue_buffers`` for one (card, p, n)): the device buffer the kernel
+    writes (``out_len`` doubles, then its 3n of scratch), a pinned host
+    buffer the result is copied into, and the factor entries' arrays."""
+
+    def __init__(self, device, p: int, n: int):
+        k = out_len(p, n)
+        self.key = (device, p, n)
+        self.dev = torch.empty(k + 3 * n, dtype=torch.float64, device=device)
+        self.dev_out = self.dev[:k]
+        self.host = torch.empty(k, dtype=torch.float64, pin_memory=True)
+        self.host_np = self.host.numpy()
+        self.entries = _FactorEntries(p, n)
+
+    def read(self, stream) -> np.ndarray:
+        """Copy the packed buffer into the pinned one on ``stream`` (the
+        current stream of the buffer's card, the kernel's) and wait for it."""
+        self.host.copy_(self.dev_out, non_blocking=True)
+        stream.synchronize()
+        return self.host_np
+
+
+def glue_buffers(Hp: torch.Tensor, n: int):
+    """The buffers that the glue calls on the padded stack ``Hp`` reuse
+    from iteration to iteration (``glue_products_scan_shift``'s ``bufs``):
+    one set for each run of the core, so that no two runs share them; None
+    on the CPU."""
+    if Hp.device.type != "cuda":
+        return None
+    return _Buffers(Hp.device, Hp.shape[0], n)
+
+
+_EPS = float(np.finfo(np.float64).eps)
+_TINY = float(np.finfo(np.float64).tiny)
 
 
 def scan_constants(n: int, cfg):
     """(ulp, ulpx, smlnum) of the deflation scan, as ``pqr_real_core``'s."""
-    ulp = float(np.finfo(np.float64).eps)
-    smlnum = float(np.finfo(np.float64).tiny) * (n / ulp)
-    return ulp, cfg.ulp_x(ulp), smlnum
+    return _EPS, cfg.ulp_x(_EPS), _TINY * (n / _EPS)
 
 
 def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
@@ -115,7 +184,7 @@ def glue_plain(Hp: torch.Tensor, n: int, l: int, i: int, its: int, cfg
     V = flat[:, torch.where(r < n - 2, r * N + r + 2, ghost)]
     S0 = flat[0, torch.where(r >= 1, r * N + r - 1, ghost)]
     z1 = torch.zeros(1, dtype=dt, device=dev)
-    z2 = torch.zeros(2, dtype=dt, device=dev)
+    z2 = torch.zeros(min(n, 2), dtype=dt, device=dev)  # D[r+2] past the last row
     one = torch.ones(1, dtype=dt, device=dev)
 
     # band products of H[1] @ ... @ H[p-1], then H[0] times them
@@ -221,35 +290,60 @@ def glue_plain(Hp: torch.Tensor, n: int, l: int, i: int, its: int, cfg
 
 
 def glue_products_scan_shift(Hp: torch.Tensor, n: int, l: int, i: int, its: int,
-                             cfg) -> Glue:
+                             cfg, bufs=None) -> Glue:
     """Kernel G for one iteration of ``pqr_real_core`` (window [l, i],
     iteration ``its`` of the window): the packed buffer of ``glue_plain`` /
-    ``csrc/glue.cu``, read back to the host in one copy and unpacked."""
+    ``csrc/glue.cu``, read back to the host in one copy and unpacked.
+
+    On the card it writes into ``bufs`` (``glue_buffers(Hp, n)``, which a
+    CUDA stack needs): the device buffer, the pinned host buffer and the
+    (p, n) arrays ``D`` and ``U``, reused from call to call.  Each run of
+    ``pqr_real_core`` makes its own, so two runs at once share none.  What
+    the returned ``Glue`` holds is safe from the next call as far as the
+    core needs: the band and ``S0`` (which the core writes) are copies of
+    their own, and the pinned buffer is read before this call returns;
+    ``D`` and ``U`` are read-only views that keep their values until the
+    next call with the same ``bufs``, which the core makes only after it
+    has read them (the repair test and ``_defl2`` read them within the
+    iteration)."""
     p, N, _ = Hp.shape
     if Hp.device.type == "cpu":
-        buf = glue_plain(Hp, n, l, i, its, cfg)
-    elif Hp.device.type == "cuda":
-        buf = glue_cuda(Hp, n, l, i, its, cfg)
-    else:
+        return unpack(glue_plain(Hp, n, l, i, its, cfg).numpy(), p, n, i)
+    if Hp.device.type != "cuda":
         raise ValueError(f"glue_products_scan_shift: unsupported device {Hp.device}")
-    return unpack(buf.cpu().numpy(), p, n, i)
+    _check_window(Hp, n, l, i)
+    if bufs is None or bufs.key != (Hp.device, p, n):
+        raise ValueError("glue_products_scan_shift: a CUDA stack needs glue_buffers(Hp, n)")
+    stream = torch.cuda.current_stream(Hp.device)
+    _launch(Hp, p, n, l, i, its, cfg, bufs.dev.data_ptr(), stream.cuda_stream)
+    return unpack(bufs.read(stream), p, n, i, bufs.entries)
 
 
-def glue_cuda(Hp: torch.Tensor, n: int, l: int, i: int, its: int, cfg
-                ) -> torch.Tensor:
-    """Launch kernel G on a CUDA stack; returns the packed buffer (on the
-    card, not synchronized)."""
+def _check_window(Hp, n, l, i):
     p, N, _ = Hp.shape
     _check("Hp", Hp, (p, N, N))
     if N != n + 1 or not (0 <= l <= i < n):
         raise ValueError(f"glue: bad window l={l} i={i} for n={n}, N={N}")
-    k = out_len(p, n)
-    buf = torch.empty(k + 3 * n, dtype=torch.float64, device=Hp.device)
+
+
+def _launch(Hp, p, n, l, i, its, cfg, out_ptr, stream_ptr):
+    """Kernel G into the device buffer at ``out_ptr`` (``out_len(p, n)``
+    doubles, then its 3n of scratch)."""
     ulp, ulpx, smlnum = scan_constants(n, cfg)
     with _cuda.on_device(Hp):
         _cuda.check(_cuda.load().psd_glue(
-            Hp.data_ptr(), buf.data_ptr(), buf[k:].data_ptr(), p, n, l, i, its,
-            int(cfg.slicot_convg), int(cfg.slicot_shifts), ulp, ulpx, smlnum,
-            _cuda.stream_ptr(Hp)), "glue")
+            Hp.data_ptr(), out_ptr, out_ptr + 8 * out_len(p, n), p, n, l, i, its,
+            int(cfg.slicot_convg), int(cfg.slicot_shifts), ulp, ulpx, smlnum, stream_ptr),
+            "glue")
     launches["glue"] += 1
-    return buf[:k]
+
+
+def glue_cuda(Hp: torch.Tensor, n: int, l: int, i: int, its: int, cfg) -> torch.Tensor:
+    """Launch kernel G on a CUDA stack; returns the packed buffer (on the
+    card, not synchronized)."""
+    p, N, _ = Hp.shape
+    _check_window(Hp, n, l, i)
+    k = out_len(p, n)
+    out = torch.empty(k + 3 * n, dtype=torch.float64, device=Hp.device)
+    _launch(Hp, p, n, l, i, its, cfg, out.data_ptr(), _cuda.stream_ptr(Hp))
+    return out[:k]

@@ -49,7 +49,7 @@ from ..config import AlgoConfig, default_config, verbosity
 from ..types import ConvergenceFailure, PeriodicSchur, PSDNotImplemented
 from ..utils.circshift import rev_alias
 from .deflate import deflate2x2
-from .glue import glue_products_scan_shift
+from .glue import glue_buffers, glue_products_scan_shift
 from .householder import reflector_small
 from .lanv2 import lanv2
 from .rotations import colsk, rowsk
@@ -312,6 +312,7 @@ def pqr_real_core(H: torch.Tensor, Z: Optional[torch.Tensor] = None,
         else:
             Zp[:, :n, :n] = Z
     gather = _BandGather(p, n, dev)
+    gbufs = glue_buffers(Hp, n)  # this run's own, reused by every iteration
     wr = np.zeros(n)
     wi = np.zeros(n)
     swaps = []  # (i, w1r, w2r) of real 2x2 deflations, checked at the end
@@ -320,7 +321,7 @@ def pqr_real_core(H: torch.Tensor, Z: Optional[torch.Tensor] = None,
     steps = sweeps = bulges = 0  # chase steps (sum of i - m), sweeps, bulges
     while i >= 0 and jiter < maxit:
         # kernel G: band, scan, v0 and the factor entries read below
-        g = glue_products_scan_shift(Hp, n, l, i, its, cfg)
+        g = glue_products_scan_shift(Hp, n, l, i, its, cfg, gbufs)
         hdiag, hsub, hsup, lnew = g.hdiag, g.hsub, g.hsup, g.lnew
         D, U, S0 = g.D, g.U, g.S0
 

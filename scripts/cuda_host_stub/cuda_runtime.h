@@ -4,7 +4,7 @@
 // blocks at once (stub_launch_coop, for cudaLaunchCooperativeKernel, with a
 // std::barrier over the whole grid for cooperative_groups' grid sync);
 // __syncthreads, __syncwarp and bar.sync with a thread count are
-// std::barriers, __shared__ is static
+// std::barriers (__reduce_max_sync a __syncwarp pair), __shared__ is static
 // (shared by concurrent blocks: a cooperative kernel keeps its shared data
 // in the dynamic buffer), __shfl_sync goes through a per-warp slot array,
 // the dynamic shared memory is a buffer of each block filled with NaN, and
@@ -16,6 +16,7 @@
 // sums are rounded one at a time (no fused multiply-add), as in numpy.
 #pragma once
 #include <algorithm>
+#include <atomic>
 #include <barrier>
 #include <cfloat>
 #include <cmath>
@@ -103,6 +104,33 @@ inline double __shfl_xor_sync(unsigned m, double v, int o) {
 inline double __fma_rn(double a, double b, double c) { return a * b + c; }
 inline double __dmul_rn(double a, double b) { return a * b; }
 inline double __dadd_rn(double a, double b) { return a + b; }
+inline double __dsub_rn(double a, double b) { return a - b; }
+inline double __ddiv_rn(double a, double b) { return a / b; }
+inline double __dsqrt_rn(double a) { return std::sqrt(a); }
+inline std::mutex stub_atomic_mu;
+inline int atomicMax(int* a, int v) {
+  std::lock_guard<std::mutex> lock(stub_atomic_mu);
+  const int old = *a;
+  *a = std::max(old, v);
+  return old;
+}
+inline unsigned atomicAdd(unsigned* a, unsigned v) {
+  std::lock_guard<std::mutex> lock(stub_atomic_mu);
+  const unsigned old = *a;
+  *a = old + v;
+  return old;
+}
+inline void __threadfence() { std::atomic_thread_fence(std::memory_order_seq_cst); }
+// the warp's largest value, every lane receiving it
+inline int __reduce_max_sync(unsigned, int v) {
+  const int w = threadIdx.x / 32, n = std::min(32u, blockDim.x - 32 * w);
+  stub_blk->slots[w][threadIdx.x % 32] = v;
+  __syncwarp();
+  int m = v;
+  for (int k = 0; k < n; ++k) m = std::max(m, (int)stub_blk->slots[w][k]);
+  __syncwarp();
+  return m;
+}
 // cp.async (<cuda_pipeline.h>): synchronous stand-ins, each copy done when
 // issued (the earliest an asynchronous copy may land), so a slot refilled
 // while another thread still reads it shows in the result
@@ -112,6 +140,8 @@ inline void __pipeline_memcpy_async(void* dst, const void* src, size_t n, size_t
 inline void __pipeline_commit() {}
 inline void __pipeline_wait_prior(size_t) {}
 inline double __ldg(const double* p) { return *p; }
+inline double __ldcg(const double* p) { return *p; }
+inline int __ldcg(const int* p) { return *p; }
 inline double2 __ldg(const double2* p) { return *p; }
 inline int __ldg(const int* p) { return *p; }
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
@@ -140,6 +170,10 @@ cudaError_t cudaFuncSetAttribute(F f, cudaFuncAttribute, int v) {
 inline cudaError_t cudaMemcpy2DAsync(void* dst, size_t dp, const void* src, size_t sp,
                                      size_t w, size_t h, cudaMemcpyKind, cudaStream_t) {
   for (size_t r = 0; r < h; ++r) std::memcpy((char*)dst + r * dp, (const char*)src + r * sp, w);
+  return cudaSuccess;
+}
+inline cudaError_t cudaMemsetAsync(void* dst, int v, size_t n, cudaStream_t) {
+  std::memset(dst, v, n);
   return cudaSuccess;
 }
 // The threads of blocks [b0, b1) of grid g, each block with its own state.

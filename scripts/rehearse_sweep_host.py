@@ -141,10 +141,11 @@ from torch_mb_window_host import sweep_log_mb_full  # noqa: E402
 from torch_window_host import sweep_log_full  # noqa: E402
 
 
-def build_stub(name, path=None, extra="", sub=(), flags=()):
+def build_stub(name, path=None, extra="", sub=(), flags=(), tag=None):
     """csrc/<name>.cu (or the file ``path``) rewritten for the host stub,
     with the source ``extra`` appended and each (old, new) of ``sub``
-    replaced, and built with g++ (and ``flags``)."""
+    replaced, and built with g++ (and ``flags``) under the name ``tag``
+    (default: name, with "_sub" where ``sub`` is given)."""
     src = open(path or os.path.join(CSRC, name + ".cu")).read() + extra
     for old, new in sub:
         assert old in src, old
@@ -158,7 +159,7 @@ def build_stub(name, path=None, extra="", sub=(), flags=()):
     src = re.sub(r"([A-Za-z_][A-Za-z_0-9]*(?:<\w+>)?)<<<(.*?)>>>\(", r"stub_launch(\1, \2, ",
                  src, flags=re.S)
     os.makedirs(OUT, exist_ok=True)
-    tag = name + ("_sub" if sub else "")
+    tag = tag or name + ("_sub" if sub else "")
     cpp, so = os.path.join(OUT, tag + "_stub.cpp"), os.path.join(OUT, f"lib{tag}_stub.so")
     open(cpp, "w").write(src)
     subprocess.run(["g++", "-std=c++20", "-O2", "-ffp-contract=off", "-fPIC", "-shared",
@@ -375,8 +376,53 @@ def sig(kind, p):
     return tuple(l == 0 or kind == "direct" for l in range(p))
 
 
-def main_cx():
+def shift_sig(kind, p):
+    """S's signatures: alternating, all direct, all inverse but S[0]."""
+    return sig({"alt": "alt", "direct": "direct", "inverse": "inverse"}[kind], p)
+
+
+def check_shift(libs, parent):
+    """Kernel S of each stub library in ``libs`` against the parent's
+    (``parent``, bit for bit) and qz_shift_plain (within 1e-14), at p = 1,
+    2, 8, 33 and 40 under alternating, all-direct and all-inverse-but-S[0]
+    signatures, on a few windows."""
+    for p in (1, 2, 8, 33, 40):
+        n = 24
+        H, _, _ = mk_cx_problem(p, n, np.random.default_rng(500 + p))
+        Ht = torch.tensor(H)
+        for kind in ("alt", "direct", "inverse"):
+            S = sig(kind, p)
+            Sd = torch.tensor([int(x) for x in S], dtype=torch.int32)
+            worst = 0.0
+            for (a, b) in ((0, n - 1), (3, 9), (7, 8), (n - 2, n - 1)):
+                ref = sweep_cx.qz_shift_plain(Ht, a, b, S)
+                outs = {}
+                for tag, lb in list(libs.items()) + ([("parent", parent)] if parent else []):
+                    cs = torch.full((2,), complex(np.nan, np.nan), dtype=torch.complex128)
+                    assert lb.psd_qz_shift(Ht.data_ptr(), cs.data_ptr(), Sd.data_ptr(), p, n,
+                                           a, b, None) == 0
+                    outs[tag] = cs
+                    worst = max(worst, float((cs - ref).abs().max()))
+                base = outs[next(iter(libs))]
+                assert all(torch.equal(base, cs) for cs in outs.values()), (p, kind, a, b)
+            assert worst <= 1e-14, (p, kind, worst)
+            print(f"S p={p} S {kind}: {', '.join(list(libs) + (['parent'] if parent else []))} "
+                  f"bit for bit; vs qz_shift_plain {worst:.2e}", flush=True)
+
+
+def main_cx(parent=None):
     lib = build_cx()
+    # kernel S: the source, factor chunks of 8 (p = 33, 40 take several),
+    # and the parent's sweep_cx.cu where given
+    small = build_stub("sweep_cx", sub=[("constexpr int kShiftChunk = 256;",
+                                         "constexpr int kShiftChunk = 8;")], tag="sweep_cx_s8")
+    old = build_stub("sweep_cx", path=parent, tag="sweep_cx_parent") if parent else None
+    for lb in (small, old):
+        if lb is not None:
+            lb.psd_qz_shift.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + \
+                [ctypes.c_void_p]
+    lib.psd_qz_shift.argtypes = small.psd_qz_shift.argtypes
+    check_shift({"source": lib, "chunks of 8": small}, old)
     cases = [(1, 12, 0, 11, "direct"), (2, 14, 2, 12, "alt"), (3, 9, 1, 7, "inverse"),
              (3, 40, 0, 39, "alt"), (16, 40, 0, 39, "alt"), (16, 37, 5, 33, "direct"),
              (4, 8, 2, 4, "inverse"), (2, 6, 2, 3, "alt"), (5, 70, 3, 66, "alt"),
@@ -1010,6 +1056,77 @@ def main_ladders():
     return 0
 
 
+def build_glue(tag, path=None, sub=()):
+    vp, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    lib = build_stub("glue", path=path, sub=sub, flags=ALIGN, tag=tag)
+    lib.psd_glue.argtypes = [vp, vp, vp] + [i32] * 7 + [f64] * 3 + [vp]
+    return lib
+
+
+def glue_stub(lib, H, n, l, i, its, cfg):
+    """The packed buffer of the stub's kernel G (output and scratch filled
+    with NaN)."""
+    from periodicschurdecompositions_jl_torch.ops import glue
+    p = H.shape[0]
+    k = glue.out_len(p, n)
+    buf = torch.full((k + 3 * n,), np.nan, dtype=torch.float64)
+    ulp, ulpx, smlnum = glue.scan_constants(n, cfg)
+    Ht = torch.tensor(H)
+    assert lib.psd_glue(Ht.data_ptr(), buf.data_ptr(), buf[k:].data_ptr(), p, n, l, i, its,
+                        int(cfg.slicot_convg), int(cfg.slicot_shifts), ulp, ulpx, smlnum,
+                        None) == 0
+    return buf[:k].numpy()
+
+
+def main_glue(parent):
+    """Kernel G on the stub against glue_plain, the numpy model of
+    tests/torch_glue_host.py (and through both the host glue) and the
+    parent's glue.cu, bit for bit, on the model test's cycles and windows:
+    the source, chunks of 5 rows on 32 threads and the least shared
+    memory (one factor a group)."""
+    import test_torch_glue_schedule as cases
+    import torch_glue_host as gh
+    from periodicschurdecompositions_jl_torch.config import AlgoConfig
+    from periodicschurdecompositions_jl_torch.ops import glue
+    lib = build_glue("glue")
+    small = build_glue("glue_r5", sub=[("constexpr int kGlueThreads = 64;",
+                                        "constexpr int kGlueThreads = 32;"),
+                                       ("constexpr int kGlueRows = 32;",
+                                        "constexpr int kGlueRows = 5;")])
+    old = build_glue("glue_parent", parent) if parent else None
+    cfgs = [AlgoConfig(), AlgoConfig(slicot_convg=True), AlgoConfig(slicot_shifts=True)]
+    wide = {"STUB_SMEM_OPTIN": str(gh.H100_OPTIN)}
+    for p in (1, 2, 3, 16, 40):
+        for n in (1, 2, 3, 5, 31, 33, 600):
+            H = cases._cycle(p, n, 1000 * p + n)
+            runs = 0
+            for (l, i) in cases._windows(n):
+                for its in (1, 10, 16, 20):
+                    for cfg in cfgs:
+                        ref = glue.glue_plain(torch.tensor(H), n, l, i, its, cfg).numpy()
+                        builds = [("source", lib, {}, {})]
+                        if its == 1 and cfg is cfgs[0]:
+                            builds += [
+                                ("5-row chunks", small, {}, {"rows": 5, "threads": 32}),
+                                ("tight", lib, {"STUB_SMEM_OPTIN": str(gh.glue_tight_optin(p))},
+                                 {"optin": gh.glue_tight_optin(p)})]
+                            if old is not None:
+                                builds.append(("parent", old, {}, None))
+                        for tag, lb, env, kw in builds:
+                            os.environ.update({**wide, **env})
+                            out = glue_stub(lb, H, n, l, i, its, cfg)
+                            assert np.array_equal(out, ref), (tag, p, n, l, i, its, cfg)
+                            if kw is not None:
+                                model = gh.glue_model(H, n, l, i, its, cfg, **kw)
+                                assert np.array_equal(out, model), (tag, p, n, l, i, its)
+                            runs += 1
+            print(f"G p={p} n={n}: {runs} runs bit for bit with glue_plain and the model"
+                  f"{' and the parent' if old is not None else ''} (the source, 5-row "
+                  "chunks, the least shared memory)", flush=True)
+    os.environ.update(wide)
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--cx", action="store_true")
@@ -1020,7 +1137,10 @@ def main():
     ap.add_argument("--deflate", action="store_true")
     ap.add_argument("--mb", action="store_true")
     ap.add_argument("--ladders", action="store_true")
+    ap.add_argument("--glue", action="store_true")
     args = ap.parse_args()
+    if args.glue:
+        return main_glue(args.parent)
     if args.ladders:
         return main_ladders()
     if args.mb:
@@ -1032,7 +1152,7 @@ def main():
     if args.hess:
         return main_hess(args.parent)
     if args.cx:
-        return main_cx()
+        return main_cx(args.parent)
     if args.rg:
         return main_rg()
     lib = build()

@@ -128,10 +128,14 @@ with an alternating and an all-direct signature, on kernel A's own log:
 the sha256 of H after B0, of H and Z after B and of H after B without Z,
 and the time of B0 and of B (CUDA events, mean of ``--reps`` launches),
 each beside chip_smoke.py's ``cx_apply_bounds``, and ptxas's register
-report.  ``--against DIR``: DIR's library (built in a child process) and
-this checkout's in turns, parent / change / change / parent, in one
-process; each ``--variant NAME=V,NAME=V`` (repeatable) adds a copy of
-sweep_cx.cu with those constexprs rewritten between the changes.
+report; then kernel S (psd_qz_shift) on the same draws and windows (and
+[1, n-2]), alternating, all-direct and all-inverse-but-S[0] signatures:
+the sha256 of (c, s), and at p=8 n=256 on [0, 255] its time (CUDA events
+and the device time under the profiler).  ``--against DIR``: DIR's library
+(built in a child process) and this checkout's in turns, parent / change /
+change / parent, in one process; each ``--variant NAME=V,NAME=V``
+(repeatable) adds a copy of sweep_cx.cu with those constexprs rewritten
+between the changes.
 ``--headline`` then runs the complex leg and the signed complex leg of
 chip_smoke.py through the checkout's package (``--root``): wall,
 iteration, niter, sweeps, hashes of T and Z, and under the CUDA profiler
@@ -195,11 +199,35 @@ time of A, B0, B, D and G), the mb headline leg and the rg leg through the
 checkout's package (``--root``), each with its device time by kernel (run
 once with ``--root DIR`` for the parent's).
 
+``--glue``: kernel G (csrc/glue.cu::psd_glue) at the real headline's
+states (p=16, n=512, seed 12345; chip_smoke.py's ``capture_glue_states``:
+the first call, the first with its == 10, the first with its >= 16 and the
+first whose lnew > 0): the sha256 of the packed buffer, the time a launch
+takes with CUDA events (mean of ``--reps`` launches) and on the device
+under the CUDA profiler, beside chip_smoke.py's bound, and ptxas's report;
+``--against DIR``: DIR's library (built in a child process) and this
+checkout's in turns, parent / change / change / parent; each ``--variant
+NAME=V,...`` adds a copy of glue.cu with those constexprs rewritten between
+the changes (its hashes beside the others).  Then the wrapper
+``glue_products_scan_shift`` of the checkout's package (``--root``) at the
+first state, split on the host clock into the launch, the read-back (the
+wait for the kernel and the copy to the host) and the unpacking (medians
+of ``--reps`` calls; and the copy alone after a synchronize).  ``--glue
+--headline``: instead, the headline ``pschur(A, 'R')`` in ``--pairs``
+pairs (default 5) that alternate, within one process, kernel G with the
+numpy host glue of tests/torch_glue_host.py (``host_glue``, fed by
+``pqr_real._BandGather``) in its place, the order flipped from pair to
+pair: wall, iteration time, niter, backward error and hashes of T and Z of
+every run, and each leg's median and spread; then the headline, the mb leg
+and the rg leg with their device time by kernel (G and D included) and
+idle share, as ``--ladders --headline`` prints them.
+
 Run from the repository root:
   python3 scripts/time_sweep_generate.py [--cx [--apply [--against DIR] [--variant ...]]
       | --rg [--apply [--against DIR] [--variant ...]] | --hess | --signed [--split]
       | --deflate [--against DIR] | --apply | --mb [--against DIR]
-      | --ladders [--against DIR] [--also NAME=DIR] [--variant ...] [--split]]
+      | --ladders [--against DIR] [--also NAME=DIR] [--variant ...] [--split]
+      | --glue [--against DIR] [--variant ...] [--headline [--pairs K]]]
       [--root DIR]
       [--headline [--trace]]
 """
@@ -231,6 +259,8 @@ def main():
     ap.add_argument("--apply", action="store_true")
     ap.add_argument("--mb", action="store_true")
     ap.add_argument("--ladders", action="store_true")
+    ap.add_argument("--glue", action="store_true")
+    ap.add_argument("--pairs", type=int, default=5)
     ap.add_argument("--against", default=None)
     ap.add_argument("--also", action="append", default=[])
     ap.add_argument("--set", action="append", default=[])
@@ -240,7 +270,7 @@ def main():
     ap.add_argument("--trace-out", default=os.path.join(HERE, "_dev", "rg_trace.txt"))
     args = ap.parse_args()
     sys.path.insert(0, os.path.abspath(args.root))
-    sys.path.insert(1, HERE)
+    sys.path[1:1] = [HERE, os.path.join(HERE, "tests")]
     import torch
     if not torch.cuda.is_available():
         print("time_sweep_generate: no CUDA device", file=sys.stderr)
@@ -252,7 +282,7 @@ def main():
     print(smi)
     lib = _cuda.load()
     out = {"root": os.path.abspath(args.root), "card": smi}
-    (time_ladders if args.ladders else time_mb if args.mb else time_cx_apply if args.apply and args.cx else
+    (time_glue if args.glue else time_ladders if args.ladders else time_mb if args.mb else time_cx_apply if args.apply and args.cx else
      time_rg_apply if args.apply and args.rg else time_apply if args.apply else
      time_deflate if args.deflate else time_signed if args.signed else time_hess
      if args.hess else time_cx if args.cx else time_rg if args.rg
@@ -614,8 +644,8 @@ def time_cx_apply(torch, lib, _cuda, args, out):
     from periodicschurdecompositions_jl_torch.ops import sweep_cx
     cs = load_chip_smoke()
     libs, order = apply_libs(_cuda, lib, args, "sweep_cx",
-                             ("psd_qz_sweep_left", "psd_qz_sweep_right"),
-                             ("qz_left", "qz_right"), out)
+                             ("psd_qz_sweep_left", "psd_qz_sweep_right", "psd_qz_shift"),
+                             ("qz_left", "qz_right", "qz_shift"), out)
     st = torch.cuda.current_stream().cuda_stream
     equal = True
     for (p, n, windows) in CX_APPLY_SHAPES:
@@ -644,9 +674,59 @@ def time_cx_apply(torch, lib, _cuda, args, out):
                                      Z0, left, right, {"B0": bnd["qz_sweep_left"][0],
                                                        "B": bnd["qz_sweep_right"][0]},
                                      args.reps, out)
-    out["hashes_equal"] = equal
+    out["hashes_equal"] = equal & shift_turns(torch, _cuda, cs, libs, order, args.reps, out)
     if args.headline:
         headline_cx_profile(torch, out)
+
+
+def shift_turns(torch, _cuda, cs, libs, order, reps, out):
+    """Kernel S (psd_qz_shift) of each library on cx_kernel_phase's draws
+    (CX_APPLY_SHAPES' shapes and windows, alternating, all-direct and
+    all-inverse-but-S[0] signatures): the sha256 of (c, s) per library and,
+    at p=8 n=256 on [0, 255], the time of a launch in turns (CUDA events,
+    mean of ``reps`` launches, and the device time under the profiler);
+    returns whether every library's hashes agree."""
+    from torch.profiler import ProfilerActivity, profile
+    from chip_smoke import dev_us
+    st = torch.cuda.current_stream().cuda_stream
+    equal = True
+    for (p, n, windows) in CX_APPLY_SHAPES:
+        H0 = torch.tensor(cs.mk_cx_problem(p, n, np.random.default_rng(2025))[0], device="cuda")
+        cso = torch.empty(2, dtype=torch.complex128, device="cuda")
+        for sname, S in (("alt", cs.alternating(p)), ("direct", (True,) * p),
+                         ("inverse", (True,) + (False,) * (p - 1))):
+            Sd = torch.tensor([int(x) for x in S], dtype=torch.int32, device="cuda")
+            for (m, i) in windows + ((1, n - 2),):
+                def call(lb):
+                    _cuda.check(lb.psd_qz_shift(H0.data_ptr(), cso.data_ptr(), Sd.data_ptr(), p,
+                                                n, m, i, st), "qz_shift")
+                hashes = {}
+                for tag in libs:
+                    cso.fill_(complex("nan"))
+                    call(libs[tag])
+                    hashes[tag] = sha(cso)
+                key = f"S p{p} n{n} {sname} [{m},{i}]"
+                same = len(set(hashes.values())) == 1
+                equal &= same
+                out[f"{key} hashes"] = hashes
+                line = f"{key}: hashes {'equal' if same else 'DIFFER: ' + str(hashes)}"
+                if (p, n, m, i) == (8, 256, 0, 255) and sname != "inverse":
+                    for tag in order:
+                        out.setdefault(f"{tag} {key} ms", []).append(
+                            event_ms(torch, lambda: call(libs[tag]), reps))
+                        torch.cuda.synchronize()
+                        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                            for _ in range(reps):
+                                call(libs[tag])
+                            torch.cuda.synchronize()
+                        ev = [e for e in prof.key_averages()
+                              if "qz_shift" in e.key and dev_us(e) > 0]
+                        out.setdefault(f"{tag} {key} device_us", []).append(
+                            sum(dev_us(e) for e in ev) / max(1, sum(e.count for e in ev)))
+                    line += "; " + "; ".join(f"{t} {out[f'{t} {key} ms']} ms (device "
+                                             f"{out[f'{t} {key} device_us']} us)" for t in libs)
+                print(line, flush=True)
+    return equal
 
 
 # rg B0 and B: rg_kernel_phase's shape and windows, and its odd-n window
@@ -1044,18 +1124,18 @@ LADDER_NO_LINES = [
 SPLIT = ("no chain", "no lines")
 
 
-def ladder_copy(root, tag, subs):
-    """A copy of ``root``'s package under _dev/ladders_<tag>/ with each
-    (old, new) of ``subs`` that occurs in deflate.cu or rgopen.cu replaced
+def ladder_copy(root, tag, subs, files=("deflate.cu", "rgopen.cu"), what="ladders"):
+    """A copy of ``root``'s package under _dev/<what>_<tag>/ with each
+    (old, new) of ``subs`` that occurs in one of ``files`` (csrc/) replaced
     there (every one must occur in one of them); its directory."""
     import shutil
     pkg = "periodicschurdecompositions_jl_torch"
-    d = os.path.join(HERE, "_dev", f"ladders_{tag}")
+    d = os.path.join(HERE, "_dev", f"{what}_{tag}")
     shutil.rmtree(d, ignore_errors=True)
     shutil.copytree(os.path.join(root, pkg), os.path.join(d, pkg),
                     ignore=shutil.ignore_patterns("_build", "__pycache__"))
     found = set()
-    for name in ("deflate.cu", "rgopen.cu"):
+    for name in files:
         path = os.path.join(d, pkg, "csrc", name)
         src = open(path).read()
         for old, new in subs:
@@ -1065,7 +1145,7 @@ def ladder_copy(root, tag, subs):
         open(path, "w").write(src)
     missing = [old for old, _ in subs if old not in found]
     if missing:
-        raise SystemExit(f"--ladders {tag}: not in deflate.cu or rgopen.cu: {missing}")
+        raise SystemExit(f"--{what} {tag}: not in {' or '.join(files)}: {missing}")
     return d
 
 
@@ -1148,6 +1228,220 @@ def time_ladders(torch, lib, _cuda, args, out):
                                        if k.startswith("headline_")), flush=True)
         headline_mb(torch, out)
         headline_rg_profile(torch, out)
+
+
+GLUE_STATES = ("call 0", "its==10", "its>=16", "lnew>0")
+
+
+def time_glue(torch, lib, _cuda, args, out):
+    """Kernel G at the headline's states, in turns against ``--against``,
+    and the split of its wrapper; ``--headline``: the paired legs against
+    the host glue and the legs' device time by kernel."""
+    cs = load_chip_smoke()
+    if args.headline:
+        headline_glue_pairs(torch, cs, args.pairs, out)
+        headline_real(torch, out)
+        headline_apply_profile(torch, out)
+        print("headline: " + ", ".join(f"{k[9:]} {v}" for k, v in out.items()
+                                       if k.startswith("headline_")), flush=True)
+        headline_mb(torch, out)
+        headline_rg_profile(torch, out)
+        return
+    from torch.profiler import ProfilerActivity, profile
+    import periodicschurdecompositions_jl_torch as pt
+    from chip_smoke import dev_us
+    from periodicschurdecompositions_jl_torch.config import AlgoConfig
+    from periodicschurdecompositions_jl_torch.ops import glue
+    libs = {"change": lib}
+    if args.against:
+        libs["parent"], out["parent"] = parent_lib(args.against, {"psd_glue": lib.psd_glue})
+    for v in args.variant:  # the source with constexprs rewritten
+        d = ladder_copy(args.root, v.replace("=", "").replace(",", "_"), [
+            (f"constexpr int {kv.split('=')[0]} = ", f"constexpr int {kv.split('=')[0]} = "
+             f"{kv.split('=')[1]}; //") for kv in v.split(",")], ("glue.cu",), "glue")
+        libs[v] = parent_lib(d, {"psd_glue": lib.psd_glue})[0]
+    order = (["parent", "change"] if args.against else ["change"]) + list(args.variant)
+    order += order[::-1]
+    out["order"] = order
+    out["ptxas"] = ptxas_report(_cuda, args.root, "glue", ("glue",))
+    if args.against:
+        out["ptxas parent"] = ptxas_report(_cuda, args.against, "glue", ("glue",))
+    print("ptxas:", json.dumps({k: v for k, v in out.items() if k.startswith("ptxas")}),
+          flush=True)
+    A = torch.tensor(np.random.default_rng(12345).standard_normal((16, 512, 512)),
+                     device="cuda")
+    with cs.capture_glue_states() as cap:
+        pt.pschur(A, "R")
+    states = cap.states
+    st = torch.cuda.current_stream().cuda_stream
+    cfg = AlgoConfig()
+    equal = True
+    for label in GLUE_STATES:
+        _, Hp, l, i, its = states[label]
+        p, N, _ = Hp.shape
+        n = N - 1
+        k = glue.out_len(p, n)
+        # a buffer for each library, zeroed (as a kernel that keeps its
+        # block counter from launch to launch needs)
+        bufs = {tag: torch.zeros(k + 3 * n, dtype=torch.float64, device="cuda")
+                for tag in libs}
+        ulp, ulpx, smlnum = glue.scan_constants(n, cfg)
+
+        def call(lb, tag):
+            buf = bufs[tag]
+            _cuda.check(lb.psd_glue(Hp.data_ptr(), buf.data_ptr(), buf[k:].data_ptr(), p, n,
+                                    l, i, its, 0, 0, ulp, ulpx, smlnum, st), "glue")
+        hashes = {}
+        for tag in libs:
+            bufs[tag][:k].fill_(float("nan"))
+            call(libs[tag], tag)
+            hashes[tag] = sha(bufs[tag][:k])
+            out[f"{tag} hash {label}"] = hashes[tag]
+        buf = bufs["change"]
+        same = len(set(hashes.values())) == 1
+        equal &= same
+        key = f"{label} (l={l}, i={i}, its={its}, lnew={int(buf[0])})"
+        for tag in order:
+            out.setdefault(f"{tag} G_ms {label}", []).append(
+                event_ms(torch, lambda: call(libs[tag], tag), args.reps))
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(args.reps):
+                    call(libs[tag], tag)
+                torch.cuda.synchronize()
+            ev = [e for e in prof.key_averages() if "glue_kernel" in e.key and dev_us(e) > 0]
+            out.setdefault(f"{tag} G_device_us {label}", []).append(
+                sum(dev_us(e) for e in ev) / max(1, sum(e.count for e in ev)))
+            # the counter's memset before each launch, where the library issues one
+            ev = [e for e in prof.key_averages() if "emset" in e.key and dev_us(e) > 0]
+            out.setdefault(f"{tag} memset_device_us {label}", []).append(
+                sum(dev_us(e) for e in ev) / args.reps)
+        bms = cs.bound(8 * (3 * p * n + k), 8 * p * n + 25 * (i - l) + 80)[0]
+        out["G_bound_us"] = bms * 1e3
+        print(f"G {key}: " + "; ".join(
+            f"{t} {out[f'{t} G_ms {label}']} ms (device {out[f'{t} G_device_us {label}']} us, "
+            f"memset {out[f'{t} memset_device_us {label}']} us)"
+            for t in libs) + f"; bound {bms * 1e3:.4f} us; hashes "
+            f"{'equal' if same else 'DIFFER: ' + str(hashes)}", flush=True)
+    out["hashes_equal"] = equal
+    glue_wrapper_split(torch, states["call 0"], args.reps, out)
+
+
+def glue_wrapper_split(torch, state, reps, out):
+    """The checkout's ``glue_products_scan_shift`` at one state on the host
+    clock: the whole call, and its launch, read-back (the wait for the
+    kernel and the copy) and unpacking in the order the wrapper runs them,
+    medians of ``reps`` calls after a warm-up; and the copy alone after a
+    synchronize.  A wrapper that reuses buffers (``glue.glue_buffers``) is
+    split as the wrapper runs them, the one before through ``glue_cuda``
+    and ``.cpu()``."""
+    from periodicschurdecompositions_jl_torch.config import AlgoConfig
+    from periodicschurdecompositions_jl_torch.ops import glue
+    _, Hp, l, i, its = state
+    p, N, _ = Hp.shape
+    n = N - 1
+    cfg = AlgoConfig()
+    b = glue.glue_buffers(Hp, n) if hasattr(glue, "glue_buffers") else None
+    if b is not None:
+
+        def launch():
+            stream = torch.cuda.current_stream(Hp.device)
+            glue._check_window(Hp, n, l, i)
+            glue._launch(Hp, p, n, l, i, its, cfg, b.dev.data_ptr(), stream.cuda_stream)
+            return stream
+
+        def read(stream):
+            return b.read(stream)
+
+        def unpack(g):
+            return glue.unpack(g, p, n, i, b.entries)
+    else:
+        def launch():
+            return glue.glue_cuda(Hp, n, l, i, its, cfg)
+
+        def read(buf):
+            return buf.cpu().numpy()
+
+        def unpack(g):
+            return glue.unpack(g, p, n, i)
+    clock = time.perf_counter
+    split = {"launch": [], "read": [], "unpack": [], "copy alone": [], "call": []}
+    for rep in range(reps + 1):
+        t0 = clock()
+        buf = launch()
+        t1 = clock()
+        g = read(buf)
+        t2 = clock()
+        unpack(g)
+        t3 = clock()
+        torch.cuda.synchronize()
+        t4 = clock()
+        read(buf)
+        t5 = clock()
+        if b is None:
+            glue.glue_products_scan_shift(Hp, n, l, i, its, cfg)
+        else:
+            glue.glue_products_scan_shift(Hp, n, l, i, its, cfg, b)
+        t6 = clock()
+        if rep:
+            for key, dt in (("launch", t1 - t0), ("read", t2 - t1), ("unpack", t3 - t2),
+                            ("copy alone", t5 - t4), ("call", t6 - t5)):
+                split[key].append(dt * 1e6)
+    for key, v in split.items():
+        out[f"wrapper {key} us"] = float(np.median(v))
+        out[f"wrapper {key} us spread"] = [float(np.min(v)), float(np.max(v))]
+    print("wrapper (host clock, medians of us): " + ", ".join(
+        f"{key} {out[f'wrapper {key} us']:.2f} ({out[f'wrapper {key} us spread'][0]:.2f}-"
+        f"{out[f'wrapper {key} us spread'][1]:.2f})" for key in split), flush=True)
+
+
+def headline_glue_pairs(torch, cs, pairs, out):
+    """The headline in ``pairs`` pairs of runs, kernel G against the host
+    glue in its place (alternating, the order flipped from pair to pair):
+    wall, iteration, niter, backward error, hashes of T and Z per run; the
+    median and spread of each leg."""
+    import periodicschurdecompositions_jl_torch as pt
+    from periodicschurdecompositions_jl_torch.ops import pqr_real
+    from torch_glue_host import host_glue
+    pt.pschur(torch.tensor(np.random.default_rng(0).standard_normal((2, 32, 32)),
+                           device="cuda"), "R")
+    An = np.random.default_rng(12345).standard_normal((16, 512, 512))
+    A = torch.tensor(An, device="cuda")
+    legs = {"G": pqr_real.glue_products_scan_shift, "host": host_glue}
+    runs = {leg: [] for leg in legs}
+    if pairs <= 0:
+        return
+    try:
+        for k in range(pairs):
+            for leg in (("G", "host") if k % 2 == 0 else ("host", "G")):
+                pqr_real.glue_products_scan_shift = legs[leg]
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                P = pt.pschur(A, "R")
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                info = pqr_real.last_info
+                T, Z = P.Ts.cpu().numpy(), P.Zs.cpu().numpy()
+                run = {"wall_s": wall, "iterate_s": info["iterate_s"], "niter": info["niter"],
+                       "backerr": cs.backerr(An, T, Z), "T": sha(P.Ts), "Z": sha(P.Zs)}
+                runs[leg].append(run)
+                print(f"pair {k} {leg}: " + ", ".join(f"{a} {b}" for a, b in run.items()),
+                      flush=True)
+    finally:
+        pqr_real.glue_products_scan_shift = legs["G"]
+    for leg, rs in runs.items():
+        for key in ("wall_s", "iterate_s"):
+            v = [r[key] for r in rs]
+            out[f"pairs {leg} {key}"] = v
+            out[f"pairs {leg} {key} median"] = float(np.median(v))
+            out[f"pairs {leg} {key} spread"] = [min(v), max(v)]
+        for key in ("niter", "backerr", "T", "Z"):
+            out[f"pairs {leg} {key}"] = sorted({r[key] for r in rs})
+    out["pairs same T and Z"] = len({(r["T"], r["Z"]) for rs in runs.values() for r in rs}) == 1
+    print("pairs: " + ", ".join(f"{k[6:]} {v}" for k, v in out.items()
+                                if k.startswith("pairs ") and ("median" in k or "spread" in k
+                                                               or "same" in k or "niter" in k
+                                                               or "backerr" in k)), flush=True)
 
 
 def set_constexprs(src, sets, fname):

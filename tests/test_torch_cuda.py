@@ -33,7 +33,10 @@ results they give alone, bit for bit; past the default shared memory (p =
 500 to 2500, where the opt-in and the parent's design run): max(1e-12, 10
 x the plain version's sensitivity).  Kernel G: bit for bit with its
 plain version and with the numpy host glue (it is written without FMA, in
-numpy's order).
+numpy's order), also at n = 1100 and 3000 (35 and 94 blocks) and with
+launches on two streams at once; a call's ``Glue`` keeps its values
+across a call on another (p, n).  Kernel S at p = 33 and 40 (more factors than lanes):
+1e-14, as above.
 """
 import numpy as np
 import pytest
@@ -1254,6 +1257,132 @@ def test_glue_kernel_matches_plain_bitwise(cuda, cfg):
         assert glue.launches["glue"] == before + 1
         assert torch.equal(k, glue.glue_plain(Hc, n, l, i, its, cfg).cpu())
         assert torch.equal(k, glue.glue_plain(Hp, n, l, i, its, cfg))
+
+
+def _glue_cycle(p, n, seed, hit=None):
+    """A padded Hessenberg-triangular cycle for kernel G (triangular
+    diagonals of modulus 1..2), H[0]'s subdiagonal negligible at ``hit``."""
+    rng = np.random.default_rng(seed)
+    Hp = torch.zeros((p, n + 1, n + 1), dtype=torch.float64)
+    Hp[0, :n, :n] = torch.triu(torch.tensor(rng.standard_normal((n, n))), -1)
+    for f in range(1, p):
+        Hp[f, :n, :n] = torch.triu(torch.tensor(rng.standard_normal((n, n))))
+        Hp[f, torch.arange(n), torch.arange(n)] = torch.tensor(1.0 + rng.random(n))
+    if hit is not None:
+        Hp[0, hit, hit - 1] = 1e-60
+    return Hp
+
+
+@pytest.mark.parametrize("p,n", [(1, 1100), (40, 1100), (2, 3000)])
+def test_glue_kernel_past_the_block_bitwise(cuda, p, n):
+    # many blocks (35 and 94), the last to finish taking the shift
+    Hp = _glue_cycle(p, n, 7 * p + n, hit=700)
+    Hc = Hp.to(cuda)
+    for cfg in (AlgoConfig(), AlgoConfig(slicot_convg=True), AlgoConfig(slicot_shifts=True)):
+        for (l, i, its) in [(0, n - 1, 1), (650, n - 1, 10), (0, 699, 16), (0, 0, 1),
+                            (5, 5, 20), (300, n - 1, 20), (699, 701, 3)]:
+            k = glue.glue_cuda(Hc, n, l, i, its, cfg).cpu()
+            assert torch.equal(k, glue.glue_plain(Hp, n, l, i, its, cfg)), (l, i, its)
+    assert int(glue.glue_cuda(Hc, n, 0, n - 1, 1, AlgoConfig())[0]) == 700
+
+
+def test_glue_calls_keep_their_arrays(cuda):
+    # two calls on other (p, n), each with its buffers: the first call's
+    # Glue still holds its values
+    first = None
+    for (p, n) in [(3, 20), (4, 24)]:
+        Hc = _glue_cycle(p, n, p, hit=n // 2).to(cuda)
+        bufs = glue.glue_buffers(Hc, n)
+        g = glue.glue_products_scan_shift(Hc, n, 0, n - 1, 1, AlgoConfig(), bufs)
+        ref = glue.unpack(glue.glue_plain(Hc.cpu(), n, 0, n - 1, 1, AlgoConfig()).numpy(), p,
+                          n, n - 1)
+        if first is None:
+            first = (g, ref, bufs)
+    g, ref, bufs = first
+    assert g.lnew == ref.lnew == 10 and g.v0 == ref.v0
+    for a, b in zip(g[2:], ref[2:]):
+        assert np.array_equal(a, b)
+    assert not g.D.flags.writeable and not g.U.flags.writeable
+    # a CUDA stack takes buffers of its own (card, p, n) only
+    for other in (None, bufs):
+        with pytest.raises(ValueError, match="glue_buffers"):
+            glue.glue_products_scan_shift(Hc, n, 0, n - 1, 1, AlgoConfig(), other)
+
+
+def test_glue_on_two_streams_at_once(cuda):
+    """Two problems of other sizes, each taking kernel G into its own
+    NaN-filled buffer 64 times on its own stream, queued behind a spin on
+    both streams so that the two streams' launches run at once: every
+    packed buffer is glue_plain's, bit for bit (the last block to finish,
+    found by a counter in the scratch that each launch zeroes first, takes
+    the shift)."""
+    cases = []
+    for (p, n, hit) in [(16, 512, 300), (5, 200, 77)]:
+        Hp = _glue_cycle(p, n, p + n, hit=hit)
+        k = glue.out_len(p, n)
+        outs = [torch.full((k + 3 * n,), float("nan"), dtype=torch.float64, device=cuda)
+                for _ in range(64)]
+        cases.append((Hp, Hp.to(cuda), p, n, k, outs, torch.cuda.Stream(cuda)))
+    torch.cuda.synchronize()
+    for (_, Hc, p, n, k, outs, st) in cases:
+        with torch.cuda.stream(st):
+            torch.cuda._sleep(20_000_000)
+            for t, out in enumerate(outs):
+                glue._launch(Hc, p, n, t % 7, n - 1 - t % 3, 1 + t % 20, AlgoConfig(),
+                             out.data_ptr(), st.cuda_stream)
+    torch.cuda.synchronize()
+    for (Hp, _, p, n, k, outs, _) in cases:
+        for t, out in enumerate(outs):
+            ref = glue.glue_plain(Hp, n, t % 7, n - 1 - t % 3, 1 + t % 20, AlgoConfig())
+            assert torch.equal(out[:k].cpu(), ref), t
+
+
+def test_real_cores_on_two_threads_at_once(cuda):
+    """Two runs of pqr_real_core at one (p, n) on two threads of one card,
+    each thread on its own stream, give what they give one after the other,
+    bit for bit: each run reads kernel G through buffers of its own."""
+    import threading
+    runs = []
+    for seed in (31, 32):
+        A = np.random.default_rng(seed).standard_normal((4, 48, 48))
+        H, Q = hessenberg.phessenberg_core(torch.tensor(A, device=cuda))
+        runs.append((H, Q))
+    alone = [pqr_real.pqr_real_core(H, Z=Q, with_info=True) for (H, Q) in runs]
+    torch.cuda.synchronize()
+    both = [None, None]
+    errors = []
+
+    def run(k):
+        try:
+            st = torch.cuda.Stream(cuda)
+            with torch.cuda.stream(st):
+                H, Q = runs[k]
+                st.wait_stream(torch.cuda.default_stream(cuda))
+                both[k] = pqr_real.pqr_real_core(H, Z=Q, with_info=True)
+                st.synchronize()
+        except BaseException as e:  # surfaced below
+            errors.append(e)
+    threads = [threading.Thread(target=run, args=(k,)) for k in range(2)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    for out, ref in zip(both, alone):
+        assert out[4] and ref[4] and out[5]["niter"] == ref[5]["niter"]
+        assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
+        assert np.array_equal(out[2], ref[2]) and np.array_equal(out[3], ref[3])
+
+
+@pytest.mark.parametrize("p", [33, 40])
+def test_cx_shift_kernel_many_factors(cuda, p):
+    Hn, _, _ = _cx_problem(p, 16, 30 + p)
+    H = torch.tensor(Hn, device=cuda)
+    for S in (tuple(l % 2 == 0 for l in range(p)), (True,) * p, (True,) + (False,) * (p - 1)):
+        for (a, b) in [(0, 15), (3, 9), (7, 8)]:
+            ck = sweep_cx.qz_shift(H, a, b, S)
+            cp = sweep_cx.qz_shift_plain(H, a, b, S)
+            assert float((ck - cp).abs().max()) <= 1e-14
 
 
 def test_core_with_glue_on_the_card(cuda, monkeypatch):
