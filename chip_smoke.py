@@ -16,14 +16,17 @@ and checks the results:
   shapes (n=3, n=37 with S=(T,F,F), p=4 n=64 alternating, all direct,
   p=1, a planted zero on an inverted factor's diagonal);
 * real: the kernels of the double-shift sweep, of the multi-bulge sweep
-  (4 bulges) and of the 2x2 deflation at p=16, n=512; ``pschur(A, 'R')``
-  on the headline draw, kernel G against
-  its plain version on states of that leg's iteration (and its time alone,
-  through ``glue_cuda`` and as one call of ``glue_products_scan_shift``
-  with the read-back and unpacking), the same draw
-  through ``pschur_real_pipeline(A, 'R', cfg=AlgoConfig(nbulges=4))``
-  (eigenvalues against the one-bulge leg's), and one 'L' problem with one
-  and with two bulges;
+  (4 bulges) and of the 2x2 deflation at p=16, n=512; the headline draw
+  through ``pschur_real_pipeline(A, 'R', cfg=AlgoConfig(aed=False,
+  host_tail=-1))`` (the iteration without aggressive early deflation and
+  the host tail), kernel G against its plain version on states of that
+  leg's iteration (and its time alone, through ``glue_cuda`` and as one
+  call of ``glue_products_scan_shift`` with the read-back and unpacking);
+  ``pschur(A, 'R')`` on the same draw, the default main path (AED and the
+  host tail, which must both deflate; eigenvalues against the AED-off
+  leg's); ``ordschur`` and ``eigvecs`` of a p=4 n=64 decomposition on the
+  card; the headline draw with ``nbulges=4`` (AED off; eigenvalues against
+  the one-bulge leg's), and one 'L' problem with one and with two bulges;
 * complex: the kernels of the single-shift QZ sweep and its shift at p=8,
   n=256 with an alternating signature; ``pschur`` on a complex p=8 n=256
   cycle (no signature: the complex128 reduction kernel) and a p=8 n=128
@@ -403,42 +406,57 @@ def apply_small_check(dev):
 
 
 def headline_profile(dev):
-    """torch.profiler over one real headline ``pschur`` (p=16 n=512, seed
-    12345): wall, device busy time and idle share, kernel A's share of the
+    """torch.profiler over two real headline runs (p=16 n=512, seed 12345):
+    the default ``pschur`` (AED and the host tail, the main path) and
+    ``pschur_real_pipeline`` without them (``aed=False, host_tail=-1``).
+    For each: wall, device busy time and idle share, kernel A's share of the
     device time and its time per (step, factor) on the leg's windows, B0's
     and B's device time and launches, and the reduction kernel's
-    (``hess_reduce_kernel``) time."""
+    (``hess_reduce_kernel``: the cycle's reduction and, with AED, each
+    window's re-reduction); with AED also its events and host seconds."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     import periodicschurdecompositions_jl_torch as pt
+    from periodicschurdecompositions_jl_torch.config import AlgoConfig
     from periodicschurdecompositions_jl_torch.ops import pqr_real
     A = torch.tensor(np.random.default_rng(SEED_HEAD).standard_normal(
         (P_HEAD, N_HEAD, N_HEAD)), device=dev)
-    torch.cuda.synchronize()
-    # The trace of a whole pschur has left out the reduction's cooperative
-    # launch in some runs (PERF.md section 5): the line also prints the
-    # reduction's host time.
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        pt.pschur(A, "R")
+    legs = (("pschur (default: AED and host tail)", lambda: pt.pschur(A, "R")),
+            ("pschur_real_pipeline aed=False host_tail=-1",
+             lambda: pqr_real.pschur_real_pipeline(
+                 A, "R", cfg=AlgoConfig(aed=False, host_tail=-1))))
+    for tag, run in legs:
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    ev = [e for e in prof.key_averages() if "CUDA" in str(e.device_type) and dev_us(e) > 0]
-    busy = sum(dev_us(e) for e in ev)
-    a_us = sum(dev_us(e) for e in ev if "sweep_generate_kernel" in e.key)
-    b0 = [e for e in ev if "sweep_left_kernel" in e.key]
-    b = [e for e in ev if "sweep_right_kernel" in e.key]
-    hess = [e for e in ev if "hess_reduce_kernel" in e.key]
-    steps = pqr_real.last_info["sweep_steps"]
-    _log(f"profile of one headline pschur: kernel A {a_us / 1e3:.1f} ms, "
-         f"{a_us / busy:.1%} of device time, {a_us / (steps * P_HEAD):.4f} us per (step, "
-         f"factor) over {steps} steps; B0 {sum(dev_us(e) for e in b0) / 1e3:.1f} ms in "
-         f"{sum(e.count for e in b0)}, B {sum(dev_us(e) for e in b) / 1e3:.1f} ms in "
-         f"{sum(e.count for e in b)} ({sum(dev_us(e) for e in b0 + b) / busy:.1%} of device "
-         f"time); reduction kernel hess_reduce_kernel "
-         f"{sum(dev_us(e) for e in hess) / 1e3:.1f} ms in {sum(e.count for e in hess)} "
-         f"in the trace (reduction {pqr_real.last_info['reduce_s'] * 1e3:.1f} ms on the "
-         f"host clock); {profile_line(prof, wall)}")
+        # The trace of a whole pschur has left out the reduction's cooperative
+        # launch in some runs (PERF.md section 5): the line also prints the
+        # reduction's host time.
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        info = pqr_real.last_info
+        ev = [e for e in prof.key_averages()
+              if "CUDA" in str(e.device_type) and dev_us(e) > 0]
+        busy = sum(dev_us(e) for e in ev)
+        a_us = sum(dev_us(e) for e in ev if "sweep_generate_kernel" in e.key)
+        b0 = [e for e in ev if "sweep_left_kernel" in e.key]
+        b = [e for e in ev if "sweep_right_kernel" in e.key]
+        hess = [e for e in ev if "hess_reduce_kernel" in e.key]
+        steps = info["sweep_steps"]
+        aed = (f"; AED {info['aed_events']} events, aed_deflated {info['aed_deflated']}, "
+               f"host_tail_finished {info['host_tail_finished']}, aed_s "
+               f"{info['aed_s']:.3f} s" if "aed_events" in info else "")
+        _log(f"profile of one headline {tag}: niter {info['niter']}, kernel A "
+             f"{a_us / 1e3:.1f} ms, {a_us / busy:.1%} of device time, "
+             f"{a_us / (steps * P_HEAD):.4f} us per (step, factor) over {steps} steps; B0 "
+             f"{sum(dev_us(e) for e in b0) / 1e3:.1f} ms in {sum(e.count for e in b0)}, B "
+             f"{sum(dev_us(e) for e in b) / 1e3:.1f} ms in {sum(e.count for e in b)} "
+             f"({sum(dev_us(e) for e in b0 + b) / busy:.1%} of device time); reduction "
+             f"kernel hess_reduce_kernel {sum(dev_us(e) for e in hess) / 1e3:.1f} ms in "
+             f"{sum(e.count for e in hess)} in the trace (reduction "
+             f"{info['reduce_s'] * 1e3:.1f} ms on the host clock){aed}; "
+             f"{profile_line(prof, wall)}")
 
 
 def mb_generate(lib, st, H, m, i, v0, sig, nb, nbact, gap=MB_GAP):
@@ -1131,14 +1149,17 @@ def eig_dist(w, ref):
     return float(max(d.min(axis=1).max(), d.min(axis=0).max()))
 
 
-def e2e_case(dev, p, n, seed, lr, nbulges=1, ref_values=None):
-    """The real path on a real cycle: ``pschur`` with one bulge, or
-    ``pschur_real_pipeline(A, lr, cfg=AlgoConfig(nbulges=...))``.  Returns
-    the launch counts and the iteration info with the wall clock, the
-    backward error and the eigenvalues; kernel G must have launched once per
-    iteration, and every sweep went through the one-bulge kernel A or,
-    with nbulges > 1, through A-mb.  ``ref_values``: eigenvalues of the same
-    product from another leg, to agree within 1000 eps max|lambda|."""
+def e2e_case(dev, p, n, seed, lr, nbulges=1, ref_values=None, aed=False):
+    """The real path on a real cycle.  ``aed``: ``pschur`` with its default
+    configuration (aggressive early deflation and the host tail, which must
+    both have deflated); else ``pschur_real_pipeline(A, lr,
+    cfg=AlgoConfig(nbulges=..., aed=False, host_tail=-1))``, the iteration
+    without them.  Returns the launch counts and the iteration info with
+    the wall clock, the backward error and the eigenvalues; kernel G must
+    have launched once per iteration, and every sweep went through the
+    one-bulge kernel A or, with nbulges > 1, through A-mb.  ``ref_values``:
+    eigenvalues of the same product from another leg, to agree within 1000
+    eps max|lambda|."""
     import torch
     import periodicschurdecompositions_jl_torch as pt
     from periodicschurdecompositions_jl_torch.config import AlgoConfig
@@ -1151,11 +1172,11 @@ def e2e_case(dev, p, n, seed, lr, nbulges=1, ref_values=None):
         for k in d:
             d[k] = 0
     t0 = time.perf_counter()
-    if nbulges == 1:
+    if aed:
         P = pt.pschur(At, lr)
     else:
-        P = pqr_real.pschur_real_pipeline(At, lr, cfg=AlgoConfig(nbulges=nbulges,
-                                                                bulge_gap=MB_GAP))
+        P = pqr_real.pschur_real_pipeline(At, lr, cfg=AlgoConfig(
+            nbulges=nbulges, bulge_gap=MB_GAP, aed=False, host_tail=-1))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {k: v for d in counters for k, v in d.items()}
@@ -1168,11 +1189,16 @@ def e2e_case(dev, p, n, seed, lr, nbulges=1, ref_values=None):
     be = backerr(A, T, Z, left=(lr == "L"))
     orth_bound = 10 * np.finfo(np.float64).eps * n
     vals = P.values.cpu().numpy()
-    tag = "pschur" if nbulges == 1 else f"pschur_real_pipeline nbulges={nbulges}"
+    tag = ("pschur (default: AED and host tail)" if aed else "pschur_real_pipeline "
+           f"aed=False host_tail=-1{'' if nbulges == 1 else f' nbulges={nbulges}'}")
     msg = ""
     if ref_values is not None:
         ev = eig_dist(vals, ref_values) / np.abs(ref_values).max()
-        msg = f", eigenvalues vs the nbulges=1 leg {ev:.3e} max|lambda|"
+        msg = f", eigenvalues vs the nbulges=1 AED-off leg {ev:.3e} max|lambda|"
+    if aed:
+        msg += (f"; AED: {info['aed_events']} events, {info['aed_hits']} deflating, "
+                f"aed_deflated {info['aed_deflated']}, host_tail_finished "
+                f"{info['host_tail_finished']}, aed_s {info['aed_s']:.3f} s of host analysis")
     _log(f"{tag} p={p} n={n} seed={seed} lr={lr}: wall {wall:.3f} s (reduction "
          f"{info['reduce_s']:.3f} s, iteration {info['iterate_s']:.3f} s), niter "
          f"{info['niter']}, sweeps {info['sweeps']}, bulges {info['bulges']}, chase steps "
@@ -1188,7 +1214,10 @@ def e2e_case(dev, p, n, seed, lr, nbulges=1, ref_values=None):
     if not (np.all(np.isfinite(vals)) and vals.shape == (n,)):
         raise AssertionError("eigenvalues not finite or of the wrong shape")
     if ref_values is not None and not ev <= 1000 * np.finfo(np.float64).eps:
-        raise AssertionError(f"eigenvalues differ from the nbulges=1 leg's by {ev:.3e}")
+        raise AssertionError(f"eigenvalues differ from the nbulges=1 AED-off leg's by {ev:.3e}")
+    if aed and not (info["aed_deflated"] > 0 and info["host_tail_finished"] > 0):
+        raise AssertionError(f"AED deflated {info['aed_deflated']}, the host tail finished "
+                             f"{info['host_tail_finished']}: both must be > 0")
     # the signed reduction is not on the real direct path
     unused = ("sweep_generate_mb" if nbulges == 1 else "sweep_generate", "hess_signed")
     for k, v in launches.items():
@@ -1201,6 +1230,53 @@ def e2e_case(dev, p, n, seed, lr, nbulges=1, ref_values=None):
         raise AssertionError(f"{launches['sweep_left']} sweeps launched, {info['sweeps']} "
                              f"counted")
     return launches, {**info, "wall_s": wall, "backerr": be, "values": vals}
+
+
+def reorder_phase(dev):
+    """``ordschur`` and ``eigvecs`` on a decomposition on the card:
+    ``pschur`` of a real p=4 n=64 cycle (seed 64), ``ordschur`` of three
+    values (widened over conjugate pairs) with ``check_psd`` of the result
+    against the cycle, its tensors on the card and bit for bit the same
+    reordering of a CPU copy; ``eigvecs`` of the two values of largest
+    modulus, on the card, with the residual of ``A[0] ... A[3] v = lambda v``
+    relative to |lambda| |v|."""
+    import torch
+    import periodicschurdecompositions_jl_torch as pt
+    p, n = 4, 64
+    A = np.random.default_rng(64).standard_normal((p, n, n))
+    P = pt.pschur(torch.tensor(A, device=dev), "R")
+    vals = P.values.cpu().numpy()
+    select = [j in (5, n // 2, n - 1) for j in range(n)]
+    t0 = time.perf_counter()
+    P2 = pt.ordschur(P, select)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    Pc = pt.PeriodicSchur(Ts=P.Ts.cpu(), Zs=P.Zs.cpu(), values=P.values.cpu(),
+                          orientation=P.orientation, schurindex=P.schurindex)
+    P2c = pt.ordschur(Pc, select)
+    ok, rep = pt.check_psd(P2, A, tol=2000.0)
+    on_card = all(t.device.type == "cuda" for t in (P2.Ts, P2.Zs, P2.values))
+    same = all(torch.equal(a.cpu(), b) for a, b in ((P2.Ts, P2c.Ts), (P2.Zs, P2c.Zs),
+                                                    (P2.values, P2c.values)))
+    k = int(np.sum(select))  # before widening over pairs: at most 2k lead
+    top = P2.values.cpu().numpy()[:2 * k]
+    led = max(min(abs(top - v)) / abs(v) for v in vals[np.asarray(select)])
+    big = [int(j) for j in np.argsort(-np.abs(vals))[:2]]
+    Vs = pt.eigvecs(P, [j in big for j in range(n)])
+    M = A[0] @ A[1] @ A[2] @ A[3]
+    lam = vals[np.asarray([j in big for j in range(n)])]
+    V0 = Vs[0].cpu().numpy()
+    res = max(np.linalg.norm(M @ V0[:, c] - lam[c] * V0[:, c])
+              / (abs(lam[c]) * np.linalg.norm(V0[:, c])) for c in range(len(lam)))
+    _log(f"ordschur on the card p={p} n={n}: {secs:.3f} s, check_psd ok={ok} residual "
+         f"{rep['residual_rel']:.3e} orth {rep['orthonormality']:.3e}, selected values "
+         f"lead within {led:.3e} relative, on the card {on_card}, equal to the CPU "
+         f"reordering {same}; eigvecs of the two largest: {len(Vs)} matrices on "
+         f"{Vs[0].device}, residual {res:.3e}")
+    if not (ok and on_card and same and led <= 1e-10):
+        raise AssertionError("ordschur on the card failed its checks")
+    if not (len(Vs) == p and all(v.device.type == "cuda" for v in Vs) and res <= 1e-10):
+        raise AssertionError("eigvecs on the card failed its checks")
 
 
 class capture_glue_states:
@@ -2282,6 +2358,10 @@ def main() -> int:
     t_start = t0 = time.perf_counter()
     _cuda.load()
     _log(f"kernel build (nvcc) + load: {time.perf_counter() - t0:.2f} s")
+    from periodicschurdecompositions_jl_torch import native
+    t0 = time.perf_counter()
+    native.load()
+    _log(f"native window Schur build (g++) + load: {time.perf_counter() - t0:.2f} s")
 
     report = {}
     hess_phase(dev, report)
@@ -2294,6 +2374,13 @@ def main() -> int:
         launches, head = e2e_case(dev, P_HEAD, N_HEAD, SEED_HEAD, "R")
     glue_phase(dev, list(cap.states.values()), report)
     del cap
+    # the default main path: AED and the host tail; its counts go in the line
+    aed_launches, _ = e2e_case(dev, P_HEAD, N_HEAD, SEED_HEAD, "R",
+                               ref_values=head["values"], aed=True)
+    for k in ("sweep_generate", "sweep_left", "sweep_right", "deflate2x2", "glue",
+              "hess_reduce"):
+        launches[k] = aed_launches[k]
+    reorder_phase(dev)
     mb_launches, _ = e2e_case(dev, P_HEAD, N_HEAD, SEED_HEAD, "R", nbulges=MB_NB,
                               ref_values=head["values"])
     launches["sweep_generate_mb"] = mb_launches["sweep_generate_mb"]

@@ -12,19 +12,27 @@ its shift, and the real generalized chase and its rotation ladders run as
 hand-written CUDA kernels (``csrc/``, built with nvcc on first use), on
 the CPU as their plain torch versions.  Sets no global torch state.
 
+The real iteration of ``pschur`` runs with aggressive early deflation and
+the host-tail finish (``AlgoConfig.aed``, ``host_tail``: on by default, AED
+from n = 192), their window analyses on the host with the repo's native C++
+window Schur (``native.py``, built with g++ on first use).
+
 Ported so far: ``pschur`` for real and complex cycles with or without a
-signature, ``gpschur`` for real and complex pairs, ``phessenberg`` and
-``check_psd``.  ``want_t=False`` raises ``PSDNotImplemented``.
+signature, ``gpschur`` for real and complex pairs, ``phessenberg``,
+``ordschur``, ``eigvecs`` and ``check_psd``.  ``want_t=False`` raises
+``PSDNotImplemented``.
 """
 from .config import AlgoConfig, default_config, setverbosity, verbosity
 from .diagnostics import check_psd
 from .models.drivers import gpschur, phessenberg, pschur
+from .models.ordschur import ordschur
+from .models.vectors import eigvecs
 from .types import (ConvergenceFailure, GeneralizedPeriodicSchur,
                     IllConditionedException, PeriodicSchur, PSDNotImplemented)
 
 __all__ = [
     "AlgoConfig", "default_config", "setverbosity", "verbosity", "check_psd",
-    "gpschur", "phessenberg", "pschur", "ConvergenceFailure",
+    "gpschur", "phessenberg", "pschur", "ordschur", "eigvecs", "ConvergenceFailure",
     "GeneralizedPeriodicSchur", "IllConditionedException", "PeriodicSchur",
     "PSDNotImplemented",
 ]

@@ -1,7 +1,7 @@
 """Algorithm configuration and verbosity (PyTorch port of ``config.py``).
 
-Only the switches the real periodic QR core reads are carried; the
-semantics are those of the JAX package's ``AlgoConfig``:
+Only the switches the ported modules read are carried; the semantics are
+those of the JAX package's ``AlgoConfig``:
 
 * ``slicot_shifts``: SLICOT's shift computation instead of dlahqr's.
 * ``slicot_convg``: SLICOT's (laxer) deflation criterion instead of the
@@ -18,6 +18,23 @@ semantics are those of the JAX package's ``AlgoConfig``:
   the eigenvalues of the trailing ``2 nbulges`` window of the cycle
   product (``ops/smallschur.py``).  1, the default, is the reference's
   single-bulge Francis sweep.
+* ``iterative_2x2``: ``ordschur`` re-solves a 2x2 block's eigenvalues
+  with the iterative MB03BB-style periodic QZ instead of the one-shot
+  scaled product (falls back to it when the iteration does not converge).
+* ``aed``, ``aed_window``, ``aed_interval``, ``aed_min_n``,
+  ``aed_max_moves``: aggressive early deflation of the real iteration
+  (``ops/aed.py``, driven by ``ops/pqr_real.py::pqr_real_core_aed``).
+  Every ``aed_interval`` iterations (0: ``max(24, n // 4)``, doubled after
+  two misses) the trailing ``aed_window`` window (0: ``min(48, max(16,
+  n // 10))``) is brought to periodic Schur form on the host and its
+  converged eigenvalues are deflated from the spike.  On at ``n >=
+  aed_min_n``, or at any n with an explicit ``aed_window``.
+  ``aed_max_moves`` caps the failed-block moves of one analysis (-1:
+  unlimited).
+* ``host_tail``: once the active window has shrunk to ``host_tail`` rows
+  or fewer, one host window Schur finishes it (0: ``min(64, n // 8)``;
+  -1: off).  The window Schur is the repo's native C++ one
+  (``native.py``, built with g++ on first use).
 """
 from __future__ import annotations
 
@@ -26,7 +43,7 @@ import dataclasses
 
 @dataclasses.dataclass(frozen=True)
 class AlgoConfig:
-    """Static algorithm switches for the real periodic QR core."""
+    """Static algorithm switches of the iteration cores and reordering."""
 
     slicot_shifts: bool = False
     slicot_convg: bool = False
@@ -35,6 +52,13 @@ class AlgoConfig:
     allow_early_qr: bool = False
     nbulges: int = 1
     bulge_gap: int = 3
+    iterative_2x2: bool = False
+    aed: bool = True
+    aed_window: int = 0
+    aed_interval: int = 0
+    aed_min_n: int = 192
+    host_tail: int = 0
+    aed_max_moves: int = 4
 
     def ulp_x(self, ulp: float) -> float:
         """Tightened Ahues-Tisseur relative threshold ``eps^(1+at_pwr16/16)``."""
@@ -45,7 +69,7 @@ default_config = AlgoConfig()
 
 # Verbosity: host-side, keyed channels (the JAX package's keys that the
 # ported modules read).
-_VERBOSITY = {"main": 0}
+_VERBOSITY = {"main": 0, "sylswap": 0, "rordschur": 0, "r2x2": 0}
 
 
 def setverbosity(level: int, key: str = "main") -> None:

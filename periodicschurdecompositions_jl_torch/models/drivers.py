@@ -108,6 +108,10 @@ def pschur(A, lr="R", S: Optional[Sequence[bool]] = None, *,
          Hessenberg reduction of direct factors, the real iteration's per-iteration glue, the
          sweeps, the 2x2 deflation, the complex shift and the real
          generalized chase and its ladders run as hand-written CUDA kernels.
+         The real iteration without a signature takes aggressive early
+         deflation and the host-tail finish of the default ``AlgoConfig``
+         (``ops/pqr_real.py::pqr_real_core_aed``; its window analyses run
+         on the host).
       lr: 'R' for the product ``A[0] @ ... @ A[p-1]``, 'L' for
           ``A[p-1] @ ... @ A[0]``.
       S: optional signature (True = direct, False = inverted factor); the

@@ -33,8 +33,14 @@ The eigenvalue-order check after a 2x2 deflation reads diagonal entries
 that no later iteration touches, so it is evaluated once at the end from
 the final factors (same values as evaluating it immediately).
 
+Aggressive early deflation and the host-tail finish (the JAX package's
+chunked driver) live in ``pqr_real_core_aed``, a driver around the same
+loop: ``pqr_real_core`` called directly runs neither, and
+``pschur_real_pipeline`` runs the driver (``AlgoConfig.aed``,
+``host_tail``; ``ops/aed.py``).
+
 Not carried over yet: ``want_t=False`` windowing (raises
-``PSDNotImplemented``), AED and the host-tail finish (ROADMAP).
+``PSDNotImplemented``).
 """
 from __future__ import annotations
 
@@ -255,6 +261,16 @@ def _mb_shifts(Hp, hdiag, hsub, hsup, v0, m, i, its, n, cfg):
     return v0, sig, nbact
 
 
+def _check_args(H, want_t, cfg):
+    if not want_t:
+        raise PSDNotImplemented(
+            "want_t=False windowing is not ported yet (ROADMAP queue 1, item 4)")
+    if H.dtype != torch.float64:
+        raise ValueError("pqr_real_core: H must be float64")
+    if cfg.nbulges > 1:
+        check_mb(cfg.nbulges, cfg.bulge_gap)
+
+
 def pqr_real_core(H: torch.Tensor, Z: Optional[torch.Tensor] = None,
                   want_z: bool = True, want_t: bool = True, maxitfac: int = 30,
                   cfg: AlgoConfig = default_config, with_info: bool = False):
@@ -274,18 +290,9 @@ def pqr_real_core(H: torch.Tensor, Z: Optional[torch.Tensor] = None,
       chase steps i - m summed over the sweeps, sweeps, and bulges chased)
       when ``with_info``.
     """
-    if not want_t:
-        raise PSDNotImplemented(
-            "want_t=False windowing is not ported yet (ROADMAP queue 1, item 4)")
-    if H.dtype != torch.float64:
-        raise ValueError("pqr_real_core: H must be float64")
-    if cfg.nbulges > 1:
-        check_mb(cfg.nbulges, cfg.bulge_gap)
+    _check_args(H, want_t, cfg)
     p, n, _ = H.shape
     dev = H.device
-    ulp = float(np.finfo(np.float64).eps)
-    unfl = float(np.finfo(np.float64).tiny)
-    smlnum = unfl * (n / ulp)
     maxit = maxitfac * n
 
     if n == 1:
@@ -298,101 +305,305 @@ def pqr_real_core(H: torch.Tensor, Z: Optional[torch.Tensor] = None,
         return out + ({"niter": 0, "maxit": maxit, "sweep_steps": 0, "sweeps": 0,
                        "bulges": 0},) if with_info else out
 
-    # deflation thresholds for the triangular-factor diagonals
-    hnorms = (ulp * n * torch.amax(torch.sum(torch.abs(H), dim=1), dim=1)).cpu().numpy()
+    run = _Run(H, Z, want_z, maxitfac, cfg)
+    run.iterate(run.maxit)
+    return run.finish(with_info)
 
-    N = n + 1
-    Hp = torch.zeros((p, N, N), dtype=torch.float64, device=dev)
-    Hp[:, :n, :n] = H
-    Zp = None
-    if want_z:
-        Zp = torch.zeros((p, N, N), dtype=torch.float64, device=dev)
-        if Z is None:
-            Zp[:, :n, :n] = torch.eye(n, dtype=torch.float64, device=dev)
-        else:
-            Zp[:, :n, :n] = Z
-    gather = _BandGather(p, n, dev)
-    gbufs = glue_buffers(Hp, n)  # this run's own, reused by every iteration
-    wr = np.zeros(n)
-    wi = np.zeros(n)
-    swaps = []  # (i, w1r, w2r) of real 2x2 deflations, checked at the end
 
-    i, l, its, jiter = n - 1, 0, 1, 0
-    steps = sweeps = bulges = 0  # chase steps (sum of i - m), sweeps, bulges
-    while i >= 0 and jiter < maxit:
-        # kernel G: band, scan, v0 and the factor entries read below
-        g = glue_products_scan_shift(Hp, n, l, i, its, cfg, gbufs)
-        hdiag, hsub, hsup, lnew = g.hdiag, g.hsub, g.hsup, g.lnew
-        D, U, S0 = g.D, g.U, g.S0
+class _Run:
+    """The state of one run of the real iteration: the padded device stack,
+    the host-side iteration control and the eigenvalues found so far.
+    ``iterate`` resumes the loop up to an absolute iteration cap, so a
+    driver can stop it between iterations (``pqr_real_core_aed``)."""
 
-        # ---- subdiagonal repair -----------------------------------------
-        repaired = False
-        if lnew > 0 and p > 1:
-            t1r = abs(D[0, lnew - 1]) + abs(D[0, lnew])
-            if abs(S0[lnew]) > max(ulp * t1r, smlnum):
-                _repair(Hp, Zp, i, lnew, p, cfg, want_z)
-                repaired = True
-        if lnew > 0:
-            Hp[0, lnew, lnew - 1] = 0.0
-            S0[lnew] = 0.0
-
-        splitting = lnew >= i - 1
-        if not splitting:
-            if cfg.nbulges > 1:
-                m = lnew
-                v0, sig, nbact = _mb_shifts(Hp, hdiag, hsub, hsup, g.v0, m, i, its, n, cfg)
-                chase_sweep_mb(Hp, Zp, m, i, v0, sig, nbact, nb=cfg.nbulges,
-                               gap=cfg.bulge_gap, want_z=want_z)
+    def __init__(self, H, Z, want_z, maxitfac, cfg):
+        p, n, _ = H.shape
+        dev = H.device
+        self.p, self.n, self.dev, self.cfg, self.want_z = p, n, dev, cfg, want_z
+        self.ulp = ulp = float(np.finfo(np.float64).eps)
+        self.smlnum = float(np.finfo(np.float64).tiny) * (n / ulp)
+        self.maxit = maxitfac * n
+        # deflation thresholds for the triangular-factor diagonals
+        self.hnorms = (ulp * n * torch.amax(torch.sum(torch.abs(H), dim=1),
+                                            dim=1)).cpu().numpy()
+        N = n + 1
+        self.Hp = Hp = torch.zeros((p, N, N), dtype=torch.float64, device=dev)
+        Hp[:, :n, :n] = H
+        self.Zp = None
+        if want_z:
+            self.Zp = torch.zeros((p, N, N), dtype=torch.float64, device=dev)
+            if Z is None:
+                self.Zp[:, :n, :n] = torch.eye(n, dtype=torch.float64, device=dev)
             else:
-                if cfg.allow_early_qr:
-                    m, v0, early = _shift_v0(hdiag, hsub, hsup, lnew, i, its, n, cfg, ulp)
+                self.Zp[:, :n, :n] = Z
+        self.gather = _BandGather(p, n, dev)
+        self.gbufs = glue_buffers(Hp, n)  # this run's own, reused by every iteration
+        self.wr = np.zeros(n)
+        self.wi = np.zeros(n)
+        self.swaps = []  # (i, w1r, w2r) of real 2x2 deflations, checked at the end
+        self.i, self.l, self.its, self.jiter = n - 1, 0, 1, 0
+        # chase steps (sum of i - m), sweeps, bulges
+        self.steps = self.sweeps = self.bulges = 0
+
+    def iterate(self, it_cap: int) -> None:
+        """Run iterations until the window is empty or ``jiter`` reaches
+        ``it_cap``."""
+        Hp, Zp, p, n, cfg, want_z = self.Hp, self.Zp, self.p, self.n, self.cfg, self.want_z
+        ulp, smlnum, hnorms, gather, gbufs = (self.ulp, self.smlnum, self.hnorms,
+                                              self.gather, self.gbufs)
+        wr, wi, swaps = self.wr, self.wi, self.swaps
+        i, l, its, jiter = self.i, self.l, self.its, self.jiter
+        steps, sweeps, bulges = self.steps, self.sweeps, self.bulges
+        while i >= 0 and jiter < it_cap:
+            # kernel G: band, scan, v0 and the factor entries read below
+            g = glue_products_scan_shift(Hp, n, l, i, its, cfg, gbufs)
+            hdiag, hsub, hsup, lnew = g.hdiag, g.hsub, g.hsup, g.lnew
+            D, U, S0 = g.D, g.U, g.S0
+
+            # ---- subdiagonal repair -------------------------------------
+            repaired = False
+            if lnew > 0 and p > 1:
+                t1r = abs(D[0, lnew - 1]) + abs(D[0, lnew])
+                if abs(S0[lnew]) > max(ulp * t1r, smlnum):
+                    _repair(Hp, Zp, i, lnew, p, cfg, want_z)
+                    repaired = True
+            if lnew > 0:
+                Hp[0, lnew, lnew - 1] = 0.0
+                S0[lnew] = 0.0
+
+            splitting = lnew >= i - 1
+            if not splitting:
+                if cfg.nbulges > 1:
+                    m = lnew
+                    v0, sig, nbact = _mb_shifts(Hp, hdiag, hsub, hsup, g.v0, m, i, its, n,
+                                                cfg)
+                    chase_sweep_mb(Hp, Zp, m, i, v0, sig, nbact, nb=cfg.nbulges,
+                                   gap=cfg.bulge_gap, want_z=want_z)
                 else:
-                    m, v0, early = lnew, g.v0, False
-                chase_sweep(Hp, Zp, m, i, v0, want_z=want_z, early=early)
-                nbact = 1
-            steps += i - m
-            sweeps += 1
-            bulges += nbact
-        elif lnew == i:
-            wr[i] = hdiag[i]
-            wi[i] = 0.0
-        else:
-            if repaired:
-                D, U, V, S0 = gather(Hp)
-            _defl2(Hp, Zp, D, U, S0, i, p, hnorms, ulp, smlnum, wr, wi,
-                   swaps, want_z)
+                    if cfg.allow_early_qr:
+                        m, v0, early = _shift_v0(hdiag, hsub, hsup, lnew, i, its, n, cfg,
+                                                 ulp)
+                    else:
+                        m, v0, early = lnew, g.v0, False
+                    chase_sweep(Hp, Zp, m, i, v0, want_z=want_z, early=early)
+                    nbact = 1
+                steps += i - m
+                sweeps += 1
+                bulges += nbact
+            elif lnew == i:
+                wr[i] = hdiag[i]
+                wi[i] = 0.0
+            else:
+                if repaired:
+                    D, U, V, S0 = gather(Hp)
+                _defl2(Hp, Zp, D, U, S0, i, p, hnorms, ulp, smlnum, wr, wi,
+                       swaps, want_z)
 
-        if splitting:
-            i = lnew - 1
-            l = 0
-            its = 1
-        else:
-            l = lnew
-            its += 1
-        jiter += 1
+            if splitting:
+                i = lnew - 1
+                l = 0
+                its = 1
+            else:
+                l = lnew
+                its += 1
+            jiter += 1
+        self.i, self.l, self.its, self.jiter = i, l, its, jiter
+        self.steps, self.sweeps, self.bulges = steps, sweeps, bulges
 
-    ok = i < 0
-    T = Hp[:, :n, :n].contiguous()
-    Zo = Zp[:, :n, :n].contiguous() if want_z else None
-    # scrub subdiagonals of real eigenvalues (reference :1066-1073)
-    keep = torch.as_tensor(wi[:-1] != 0, device=dev)
-    sub = torch.diagonal(T[0], -1)
-    sub.copy_(torch.where(keep, sub, torch.zeros_like(sub)))
-    if p > 1:
-        T[1:] = torch.triu(T[1:])
-    if swaps:
-        Dfin = torch.diagonal(T, dim1=1, dim2=2).cpu().numpy()
-        for (ii, w1r, w2r) in swaps:
-            l1 = Dfin[0, ii - 1]
-            for f in range(1, p):
-                l1 = l1 * Dfin[f, ii - 1]
-            if abs(l1 - w1r) > abs(l1 - w2r):
-                wr[ii - 1], wr[ii] = wr[ii], wr[ii - 1]
-    out = (T, Zo, wr, wi, ok)
-    if with_info:
-        return out + ({"niter": jiter, "maxit": maxit, "sweep_steps": steps,
-                       "sweeps": sweeps, "bulges": bulges},)
+    def finish(self, with_info: bool):
+        """Package (T, Z, wr, wi, ok[, info]) from the state."""
+        n, p, dev, wr, wi = self.n, self.p, self.dev, self.wr, self.wi
+        ok = self.i < 0
+        T = self.Hp[:, :n, :n].contiguous()
+        Zo = self.Zp[:, :n, :n].contiguous() if self.want_z else None
+        # scrub subdiagonals of real eigenvalues (reference :1066-1073)
+        keep = torch.as_tensor(wi[:-1] != 0, device=dev)
+        sub = torch.diagonal(T[0], -1)
+        sub.copy_(torch.where(keep, sub, torch.zeros_like(sub)))
+        if p > 1:
+            T[1:] = torch.triu(T[1:])
+        if self.swaps:
+            Dfin = torch.diagonal(T, dim1=1, dim2=2).cpu().numpy()
+            for (ii, w1r, w2r) in self.swaps:
+                l1 = Dfin[0, ii - 1]
+                for f in range(1, p):
+                    l1 = l1 * Dfin[f, ii - 1]
+                if abs(l1 - w1r) > abs(l1 - w2r):
+                    wr[ii - 1], wr[ii] = wr[ii], wr[ii - 1]
+        out = (T, Zo, wr, wi, ok)
+        if with_info:
+            return out + ({"niter": self.jiter, "maxit": self.maxit,
+                           "sweep_steps": self.steps, "sweeps": self.sweeps,
+                           "bulges": self.bulges},)
+        return out
+
+
+def chunk_iters(p: int, n: int) -> int:
+    """The JAX chunked driver's segment length (``ops/pqr_ff.py:143-151``,
+    476 at p=16 n=512): here the cap of the AED interval's back-off, so the
+    event schedule is the JAX driver's (the card has no execute kill)."""
+    per_iter = p * n * n * 1e-8
+    floor = min(256, max(16, int(45.0 / max(per_iter, 1e-9))))
+    return max(floor, int(20.0 / max(per_iter, 1e-9)))
+
+
+def aed_schedule(cfg: AlgoConfig, n: int):
+    """(window, interval, AED on, host-tail size) of a run at size n, with
+    the JAX driver's formulas and gates (``ops/pqr_ff.py:198-205,227-235``)."""
+    w = cfg.aed_window if cfg.aed_window else min(48, max(16, n // 10))
+    itv = cfg.aed_interval if cfg.aed_interval else max(24, n // 4)
+    on = bool(cfg.aed) and w >= 4 and n >= w + 4 and (n >= cfg.aed_min_n
+                                                      or cfg.aed_window > 0)
+    if cfg.host_tail < 0:
+        tail_n = 0
+    else:
+        tail_n = min(cfg.host_tail, n) if cfg.host_tail > 0 else min(64, n // 8)
+    return w, itv, on, tail_n
+
+
+def _upload(dev, *arrays):
+    """Host arrays -> tensors on dev in one copy."""
+    flat = torch.from_numpy(np.concatenate([np.ravel(a) for a in arrays])).to(dev)
+    out, k = [], 0
+    for a in arrays:
+        out.append(flat[k:k + a.size].view(a.shape))
+        k += a.size
     return out
+
+
+def pqr_real_core_aed(H: torch.Tensor, Z: Optional[torch.Tensor] = None,
+                      want_z: bool = True, want_t: bool = True, maxitfac: int = 30,
+                      cfg: AlgoConfig = default_config, with_info: bool = False):
+    """``pqr_real_core`` with aggressive early deflation and the host-tail
+    finish (the AED and host-tail logic of the JAX package's
+    ``ops/pqr_ff.py::pqr_real_core_ff_chunked``).
+
+    The iteration runs in segments of ``aed_interval`` iterations (doubled
+    after two misses, up to ``chunk_iters(p, n)``; with AED off segments of
+    ``chunk_iters(p, n)``).  At a segment boundary:
+
+    * host tail: once ``2 <= i + 1 <= tail_n``, one ``aed_analyze`` of the
+      leading [0, i] window with beta = 0 finishes the run when everything
+      deflates;
+    * AED: the trailing (p, w, w) window and ``beta = H0[s, s-1]`` come to
+      the host in one gather and one copy, ``ops.aed.aed_analyze`` runs on
+      the host (its re-reduction of the window on the state's device, the
+      reduction kernel on the card), and ``ops.aed.aed_apply`` writes the deflation into the
+      state; then ``i -= d``, ``l = 0``, ``its = 1``.
+
+    The window Schur is the native C++ one: when a run can reach a segment
+    boundary the library is built (or loaded) first, and a failed build
+    raises.  Same arguments and returns as ``pqr_real_core``; the info dict
+    adds ``aed_deflated`` and ``host_tail_finished`` (eigenvalues
+    deflated), ``aed_events`` (AED analyses), ``aed_hits`` (those that
+    deflated) and ``aed_s`` (host seconds of the AED and tail analyses,
+    with their window reads).  With AED and the tail off, or at sizes that
+    reach no boundary, the run is ``pqr_real_core``'s.
+    """
+    from .. import native
+    from ..types import IllConditionedException
+    from .aed import aed_analyze, aed_apply
+    _check_args(H, want_t, cfg)
+    p, n, _ = H.shape
+    extra = {"aed_deflated": 0, "host_tail_finished": 0, "aed_events": 0,
+             "aed_hits": 0, "aed_s": 0.0}
+    if n == 1:
+        out = pqr_real_core(H, Z, want_z=want_z, maxitfac=maxitfac, cfg=cfg,
+                            with_info=with_info)
+        return out[:-1] + ({**out[-1], **extra},) if with_info else out
+    run = _Run(H, Z, want_z, maxitfac, cfg)
+    maxit, dev = run.maxit, run.dev
+    chunk = chunk_iters(p, n)
+    aed_w, aed_itv, aed_on, tail_n = aed_schedule(cfg, n)
+    tol = None
+    if aed_on or (tail_n >= 2 and chunk < maxit):
+        native.load()
+        # spike-negligibility scale: zeroing a spike entry perturbs H0 by
+        # exactly that entry; the contract is a max-norm relative backward
+        # error <= 1e-12 (JAX ops/pqr_ff.py:209-219, in float64's ulp)
+        tol = run.ulp * float(n) ** 0.5 * float(torch.amax(torch.abs(H[0])))
+    max_moves = None if cfg.aed_max_moves < 0 else cfg.aed_max_moves
+    seg = min(chunk, aed_itv) if aed_on else chunk
+    misses = 0
+    talk = verbosity("main") >= 1
+
+    def analyze(Hwin, beta, what):
+        t0 = time.perf_counter()
+        try:
+            return aed_analyze(Hwin, beta, tol, max_moves, device=dev)
+        except (np.linalg.LinAlgError, IllConditionedException) as e:
+            if talk:
+                print(f"[pqr_real {what}] analysis failed ({e!r}); skipping")
+            return None
+        finally:
+            extra["aed_s"] += time.perf_counter() - t0
+
+    def try_tail():
+        # beta = 0: the whole leading window deflates through one window Schur
+        m = run.i + 1
+        t0 = time.perf_counter()
+        Hwin = run.Hp[:, :m, :m].cpu().numpy()
+        extra["aed_s"] += time.perf_counter() - t0
+        res = analyze(Hwin, 0.0, "tail")
+        if res is None or res[0] != m:
+            return False
+        _, Wf, Zt, lams, _ = res
+        Ztd, Wfd = _upload(dev, Zt, Wf)
+        aed_apply(run.Hp, run.Zp, 0, Ztd, Wfd, None)
+        run.wr[:m] = lams.real
+        run.wi[:m] = lams.imag
+        run.i, run.l, run.its = -1, 0, 1
+        extra["host_tail_finished"] += m
+        if talk:
+            print(f"[pqr_real tail] host-finished the leading {m}-window")
+        return True
+
+    def try_aed():
+        # None: no event (the window does not fit); else deflated count
+        i, w = run.i, aed_w
+        if i + 1 < w + 2:
+            return None
+        s = i - w + 1
+        t0 = time.perf_counter()
+        g = torch.cat([run.Hp[:, s:s + w, s:s + w].reshape(-1),
+                       run.Hp[0, s, s - 1:s]]).cpu().numpy()
+        extra["aed_s"] += time.perf_counter() - t0
+        extra["aed_events"] += 1
+        res = analyze(g[:-1].reshape(p, w, w), float(g[-1]), "aed")
+        if res is None:
+            return 0
+        d, Wf, Zt, lams, sph = res
+        Ztd, Wfd, sphd = _upload(dev, Zt, Wf, sph)
+        aed_apply(run.Hp, run.Zp, s, Ztd, Wfd, sphd)
+        u = w - d
+        run.wr[s + u:s + w] = lams.real[u:]
+        run.wi[s + u:s + w] = lams.imag[u:]
+        run.i, run.l, run.its = i - d, 0, 1
+        extra["aed_deflated"] += d
+        extra["aed_hits"] += 1
+        if talk:
+            print(f"[pqr_real aed] deflated {d} at i={i} (window {w})")
+        return d
+
+    cap = 0
+    while True:
+        cap = min(cap + seg, maxit)
+        run.iterate(cap)
+        if run.i < 0 or cap >= maxit:
+            break
+        if tail_n >= 2 and 2 <= run.i + 1 <= tail_n and try_tail():
+            break
+        if aed_on:
+            d = try_aed()
+            if d == 0:
+                misses += 1
+                if misses >= 2:
+                    seg = min(seg * 2, chunk)
+            elif d is not None:
+                misses = 0
+                seg = min(chunk, aed_itv)
+    out = run.finish(with_info)
+    return out[:-1] + ({**out[-1], **extra},) if with_info else out
 
 
 def _defl2(Hp, Zp, D, U, S0, i, p, hnorms, ulp, smlnum, wr, wi, swaps, want_z):
@@ -464,10 +675,12 @@ def _sync(dev):
 def pschur_real_pipeline(A: torch.Tensor, orient: str, want_t: bool = True,
                          want_z: bool = True, maxitfac: int = 30,
                          cfg: AlgoConfig = default_config) -> PeriodicSchur:
-    """Full real periodic Schur decomposition: reduction + iteration + packaging.
+    """Full real periodic Schur decomposition: reduction + iteration
+    (``pqr_real_core_aed``: AED and the host tail as ``cfg`` sets them) +
+    packaging.
 
-    Records the reduction and iteration wall-clock and the iteration count
-    in ``last_info``.
+    Records the reduction and iteration wall-clock, the iteration count and
+    the AED tallies in ``last_info``.
     """
     from .hessenberg import phessenberg_core
     p = A.shape[0]
@@ -478,9 +691,9 @@ def pschur_real_pipeline(A: torch.Tensor, orient: str, want_t: bool = True,
     H, Q = phessenberg_core(A, want_q=want_z)
     _sync(dev)
     t1 = time.perf_counter()
-    T, Z, wr, wi, ok, info = pqr_real_core(H, Z=Q, want_z=want_z, want_t=want_t,
-                                           maxitfac=maxitfac, cfg=cfg,
-                                           with_info=True)
+    T, Z, wr, wi, ok, info = pqr_real_core_aed(H, Z=Q, want_z=want_z, want_t=want_t,
+                                               maxitfac=maxitfac, cfg=cfg,
+                                               with_info=True)
     _sync(dev)
     t2 = time.perf_counter()
     last_info.clear()

@@ -1,4 +1,5 @@
-"""Orientation reversal of a decomposition (port of ``utils/circshift.py``)."""
+"""Orientation reversal and cyclic relabeling of a decomposition (port of
+``utils/circshift.py``)."""
 from __future__ import annotations
 
 import torch
@@ -31,3 +32,26 @@ def rev_alias(P):
             alphascale=P.alphascale, orientation=lorient)
     return PeriodicSchur(Ts=torch.flip(P.Ts, (0,)), Zs=_rev_z(P.Zs),
                          values=P.values, orientation=lorient, schurindex=ks)
+
+
+def circshift_psd(P, k: int):
+    """Cyclically relabel factors: new factor j is old factor (j - k) mod p.
+
+    The new decomposition describes the cycle ``A'[j] = A[(j-k) % p]`` (same
+    product up to cyclic rotation of the labels); ``schurindex`` moves to
+    ``(schurindex + k) % p``.
+    """
+    p = P.period
+    k = k % p
+    if k == 0:
+        return P
+    ks = (P.schurindex + k) % p
+    Zs = None if P.Zs is None else torch.roll(P.Zs, k, dims=0)
+    Ts = torch.roll(P.Ts, k, dims=0)
+    if isinstance(P, GeneralizedPeriodicSchur):
+        S = tuple(P.S[(j - k) % p] for j in range(p))
+        return GeneralizedPeriodicSchur(
+            S=S, schurindex=ks, Ts=Ts, Zs=Zs, alpha=P.alpha, beta=P.beta,
+            alphascale=P.alphascale, orientation=P.orientation)
+    return PeriodicSchur(Ts=Ts, Zs=Zs, values=P.values,
+                         orientation=P.orientation, schurindex=ks)

@@ -36,7 +36,11 @@ plain version and with the numpy host glue (it is written without FMA, in
 numpy's order), also at n = 1100 and 3000 (35 and 94 blocks) and with
 launches on two streams at once; a call's ``Glue`` keeps its values
 across a call on another (p, n).  Kernel S at p = 33 and 40 (more factors than lanes):
-1e-14, as above.
+1e-14, as above.  AED (``ops/aed.py``, no kernel of its own): the apply on
+the card within 1e-13 of the CPU's, with the same exact zeros; the driver at
+p=3 n=40 deflates, its eigenvalues within 1e-10 of numpy's, ``check_psd``
+at 10 eps n and 40 eps.  ``ordschur`` and ``eigvecs`` keep a decomposition
+on the card, and reorder bit for bit as on the CPU.
 """
 import numpy as np
 import pytest
@@ -1397,3 +1401,64 @@ def test_core_with_glue_on_the_card(cuda, monkeypatch):
     assert ref[4] and out[4] and out[5] == ref[5]
     assert torch.equal(out[0], ref[0]) and torch.equal(out[1], ref[1])
     assert np.array_equal(out[2], ref[2]) and np.array_equal(out[3], ref[3])
+
+
+def test_aed_apply_on_the_card_matches_the_cpu(cuda):
+    from periodicschurdecompositions_jl_torch.ops import aed
+    rng = np.random.default_rng(24)
+    p, n, w, s = 3, 40, 12, 20
+    N = n + 1
+    H = np.zeros((p, N, N))
+    for l in range(p):
+        H[l, :n, :n] = np.triu(rng.standard_normal((n, n)), -1 if l == 0 else 0)
+    H[0, s + w, s + w - 1] = 0.0
+    Z = np.zeros((p, N, N))
+    Z[:, :n, :n] = np.stack([np.linalg.qr(rng.standard_normal((n, n)))[0] for _ in range(p)])
+    Zt = np.stack([np.linalg.qr(rng.standard_normal((w, w)))[0] for _ in range(p)])
+    Wf = np.stack([np.triu(rng.standard_normal((w, w)), -1 if l == 0 else 0) for l in range(p)])
+    sph = np.zeros(w)
+    sph[0] = 0.75
+    outs = []
+    for dev in (torch.device("cpu"), cuda):
+        Hp, Zp = torch.tensor(H, device=dev), torch.tensor(Z, device=dev)
+        aed.aed_apply(Hp, Zp, s, *(torch.tensor(x, device=dev) for x in (Zt, Wf, sph)))
+        outs.append((Hp.cpu(), Zp.cpu()))
+    (Hc, Zc), (Hg, Zg) = outs
+    assert float((Hg - Hc).abs().max()) <= 1e-13 * float(Hc.abs().max())
+    assert float((Zg - Zc).abs().max()) <= 1e-13
+    assert torch.equal(Hg == 0, Hc == 0)  # the same exact zeros
+
+
+def test_aed_driver_on_the_card(cuda):
+    from periodicschurdecompositions_jl_torch.ops import aed
+    A = np.random.default_rng(70).standard_normal((3, 40, 40))
+    H, Q = hessenberg.phessenberg_core(torch.tensor(A, device=cuda))
+    cfg = AlgoConfig(aed_window=12, aed_interval=8)
+    before = dict(glue.launches)
+    T, Z, wr, wi, ok, info = pqr_real.pqr_real_core_aed(H, Z=Q, cfg=cfg, with_info=True)
+    assert ok and info["aed_deflated"] > 0
+    assert glue.launches["glue"] - before["glue"] == info["niter"]
+    assert T.device.type == "cuda" and Z.device.type == "cuda"
+    w = np.sort_complex(wr + 1j * wi)
+    ref = np.sort_complex(np.linalg.eigvals(A[0] @ A[1] @ A[2]))
+    assert np.abs(w - ref).max() <= 1e-10 * np.abs(ref).max()
+    P = pt.PeriodicSchur(Ts=T, Zs=Z, values=torch.complex(torch.tensor(wr),
+                                                          torch.tensor(wi)))
+    good, rep = pt.check_psd(P, A, qtol=10.0, tol=40.0)
+    assert good, rep
+    assert aed.stats["deflated"] > 0
+
+
+def test_ordschur_and_eigvecs_keep_the_card(cuda):
+    A = np.random.default_rng(25).standard_normal((3, 16, 16))
+    P = pt.pschur(torch.tensor(A, device=cuda), "R")
+    select = [j in (3, 11) for j in range(16)]
+    P2 = pt.ordschur(P, select)
+    assert all(t.device.type == "cuda" for t in (P2.Ts, P2.Zs, P2.values))
+    Pc = pt.PeriodicSchur(Ts=P.Ts.cpu(), Zs=P.Zs.cpu(), values=P.values.cpu())
+    P2c = pt.ordschur(Pc, select)
+    assert torch.equal(P2.Ts.cpu(), P2c.Ts) and torch.equal(P2.Zs.cpu(), P2c.Zs)
+    good, rep = pt.check_psd(P2, A, tol=2000.0)
+    assert good, rep
+    Vs = pt.eigvecs(P, select)
+    assert len(Vs) == 3 and all(v.device.type == "cuda" for v in Vs)
