@@ -28,15 +28,26 @@ and checks the results:
   card; the headline draw with ``nbulges=4`` (AED off; eigenvalues against
   the one-bulge leg's), and one 'L' problem with one and with two bulges;
 * complex: the kernels of the single-shift QZ sweep and its shift at p=8,
-  n=256 with an alternating signature; ``pschur`` on a complex p=8 n=256
-  cycle (no signature: the complex128 reduction kernel) and a p=8 n=128
-  cycle with an alternating signature, and a small signed cycle against
-  numpy's eigenvalues;
+  n=256 with an alternating signature; a complex p=8 n=256 cycle (no
+  signature: the complex128 reduction kernel) through
+  ``pschur_complex_pipeline(..., cfg=AlgoConfig(aed=False, host_tail=-1))``
+  and a profile of that iteration, then through ``pschur`` (the default:
+  aggressive early deflation and the host tail, each window re-reduced by
+  the signed reduction's complex128 stage-2 kernel; AED must deflate and
+  the eigenvalues agree with the AED-off leg's) and its profile; ``pschur``
+  on a p=8 n=128 cycle with an alternating signature, and a small signed
+  cycle against numpy's eigenvalues;
 * real generalized: the kernels of the double-shift chase (rg A, B0, B) and
   the rotation ladders (R) at p=8, n=256 with an alternating signature;
-  ``pschur(A, 'R', S)`` on the p=8 n=256 draw of seed 4242 (the source
-  configuration: benchmarks/probe_real_gen_ff.py), a profile of its
-  iteration, and a small real ``gpschur`` against numpy's eigenvalues;
+  the p=8 n=256 draw of seed 4242 (the source configuration:
+  benchmarks/probe_real_gen_ff.py) through ``pschur_real_gen_pipeline(...,
+  cfg=AlgoConfig(aed=False, host_tail=-1))``, with each of its CZSHIFT
+  launches held against the plain version on a CPU copy of its input
+  (``rg_czshift_check``), then through ``pschur(A, 'R', S)`` (the default:
+  AED and the host tail; AED must deflate, the eigenvalues agree with the
+  AED-off leg's, and hess_signed launch once for the cycle and once for
+  each window re-reduction), profiles of both iterations, and a small real
+  ``gpschur`` against numpy's eigenvalues;
 * the deflation actions (csrc/pqz_deflate.cu: CZSHIFT, DEFLATE_POS,
   DEFLATE_NEG down and up), float64 on the rg leg's reduction (p=8, n=256)
   and complex128 on the signed complex leg's (p=8, n=128, and its leading
@@ -1530,6 +1541,57 @@ def cx_kernel_phase(dev, p, n, report):
                         "bound_by": bounds[name][1], "library_ms": None}
 
 
+@contextlib.contextmanager
+def counted_rereductions():
+    """Counts the signed window re-reductions of the AED analyses that
+    launch the stage-2 kernel (``ops/aed.py::_phess_window_signed``: one
+    ``phessenberg_signed_core`` each, with one stage-2 launch at n > 2)."""
+    from periodicschurdecompositions_jl_torch.ops import aed
+    seen = {"n": 0}
+    reduce = aed._phess_window_signed
+
+    def counted(Aw, *a, **k):
+        seen["n"] += Aw.shape[-1] > 2
+        return reduce(Aw, *a, **k)
+    aed._phess_window_signed = counted
+    try:
+        yield seen
+    finally:
+        aed._phess_window_signed = reduce
+
+
+def aed_line(info):
+    return (f"AED: {info['aed_events']} events, {info['aed_hits']} deflating, aed_deflated "
+            f"{info['aed_deflated']}, host_tail_finished {info['host_tail_finished']}, "
+            f"aed_s {info['aed_s']:.3f} s of host analysis")
+
+
+def check_aed_leg(info, vals, ref_values, what):
+    """A default (AED) leg: AED must have fired and deflated, and its
+    eigenvalues lie within 1000 eps max|lambda| of the AED-off leg's."""
+    ev = eig_dist(vals, ref_values) / np.abs(ref_values).max()
+    _log(f"{what}: eigenvalues vs the AED-off leg {ev:.3e} max|lambda|")
+    if not (info["aed_events"] > 0 and info["aed_deflated"] > 0):
+        raise AssertionError(f"{what}: AED {info['aed_events']} events, deflated "
+                             f"{info['aed_deflated']}: both must be > 0")
+    if not ev <= 1000 * np.finfo(np.float64).eps:
+        raise AssertionError(f"{what}: eigenvalues differ from the AED-off leg's by {ev:.3e}")
+
+
+def leg_profile(tag, run):
+    """torch.profiler (device activity only) over one more run of a leg:
+    wall, device busy time, idle share and the top kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _log(f"profile of {tag}: {profile_line(prof, wall)}")
+
+
 def cx_draw(p, n, seed):
     """The complex legs' draw (benchmarks/probe_complex_ff.py:35-36)."""
     rng = np.random.default_rng(seed)
@@ -1559,38 +1621,53 @@ def cx_backerr(A, T, Z, S, left=False):
     return worst
 
 
-def cx_e2e_case(dev, p, n, seed, S, lr):
-    """pschur on a complex cycle through the public entry point."""
+def cx_e2e_case(dev, p, n, seed, S, lr, aed_off=False, ref_values=None):
+    """pschur on a complex cycle through the public entry point (the
+    default configuration: AED from n = 192 and the host tail), or with
+    ``aed_off`` through ``pschur_complex_pipeline(..., cfg=AlgoConfig(aed=
+    False, host_tail=-1))``.  ``ref_values``: the AED-off leg's eigenvalues
+    of the same cycle; the leg must then have run AED (check_aed_leg), and
+    one more run of it is profiled (its idle share) after the counts are
+    read.  Returns the launch counts and the eigenvalues."""
     import torch
     import periodicschurdecompositions_jl_torch as pt
+    from periodicschurdecompositions_jl_torch.config import AlgoConfig
     from periodicschurdecompositions_jl_torch.ops import (hessenberg, pqz_complex, pqz_deflate,
                                                          sweep_cx)
     A = cx_draw(p, n, seed)
     At = torch.tensor(A, device=dev)
+    Sg = (True,) * p if S is None else S
     for d in (sweep_cx.launches, hessenberg.launches, pqz_deflate.launches):
         for k in d:
             d[k] = 0
-    t0 = time.perf_counter()
-    P = pt.pschur(At, lr, S=S)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
+    with counted_rereductions() as rered:
+        t0 = time.perf_counter()
+        if aed_off:
+            P = pqz_complex.pschur_complex_pipeline(At, Sg, lr, cfg=AlgoConfig(
+                aed=False, host_tail=-1))
+        else:
+            P = pt.pschur(At, lr, S=S)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     launches = {**sweep_cx.launches, "hess_reduce_c128": hessenberg.launches["hess_reduce"],
                 "hess_signed_c128": hessenberg.launches["hess_signed"]}
     info = dict(pqz_complex.last_info)
     deflate_launches = dict(pqz_deflate.launches)
     T = P.Ts.cpu().numpy()
     Z = P.Zs.cpu().numpy()
-    Sg = (True,) * p if S is None else S
     ok, rep = pt.check_psd(P, A, tol=200.0)
     be = cx_backerr(A, T, Z, Sg, left=(lr == "L"))
     orth_bound = 10 * np.finfo(np.float64).eps * n
     vals = P.values.cpu().numpy()
-    _log(f"pschur complex p={p} n={n} seed={seed} S={'None' if S is None else 'alternating'} "
+    tag = ("pschur_complex_pipeline aed=False host_tail=-1" if aed_off
+           else "pschur complex (default)")
+    _log(f"{tag} p={p} n={n} seed={seed} S={'None' if S is None else 'alternating'} "
          f"lr={lr}: wall {wall:.3f} s (reduction {info['reduce_s']:.3f} s, iteration "
          f"{info['iterate_s']:.3f} s), niter {info['niter']}, sweeps {info['sweeps']}, "
          f"exceptional {info['exceptional']}, czshift {info['czshift']}, backerr {be:.3e}, "
          f"check_psd ok={ok} orth {rep['orthonormality']:.3e} (bound {orth_bound:.3e}) "
-         f"residual {rep['residual_rel']:.3e}; launches {launches}, {deflate_launches}")
+         f"residual {rep['residual_rel']:.3e}; {aed_line(info)}, window re-reductions "
+         f"{rered['n']}; launches {launches}, {deflate_launches}")
     if not ok:
         raise AssertionError(f"check_psd failed: {rep}")
     if not (be <= 1e-12):
@@ -1599,16 +1676,22 @@ def cx_e2e_case(dev, p, n, seed, S, lr):
         raise AssertionError("orthonormality above 10 eps n")
     if not (np.all(np.isfinite(vals)) and vals.shape == (n,)):
         raise AssertionError("eigenvalues not finite or of the wrong shape")
+    if ref_values is not None:
+        check_aed_leg(info, vals, ref_values, tag)
+        leg_profile(f"one more {tag} run", lambda: pt.pschur(At, lr, S=S))
+        _log(f"  (that run: niter {pqz_complex.last_info['niter']}, "
+             f"{aed_line(pqz_complex.last_info)})")
     check_deflate_launches(deflate_launches, info, "the complex path")
     # the reduction kernel runs once when every factor is direct; a signature
-    # takes the signed reduction, whose stage 2 is one launch
+    # takes the signed reduction, whose stage 2 is one launch; each AED
+    # window's re-reduction is one more signed reduction
     expect = {"hess_reduce_c128": 1 if S is None else 0,
-              "hess_signed_c128": 0 if S is None else 1}
+              "hess_signed_c128": (0 if S is None else 1) + rered["n"]}
     for k, v in launches.items():
         if (v != expect[k]) if k in expect else v <= 0:
             raise AssertionError(f"kernel {k} launched {v} times on the complex path")
     launches["deflate_czshift_c128"] = deflate_launches["deflate_czshift"]
-    return launches
+    return launches, vals
 
 
 def cx_iteration_profile(dev, p, n, seed):
@@ -1974,13 +2057,21 @@ def rg_block_check(P):
     return float(err)
 
 
-def rg_e2e_case(dev, p, n, seed):
-    """pschur(A, 'R', S) on a real cycle through the public entry point.
-    Returns the launch counts and the reduction (H, Q) the leg computed
-    (kept for rg_iteration_profile).  The signed reduction's stage 2 runs
-    one launch of hess_signed; the direct reduction kernel none."""
+def rg_e2e_case(dev, p, n, seed, aed_off=False, ref_values=None):
+    """pschur(A, 'R', S) on a real cycle through the public entry point (the
+    default configuration: AED from n = 192 and the host tail), or with
+    ``aed_off`` through ``pschur_real_gen_pipeline(..., cfg=AlgoConfig(aed=
+    False, host_tail=-1))``.  Returns the launch counts, the reduction (H,
+    Q) the leg computed (kept for rg_iteration_profile) and the
+    eigenvalues.  The signed reduction's stage 2 runs one launch of
+    hess_signed for the cycle and one for each AED window re-reduction; the
+    direct reduction kernel none.  The AED-off leg must take a controlled
+    zero shift; ``ref_values``: the AED-off leg's eigenvalues, and the leg
+    must have run AED (check_aed_leg); one more run of it is profiled (its
+    idle share) after the counts are read."""
     import torch
     import periodicschurdecompositions_jl_torch as pt
+    from periodicschurdecompositions_jl_torch.config import AlgoConfig
     from periodicschurdecompositions_jl_torch.ops import (hessenberg, pqz_deflate, pqz_real,
                                                          rgopen, sweep_rg)
     A, S = rg_draw(p, n, seed)
@@ -1991,17 +2082,23 @@ def rg_e2e_case(dev, p, n, seed):
     reduce = hessenberg.phessenberg_signed_core
 
     def keep(*a, **k):
-        kept["HQ"] = reduce(*a, **k)
-        return kept["HQ"]
+        out = reduce(*a, **k)
+        kept.setdefault("HQ", out)  # the cycle's: the first call
+        return out
     hessenberg.phessenberg_signed_core = keep
     for d in counters:
         for k in d:
             d[k] = 0
     try:
-        t0 = time.perf_counter()
-        P = pt.pschur(At, "R", S=S)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
+        with counted_rereductions() as rered:
+            t0 = time.perf_counter()
+            if aed_off:
+                P = pqz_real.pschur_real_gen_pipeline(At, S, "R", cfg=AlgoConfig(
+                    aed=False, host_tail=-1))
+            else:
+                P = pt.pschur(At, "R", S=S)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
     finally:
         hessenberg.phessenberg_signed_core = reduce
     launches = {k: v for d in counters[:3] for k, v in d.items()}
@@ -2021,7 +2118,9 @@ def rg_e2e_case(dev, p, n, seed):
     orth_bound = 10 * np.finfo(np.float64).eps * n
     vals = P.values.cpu().numpy()
     eig_err = rg_block_check(P)
-    _log(f"pschur real S=alternating p={p} n={n} seed={seed}: wall {wall:.3f} s (reduction "
+    tag = ("pschur_real_gen_pipeline aed=False host_tail=-1" if aed_off
+           else "pschur real S=alternating (default)")
+    _log(f"{tag} p={p} n={n} seed={seed}: wall {wall:.3f} s (reduction "
          f"{info['reduce_s']:.3f} s, iteration {info['iterate_s']:.3f} s), niter "
          f"{info['niter']}, sweeps {info['sweeps']}, attacks {info['attacks']}, pairs "
          f"{info['pairs']}, exceptional {info['exceptional']}, czshift {info['czshift']}, "
@@ -2029,6 +2128,7 @@ def rg_e2e_case(dev, p, n, seed):
          f"{be:.3e} (per factor {', '.join(f'{x:.2e}' for x in per)}), check_psd ok={ok} "
          f"orth {rep['orthonormality']:.3e} (bound {orth_bound:.3e}) residual "
          f"{rep['residual_rel']:.3e}; eigenvalues vs T's diagonal blocks {eig_err:.3e}; "
+         f"{aed_line(info)}, window re-reductions {rered['n']}; "
          f"launches {launches}, {deflate_launches}")
     if not ok:
         raise AssertionError(f"check_psd failed: {rep}")
@@ -2040,17 +2140,70 @@ def rg_e2e_case(dev, p, n, seed):
         raise AssertionError("eigenvalues not finite or of the wrong shape")
     if not eig_err <= 1e-10:
         raise AssertionError(f"eigenvalues differ from T's diagonal blocks by {eig_err:.3e}")
+    if ref_values is not None:
+        check_aed_leg(info, vals, ref_values, tag)
+        leg_profile(f"one more {tag} run", lambda: pt.pschur(At, "R", S=S))
+        _log(f"  (that run: niter {pqz_real.last_info['niter']}, "
+             f"{aed_line(pqz_real.last_info)})")
     for k, v in launches.items():
-        if (v != 1) if k == "hess_signed" else v <= 0:
-            raise AssertionError(f"kernel {k} launched {v} times on the real generalized path")
+        if (v != 1 + rered["n"]) if k == "hess_signed" else v <= 0:
+            raise AssertionError(f"kernel {k} launched {v} times on the real generalized path "
+                                 f"({rered['n']} window re-reductions)")
     if hess_reduce != 0:
         raise AssertionError(f"the direct reduction kernel launched {hess_reduce} times on "
                              f"the real generalized path")
     check_deflate_launches(deflate_launches, info, "the real generalized path")
-    if deflate_launches["deflate_czshift"] <= 0:
+    if aed_off and deflate_launches["deflate_czshift"] <= 0:
         raise AssertionError("no controlled zero shift on the real generalized path")
     launches["deflate_czshift"] = deflate_launches["deflate_czshift"]
-    return launches, kept["HQ"]
+    return launches, kept["HQ"], vals
+
+
+def rg_czshift_check(dev, S, HQ):
+    """Where the rg leg's kernel run parts from the plain one: the AED-off
+    iteration from the leg's own reduction HQ (the leg's run), each CZSHIFT
+    launch's output held against ``czshift_core_plain`` on a CPU copy of the
+    same input, beside the plain version's own change when that input is
+    perturbed by a relative 1e-16.  Prints one line per launch and the
+    largest ratio; raises if a launch lies above max(1e-12, 10 sens) (as
+    deflate_actions_phase's gate)."""
+    import torch
+    from periodicschurdecompositions_jl_torch.ops import pqz_deflate
+    from periodicschurdecompositions_jl_torch.ops.pqz_real import pqz_real_gen_core
+    H, Q = HQ
+    rows = []
+    launch = pqz_deflate.DeflateCores.czshift_core
+
+    def checked(self, H, Z, jlo, ilast):
+        Hc, Zc = H.cpu(), Z.cpu()
+        out = launch(self, H, Z, jlo, ilast)
+        Hp, Zp, fp = self.czshift_core_plain(Hc.clone(), Zc.clone(), jlo, ilast)
+        pert = 1.0 + 1e-16 * torch.from_numpy(
+            np.random.default_rng(len(rows)).standard_normal(tuple(Hc.shape)))
+        Hs, Zs, _ = self.czshift_core_plain(Hc * pert, Zc.clone(), jlo, ilast)
+        scale = float(Hp.abs().max())
+        dh = float((H.cpu() - Hp).abs().max()) / scale
+        dz = float((Z.cpu() - Zp).abs().max())
+        sens = max(float((Hs - Hp).abs().max()) / scale, float((Zs - Zp).abs().max()))
+        rows.append((jlo, ilast, dh, dz, sens, bool(out[2]) == bool(fp)))
+        return out
+    pqz_deflate.DeflateCores.czshift_core = checked
+    try:
+        _, _, _, _, _, _, ok, info = pqz_real_gen_core(H, S, Z=Q, with_info=True)
+    finally:
+        pqz_deflate.DeflateCores.czshift_core = launch
+    worst = 0.0
+    for jlo, ilast, dh, dz, sens, flag in rows:
+        ratio = max(dh, dz) / max(sens, 1e-300)
+        worst = max(worst, ratio)
+        _log(f"rg CZSHIFT on [{jlo}, {ilast}]: kernel vs plain on a CPU copy max|dH|/max|H| "
+             f"{dh:.3e} max|dZ| {dz:.3e}; the plain version's 1e-16 sensitivity {sens:.3e}; "
+             f"same flag {flag}")
+        if not (max(dh, dz) <= max(1e-12, 10 * sens) and flag):
+            raise AssertionError(f"CZSHIFT on [{jlo}, {ilast}] parts from the plain version "
+                                 f"beyond its sensitivity")
+    _log(f"rg CZSHIFT check: {len(rows)} launches in {info['niter']} iterations (converged "
+         f"{ok}), largest difference / sensitivity {worst:.3f}")
 
 
 def rg_iteration_profile(dev, S, HQ):
@@ -2389,15 +2542,25 @@ def main() -> int:
 
     cx_kernel_phase(dev, P_CX, N_CX, report)
     cx_small_check(dev)
-    launches.update(cx_e2e_case(dev, P_CX, N_CX, SEED_CX, None, "R"))
+    _, cx_off_values = cx_e2e_case(dev, P_CX, N_CX, SEED_CX, None, "R", aed_off=True)
     cx_iteration_profile(dev, P_CX, N_CX, SEED_CX)
-    cx_signed = cx_e2e_case(dev, P_CX, N_CX_SIGNED, SEED_CX, alternating(P_CX), "R")
-    launches["hess_signed_c128"] = cx_signed["hess_signed_c128"]
+    # the default complex leg (AED and the host tail); its counts go in the line
+    cx_launches, _ = cx_e2e_case(dev, P_CX, N_CX, SEED_CX, None, "R",
+                                 ref_values=cx_off_values)
+    launches.update(cx_launches)
+    cx_signed, _ = cx_e2e_case(dev, P_CX, N_CX_SIGNED, SEED_CX, alternating(P_CX), "R")
+    launches["hess_signed_c128"] = cx_signed["hess_signed_c128"] + cx_launches["hess_signed_c128"]
     launches["deflate_czshift_c128"] += cx_signed["deflate_czshift_c128"]
 
     rg_kernel_phase(dev, P_RG, N_RG, report)
     rg_small_check(dev)
-    rg_launches, rg_hq = rg_e2e_case(dev, P_RG, N_RG, SEED_RG)
+    rg_off, rg_hq, rg_off_values = rg_e2e_case(dev, P_RG, N_RG, SEED_RG, aed_off=True)
+    rg_czshift_check(dev, alternating(P_RG), rg_hq)
+    # the default rg leg (AED and the host tail); its counts go in the line,
+    # CZSHIFT's from the AED-off leg when the default leg took none
+    rg_launches, _, _ = rg_e2e_case(dev, P_RG, N_RG, SEED_RG, ref_values=rg_off_values)
+    if rg_launches["deflate_czshift"] == 0:
+        rg_launches["deflate_czshift"] = rg_off["deflate_czshift"]
     launches.update(rg_launches)
     rg_iteration_profile(dev, alternating(P_RG), rg_hq)
     deflate_actions_phase(dev, report, rg_hq)

@@ -12,10 +12,11 @@ its shift, and the real generalized chase and its rotation ladders run as
 hand-written CUDA kernels (``csrc/``, built with nvcc on first use), on
 the CPU as their plain torch versions.  Sets no global torch state.
 
-The real iteration of ``pschur`` runs with aggressive early deflation and
-the host-tail finish (``AlgoConfig.aed``, ``host_tail``: on by default, AED
-from n = 192), their window analyses on the host with the repo's native C++
-window Schur (``native.py``, built with g++ on first use).
+The three iterations of ``pschur`` (real, real with a signature, complex)
+run with aggressive early deflation and the host-tail finish
+(``AlgoConfig.aed``, ``host_tail``: on by default, AED from n = 192), their
+window analyses on the host with the repo's native C++ window Schurs
+(``native.py``, built with g++ on first use).
 
 Ported so far: ``pschur`` for real and complex cycles with or without a
 signature, ``gpschur`` for real and complex pairs, ``phessenberg``,

@@ -22,18 +22,20 @@ those of the JAX package's ``AlgoConfig``:
   with the iterative MB03BB-style periodic QZ instead of the one-shot
   scaled product (falls back to it when the iteration does not converge).
 * ``aed``, ``aed_window``, ``aed_interval``, ``aed_min_n``,
-  ``aed_max_moves``: aggressive early deflation of the real iteration
-  (``ops/aed.py``, driven by ``ops/pqr_real.py::pqr_real_core_aed``).
-  Every ``aed_interval`` iterations (0: ``max(24, n // 4)``, doubled after
-  two misses) the trailing ``aed_window`` window (0: ``min(48, max(16,
-  n // 10))``) is brought to periodic Schur form on the host and its
-  converged eigenvalues are deflated from the spike.  On at ``n >=
-  aed_min_n``, or at any n with an explicit ``aed_window``.
-  ``aed_max_moves`` caps the failed-block moves of one analysis (-1:
-  unlimited).
+  ``aed_max_moves``: aggressive early deflation of the three iterations
+  (``ops/aed.py``; the real one driven by
+  ``ops/pqr_real.py::pqr_real_core_aed``, the real generalized and complex
+  ones by ``ops/aed.py::drive_signed``).  Every ``aed_interval``
+  iterations (0: ``max(24, n // 4)`` on the real iteration, ``max(24, n //
+  6)`` on the others, as the JAX drivers; doubled after two misses) the
+  trailing ``aed_window`` window (0: ``min(48, max(16, n // 10))``) is
+  brought to periodic Schur form on the host and its converged eigenvalues
+  are deflated from the spike.  On at ``n >= aed_min_n``, or at any n with
+  an explicit ``aed_window``.  ``aed_max_moves`` caps the failed-block
+  moves of one analysis (-1: unlimited).
 * ``host_tail``: once the active window has shrunk to ``host_tail`` rows
   or fewer, one host window Schur finishes it (0: ``min(64, n // 8)``;
-  -1: off).  The window Schur is the repo's native C++ one
+  -1: off).  The window Schurs are the repo's native C++ ones
   (``native.py``, built with g++ on first use).
 """
 from __future__ import annotations

@@ -108,10 +108,13 @@ def pschur(A, lr="R", S: Optional[Sequence[bool]] = None, *,
          Hessenberg reduction of direct factors, the real iteration's per-iteration glue, the
          sweeps, the 2x2 deflation, the complex shift and the real
          generalized chase and its ladders run as hand-written CUDA kernels.
-         The real iteration without a signature takes aggressive early
-         deflation and the host-tail finish of the default ``AlgoConfig``
-         (``ops/pqr_real.py::pqr_real_core_aed``; its window analyses run
-         on the host).
+         The real, real generalized (p >= 2) and complex iterations take
+         aggressive early deflation and the host-tail finish of the
+         default ``AlgoConfig`` (``ops/pqr_real.py::pqr_real_core_aed``,
+         ``ops/pqz_real.py::pqz_real_gen_core_aed``,
+         ``ops/pqz_complex.py::pqz_complex_core_aed``; their window
+         analyses run on the host, the window re-reductions on the
+         tensor's device).
       lr: 'R' for the product ``A[0] @ ... @ A[p-1]``, 'L' for
           ``A[p-1] @ ... @ A[0]``.
       S: optional signature (True = direct, False = inverted factor); the

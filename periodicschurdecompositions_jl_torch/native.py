@@ -2,8 +2,10 @@
 
 The shared library holds the reference's scalar algorithm shape (periodic
 Hessenberg reduction + Francis double-shift periodic QR) as sequential
-``-O3`` C++.  The real iteration's aggressive early deflation and host-tail
-finish (``ops/aed.py``) solve their (p, w, w) windows with it on the host.
+``-O3`` C++.  The aggressive early deflation and host-tail finish of the
+three iterations (``ops/aed.py``) solve their (p, w, w) windows with it on
+the host: ``pschur_real_cpu`` (real), ``pqz_real_gen_cpu`` (real with a
+signature) and ``pqz_complex_cpu`` (complex).
 
 Built on first use with ``g++ -O3 -march=native`` from the source in the
 checkout into ``_build/`` next to this package, keyed by a hash of the
@@ -12,10 +14,8 @@ outlives its source or its host; threads of one process build it once
 (a lock), and each build writes its own temporary file before it is moved
 into place, so concurrent processes never load a half-written one.  The checked-in ``native/libpschur_cpu.so``
 is never loaded: it may lag the source.  A missing compiler or a failed
-build raises, with the compiler's error.
-
-Ported so far: ``pschur_real_cpu``; ``pqz_complex_cpu`` and
-``pqz_real_gen_cpu`` wait for the complex and real generalized AED routes.
+build raises, with the compiler's error.  Each entry's argument types are
+set on its first call.
 """
 from __future__ import annotations
 
@@ -92,17 +92,39 @@ def load() -> ctypes.CDLL:
         so = _BUILD / f"libpschur_cpu_{_host_key(SOURCE.read_bytes())}.so"
         if not so.exists():
             _build(so)
-        lib = ctypes.CDLL(str(so))
-        dp = ctypes.POINTER(ctypes.c_double)
-        lib.pschur_real_cpu.restype = ctypes.c_int
-        lib.pschur_real_cpu.argtypes = [ctypes.c_int, ctypes.c_int, dp, dp, dp, dp,
-                                        ctypes.c_int, ctypes.c_int]
-        _lib = lib
-        return lib
+        _lib = ctypes.CDLL(str(so))
+        return _lib
+
+
+_I = ctypes.c_int
+_DP = ctypes.POINTER(ctypes.c_double)
+_IP = ctypes.POINTER(ctypes.c_int)
+_ARGTYPES = {
+    "pschur_real_cpu": [_I, _I, _DP, _DP, _DP, _DP, _I, _I],
+    "pqz_real_gen_cpu": [_I, _I, _DP, _IP, _DP, _DP, _DP, _DP, _IP, _I, _I],
+    "pqz_complex_cpu": [_I, _I, _DP, _IP, _DP, _DP, _DP, _IP, _I, _I],
+}
+
+
+def _entry(name: str):
+    """The library's C entry ``name`` with its argument types."""
+    fn = getattr(load(), name)
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = _ARGTYPES[name]
+    return fn
 
 
 def _dp(a: np.ndarray):
-    return a.ctypes.data_as(ctypes.POINTER(ctypes.c_double))
+    return a.ctypes.data_as(_DP)
+
+
+def _ip(a: np.ndarray):
+    return a.ctypes.data_as(_IP)
+
+
+def _signature(S) -> np.ndarray:
+    return np.ascontiguousarray([1 if bool(s) else -1 for s in S], dtype=np.int32)
 
 
 def pschur_real_cpu(A, maxitfac: int = 30, want_z: bool = True
@@ -121,7 +143,7 @@ def pschur_real_cpu(A, maxitfac: int = 30, want_z: bool = True
       ConvergenceFailure: the iteration ran out of its budget.
       RuntimeError: the library could not be built or loaded.
     """
-    lib = load()
+    fn = _entry("pschur_real_cpu")
     T = np.array(A, np.float64, order="C", copy=True)
     if T.ndim != 3 or T.shape[1] != T.shape[2]:
         raise ValueError(f"expected (p, n, n), got {T.shape}")
@@ -129,8 +151,66 @@ def pschur_real_cpu(A, maxitfac: int = 30, want_z: bool = True
     Z = np.zeros_like(T)
     wr = np.zeros(n)
     wi = np.zeros(n)
-    rc = lib.pschur_real_cpu(p, n, _dp(T), _dp(Z), _dp(wr), _dp(wi),
-                             int(maxitfac), int(bool(want_z)))
+    rc = fn(p, n, _dp(T), _dp(Z), _dp(wr), _dp(wi), int(maxitfac), int(bool(want_z)))
     if rc != 0:
         raise ConvergenceFailure(rc)
     return T, (Z if want_z else None), wr, wi
+
+
+def pqz_real_gen_cpu(H, S, maxitfac: int = 120, want_z: bool = True):
+    """Real generalized periodic QZ of a Hessenberg-triangular signed cycle
+    on the host (native C++; the shift scheme of ``ops/pqz_real.py``).
+
+    Args:
+      H: (p, n, n) float64, H[0] upper Hessenberg, H[1:] upper triangular.
+      S: the signature (S[0] True).
+
+    Returns:
+      (T, Z, alpha_r, alpha_i, beta, scale), with ``Z[l]' H[l] Z[l+1] =
+      T[l]`` (S[l]) or ``Z[l+1]' H[l] Z[l] = T[l]``; or None when the
+      native core declines: a negligible triangular diagonal (the singular
+      factor case, which needs the deflation actions) or no convergence.
+
+    Raises:
+      RuntimeError: the library could not be built or loaded.
+    """
+    fn = _entry("pqz_real_gen_cpu")
+    T = np.array(H, np.float64, order="C", copy=True)
+    p, n, _ = T.shape
+    Z = np.zeros_like(T)
+    alr, ali, beta = np.zeros(n), np.zeros(n), np.zeros(n)
+    scal = np.zeros(n, np.int32)
+    rc = fn(p, n, _dp(T), _ip(_signature(S)), _dp(Z), _dp(alr), _dp(ali), _dp(beta),
+            _ip(scal), int(maxitfac), int(bool(want_z)))
+    if rc != 0:
+        return None
+    return T, (Z if want_z else None), alr, ali, beta, scal
+
+
+def pqz_complex_cpu(H, S, maxitfac: int = 30, want_z: bool = True):
+    """Complex periodic QZ of a Hessenberg-triangular signed cycle on the
+    host (native C++).
+
+    Args:
+      H: (p, n, n) complex128, H[0] upper Hessenberg, H[1:] upper triangular.
+      S: the signature (S[0] True).
+
+    Returns:
+      (T, Z, alpha, beta, scale), or None when the native core declines
+      (a negligible triangular diagonal, or no convergence).
+
+    Raises:
+      RuntimeError: the library could not be built or loaded.
+    """
+    fn = _entry("pqz_complex_cpu")
+    T = np.array(H, np.complex128, order="C", copy=True)
+    p, n, _ = T.shape
+    Z = np.zeros_like(T)
+    alpha = np.zeros(n, np.complex128)
+    beta = np.zeros(n)
+    scal = np.zeros(n, np.int32)
+    rc = fn(p, n, _dp(T), _ip(_signature(S)), _dp(Z), _dp(alpha), _dp(beta), _ip(scal),
+            int(maxitfac), int(bool(want_z)))
+    if rc != 0:
+        return None
+    return T, (Z if want_z else None), alpha, beta, scal

@@ -32,6 +32,7 @@ import numpy as np
 import torch
 
 from . import _cuda
+from .rotations import sqrt_rn
 from .sweep import _check
 
 launches = {"glue": 0}
@@ -160,15 +161,6 @@ def scan_constants(n: int, cfg):
     return _EPS, cfg.ulp_x(_EPS), _TINY * (n / _EPS)
 
 
-def _sqrt_rn(x: torch.Tensor) -> torch.Tensor:
-    """Correctly rounded square root.  torch's CPU sqrt is not (its
-    vectorized float64 sqrt is one ulp off for about 0.7% of arguments);
-    numpy's and CUDA's are."""
-    if x.device.type == "cpu":
-        return torch.as_tensor(np.sqrt(x.numpy()))
-    return torch.sqrt(x)
-
-
 def glue_plain(Hp: torch.Tensor, n: int, l: int, i: int, its: int, cfg
                ) -> torch.Tensor:
     """Eager torch kernel G: the packed buffer (``out_len(p, n)`` doubles on
@@ -252,7 +244,7 @@ def glue_plain(Hp: torch.Tensor, n: int, l: int, i: int, its: int, cfg
     h33n, h44n, h34n, h43n = h33 / sshs, h44 / sshs, h34 / sshs, h43 / sshs
     trc = (h33n + h44n) * 0.5
     disc = (h33n - trc) * (h44n - trc) - h34n * h43n
-    rtdisc = _sqrt_rn(torch.abs(disc))
+    rtdisc = sqrt_rn(torch.abs(disc))
     r1, r2 = trc + rtdisc, trc - rtdisc
     pick = torch.where(torch.abs(r1 - h44n) <= torch.abs(r2 - h44n), r1, r2)
     zero = torch.zeros((), dtype=dt, device=dev)

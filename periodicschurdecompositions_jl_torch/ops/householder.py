@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from .rotations import sqrt_rn
+
 
 def _safemin(dtype) -> float:
     fi = torch.finfo(dtype)
@@ -27,7 +29,7 @@ def _scaled_norm(x):
     m = torch.max(a) if a.numel() else torch.zeros((), dtype=x.dtype, device=x.device)
     msafe = torch.where(m == 0, torch.ones_like(m), m)
     r = a / msafe
-    return m * torch.sqrt(torch.sum(r * r))
+    return m * sqrt_rn(torch.sum(r * r))
 
 
 def _hyp2(x, z):
@@ -36,7 +38,7 @@ def _hyp2(x, z):
     ms = torch.where(m == 0, torch.ones_like(m), m)
     xs = x / ms
     zs = z / ms
-    return m * torch.sqrt(xs * xs + zs * zs)
+    return m * sqrt_rn(xs * xs + zs * zs)
 
 
 def _neg_copysign(mag, sgn):
@@ -50,7 +52,7 @@ def _hyp3(x, y, z):
     m = torch.maximum(torch.maximum(torch.abs(x), torch.abs(y)), torch.abs(z))
     ms = torch.where(m == 0, torch.ones_like(m), m)
     xs, ys, zs = x / ms, y / ms, z / ms
-    return m * torch.sqrt(xs * xs + ys * ys + zs * zs)
+    return m * sqrt_rn(xs * xs + ys * ys + zs * zs)
 
 
 def _reflector_from(alpha, tail):

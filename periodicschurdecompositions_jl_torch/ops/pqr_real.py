@@ -447,30 +447,6 @@ def chunk_iters(p: int, n: int) -> int:
     return max(floor, int(20.0 / max(per_iter, 1e-9)))
 
 
-def aed_schedule(cfg: AlgoConfig, n: int):
-    """(window, interval, AED on, host-tail size) of a run at size n, with
-    the JAX driver's formulas and gates (``ops/pqr_ff.py:198-205,227-235``)."""
-    w = cfg.aed_window if cfg.aed_window else min(48, max(16, n // 10))
-    itv = cfg.aed_interval if cfg.aed_interval else max(24, n // 4)
-    on = bool(cfg.aed) and w >= 4 and n >= w + 4 and (n >= cfg.aed_min_n
-                                                      or cfg.aed_window > 0)
-    if cfg.host_tail < 0:
-        tail_n = 0
-    else:
-        tail_n = min(cfg.host_tail, n) if cfg.host_tail > 0 else min(64, n // 8)
-    return w, itv, on, tail_n
-
-
-def _upload(dev, *arrays):
-    """Host arrays -> tensors on dev in one copy."""
-    flat = torch.from_numpy(np.concatenate([np.ravel(a) for a in arrays])).to(dev)
-    out, k = [], 0
-    for a in arrays:
-        out.append(flat[k:k + a.size].view(a.shape))
-        k += a.size
-    return out
-
-
 def pqr_real_core_aed(H: torch.Tensor, Z: Optional[torch.Tensor] = None,
                       want_z: bool = True, want_t: bool = True, maxitfac: int = 30,
                       cfg: AlgoConfig = default_config, with_info: bool = False):
@@ -502,11 +478,10 @@ def pqr_real_core_aed(H: torch.Tensor, Z: Optional[torch.Tensor] = None,
     """
     from .. import native
     from ..types import IllConditionedException
-    from .aed import aed_analyze, aed_apply
+    from .aed import aed_analyze, aed_apply, aed_schedule, aed_tallies, upload
     _check_args(H, want_t, cfg)
     p, n, _ = H.shape
-    extra = {"aed_deflated": 0, "host_tail_finished": 0, "aed_events": 0,
-             "aed_hits": 0, "aed_s": 0.0}
+    extra = aed_tallies()
     if n == 1:
         out = pqr_real_core(H, Z, want_z=want_z, maxitfac=maxitfac, cfg=cfg,
                             with_info=with_info)
@@ -548,7 +523,7 @@ def pqr_real_core_aed(H: torch.Tensor, Z: Optional[torch.Tensor] = None,
         if res is None or res[0] != m:
             return False
         _, Wf, Zt, lams, _ = res
-        Ztd, Wfd = _upload(dev, Zt, Wf)
+        Ztd, Wfd = upload(dev, Zt, Wf)
         aed_apply(run.Hp, run.Zp, 0, Ztd, Wfd, None)
         run.wr[:m] = lams.real
         run.wi[:m] = lams.imag
@@ -573,7 +548,7 @@ def pqr_real_core_aed(H: torch.Tensor, Z: Optional[torch.Tensor] = None,
         if res is None:
             return 0
         d, Wf, Zt, lams, sph = res
-        Ztd, Wfd, sphd = _upload(dev, Zt, Wf, sph)
+        Ztd, Wfd, sphd = upload(dev, Zt, Wf, sph)
         aed_apply(run.Hp, run.Zp, s, Ztd, Wfd, sphd)
         u = w - d
         run.wr[s + u:s + w] = lams.real[u:]

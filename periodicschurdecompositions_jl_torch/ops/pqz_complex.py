@@ -34,8 +34,11 @@ rotations.  The JAX package splits a PRNG key on every sweep and draws
 
 Deviations from the reference are those of the JAX core (mutually
 exclusive deflation tests with priority 1>2>3>4, the ``smlnum`` floor in
-the negligibility tests, full-range updates).  Not carried over yet:
-``want_t=False`` windowing (raises ``PSDNotImplemented``) and AED (ROADMAP).
+the negligibility tests, full-range updates).  ``pqz_complex_core_aed``
+adds aggressive early deflation and the host-tail finish of the JAX
+package's chunked driver (``ops/aed.py``); ``pschur_complex_pipeline`` runs
+it.  Not carried over yet: ``want_t=False`` windowing (raises
+``PSDNotImplemented``).
 """
 from __future__ import annotations
 
@@ -46,7 +49,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..config import verbosity
+from ..config import AlgoConfig, default_config, verbosity
 from ..types import (ConvergenceFailure, GeneralizedPeriodicSchur,
                      PSDNotImplemented)
 from ..utils.circshift import rev_alias
@@ -121,126 +124,179 @@ def pqz_complex_core(H: torch.Tensor, S: Sequence[bool],
       "deflate_pos", "deflate_neg", "splits", "launches"}) when
       ``with_info``.
     """
-    if not want_t:
-        raise PSDNotImplemented(
-            "want_t=False windowing is not ported yet (ROADMAP queue 1, item 4)")
-    S = tuple(bool(x) for x in S)
-    p, n, _ = H.shape
-    if len(S) != p or not S[0]:
-        raise ValueError("signature: one entry per factor, S[0] must be True")
-    if H.dtype != torch.complex128:
-        raise ValueError("pqz_complex_core: H must be complex128")
-    dev = H.device
-    fi = np.finfo(np.float64)
-    ulp, unfl = float(fi.eps), float(fi.tiny)
-    smlnum = unfl * (n / ulp)
-    safmin = unfl
-    maxit = maxitfac * n
-    ziter = -1 if p >= math.log2(unfl) / math.log2(ulp) else 0
+    run = _CxRun(H, S, Z, want_z, maxitfac, seed, want_t, shift_normals)
+    if run.n == 1:
+        return run.package(True, with_info)
+    run.iterate(run.maxit)
+    return run.finish(with_info)
 
-    H = H.clone().contiguous()
-    if want_z:
-        Zs = (torch.eye(n, dtype=H.dtype, device=dev).expand(p, n, n).clone()
-              if Z is None else Z.clone().contiguous())
+
+def pqz_complex_core_aed(H: torch.Tensor, S: Sequence[bool],
+                         Z: Optional[torch.Tensor] = None, want_z: bool = True,
+                         maxitfac: int = 30, seed: int = 1234,
+                         with_info: bool = False, want_t: bool = True,
+                         shift_normals=None, cfg: AlgoConfig = default_config,
+                         chunk_iters: Optional[int] = None):
+    """``pqz_complex_core`` with aggressive early deflation and the
+    host-tail finish, as ``cfg`` sets them (``ops.aed.drive_signed``: the
+    schedule of the JAX package's ``pqz_complex_core_ff_chunked``).  Same
+    arguments and returns; the info dict adds the AED tallies
+    (``aed_deflated``, ``host_tail_finished``, ``aed_events``,
+    ``aed_hits``, ``aed_s``).  ``chunk_iters``: the cap of the segments
+    (None: the JAX driver's).  With ``aed=False, host_tail=-1`` the run is
+    ``pqz_complex_core``'s, bit for bit."""
+    from .aed import aed_tallies, drive_signed
+    run = _CxRun(H, S, Z, want_z, maxitfac, seed, want_t, shift_normals)
+    if run.n == 1:
+        out, extra = run.package(True, with_info), aed_tallies()
     else:
-        Zs = None
-    counts = {"niter": 0, "maxit": maxit, "sweeps": 0, "exceptional": 0,
-              "czshift": 0, "deflate_pos": 0, "deflate_neg": 0, "splits": 0}
-    launches0 = dict(sweep_cx.launches)
+        extra = drive_signed(run, cfg, cplx=True, chunk_iters=chunk_iters)
+        out = run.finish(with_info)
+    return out[:-1] + ({**out[-1], **extra},) if with_info else out
 
-    def info():
-        counts["launches"] = {k: sweep_cx.launches[k] - launches0[k]
-                              for k in launches0}
-        return counts
 
-    alpha = np.zeros(n, complex)
-    beta = np.zeros(n)
-    scal = np.zeros(n, np.int32)
+class _CxRun:
+    """The state of one run of the complex iteration: the device stack, the
+    host-side iteration control, the exceptional-shift generator and the
+    eigenvalues found so far.  ``iterate`` resumes the loop up to an
+    absolute iteration cap, so a driver can stop it between iterations
+    (``pqz_complex_core_aed``)."""
 
-    def package(ok):
-        out = (H, Zs, torch.as_tensor(alpha).to(dev),
-               torch.as_tensor(beta).to(dev), torch.as_tensor(scal).to(dev), ok)
-        return out + (info(),) if with_info else out
+    def __init__(self, H, S, Z, want_z, maxitfac, seed, want_t, shift_normals):
+        if not want_t:
+            raise PSDNotImplemented(
+                "want_t=False windowing is not ported yet (ROADMAP queue 1, item 4)")
+        S = tuple(bool(x) for x in S)
+        p, n, _ = H.shape
+        if len(S) != p or not S[0]:
+            raise ValueError("signature: one entry per factor, S[0] must be True")
+        if H.dtype != torch.complex128:
+            raise ValueError("pqz_complex_core: H must be complex128")
+        dev = H.device
+        self.S, self.p, self.n, self.dev, self.want_z = S, p, n, dev, want_z
+        self.shift_normals = shift_normals
+        fi = np.finfo(np.float64)
+        self.ulp = ulp = float(fi.eps)
+        unfl = float(fi.tiny)
+        self.smlnum = smlnum = unfl * (n / ulp)
+        self.safmin = unfl
+        self.maxit = maxitfac * n
+        self.ziter = -1 if p >= math.log2(unfl) / math.log2(ulp) else 0
 
-    if n == 1:
-        a, b, s = safeprod_signed(H[:, 0, 0].cpu().tolist(), S)
-        alpha[0], beta[0], scal[0] = a, b, s
-        return package(True)
-
-    gen = None if shift_normals is not None else torch.Generator().manual_seed(seed)
-    cores = DeflateCores(p, S, want_z, ulp, smlnum)
-    gather = _WindowGather(p, n, dev)
-    cs = torch.zeros(2, dtype=torch.complex128, device=dev)
-    Sarr = np.asarray(S)
-    lv = np.arange(p)
-
-    ilast, iiter, jiter = n - 1, 0, 0
-    while ilast >= 0 and jiter < maxit:
-        dl, sup, sub = gather(H, ilast)           # (p, ilast+1) x 2, (ilast+1,)
-        iv = np.arange(ilast + 1)
-
-        # Test 1: negligible Hessenberg subdiagonal (bottom-most)
-        d0 = dl[0]
-        tol1 = np.abs(np.concatenate([[0], d0[:-1]])) + np.abs(d0)
-        tol1 = np.maximum(ulp * tol1, smlnum)
-        neg1 = (np.abs(sub) <= tol1) & (iv >= 1)
-        any1 = bool(neg1.any())
-        jstar = int(iv[neg1].max()) if any1 else -1
-        jlo = jstar if any1 else 0
-        split1 = ilast == 0 or (any1 and jstar == ilast)
-        if any1:
-            H[0, jstar, jstar - 1] = 0.0
-
-        # Tests 2/3: negligible diagonal in a triangular factor
-        supm1 = np.concatenate([np.zeros((p, 1)), sup[:, :-1]], axis=1)
-        toltr = np.where(iv[None, :] == ilast, np.abs(supm1),
-                         np.where(iv[None, :] == jlo, np.abs(sup),
-                                  np.abs(supm1) + np.abs(sup)))
-        toltr = np.maximum(ulp * toltr, smlnum)
-        negtr = (np.abs(dl) <= toltr) & (iv[None, :] >= jlo) & (lv[:, None] >= 1)
-        bestj = np.where(negtr, iv[None, :], -1).max(axis=1)
-        pos = lv[Sarr & (bestj >= 0) & (lv >= 1)]
-        neg = lv[~Sarr & (bestj >= 0) & (lv >= 1)]
-
-        if split1:
-            a, b, s = safeprod_signed(dl[:, ilast].tolist(), S)
-            alpha[ilast], beta[ilast], scal[ilast] = a, b, s
-            ilast -= 1
-            iiter = 0
-            if ziter != -1:
-                ziter = 0
-            counts["splits"] += 1
-        elif pos.size:
-            ldef = int(pos.min())
-            cores.pos_core(H, Zs, jlo, ldef, int(bestj[ldef]), ilast)
-            counts["deflate_pos"] += 1
-        elif neg.size:
-            ldef = int(neg.min())
-            cores.neg_core(H, Zs, jlo, ldef, int(bestj[ldef]), ilast)
-            counts["deflate_neg"] += 1
-        elif ziter >= 7 or ziter < 0:
-            _, _, zflag = cores.czshift_core(H, Zs, jlo, ilast)
-            ziter = 1 if zflag else 0
-            counts["czshift"] += 1
+        self.H = H = H.clone().contiguous()
+        if want_z:
+            self.Zs = (torch.eye(n, dtype=H.dtype, device=dev).expand(p, n, n).clone()
+                       if Z is None else Z.clone().contiguous())
         else:
-            iiter += 1
-            ziter += 1
-            k = counts["sweeps"]
-            counts["sweeps"] += 1
-            if iiter % 10 == 0:
-                fg = (shift_normals[k] if shift_normals is not None
-                      else torch.randn(4, generator=gen, dtype=torch.float64).tolist())
-                cs.copy_(_exceptional_cs(fg))
-                counts["exceptional"] += 1
-            else:
-                sweep_cx.qz_shift(H, jlo, ilast, S, out=cs)
-            sweep_cx.qz_sweep(H, Zs, jlo, ilast, cs, S, want_z=want_z)
-        jiter += 1
+            self.Zs = None
+        self.counts = {"niter": 0, "maxit": self.maxit, "sweeps": 0, "exceptional": 0,
+                       "czshift": 0, "deflate_pos": 0, "deflate_neg": 0, "splits": 0}
+        self.launches0 = dict(sweep_cx.launches)
+        self.alpha = np.zeros(n, complex)
+        self.beta = np.zeros(n)
+        self.scal = np.zeros(n, np.int32)
+        self.slots = (self.alpha, self.beta, self.scal)  # an analysis's order
+        self.ilast, self.iiter, self.jiter = n - 1, 0, 0
+        if n == 1:
+            a, b, s = safeprod_signed(H[:, 0, 0].cpu().tolist(), S)
+            self.alpha[0], self.beta[0], self.scal[0] = a, b, s
+            return
+        self.gen = (None if shift_normals is not None
+                    else torch.Generator().manual_seed(seed))
+        self.cores = DeflateCores(p, S, want_z, ulp, smlnum)
+        self.gather = _WindowGather(p, n, dev)
+        self.cs = torch.zeros(2, dtype=torch.complex128, device=dev)
 
-    ok = ilast < 0
-    counts["niter"] = jiter
-    _postprocess(H, Zs, S, safmin, want_z)
-    return package(ok)
+    def package(self, ok, with_info):
+        dev = self.dev
+        out = (self.H, self.Zs, torch.as_tensor(self.alpha).to(dev),
+               torch.as_tensor(self.beta).to(dev), torch.as_tensor(self.scal).to(dev), ok)
+        if not with_info:
+            return out
+        self.counts["launches"] = {k: sweep_cx.launches[k] - self.launches0[k]
+                                   for k in self.launches0}
+        return out + (self.counts,)
+
+    def iterate(self, it_cap: int) -> None:
+        """Run iterations until the window is empty or ``jiter`` reaches
+        ``it_cap``."""
+        H, Zs, S, p, want_z = self.H, self.Zs, self.S, self.p, self.want_z
+        ulp, smlnum, shift_normals, gen = self.ulp, self.smlnum, self.shift_normals, self.gen
+        cores, gather, cs, counts = self.cores, self.gather, self.cs, self.counts
+        alpha, beta, scal = self.alpha, self.beta, self.scal
+        Sarr = np.asarray(S)
+        lv = np.arange(p)
+
+        ilast, iiter, jiter, ziter = self.ilast, self.iiter, self.jiter, self.ziter
+        while ilast >= 0 and jiter < it_cap:
+            dl, sup, sub = gather(H, ilast)           # (p, ilast+1) x 2, (ilast+1,)
+            iv = np.arange(ilast + 1)
+
+            # Test 1: negligible Hessenberg subdiagonal (bottom-most)
+            d0 = dl[0]
+            tol1 = np.abs(np.concatenate([[0], d0[:-1]])) + np.abs(d0)
+            tol1 = np.maximum(ulp * tol1, smlnum)
+            neg1 = (np.abs(sub) <= tol1) & (iv >= 1)
+            any1 = bool(neg1.any())
+            jstar = int(iv[neg1].max()) if any1 else -1
+            jlo = jstar if any1 else 0
+            split1 = ilast == 0 or (any1 and jstar == ilast)
+            if any1:
+                H[0, jstar, jstar - 1] = 0.0
+
+            # Tests 2/3: negligible diagonal in a triangular factor
+            supm1 = np.concatenate([np.zeros((p, 1)), sup[:, :-1]], axis=1)
+            toltr = np.where(iv[None, :] == ilast, np.abs(supm1),
+                             np.where(iv[None, :] == jlo, np.abs(sup),
+                                      np.abs(supm1) + np.abs(sup)))
+            toltr = np.maximum(ulp * toltr, smlnum)
+            negtr = (np.abs(dl) <= toltr) & (iv[None, :] >= jlo) & (lv[:, None] >= 1)
+            bestj = np.where(negtr, iv[None, :], -1).max(axis=1)
+            pos = lv[Sarr & (bestj >= 0) & (lv >= 1)]
+            neg = lv[~Sarr & (bestj >= 0) & (lv >= 1)]
+
+            if split1:
+                a, b, s = safeprod_signed(dl[:, ilast].tolist(), S)
+                alpha[ilast], beta[ilast], scal[ilast] = a, b, s
+                ilast -= 1
+                iiter = 0
+                if ziter != -1:
+                    ziter = 0
+                counts["splits"] += 1
+            elif pos.size:
+                ldef = int(pos.min())
+                cores.pos_core(H, Zs, jlo, ldef, int(bestj[ldef]), ilast)
+                counts["deflate_pos"] += 1
+            elif neg.size:
+                ldef = int(neg.min())
+                cores.neg_core(H, Zs, jlo, ldef, int(bestj[ldef]), ilast)
+                counts["deflate_neg"] += 1
+            elif ziter >= 7 or ziter < 0:
+                _, _, zflag = cores.czshift_core(H, Zs, jlo, ilast)
+                ziter = 1 if zflag else 0
+                counts["czshift"] += 1
+            else:
+                iiter += 1
+                ziter += 1
+                k = counts["sweeps"]
+                counts["sweeps"] += 1
+                if iiter % 10 == 0:
+                    fg = (shift_normals[k] if shift_normals is not None
+                          else torch.randn(4, generator=gen, dtype=torch.float64).tolist())
+                    cs.copy_(_exceptional_cs(fg))
+                    counts["exceptional"] += 1
+                else:
+                    sweep_cx.qz_shift(H, jlo, ilast, S, out=cs)
+                sweep_cx.qz_sweep(H, Zs, jlo, ilast, cs, S, want_z=want_z)
+            jiter += 1
+        self.ilast, self.iiter, self.jiter, self.ziter = ilast, iiter, jiter, ziter
+
+    def finish(self, with_info: bool):
+        """Post-process and package (T, Z, alpha, beta, scale, ok[, info])."""
+        ok = self.ilast < 0
+        self.counts["niter"] = self.jiter
+        _postprocess(self.H, self.Zs, self.S, self.safmin, self.want_z)
+        return self.package(ok, with_info)
 
 
 def _postprocess(H, Z, S, safmin, want_z):
@@ -280,13 +336,15 @@ def _sync(dev):
 
 def pschur_complex_pipeline(A: torch.Tensor, S: Sequence[bool], orient: str,
                             want_t: bool = True, want_z: bool = True,
-                            maxitfac: int = 30) -> GeneralizedPeriodicSchur:
+                            maxitfac: int = 30,
+                            cfg: AlgoConfig = default_config) -> GeneralizedPeriodicSchur:
     """Complex generalized periodic Schur decomposition: reduction +
-    iteration + packaging, right orientation internally ('L' reverses the
+    iteration (``pqz_complex_core_aed``: AED and the host tail as ``cfg``
+    sets them) + packaging, right orientation internally ('L' reverses the
     cycle and the result with ``rev_alias``).
 
-    Records the reduction and iteration wall-clock and the counters in
-    ``last_info``.
+    Records the reduction and iteration wall-clock, the counters and the
+    AED tallies in ``last_info``.
     """
     from .hessenberg import phessenberg_core, phessenberg_signed_core
     S = tuple(bool(x) for x in S)
@@ -306,9 +364,9 @@ def pschur_complex_pipeline(A: torch.Tensor, S: Sequence[bool], orient: str,
         H, Q = phessenberg_signed_core(A, S, want_q=want_z)
     _sync(dev)
     t1 = time.perf_counter()
-    T, Z, alpha, beta, scal, ok, info = pqz_complex_core(
+    T, Z, alpha, beta, scal, ok, info = pqz_complex_core_aed(
         H, S, Z=Q, want_z=want_z, want_t=want_t, maxitfac=maxitfac,
-        with_info=True)
+        with_info=True, cfg=cfg)
     _sync(dev)
     t2 = time.perf_counter()
     last_info.clear()

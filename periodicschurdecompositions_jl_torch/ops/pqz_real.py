@@ -41,9 +41,10 @@ rotations: the JAX core splits a PRNG key on every sweep and draws
 ``torch.Generator(seed)``, or, for a run comparable with the JAX core, from
 a ``shift_normals`` array indexed by the count of sweeps.
 
-Not carried over yet: ``want_t=False`` windowing (raises
-``PSDNotImplemented``) and the rg AED and host tail of the JAX package's
-chunked driver (ROADMAP).
+``pqz_real_gen_core_aed`` adds aggressive early deflation and the
+host-tail finish of the JAX package's chunked driver (``ops/aed.py``);
+``pschur_real_gen_pipeline`` runs it.  Not carried over yet:
+``want_t=False`` windowing (raises ``PSDNotImplemented``).
 """
 from __future__ import annotations
 
@@ -54,7 +55,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
-from ..config import verbosity
+from ..config import AlgoConfig, default_config, verbosity
 from ..types import ConvergenceFailure, GeneralizedPeriodicSchur, PSDNotImplemented
 from ..utils.circshift import rev_alias
 from ..utils.safeprod import frexp_exp, pow2_scale, safeprod_signed
@@ -348,177 +349,234 @@ def pqz_real_gen_core(H: torch.Tensor, S: Sequence[bool],
       "deflate_pos", "deflate_neg", "splits", "attacks", "pairs",
       "launches"}) when ``with_info``.
     """
-    if not want_t:
-        raise PSDNotImplemented(
-            "want_t=False windowing is not ported yet (ROADMAP queue 1, item 4)")
-    S = tuple(bool(x) for x in S)
-    p, n, _ = H.shape
-    if len(S) != p or not S[0]:
-        raise ValueError("signature: one entry per factor, S[0] must be True")
-    if p < 2:
-        raise ValueError("pqz_real_gen_core: p must be >= 2 (use pqr_real_core)")
-    if H.dtype != torch.float64:
-        raise ValueError("pqz_real_gen_core: H must be float64")
-    dev = H.device
-    fi = np.finfo(np.float64)
-    ulp, unfl = float(fi.eps), float(fi.tiny)
-    smlnum = unfl * (n / ulp)
-    maxit = maxitfac * n
-    ziter = -1 if p >= math.log2(unfl) / math.log2(ulp) else 0
+    run = _GenRun(H, S, Z, want_z, maxitfac, seed, aggressive, want_t, shift_normals)
+    if run.n == 1:
+        return run.package(True, with_info)
+    run.iterate(run.maxit)
+    return run.finish(with_info)
 
-    H = H.clone().contiguous()
-    if want_z:
-        Zs = (torch.eye(n, dtype=H.dtype, device=dev).expand(p, n, n).clone()
-              if Z is None else Z.clone().contiguous())
+
+def pqz_real_gen_core_aed(H: torch.Tensor, S: Sequence[bool],
+                          Z: Optional[torch.Tensor] = None, want_z: bool = True,
+                          maxitfac: int = 120, seed: int = 1234,
+                          with_info: bool = False, aggressive: bool = False,
+                          want_t: bool = True, shift_normals=None,
+                          cfg: AlgoConfig = default_config,
+                          chunk_iters: Optional[int] = None):
+    """``pqz_real_gen_core`` with aggressive early deflation and the
+    host-tail finish, as ``cfg`` sets them (``ops.aed.drive_signed``: the
+    schedule of the JAX package's ``pqz_real_gen_core_chunked``).  Same
+    arguments and returns; the info dict adds the AED tallies
+    (``aed_deflated``, ``host_tail_finished``, ``aed_events``,
+    ``aed_hits``, ``aed_s``).  ``chunk_iters``: the cap of the segments
+    (None: the JAX driver's).  With ``aed=False, host_tail=-1`` the run is
+    ``pqz_real_gen_core``'s, bit for bit."""
+    from .aed import aed_tallies, drive_signed
+    run = _GenRun(H, S, Z, want_z, maxitfac, seed, aggressive, want_t, shift_normals)
+    if run.n == 1:
+        out, extra = run.package(True, with_info), aed_tallies()
     else:
-        Zs = None
-    counts = {"niter": 0, "maxit": maxit, "sweeps": 0, "exceptional": 0,
-              "czshift": 0, "deflate_pos": 0, "deflate_neg": 0, "splits": 0,
-              "attacks": 0, "pairs": 0}
-    launches0 = {**sweep_rg.launches, **rgopen.launches}
+        extra = drive_signed(run, cfg, cplx=False, chunk_iters=chunk_iters)
+        out = run.finish(with_info)
+    return out[:-1] + ({**out[-1], **extra},) if with_info else out
 
-    def info():
-        now = {**sweep_rg.launches, **rgopen.launches}
-        counts["launches"] = {k: now[k] - launches0[k] for k in now}
-        return counts
 
-    alr, ali, beta = np.zeros(n), np.zeros(n), np.zeros(n)
-    scal = np.zeros(n, np.int32)
+class _GenRun:
+    """The state of one run of the real generalized iteration: the device
+    stack, the host-side iteration control, the exceptional-shift
+    generator and the eigenvalues found so far.  ``iterate`` resumes the
+    loop up to an absolute iteration cap, so a driver can stop it between
+    iterations (``pqz_real_gen_core_aed``)."""
 
-    def package(ok):
-        out = (H, Zs, alr, ali, beta, scal, ok)
-        return out + (info(),) if with_info else out
+    def __init__(self, H, S, Z, want_z, maxitfac, seed, aggressive, want_t,
+                 shift_normals):
+        if not want_t:
+            raise PSDNotImplemented(
+                "want_t=False windowing is not ported yet (ROADMAP queue 1, item 4)")
+        S = tuple(bool(x) for x in S)
+        p, n, _ = H.shape
+        if len(S) != p or not S[0]:
+            raise ValueError("signature: one entry per factor, S[0] must be True")
+        if p < 2:
+            raise ValueError("pqz_real_gen_core: p must be >= 2 (use pqr_real_core)")
+        if H.dtype != torch.float64:
+            raise ValueError("pqz_real_gen_core: H must be float64")
+        dev = H.device
+        self.S, self.p, self.n, self.dev, self.want_z = S, p, n, dev, want_z
+        self.aggressive, self.shift_normals = aggressive, shift_normals
+        fi = np.finfo(np.float64)
+        self.ulp, self.unfl = ulp, unfl = float(fi.eps), float(fi.tiny)
+        self.smlnum = smlnum = unfl * (n / ulp)
+        self.maxit = maxitfac * n
+        self.ziter = -1 if p >= math.log2(unfl) / math.log2(ulp) else 0
 
-    if n == 1:
-        a, b, s = safeprod_signed(H[:, 0, 0].cpu().tolist(), S)
-        alr[0], beta[0], scal[0] = a.real, b, s
-        return package(True)
-
-    # aggressive: the fixed per-factor thresholds of test 1
-    agg_tol0 = max(unfl, float(H[0].abs().sum(dim=0).max()) * ulp)
-
-    gen = None if shift_normals is not None else torch.Generator().manual_seed(seed)
-    cores = DeflateCores(p, S, want_z, ulp, smlnum)
-    gather = _WindowGather(p, n, dev)
-    blocks = _BlockGather(p, n, dev)
-    Sarr = np.asarray(S)
-    lv = np.arange(p)
-
-    def rot_tensor(vals):
-        return torch.tensor(list(vals) + [0.0] * (4 - len(vals)), dtype=torch.float64,
-                            device=dev)
-
-    ilast, iiter, jiter = n - 1, 0, 0
-    while ilast >= 0 and jiter < maxit:
-        dl, sup, sub = gather(H, ilast)           # (p, ilast+1) x 2, (ilast+1,)
-        iv = np.arange(ilast + 1)
-
-        # Test 1: negligible Hessenberg subdiagonal (bottom-most)
-        d0 = dl[0]
-        if aggressive:
-            tol1 = np.full(ilast + 1, agg_tol0)
+        self.H = H = H.clone().contiguous()
+        if want_z:
+            self.Zs = (torch.eye(n, dtype=H.dtype, device=dev).expand(p, n, n).clone()
+                       if Z is None else Z.clone().contiguous())
         else:
-            tol1 = np.abs(np.concatenate([[0.0], d0[:-1]])) + np.abs(d0)
-            tol1 = np.maximum(ulp * tol1, smlnum)
-        neg1 = (np.abs(sub) <= tol1) & (iv >= 1)
-        any1 = bool(neg1.any())
-        jstar = int(iv[neg1].max()) if any1 else -1
-        jlo = jstar if any1 else 0
-        split1 = ilast == 0 or (any1 and jstar == ilast)
-        if any1:
-            H[0, jstar, jstar - 1] = 0.0
+            self.Zs = None
+        self.counts = {"niter": 0, "maxit": self.maxit, "sweeps": 0, "exceptional": 0,
+                       "czshift": 0, "deflate_pos": 0, "deflate_neg": 0, "splits": 0,
+                       "attacks": 0, "pairs": 0}
+        self.launches0 = {**sweep_rg.launches, **rgopen.launches}
+        self.alr, self.ali, self.beta = np.zeros(n), np.zeros(n), np.zeros(n)
+        self.scal = np.zeros(n, np.int32)
+        self.slots = (self.alr, self.ali, self.beta, self.scal)  # an analysis's order
+        self.ilast, self.iiter, self.jiter = n - 1, 0, 0
+        if n == 1:
+            a, b, s = safeprod_signed(H[:, 0, 0].cpu().tolist(), S)
+            self.alr[0], self.beta[0], self.scal[0] = a.real, b, s
+            return
+        # aggressive: the fixed per-factor thresholds of test 1
+        self.agg_tol0 = max(unfl, float(H[0].abs().sum(dim=0).max()) * ulp)
+        self.gen = (None if shift_normals is not None
+                    else torch.Generator().manual_seed(seed))
+        self.cores = DeflateCores(p, S, want_z, ulp, smlnum)
+        self.gather = _WindowGather(p, n, dev)
+        self.blocks = _BlockGather(p, n, dev)
 
-        # Tests 2/3: negligible diagonal in a triangular factor
-        supm1 = np.concatenate([np.zeros((p, 1)), sup[:, :-1]], axis=1)
-        toltr = np.where(iv[None, :] == ilast, np.abs(supm1),
-                         np.where(iv[None, :] == jlo, np.abs(sup),
-                                  np.abs(supm1) + np.abs(sup)))
-        toltr = np.maximum(ulp * toltr, smlnum)
-        negtr = (np.abs(dl) <= toltr) & (iv[None, :] >= jlo) & (lv[:, None] >= 1)
-        bestj = np.where(negtr, iv[None, :], -1).max(axis=1)
-        pos = lv[Sarr & (bestj >= 0) & (lv >= 1)]
-        neg = lv[~Sarr & (bestj >= 0) & (lv >= 1)]
+    def package(self, ok, with_info):
+        out = (self.H, self.Zs, self.alr, self.ali, self.beta, self.scal, ok)
+        if not with_info:
+            return out
+        now = {**sweep_rg.launches, **rgopen.launches}
+        self.counts["launches"] = {k: now[k] - self.launches0[k] for k in now}
+        return out + (self.counts,)
 
-        if split1:
-            a, b, s = safeprod_signed(dl[:, ilast].tolist(), S)
-            alr[ilast], ali[ilast], beta[ilast], scal[ilast] = a.real, 0.0, b, s
-            ilast -= 1
-            iiter = 0
-            if ziter != -1:
-                ziter = 0
-            counts["splits"] += 1
-        elif pos.size:
-            ldef = int(pos.min())
-            cores.pos_core(H, Zs, jlo, ldef, int(bestj[ldef]), ilast)
-            counts["deflate_pos"] += 1
-        elif neg.size:
-            ldef = int(neg.min())
-            cores.neg_core(H, Zs, jlo, ldef, int(bestj[ldef]), ilast)
-            counts["deflate_neg"] += 1
-        elif ziter >= 7 or ziter < 0:
+    def iterate(self, it_cap: int) -> None:
+        """Run iterations until the window is empty or ``jiter`` reaches
+        ``it_cap``."""
+        H, Zs, S, p, n, dev, want_z = (self.H, self.Zs, self.S, self.p, self.n, self.dev,
+                                       self.want_z)
+        ulp, smlnum, aggressive, agg_tol0 = self.ulp, self.smlnum, self.aggressive, self.agg_tol0
+        shift_normals, gen, cores, gather, blocks = (self.shift_normals, self.gen, self.cores,
+                                                     self.gather, self.blocks)
+        counts, alr, ali, beta, scal = self.counts, self.alr, self.ali, self.beta, self.scal
+        Sarr = np.asarray(S)
+        lv = np.arange(p)
+
+        def rot_tensor(vals):
+            return torch.tensor(list(vals) + [0.0] * (4 - len(vals)), dtype=torch.float64,
+                                device=dev)
+
+        ilast, iiter, jiter, ziter = self.ilast, self.iiter, self.jiter, self.ziter
+        while ilast >= 0 and jiter < it_cap:
+            dl, sup, sub = gather(H, ilast)           # (p, ilast+1) x 2, (ilast+1,)
+            iv = np.arange(ilast + 1)
+
+            # Test 1: negligible Hessenberg subdiagonal (bottom-most)
+            d0 = dl[0]
             if aggressive:
-                raise PSDNotImplemented(
-                    "controlled zero shift with aggressive deflation "
-                    "(reference src/rgeneralized.jl:245-247)")
-            _, _, zflag = cores.czshift_core(H, Zs, jlo, ilast)
-            ziter = 1 if zflag else 0
-            counts["czshift"] += 1
-        elif jlo == ilast - 1 or n == 2:
-            # the trailing 2x2 block (n == 2: the only window is 2x2)
-            counts["attacks"] += 1
-            j = ilast - 1
-            (W,) = blocks(H, [(j, 2)])
-            B2 = [W[(t + 1) % p] for t in range(p)]
-            S2 = tuple(S[(t + 1) % p] for t in range(p))
-            B2, done2 = rp2x2ssr(B2, S2)
-            if done2:
-                # perfect-shift cascade (reference :695-709)
-                c1, s1 = 1.0, 1.0
-                for l in range(p - 1, 0, -1):
-                    r = B2[l - 1][1][1]
-                    hjj = float(W[l, 0, 0])
-                    if S[l]:
-                        c1, s1, _ = givens_host(c1 * hjj, s1 * r)
-                    else:
-                        c1, s1, _ = givens_host(c1 * r, s1 * hjj)
-                r = B2[p - 1][1][1]
-                c1, s1, _ = givens_host(c1 * float(W[0, 0, 0]) - r * s1,
-                                        c1 * float(W[0, 1, 0]))
-                rgopen.rg_ladder(H, Zs, "chain", j, ilast, rot_tensor((c1, s1)), S,
-                                 want_z=want_z)
+                tol1 = np.full(ilast + 1, agg_tol0)
             else:
-                w1r, w1i, _, _, s1c, s2c, bflag = eig2x2_product(W, S)
-                wi = abs(w1i)
-                alr[j], alr[j + 1] = w1r, w1r
-                ali[j], ali[j + 1] = wi, -wi
-                beta[j], beta[j + 1] = bflag, bflag
-                scal[j], scal[j + 1] = s1c, s2c
-                ilast -= 2
+                tol1 = np.abs(np.concatenate([[0.0], d0[:-1]])) + np.abs(d0)
+                tol1 = np.maximum(ulp * tol1, smlnum)
+            neg1 = (np.abs(sub) <= tol1) & (iv >= 1)
+            any1 = bool(neg1.any())
+            jstar = int(iv[neg1].max()) if any1 else -1
+            jlo = jstar if any1 else 0
+            split1 = ilast == 0 or (any1 and jstar == ilast)
+            if any1:
+                H[0, jstar, jstar - 1] = 0.0
+
+            # Tests 2/3: negligible diagonal in a triangular factor
+            supm1 = np.concatenate([np.zeros((p, 1)), sup[:, :-1]], axis=1)
+            toltr = np.where(iv[None, :] == ilast, np.abs(supm1),
+                             np.where(iv[None, :] == jlo, np.abs(sup),
+                                      np.abs(supm1) + np.abs(sup)))
+            toltr = np.maximum(ulp * toltr, smlnum)
+            negtr = (np.abs(dl) <= toltr) & (iv[None, :] >= jlo) & (lv[:, None] >= 1)
+            bestj = np.where(negtr, iv[None, :], -1).max(axis=1)
+            pos = lv[Sarr & (bestj >= 0) & (lv >= 1)]
+            neg = lv[~Sarr & (bestj >= 0) & (lv >= 1)]
+
+            if split1:
+                a, b, s = safeprod_signed(dl[:, ilast].tolist(), S)
+                alr[ilast], ali[ilast], beta[ilast], scal[ilast] = a.real, 0.0, b, s
+                ilast -= 1
                 iiter = 0
                 if ziter != -1:
                     ziter = 0
-                counts["pairs"] += 1
-        else:
-            iiter += 1
-            ziter += 1
-            k = counts["sweeps"]
-            counts["sweeps"] += 1
-            normals = None
-            if iiter % 10 == 0:
-                normals = (shift_normals[k] if shift_normals is not None
-                           else torch.randn(4, generator=gen, dtype=torch.float64).tolist())
-                counts["exceptional"] += 1
-            double_shift_sweep(H, Zs, S, jlo, ilast, normals, want_z=want_z, blocks=blocks)
-        jiter += 1
+                counts["splits"] += 1
+            elif pos.size:
+                ldef = int(pos.min())
+                cores.pos_core(H, Zs, jlo, ldef, int(bestj[ldef]), ilast)
+                counts["deflate_pos"] += 1
+            elif neg.size:
+                ldef = int(neg.min())
+                cores.neg_core(H, Zs, jlo, ldef, int(bestj[ldef]), ilast)
+                counts["deflate_neg"] += 1
+            elif ziter >= 7 or ziter < 0:
+                if aggressive:
+                    raise PSDNotImplemented(
+                        "controlled zero shift with aggressive deflation "
+                        "(reference src/rgeneralized.jl:245-247)")
+                _, _, zflag = cores.czshift_core(H, Zs, jlo, ilast)
+                ziter = 1 if zflag else 0
+                counts["czshift"] += 1
+            elif jlo == ilast - 1 or n == 2:
+                # the trailing 2x2 block (n == 2: the only window is 2x2)
+                counts["attacks"] += 1
+                j = ilast - 1
+                (W,) = blocks(H, [(j, 2)])
+                B2 = [W[(t + 1) % p] for t in range(p)]
+                S2 = tuple(S[(t + 1) % p] for t in range(p))
+                B2, done2 = rp2x2ssr(B2, S2)
+                if done2:
+                    # perfect-shift cascade (reference :695-709)
+                    c1, s1 = 1.0, 1.0
+                    for l in range(p - 1, 0, -1):
+                        r = B2[l - 1][1][1]
+                        hjj = float(W[l, 0, 0])
+                        if S[l]:
+                            c1, s1, _ = givens_host(c1 * hjj, s1 * r)
+                        else:
+                            c1, s1, _ = givens_host(c1 * r, s1 * hjj)
+                    r = B2[p - 1][1][1]
+                    c1, s1, _ = givens_host(c1 * float(W[0, 0, 0]) - r * s1,
+                                            c1 * float(W[0, 1, 0]))
+                    rgopen.rg_ladder(H, Zs, "chain", j, ilast, rot_tensor((c1, s1)), S,
+                                     want_z=want_z)
+                else:
+                    w1r, w1i, _, _, s1c, s2c, bflag = eig2x2_product(W, S)
+                    wi = abs(w1i)
+                    alr[j], alr[j + 1] = w1r, w1r
+                    ali[j], ali[j + 1] = wi, -wi
+                    beta[j], beta[j + 1] = bflag, bflag
+                    scal[j], scal[j + 1] = s1c, s2c
+                    ilast -= 2
+                    iiter = 0
+                    if ziter != -1:
+                        ziter = 0
+                    counts["pairs"] += 1
+            else:
+                iiter += 1
+                ziter += 1
+                k = counts["sweeps"]
+                counts["sweeps"] += 1
+                normals = None
+                if iiter % 10 == 0:
+                    normals = (shift_normals[k] if shift_normals is not None
+                               else torch.randn(4, generator=gen,
+                                                dtype=torch.float64).tolist())
+                    counts["exceptional"] += 1
+                double_shift_sweep(H, Zs, S, jlo, ilast, normals, want_z=want_z,
+                                   blocks=blocks)
+            jiter += 1
+        self.ilast, self.iiter, self.jiter, self.ziter = ilast, iiter, jiter, ziter
 
-    ok = ilast < 0
-    counts["niter"] = jiter
-    # scrub: zero the subdiagonals under real eigenvalues, triangularize the rest
-    keep = torch.as_tensor(ali[:-1] != 0, device=dev)
-    sub0 = torch.diagonal(H[0], -1)
-    sub0.copy_(torch.where(keep, sub0, torch.zeros_like(sub0)))
-    H[1:] = torch.triu(H[1:])
-    return package(ok)
+    def finish(self, with_info: bool):
+        """Scrub and package (T, Z, alpha_r, alpha_i, beta, scale, ok[, info])."""
+        H = self.H
+        ok = self.ilast < 0
+        self.counts["niter"] = self.jiter
+        # scrub: zero the subdiagonals under real eigenvalues, triangularize the rest
+        keep = torch.as_tensor(self.ali[:-1] != 0, device=self.dev)
+        sub0 = torch.diagonal(H[0], -1)
+        sub0.copy_(torch.where(keep, sub0, torch.zeros_like(sub0)))
+        H[1:] = torch.triu(H[1:])
+        return self.package(ok, with_info)
 
 
 def _sync(dev):
@@ -528,15 +586,16 @@ def _sync(dev):
 
 def pschur_real_gen_pipeline(A: torch.Tensor, S: Sequence[bool], orient: str,
                              want_t: bool = True, want_z: bool = True,
-                             maxitfac: int = 120,
-                             aggressive: bool = False) -> GeneralizedPeriodicSchur:
+                             maxitfac: int = 120, aggressive: bool = False,
+                             cfg: AlgoConfig = default_config) -> GeneralizedPeriodicSchur:
     """Real generalized periodic Schur decomposition: reduction + iteration
     + packaging ('L' reverses the cycle and the result with ``rev_alias``).
 
     ``p == 1`` runs the real periodic QR core; otherwise an all-direct
     signature takes the plain Hessenberg reduction and a mixed one the
-    signed reduction, then ``pqz_real_gen_core``.  Records the reduction and
-    iteration wall-clock and the counters in ``last_info``.
+    signed reduction, then ``pqz_real_gen_core_aed`` (AED and the host tail
+    as ``cfg`` sets them).  Records the reduction and iteration wall-clock,
+    the counters and, for p >= 2, the AED tallies in ``last_info``.
     """
     from .hessenberg import phessenberg_core, phessenberg_signed_core
     from .pqr_real import pqr_real_core
@@ -569,9 +628,9 @@ def pschur_real_gen_pipeline(A: torch.Tensor, S: Sequence[bool], orient: str,
         alpha = (wr + 1j * wi) * np.exp2(-k.astype(float))
         beta, scal = np.ones(n), k
     else:
-        T, Z, alr, ali, beta, scal, ok, info = pqz_real_gen_core(
+        T, Z, alr, ali, beta, scal, ok, info = pqz_real_gen_core_aed(
             H, S, Z=Q, want_z=want_z, want_t=want_t, maxitfac=maxitfac,
-            with_info=True, aggressive=aggressive)
+            with_info=True, aggressive=aggressive, cfg=cfg)
         alpha = alr + 1j * ali
     _sync(dev)
     t2 = time.perf_counter()

@@ -1,12 +1,17 @@
 #!/usr/bin/env python3
-"""The real headline with and without aggressive early deflation (AED) and
-the host-tail finish, in paired turns on one CUDA card.
+"""A leg with and without aggressive early deflation (AED) and the
+host-tail finish, in paired turns on one CUDA card.
 
-The headline draw (p=16, n=512, ``default_rng(12345).standard_normal``)
-goes through ``pschur(A, 'R')`` (the default configuration: AED and the
-host tail; leg "on") and through ``pschur_real_pipeline(A, 'R',
-cfg=AlgoConfig(aed=False, host_tail=-1))`` (leg "off"), in ``--pairs``
-pairs (default 3) whose order flips from pair to pair.  Each run is made twice: on the host clock (wall,
+By default the real headline: its draw (p=16, n=512,
+``default_rng(12345).standard_normal``) goes through ``pschur(A, 'R')`` (the
+default configuration: AED and the host tail; leg "on") and through
+``pschur_real_pipeline(A, 'R', cfg=AlgoConfig(aed=False, host_tail=-1))``
+(leg "off").  ``--rg``: the real generalized leg of ``chip_smoke.py`` (p=8,
+n=256, ``default_rng(4242)``, alternating S) through ``pschur(A, 'R', S)``
+and ``pschur_real_gen_pipeline``; ``--cx``: its complex leg (p=8, n=256,
+``default_rng(777)``, S=None) through ``pschur(C, 'R')`` and
+``pschur_complex_pipeline``.  The legs run in ``--pairs`` pairs (default 3)
+whose order flips from pair to pair.  Each run is made twice: on the host clock (wall,
 reduction, iteration, niter, sweeps, the AED tallies and host seconds, the
 backward error, hashes of T and Z; with AED also each analysis: its window
 size, beta, deflations and host seconds, split into the window Schur, the
@@ -16,9 +21,11 @@ of that run's wall).
 
 Prints the card's name and power limit first, a line per run, and a JSON
 summary last; the whole record goes to ``chiprun_out/time_aed_headline.json``.
+With ``--rg`` and ``--cx`` the file is ``time_aed_headline_rg.json`` or
+``time_aed_headline_cx.json`` beside it.
 
 Run from the repository root:
-  python3 scripts/time_aed_headline.py [--pairs K]
+  python3 scripts/time_aed_headline.py [--rg | --cx] [--pairs K]
 """
 import argparse
 import hashlib
@@ -31,9 +38,17 @@ import time
 import numpy as np
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-KERNELS = (("A", "sweep_generate_kernel"), ("B0", "sweep_left_kernel"),
-           ("B", "sweep_right_kernel"), ("D", "deflate2x2"), ("G", "glue_kernel"),
-           ("reduction", "hess_reduce_kernel"))
+KERNELS = {
+    "real": (("A", "sweep_generate_kernel"), ("B0", "sweep_left_kernel"),
+             ("B", "sweep_right_kernel"), ("D", "deflate2x2"), ("G", "glue_kernel"),
+             ("reduction", "hess_reduce_kernel")),
+    "rg": (("A", "rg_generate_kernel"), ("B0", "rg_left_kernel"), ("B", "rg_right_kernel"),
+           ("R", "rg_ladder"), ("CZSHIFT", "czshift_kernel"),
+           ("signed", "hess_signed_kernel")),
+    "cx": (("A", "qz_generate_kernel"), ("B0", "qz_left_kernel"), ("B", "qz_right_kernel"),
+           ("S", "qz_shift_kernel"), ("reduction", "hess_reduce_kernel"),
+           ("signed", "hess_signed_kernel")),
+}
 
 
 def sha(t):
@@ -47,7 +62,11 @@ def dev_us(e):
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--pairs", type=int, default=3)
+    route = ap.add_mutually_exclusive_group()
+    route.add_argument("--rg", action="store_true", help="the real generalized leg")
+    route.add_argument("--cx", action="store_true", help="the complex leg")
     args = ap.parse_args()
+    kind = "rg" if args.rg else "cx" if args.cx else "real"
     sys.path.insert(0, HERE)
     import torch
     if not torch.cuda.is_available():
@@ -58,7 +77,7 @@ def main():
     import periodicschurdecompositions_jl_torch as pt
     from periodicschurdecompositions_jl_torch import native
     from periodicschurdecompositions_jl_torch.config import AlgoConfig
-    from periodicschurdecompositions_jl_torch.ops import _cuda, aed, pqr_real
+    from periodicschurdecompositions_jl_torch.ops import _cuda, aed, pqr_real, pqz_complex, pqz_real
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
@@ -67,16 +86,34 @@ def main():
     native.load()
     pt.pschur(torch.tensor(np.random.default_rng(0).standard_normal((2, 32, 32)),
                            device="cuda"), "R")
-    An = np.random.default_rng(12345).standard_normal((16, 512, 512))
-    A = torch.tensor(An, device="cuda")
     off = AlgoConfig(aed=False, host_tail=-1)
-    legs = {"on": lambda: pt.pschur(A, "R"),
-            "off": lambda: pqr_real.pschur_real_pipeline(A, "R", cfg=off)}
+    if kind == "real":
+        An, S = np.random.default_rng(12345).standard_normal((16, 512, 512)), None
+        A = torch.tensor(An, device="cuda")
+        core = pqr_real
+        legs = {"on": lambda: pt.pschur(A, "R"),
+                "off": lambda: pqr_real.pschur_real_pipeline(A, "R", cfg=off)}
+    elif kind == "rg":
+        An, S = cs.rg_draw(cs.P_RG, cs.N_RG, cs.SEED_RG)
+        A = torch.tensor(An, device="cuda")
+        core = pqz_real
+        legs = {"on": lambda: pt.pschur(A, "R", S=S),
+                "off": lambda: pqz_real.pschur_real_gen_pipeline(A, S, "R", cfg=off)}
+    else:
+        An, S = cs.cx_draw(cs.P_CX, cs.N_CX, cs.SEED_CX), None
+        A = torch.tensor(An, device="cuda")
+        core = pqz_complex
+        legs = {"on": lambda: pt.pschur(A, "R"),
+                "off": lambda: pqz_complex.pschur_complex_pipeline(A, (True,) * cs.P_CX, "R",
+                                                                   cfg=off)}
     from periodicschurdecompositions_jl_torch.models import ordschur as ordmod
     events = []
     parts = {}
-    originals = {"analyze": aed.aed_analyze, "schur": aed._window_schur,
-                 "phess": aed._phess_window, "ordschur": ordmod.ordschur}
+    names = {"real": ("aed_analyze", "_window_schur", "_phess_window"),
+             "rg": ("aed_analyze_rg", "_window_rgpsd", "_phess_window_signed"),
+             "cx": ("aed_analyze_cx", "_window_gpsd", "_phess_window_signed")}[kind]
+    originals = {"analyze": getattr(aed, names[0]), "schur": getattr(aed, names[1]),
+                 "phess": getattr(aed, names[2]), "ordschur": ordmod.ordschur}
 
     def timed(key, fn):
         def call(*a, **k):
@@ -87,21 +124,25 @@ def main():
                 parts[key] = parts.get(key, 0.0) + time.perf_counter() - t0
         return call
 
-    def timed_analyze(Hwin, beta, *a, **k):
+    def timed_analyze(Hwin, *a, **k):
         parts.clear()
         t0 = time.perf_counter()
-        res = originals["analyze"](Hwin, beta, *a, **k)
-        events.append({"w": int(Hwin.shape[-1]), "beta": float(beta),
+        res = originals["analyze"](Hwin, *a, **k)
+        beta = a[0] if kind == "real" else a[1]
+        events.append({"w": int(Hwin.shape[-1]), "beta": abs(beta),
                        "d": 0 if res is None else int(res[0]),
                        "s": time.perf_counter() - t0, **parts})
         return res
 
-    aed.aed_analyze = timed_analyze
-    aed._window_schur = timed("schur", originals["schur"])
+    setattr(aed, names[0], timed_analyze)
+    setattr(aed, names[1], timed("schur", originals["schur"]))
     ordmod.ordschur = timed("moves", originals["ordschur"])
-    aed._phess_window = timed("phess", originals["phess"])
+    setattr(aed, names[2], timed("phess", originals["phess"]))
     order = ["on", "off"]
-    out = {"card": smi, "pairs": args.pairs, "runs": []}
+    for leg in order:  # warm-up: the first run of a leg loads the libraries it calls
+        legs[leg]()
+    events.clear()
+    out = {"card": smi, "leg": kind, "pairs": args.pairs, "runs": []}
     for k in range(args.pairs):
         for leg in (order if k % 2 == 0 else order[::-1]):
             events.clear()
@@ -110,14 +151,16 @@ def main():
             P = legs[leg]()
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            info = dict(pqr_real.last_info)
+            info = dict(core.last_info)
+            T, Z = P.Ts.cpu().numpy(), P.Zs.cpu().numpy()
             run = {"pair": k, "leg": leg, "wall_s": wall,
                    "reduce_s": info["reduce_s"], "iterate_s": info["iterate_s"],
                    "niter": info["niter"], "sweeps": info["sweeps"],
-                   "sweep_steps": info["sweep_steps"],
+                   **{key: info[key] for key in ("sweep_steps", "czshift") if key in info},
                    **{key: info[key] for key in ("aed_events", "aed_hits", "aed_deflated",
                                                  "host_tail_finished", "aed_s")},
-                   "backerr": cs.backerr(An, P.Ts.cpu().numpy(), P.Zs.cpu().numpy()),
+                   "backerr": (cs.backerr(An, T, Z) if S is None and kind == "real"
+                               else cs.cx_backerr(An, T, Z, S or (True,) * An.shape[0])),
                    "T": sha(P.Ts), "Z": sha(P.Zs), "analyses": list(events)}
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
@@ -131,7 +174,7 @@ def main():
             run.update({"profiled_wall_s": pwall, "device_ms": busy,
                         "idle_share": 1 - busy / (pwall * 1e3)})
             named = 0.0
-            for tag, key in KERNELS:
+            for tag, key in KERNELS[kind]:
                 sel = [e for e in ev if key in e.key]
                 ms = sum(dev_us(e) for e in sel) / 1e3
                 named += ms
@@ -147,9 +190,10 @@ def main():
                       f"{e['s'] * 1e3:.1f} ms (window Schur "
                       f"{e.get('schur', 0) * 1e3:.1f}, moves {e.get('moves', 0) * 1e3:.1f}, "
                       f"re-reduction {e.get('phess', 0) * 1e3:.1f} ms)", flush=True)
-    aed.aed_analyze, aed._window_schur = originals["analyze"], originals["schur"]
-    aed._phess_window, ordmod.ordschur = originals["phess"], originals["ordschur"]
-    summary = {"card": smi}
+    for key, name in zip(("analyze", "schur", "phess"), names):
+        setattr(aed, name, originals[key])
+    ordmod.ordschur = originals["ordschur"]
+    summary = {"card": smi, "leg": kind}
     for leg in order:
         rs = [r for r in out["runs"] if r["leg"] == leg]
         for key in ("wall_s", "iterate_s", "device_ms", "idle_share", "aed_s", "A_ms"):
@@ -160,7 +204,8 @@ def main():
                     "backerr", "T"):
             summary[f"{leg} {key}"] = sorted({r[key] for r in rs})
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
-    with open(os.path.join(HERE, "chiprun_out", "time_aed_headline.json"), "w") as f:
+    suffix = "" if kind == "real" else f"_{kind}"
+    with open(os.path.join(HERE, "chiprun_out", f"time_aed_headline{suffix}.json"), "w") as f:
         json.dump({**out, "summary": summary}, f, indent=1)
     print(json.dumps(summary), flush=True)
     return 0

@@ -39,7 +39,11 @@ across a call on another (p, n).  Kernel S at p = 33 and 40 (more factors than l
 1e-14, as above.  AED (``ops/aed.py``, no kernel of its own): the apply on
 the card within 1e-13 of the CPU's, with the same exact zeros; the driver at
 p=3 n=40 deflates, its eigenvalues within 1e-10 of numpy's, ``check_psd``
-at 10 eps n and 40 eps.  ``ordschur`` and ``eigvecs`` keep a decomposition
+at 10 eps n and 40 eps; the signed apply (float64 and complex128, mixed S)
+within 1e-13 of the CPU's with the same exact zeros; the rg and cx AED
+drivers at n=36 deflate, re-reduce each window with one ``hess_signed``
+launch, reconstruct within 1e-11 n max|A| and agree with the CPU's AED-off
+core's eigenvalues within 1e-8.  ``ordschur`` and ``eigvecs`` keep a decomposition
 on the card, and reorder bit for bit as on the CPU.
 """
 import numpy as np
@@ -1447,6 +1451,78 @@ def test_aed_driver_on_the_card(cuda):
     good, rep = pt.check_psd(P, A, qtol=10.0, tol=40.0)
     assert good, rep
     assert aed.stats["deflated"] > 0
+
+
+@pytest.mark.parametrize("cplx", [False, True], ids=["float64", "complex128"])
+def test_signed_aed_apply_on_the_card_matches_the_cpu(cuda, cplx):
+    from periodicschurdecompositions_jl_torch.ops import aed
+    rng = np.random.default_rng(26)
+    p, n, w, s, S = 3, 40, 12, 20, (True, False, True)
+
+    def m(*shape):
+        x = rng.standard_normal(shape)
+        return x + 1j * rng.standard_normal(shape) if cplx else x
+
+    H = np.stack([np.triu(m(n, n), -1 if l == 0 else 0) for l in range(p)])
+    H[0, s + w, s + w - 1] = 0.0
+    Z = np.stack([np.linalg.qr(m(n, n))[0] for _ in range(p)])
+    Zt = np.stack([np.linalg.qr(m(w, w))[0] for _ in range(p)])
+    Wf = np.stack([np.triu(m(w, w), -1 if l == 0 else 0) for l in range(p)])
+    sph = np.zeros(w, H.dtype)
+    sph[0] = 0.75
+    outs = []
+    for dev in (torch.device("cpu"), cuda):
+        Hp, Zp = torch.tensor(H, device=dev), torch.tensor(Z, device=dev)
+        aed.aed_apply(Hp, Zp, s, *(torch.tensor(x, device=dev) for x in (Zt, Wf, sph)), S)
+        outs.append((Hp.cpu(), Zp.cpu()))
+    (Hc, Zc), (Hg, Zg) = outs
+    assert float((Hg - Hc).abs().max()) <= 1e-13 * float(Hc.abs().max())
+    assert float((Zg - Zc).abs().max()) <= 1e-13
+    assert torch.equal(Hg == 0, Hc == 0)  # the same exact zeros
+
+
+@pytest.mark.parametrize("route", ["rg", "cx"])
+def test_signed_aed_drivers_on_the_card(cuda, route):
+    from periodicschurdecompositions_jl_torch.ops import aed
+    cplx = route == "cx"
+    S = (True, False) if cplx else (True, False, True)
+    rng = np.random.default_rng(56)
+    A = rng.standard_normal((len(S), 36, 36))
+    if cplx:
+        A = A + 1j * rng.standard_normal(A.shape)
+    H, Q = hessenberg.phessenberg_signed_core(torch.tensor(A, device=cuda), S)
+    cfg = AlgoConfig(aed_window=10, aed_interval=8)
+    core, drive = ((pqz_complex.pqz_complex_core, pqz_complex.pqz_complex_core_aed) if cplx
+                   else (pqz_real.pqz_real_gen_core, pqz_real.pqz_real_gen_core_aed))
+    seen = {"n": 0}
+    reduce = aed._phess_window_signed
+
+    def counted(Aw, *a, **k):
+        seen["n"] += Aw.shape[-1] > 2  # stage 2 launches at n > 2
+        return reduce(Aw, *a, **k)
+    before = hessenberg.launches["hess_signed"]
+    aed._phess_window_signed = counted
+    try:
+        out = drive(H, S, Z=Q, cfg=cfg, with_info=True)
+    finally:
+        aed._phess_window_signed = reduce
+    info = out[-1]
+    assert out[-2] and info["aed_deflated"] > 0
+    assert hessenberg.launches["hess_signed"] - before == seen["n"]
+    T, Z = out[0].cpu().numpy(), out[1].cpu().numpy()
+    for l in range(len(S)):
+        ln = (l + 1) % len(S)
+        Ax = Z[l] @ T[l] @ Z[ln].conj().T if S[l] else Z[ln] @ T[l] @ Z[l].conj().T
+        assert np.abs(Ax - A[l]).max() < 1e-11 * 36 * np.abs(A).max()
+
+    def values(o):
+        f = [np.asarray(x.cpu() if torch.is_tensor(x) else x) for x in o[2:-2]]
+        if cplx:
+            return f[0] / f[1] * np.exp2(f[2].astype(float))
+        return (f[0] + 1j * f[1]) / f[2] * np.exp2(f[3].astype(float))
+    ref = values(core(H.cpu(), S, Z=Q.cpu(), with_info=True))
+    d = np.abs(values(out)[:, None] - ref[None, :])
+    assert max(d.min(axis=1).max(), d.min(axis=0).max()) < 1e-8 * max(1.0, np.abs(ref).max())
 
 
 def test_ordschur_and_eigvecs_keep_the_card(cuda):
