@@ -57,6 +57,16 @@ and checks the results:
   factor's diagonals (``singular_cycle``), which takes DEFLATE_POS and
   DEFLATE_NEG.
 
+* want_t=False (the eigenvalues-only mode): B0 and B of the three routes
+  and D with the window bound (``*_bounded`` C entries; rlo odd and off the
+  tiles' grid) against their unbounded launches on the same input (bit for
+  bit inside the window, untouched outside, Z bit for bit, ``bounded_ok``)
+  and against the bounded plain versions, in each kernel phase; then
+  ``pschur(..., want_t=False)`` on the headline draw (with Z and without),
+  the complex leg's and the rg leg's, each against the same call with T:
+  niter, AED tallies, launches, eigenvalues and Z bit for bit
+  (``want_t_legs``).
+
 Each kernel's launch counter is set to 0 just before the path that runs it
 and read just after.  Any failure raises (exit code != 0).
 
@@ -175,6 +185,54 @@ def structure_ok(H):
     Hn = H.cpu().numpy()
     return bool(np.all(np.tril(Hn[0], -2) == 0)
                 and all(np.all(np.tril(Hn[f], -1) == 0) for f in range(1, Hn.shape[0])))
+
+
+def random_logs(kind, p, n, m, i, rng, nb=1):
+    """Random orthogonal (unitary) transform logs in the apply kernels'
+    layouts, on the steps m..i-1 (rg: m..i-2): "real" (nb, p, n+1, 9),
+    n the stack's size without its ghost line, the last step a 2x2 as
+    kernel A's (so that line i+1 takes the identity); "cx" (p, n, 16) with
+    L, R, ZR and the subdiagonal r; "rg" (p, n, 28) with L, R, ZR and r."""
+    def orth(k, cplx=False):
+        X = rng.standard_normal((k, k)) + (1j * rng.standard_normal((k, k)) if cplx else 0)
+        return np.linalg.qr(X)[0]
+    if kind == "real":
+        R = np.zeros((nb, p, n + 1, 9))
+        for b in range(nb):
+            for f in range(p):
+                for k in range(m, i):
+                    F = np.eye(3)
+                    if k == i - 1:
+                        F[:2, :2] = orth(2)
+                    else:
+                        F = orth(3)
+                    R[b, f, k] = F.reshape(9)
+        return R
+    if kind == "cx":
+        L = np.zeros((p, n, 16), complex)
+        for f in range(p):
+            for k in range(m, i):
+                L[f, k, :12] = np.concatenate([orth(2, True).reshape(4) for _ in range(3)])
+                L[f, k, 12] = rng.standard_normal() + 1j * rng.standard_normal()
+        return L
+    L = np.zeros((p, n, 28))
+    for f in range(p):
+        for k in range(m, i - 1):
+            L[f, k, :27] = np.concatenate([orth(3).reshape(9) for _ in range(3)])
+            L[f, k, 27] = rng.standard_normal()
+    return L
+
+
+def bounded_ok(H0, Hu, Hb, rlo, chi, Zu=None, Zb=None):
+    """A launch bounded to the want_t=False window against the unbounded
+    one on the same input H0: inside the window (rows >= rlo, columns <
+    chi) bit for bit the unbounded result, outside it H0 as it was; Z bit
+    for bit the unbounded one's."""
+    import torch
+    r = torch.arange(H0.shape[-1], device=H0.device)
+    inside = (r[:, None] >= rlo) & (r[None, :] < chi)
+    return bool(torch.equal(Hb, torch.where(inside, Hu, H0))
+                and (Zu is None or torch.equal(Zb, Zu)))
 
 
 def event_ms(fn, reps):
@@ -327,6 +385,18 @@ def sweep_phase(dev, p, n, report):
                 raise AssertionError("want_z=False sweep changed H")
             _log("sweep want_z=False: H identical to want_z=True")
 
+    # the want_t=False bound: kernel A's log on [37, 300] (rlo 37, odd and
+    # off B's 32-row tiles; chi = i + 1), four random logs on [200, 400]
+    for (m, i, rlo, nb) in ((37, 300, 37, 1), (200, 400, 177, 4)):
+        H0 = torch.tensor(Hn, device=dev)
+        H0[0, m, m - 1] = 0.0
+        H0[0, i + 1, i] = 0.0
+        R = (sweep.sweep_generate(H0, m, i, v0) if nb == 1 else torch.tensor(
+            random_logs("real", p, n, m, i, np.random.default_rng(5), nb), device=dev))
+        d, _ = apply_bound_case(dev, "real", H0, torch.tensor(Zn, device=dev), R, m, i, rlo,
+                                i + 1, nb)
+        err_b = max(err_b, d)
+
     # per-kernel times at the full window [0, n-1]
     m, i = windows[0]
     H = torch.tensor(Hn, device=dev)
@@ -372,6 +442,66 @@ def sweep_phase(dev, p, n, report):
                         "replaces": rep, "max_abs_err": err, "ms": ms,
                         "plain_ms": pms, "bound_ms": bounds[name][0],
                         "bound_by": bounds[name][1], "library_ms": None}
+
+
+def apply_bound_case(dev, kind, H0, Z0, log, m, i, rlo, chi, nb=1):
+    """B0 and B of one route (``kind`` "real", "cx" or "rg") bounded to the
+    want_t=False window (rows >= rlo, columns < chi) against the unbounded
+    launches on the same input and log: inside the window bit for bit their
+    result, outside it the input, Z bit for bit (``bounded_ok``); B bounded
+    without Z leaves H as with Z; the plain version with the same bounds
+    within 1e-13 (max|H| relative; Z absolute).  Returns that difference
+    and the times (ms, CUDA events) of B0 and B unbounded and bounded."""
+    import torch
+    from periodicschurdecompositions_jl_torch.ops import _cuda, sweep, sweep_cx, sweep_rg
+    lib = _cuda.load()
+    st = torch.cuda.current_stream().cuda_stream
+    p, n = H0.shape[0], H0.shape[-1]
+    name = {"real": "sweep", "cx": "qz_sweep", "rg": "rg_sweep"}[kind]
+    nbs = (nb,) if kind == "real" else ()
+
+    def b0(H, bounded):
+        fn = getattr(lib, f"psd_{name}_left" + ("_bounded" if bounded else ""))
+        _cuda.check(fn(H.data_ptr(), log.data_ptr(), p, n, m, i, *nbs,
+                       *((chi,) if bounded else ()), st), f"{name}_left")
+
+    def b(H, Z, bounded):
+        fn = getattr(lib, f"psd_{name}_right" + ("_bounded" if bounded else ""))
+        _cuda.check(fn(H.data_ptr(), None if Z is None else Z.data_ptr(), log.data_ptr(), p,
+                       n, m, i, *nbs, *((rlo,) if bounded else ()), st), f"{name}_right")
+
+    out = {}
+    for bounded in (False, True):
+        H, Z = H0.clone(), Z0.clone()
+        b0(H, bounded)
+        b(H, Z, bounded)
+        out[bounded] = (H, Z)
+    (Hu, Zu), (Hb, Zb) = out[False], out[True]
+    Hz = H0.clone()
+    b0(Hz, True)
+    b(Hz, None, True)
+    Ha, Za = H0.clone(), Z0.clone()
+    if kind == "real":
+        sweep.apply_log_plain(Ha, Za, log, m, i, want_z=True, nb=nb, rhi=chi, clo=rlo)
+    else:
+        plain = sweep_cx.qz_apply_log_plain if kind == "cx" else sweep_rg.rg_apply_log_plain
+        plain(Ha, Za, log, m, i, want_z=True, rhi=chi, clo=rlo)
+    d = max(float((Hb - Ha).abs().max()) / float(H0.abs().max()),
+            float((Zb - Za).abs().max()))
+    H, Z = H0.clone(), Z0.clone()
+    ms = {"B0": event_ms(lambda: b0(H, False), 5), "B0 bounded": event_ms(lambda: b0(H, True), 5),
+          "B": event_ms(lambda: b(H, Z, False), 5), "B bounded": event_ms(lambda: b(H, Z, True), 5)}
+    ok = bounded_ok(H0, Hu, Hb, rlo, chi, Zu, Zb) and torch.equal(Hz, Hb)
+    _log(f"{kind} B0/B want_t=False bound p={p} [{m}, {i}] NB={nb} rlo={rlo} chi={chi}: "
+         f"inside the window bit for bit the unbounded launch's, outside untouched, Z bit "
+         f"for bit: {ok}; B without Z: H as with Z; vs the bounded plain version {d:.3e}; "
+         + ", ".join(f"{k} {v:.4f} ms" for k, v in ms.items()))
+    if not ok:
+        raise AssertionError(f"{kind} B0/B with the want_t=False bound on [{m}, {i}] rlo={rlo} "
+                             f"chi={chi}: not the unbounded launch's inside, or touched outside")
+    if not d <= 1e-13:
+        raise AssertionError(f"{kind} bounded B0/B disagree with the bounded plain version")
+    return d, ms
 
 
 def apply_small_check(dev):
@@ -762,6 +892,28 @@ def deflate_phase(dev, p, n, report):
             raise AssertionError(f"deflate kernel on {label}: exact zeros not the plain's")
         worst = max(worst, dH / scale, dZ)
         times[label] = (t_k, t_plain)
+        # the want_t=False bound (rlo = i - 1, chi = i + 1: the 2x2 window
+        # alone) and a wider one (rlo 37, odd; chi = i + 9): against the
+        # unbounded launch (bit for bit inside, untouched outside, Z bit for
+        # bit), without Z, and against the bounded plain version
+        for rlo, chi in ((i - 1, i + 1), (37, i + 9)):
+            Hb, Zb, Hz = H0.clone(), Z0.clone(), H0.clone()
+            deflate.deflate2x2(Hb, Zb, *args, want_z=True, rhi=chi, clo=rlo)
+            deflate.deflate2x2(Hz, None, *args, want_z=False, rhi=chi, clo=rlo)
+            Hp, Zp = H0.clone(), Z0.clone()
+            deflate.deflate2x2_plain(Hp, Zp, *args, want_z=True, rhi=chi, clo=rlo)
+            dB = max(float((Hb - Hp).abs().max()) / scale, float((Zb - Zp).abs().max()))
+            ok = bounded_ok(H0, Hk, Hb, rlo, chi, Zk, Zb) and torch.equal(Hz, Hb)
+            Ht, Zt = H0.clone(), Z0.clone()
+            t_b = event_ms(lambda: deflate.deflate2x2(Ht, Zt, *args, want_z=True, rhi=chi,
+                                                      clo=rlo), 5)
+            _log(f"deflate {label} want_t=False bound rlo={rlo} chi={chi}: inside bit for bit "
+                 f"the unbounded launch's, outside untouched, Z bit for bit, without Z H as "
+                 f"with Z: {ok}; vs the bounded plain version {dB:.3e}; kernel {t_b:.4f} ms")
+            if not (ok and dB <= TOL):
+                raise AssertionError(f"deflate {label}: the want_t=False bound rlo={rlo} "
+                                     f"chi={chi} fails")
+            worst = max(worst, dB)
     t_k, t_plain = times["chainB"]
     bms, bby = deflate_bound(p, n)
     report["deflate2x2"] = {
@@ -1480,6 +1632,16 @@ def cx_kernel_phase(dev, p, n, report):
                 raise AssertionError("cx want_z=False sweep changed H")
             _log("cx sweep want_z=False: H identical to want_z=True")
 
+    # the want_t=False bound on kernel A's log: rlo = m = 37 (odd, off B's
+    # 16-row tiles) and rlo = 21 < m, chi = i + 1
+    for (m, i, rlo) in ((37, 200, 37), (120, 180, 21)):
+        H0 = torch.tensor(Hn, device=dev)
+        H0[0, m, m - 1] = 0.0
+        H0[0, i + 1, i] = 0.0
+        d, _ = apply_bound_case(dev, "cx", H0, torch.tensor(Zn, device=dev),
+                                sweep_cx.qz_sweep_generate(H0, m, i, cs, S), m, i, rlo, i + 1)
+        err_b = max(err_b, d)
+
     # 5. kernel S against qz_shift_plain
     H = torch.tensor(Hn, device=dev)
     err_s = 0.0
@@ -1936,6 +2098,19 @@ def rg_kernel_phase(dev, p, n, report):
             _log("rg chase want_z=False: H identical to want_z=True")
 
     err_b = max(err_b, rg_apply_odd_n(dev, lib, st))
+    # the want_t=False bound on kernel A's log, on the state the opening
+    # leaves: rlo = m - 1 = 37 (the sweep's first row; odd, off B's 16-row
+    # tiles) and 11, chi = i + 1
+    for (m, i, rlo) in ((38, 200, 37), (121, 180, 11)):
+        H0 = torch.tensor(Hn, device=dev)
+        H0[0, m - 1, m - 2] = 0.0
+        H0[0, i + 1, i] = 0.0
+        Z0 = torch.tensor(Zn, device=dev)
+        rgopen.rg_ladder_plain(H0, Z0, "open", m - 1, i, rot, S, want_z=True, rhi=i + 1,
+                               clo=m - 1)
+        d, _ = apply_bound_case(dev, "rg", H0, Z0, sweep_rg.rg_sweep_generate(H0, m, i, S), m,
+                                i, rlo, i + 1)
+        err_b = max(err_b, d)
 
     # 4. kernel R against rg_ladder_plain
     H = torch.tensor(Hn, device=dev)
@@ -2157,6 +2332,52 @@ def rg_e2e_case(dev, p, n, seed, aed_off=False, ref_values=None):
         raise AssertionError("no controlled zero shift on the real generalized path")
     launches["deflate_czshift"] = deflate_launches["deflate_czshift"]
     return launches, kept["HQ"], vals
+
+
+def want_t_legs(dev):
+    """``pschur(..., want_t=False)`` (the eigenvalues-only mode: every
+    update bounded to the active window) on the headline draw with Z and
+    without it, on the complex leg's draw and on the rg leg's, each against
+    the same call with T on this card, one after the other: the same
+    niter, sweeps and AED tallies, the same kernel launches, and the
+    eigenvalues and (with Z) Z bit for bit."""
+    import torch
+    import periodicschurdecompositions_jl_torch as pt
+    from periodicschurdecompositions_jl_torch.ops import (deflate, glue, pqr_real, pqz_complex,
+                                                         pqz_real, rgopen, sweep, sweep_cx,
+                                                         sweep_rg)
+    head = torch.tensor(np.random.default_rng(SEED_HEAD).standard_normal(
+        (P_HEAD, N_HEAD, N_HEAD)), device=dev)
+    An, S = rg_draw(P_RG, N_RG, SEED_RG)
+    legs = (("real headline", pqr_real, (sweep, deflate, glue), head, None, True),
+            ("real headline, want_z=False", pqr_real, (sweep, deflate, glue), head, None, False),
+            ("complex leg", pqz_complex, (sweep_cx,),
+             torch.tensor(cx_draw(P_CX, N_CX, SEED_CX), device=dev), None, True),
+            ("rg leg", pqz_real, (sweep_rg, rgopen), torch.tensor(An, device=dev), S, True))
+    keys = ("niter", "sweeps", "exceptional", "czshift", "aed_events", "aed_hits",
+            "aed_deflated", "host_tail_finished")
+    for tag, core, mods, A, Sg, wz in legs:
+        runs = {}
+        for want_t in (True, False):
+            for mod in mods:
+                for k in mod.launches:
+                    mod.launches[k] = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            P = pt.pschur(A, "R", S=Sg, want_t=want_t, want_z=wz)
+            torch.cuda.synchronize()
+            runs[want_t] = (P, dict(core.last_info), time.perf_counter() - t0,
+                            {k: v for mod in mods for k, v in mod.launches.items()})
+        (P1, i1, w1, l1), (P2, i2, w2, l2) = runs[True], runs[False]
+        same = {"counts": all(i1[k] == i2[k] for k in keys if k in i1),
+                "launches": l1 == l2, "values": torch.equal(P1.values, P2.values),
+                "Z": not wz or torch.equal(P1.Zs, P2.Zs)}
+        _log(f"want_t=False {tag}: wall {w2:.3f} s (with T {w1:.3f} s), niter {i2['niter']}, "
+             f"{aed_line(i2)}; against the run with T: {same}; launches {l2}")
+        if not all(same.values()):
+            raise AssertionError(f"want_t=False {tag} differs from the run with T: {same}")
+        if not np.all(np.isfinite(P2.values.cpu().numpy())):
+            raise AssertionError(f"want_t=False {tag}: eigenvalues not finite")
 
 
 def rg_czshift_check(dev, S, HQ):
@@ -2563,6 +2784,7 @@ def main() -> int:
         rg_launches["deflate_czshift"] = rg_off["deflate_czshift"]
     launches.update(rg_launches)
     rg_iteration_profile(dev, alternating(P_RG), rg_hq)
+    want_t_legs(dev)
     deflate_actions_phase(dev, report, rg_hq)
     dl = deflate_leg(dev)
     for k in ("deflate_pos", "deflate_neg", "deflate_pos_c128", "deflate_neg_c128"):

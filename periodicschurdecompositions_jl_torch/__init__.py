@@ -20,8 +20,10 @@ window analyses on the host with the repo's native C++ window Schurs
 
 Ported so far: ``pschur`` for real and complex cycles with or without a
 signature, ``gpschur`` for real and complex pairs, ``phessenberg``,
-``ordschur``, ``eigvecs`` and ``check_psd``.  ``want_t=False`` raises
-``PSDNotImplemented``.
+``ordschur``, ``eigvecs`` and ``check_psd``.  ``want_t=False`` keeps every
+update inside the iteration's active window (the kernels take the bound):
+the eigenvalues and Z are those of the run with T, and T is valid on its
+diagonal blocks only.
 """
 from .config import AlgoConfig, default_config, setverbosity, verbosity
 from .diagnostics import check_psd

@@ -34,6 +34,11 @@
 // parent's.  Past the shared memory a block can have (12 p doubles), the
 // parent's design runs (deflate2x2_stepwise: one block, a barrier around
 // every 2-row or 2-column update).
+// Without T (want_t=False) the caller bounds the lines: the row updates
+// stop before column chi and the column updates of H start at row rlo
+// (Z's take every row), in both designs.  The windows lie inside any
+// bound, so a bounded launch drops whole lines and leaves the others bit
+// for bit as the unbounded one.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -164,12 +169,13 @@ struct Line {
   int st = 1, slot = -1;
 };
 
-// Line k of the p (Nr + Nc + Nz) lines, Nr = N-1-i, Nc = i-1.
+// Line k of the p (Nr + Nc + Nz) lines, Nr = chi-1-i (the columns i+1 ..
+// chi-1), Nc = i-1-rlo (the rows rlo .. i-2).
 __device__ __forceinline__ Line line_at(double* H, double* Z, long k, int p, int N, int i,
-                                        int jmin, int fmin) {
-  const int Nr = N - 1 - i, Nc = i - 1, Lf = Nr + Nc + (Z ? N : 0);
+                                        int rlo, int chi, int jmin, int fmin) {
+  const int Nr = chi - 1 - i, Nc = i - 1 - rlo, Lf = Nr + Nc + (Z ? N : 0);
   Line ln;
-  if (k >= (long)p * Lf) return ln;
+  if (Lf == 0 || k >= (long)p * Lf) return ln;
   const int f = (int)(k / Lf), r = (int)(k % Lf);
   const int kind = r < Nr ? 0 : r < Nr + Nc ? 1 : 2;
   ln.slot = line_slot(kind, f, p, jmin, fmin);
@@ -179,7 +185,7 @@ __device__ __forceinline__ Line line_at(double* H, double* Z, long k, int p, int
     ln.at = H + f * NN + (size_t)(i - 1) * N + i + 1 + r;
     ln.st = N;
   } else {
-    const int row = kind == 1 ? r - Nr : r - Nr - Nc;
+    const int row = kind == 1 ? rlo + r - Nr : r - Nr - Nc;
     ln.at = (kind == 1 ? H : Z) + f * NN + (size_t)row * N + i - 1;
   }
   return ln;
@@ -188,7 +194,7 @@ __device__ __forceinline__ Line line_at(double* H, double* Z, long k, int p, int
 __global__ void __launch_bounds__(kThreads)
 deflate2x2_kernel(double* __restrict__ H, double* __restrict__ Z, int p, int N, int i,
                   int jmin, int jmax, int replace0, int finzero, double cs0, double sn0,
-                  double thr) {
+                  double thr, int rlo, int chi) {
   cg::grid_group grid = cg::this_grid();
   extern __shared__ double smem[];
   double* W = smem;         // 4 p: the windows
@@ -200,10 +206,10 @@ deflate2x2_kernel(double* __restrict__ H, double* __restrict__ Z, int p, int N, 
 
   // this thread's lines: k0, then k0 + stride, ...; the first in registers,
   // loaded before the chain
-  const long lines = (long)p * ((N - 1 - i) + (i - 1) + (Z ? N : 0));
+  const long lines = (long)p * ((chi - 1 - i) + (i - 1 - rlo) + (Z ? N : 0));
   const long stride = (long)gridDim.x * kThreads;
   const long k0 = (long)blockIdx.x * kThreads + tid;
-  const Line ln = line_at(H, Z, k0, p, N, i, jmin, fmin);
+  const Line ln = line_at(H, Z, k0, p, N, i, rlo, chi, jmin, fmin);
   double v0 = 0.0, v1 = 0.0;
   if (ln.at) {
     v0 = ln.at[0];
@@ -230,7 +236,7 @@ deflate2x2_kernel(double* __restrict__ H, double* __restrict__ Z, int p, int N, 
     __syncthreads();
     if (ln.at) op2(Lr + 4 * ln.slot, v0, v1);
     for (long k = k0 + stride; k < lines; k += stride) {
-      const Line x = line_at(H, Z, k, p, N, i, jmin, fmin);
+      const Line x = line_at(H, Z, k, p, N, i, rlo, chi, jmin, fmin);
       if (!x.at) continue;
       double x0 = x.at[0], x1 = x.at[x.st];
       op2(Lr + 4 * x.slot, x0, x1);
@@ -252,21 +258,21 @@ deflate2x2_kernel(double* __restrict__ H, double* __restrict__ Z, int p, int N, 
 
 // ---- the parent's design, past the shared memory of the windowed one ----
 
-// rows k0, k0+1 of A, columns [lo, N): (x, y) <- M (x, y)
-__device__ __forceinline__ void rows2(double* A, int N, int k0, int lo,
+// rows k0, k0+1 of A, columns [lo, hi): (x, y) <- M (x, y)
+__device__ __forceinline__ void rows2(double* A, int N, int k0, int lo, int hi,
                                       const double* M) {
   double* r0 = A + (size_t)k0 * N;
-  for (int c = lo + threadIdx.x; c < N; c += blockDim.x) {
+  for (int c = lo + threadIdx.x; c < hi; c += blockDim.x) {
     const double x = r0[c], y = r0[c + N];
     r0[c] = M[0] * x + M[1] * y;
     r0[c + N] = M[2] * x + M[3] * y;
   }
 }
 
-// columns j0, j0+1 of A, rows [0, hi): (a, b) <- (a, b) M
-__device__ __forceinline__ void cols2(double* A, int N, int j0, int hi,
+// columns j0, j0+1 of A, rows [lo, hi): (a, b) <- (a, b) M
+__device__ __forceinline__ void cols2(double* A, int N, int j0, int lo, int hi,
                                       const double* M) {
-  for (int r = threadIdx.x; r < hi; r += blockDim.x) {
+  for (int r = lo + threadIdx.x; r < hi; r += blockDim.x) {
     double* e = A + (size_t)r * N + j0;
     const double a = e[0], b = e[1];
     e[0] = a * M[0] + b * M[2];
@@ -277,7 +283,7 @@ __device__ __forceinline__ void cols2(double* A, int N, int j0, int hi,
 __global__ void __launch_bounds__(kThreads)
 deflate2x2_stepwise(double* __restrict__ H, double* __restrict__ Z, int p, int N,
                     int i, int jmin, int jmax, int replace0, int finzero,
-                    double cs0, double sn0, double thr) {
+                    double cs0, double sn0, double thr, int rlo, int chi) {
   __shared__ double M[4];
   __shared__ double G[4];
   __shared__ int done;
@@ -299,9 +305,9 @@ deflate2x2_stepwise(double* __restrict__ H, double* __restrict__ Z, int p, int N
         Hf[(size_t)i * N + i] = beta;
       }
       __syncthreads();
-      cols2(Hf, N, i - 1, i, M);
-      rows2(H + (f + 1) * NN, N, i - 1, i - 1, M);
-      if (Z) cols2(Z + (f + 1) * NN, N, i - 1, N, M);
+      cols2(Hf, N, i - 1, rlo, i, M);
+      rows2(H + (f + 1) * NN, N, i - 1, i - 1, chi, M);
+      if (Z) cols2(Z + (f + 1) * NN, N, i - 1, 0, N, M);
       __syncthreads();
     }
     return;
@@ -325,10 +331,10 @@ deflate2x2_stepwise(double* __restrict__ H, double* __restrict__ Z, int p, int N
       M[3] = c;
     }
     __syncthreads();
-    rows2(H, N, i - 1, i - 1, G);
+    rows2(H, N, i - 1, i - 1, chi, G);
     __syncthreads();  // p == 1: the column update below reads these rows
-    cols2(H + tgt * NN, N, i - 1, i + 1, M);
-    if (Z) cols2(Z, N, i - 1, N, M);
+    cols2(H + tgt * NN, N, i - 1, rlo, i + 1, M);
+    if (Z) cols2(Z, N, i - 1, 0, N, M);
     __syncthreads();
     for (int f = p - 1; f >= 1 && f >= jmax + 1; --f) {
       double* Hf = H + f * NN;
@@ -344,9 +350,9 @@ deflate2x2_stepwise(double* __restrict__ H, double* __restrict__ Z, int p, int N
         Hf[(size_t)i * N + i - 1] = 0.0;
       }
       __syncthreads();
-      rows2(Hf, N, i - 1, i, M);
-      cols2(H + (f - 1) * NN, N, i - 1, i + 1, M);
-      if (Z) cols2(Z + f * NN, N, i - 1, N, M);
+      rows2(Hf, N, i - 1, i, chi, M);
+      cols2(H + (f - 1) * NN, N, i - 1, rlo, i + 1, M);
+      if (Z) cols2(Z + f * NN, N, i - 1, 0, N, M);
       __syncthreads();
     }
     if (tid == 0) {
@@ -367,10 +373,13 @@ deflate2x2_stepwise(double* __restrict__ H, double* __restrict__ Z, int p, int N
 
 extern "C" {
 
-// Kernel D, in place on H and (when Z != NULL) Z.
-int psd_deflate2x2(double* H, double* Z, int p, int N, int i, int jmin, int jmax,
-                   int replace0, int finzero, double cs0, double sn0, double thr,
-                   void* stream) {
+// Kernel D, in place on H and (when Z != NULL) Z, H's row updates on the
+// columns < chi (i + 1 <= chi <= N) and its column updates on the rows >=
+// rlo (0 <= rlo <= i - 1; the want_t=False window: i + 1 and i - 1).
+int psd_deflate2x2_bounded(double* H, double* Z, int p, int N, int i, int jmin, int jmax,
+                           int replace0, int finzero, double cs0, double sn0, double thr,
+                           int rlo, int chi, void* stream) {
+  if (rlo < 0 || rlo > i - 1 || chi < i + 1 || chi > N) return (int)cudaErrorInvalidValue;
   auto kernel = deflate2x2_kernel;
   const size_t bytes = (size_t)12 * p * sizeof(double) + 2 * sizeof(int);
   bool fits = false;
@@ -378,17 +387,26 @@ int psd_deflate2x2(double* H, double* Z, int p, int N, int i, int jmin, int jmax
   if (e != cudaSuccess) return (int)e;
   if (!fits) {
     deflate2x2_stepwise<<<1, kThreads, 0, (cudaStream_t)stream>>>(
-        H, Z, p, N, i, jmin, jmax, replace0, finzero, cs0, sn0, thr);
+        H, Z, p, N, i, jmin, jmax, replace0, finzero, cs0, sn0, thr, rlo, chi);
     return (int)cudaGetLastError();
   }
-  const long lines = (long)p * ((N - 1 - i) + (i - 1) + (Z ? N : 0));
+  const long lines = (long)p * ((chi - 1 - i) + (i - 1 - rlo) + (Z ? N : 0));
   int blocks = 1;
   e = psd::coop_blocks(kernel, kThreads, bytes, lines > 0 ? (lines + kThreads - 1) / kThreads : 1,
                        blocks);
   if (e != cudaSuccess) return (int)e;
-  void* args[] = {&H, &Z, &p, &N, &i, &jmin, &jmax, &replace0, &finzero, &cs0, &sn0, &thr};
+  void* args[] = {&H,   &Z,   &p,   &N,   &i,   &jmin, &jmax, &replace0,
+                  &finzero, &cs0, &sn0, &thr, &rlo, &chi};
   return (int)cudaLaunchCooperativeKernel((void*)kernel, dim3(blocks), dim3(kThreads), args,
                                           bytes, (cudaStream_t)stream);
+}
+
+// Kernel D on every line.
+int psd_deflate2x2(double* H, double* Z, int p, int N, int i, int jmin, int jmax,
+                   int replace0, int finzero, double cs0, double sn0, double thr,
+                   void* stream) {
+  return psd_deflate2x2_bounded(H, Z, p, N, i, jmin, jmax, replace0, finzero, cs0, sn0, thr,
+                                0, N, stream);
 }
 
 }  // extern "C"

@@ -897,6 +897,13 @@ sweep_generate_mb_kernel(const double* __restrict__ H, double* __restrict__ ring
 // masked; p = 1 (B's source factor (g+1) mod p = g), m = 0, i = N-2 and
 // windows of one or two steps take the same code.
 //
+// Without T (want_t=False) the caller bounds both: B0 walks only the
+// columns < chi (psd_sweep_left_bounded) and B only H's rows >= rlo
+// (psd_sweep_right_bounded; Z's rows all).  Whole lines drop out, and every
+// line that runs does what it does unbounded, so a bounded launch leaves
+// the lines it keeps bit for bit as the unbounded one and the others as
+// they were.
+//
 // One thread per line leaves an H100 with only ~2 (B0) or ~4 (B) walking
 // warps per SM at p=16, n=512, each a latency-bound chain, so a block has
 // kApplyThreads threads: warp 0 walks, and all of them issue the copies and
@@ -1077,20 +1084,20 @@ __device__ __forceinline__ void walk_chunk(int j, int nch, int m, int i, const d
 
 // B0: rows k..k+2 of every H[f] <- F[f,k]^T rows, for k = m..i-1, for the
 // logs of bulges 0..kNb-1 (log stride p N 9).  Block (x, f): columns
-// max(m-1, 0) + x kLeftCols + threadIdx.x of H[f].  Column m-1 of factor 0
-// keeps its value at k == m (the window-boundary subdiagonal, reference
-// rowsk lo=k).
+// max(m-1, 0) + x kLeftCols + threadIdx.x < chi of H[f] (chi = N: all; the
+// want_t=False window: i + 1).  Column m-1 of factor 0 keeps its value at
+// k == m (the window-boundary subdiagonal, reference rowsk lo=k).
 template <int kNb>
 __global__ void __launch_bounds__(kApplyThreads)
 sweep_left_kernel(double* __restrict__ H, const double* __restrict__ R, int p, int N,
-                  int m, int i) {
+                  int m, int i, int chi) {
   constexpr int W = kApplyChunk, NT = kAhead + 1, NL = kAhead + 1;
   extern __shared__ double smem[];
   double* tiles = smem;                             // NT x W rows x kLeftCols
   double* logs = smem + NT * W * kLeftCols;         // NL x log_slot_doubles
   const int f = blockIdx.y, tid = threadIdx.x;
   const int cb = max(m - 1, 0) + blockIdx.x * kLeftCols;  // the tile's first column
-  const int nc = min(kLeftCols, N - cb);
+  const int nc = min(kLeftCols, chi - cb);
   double* Hf = H + (size_t)f * N * N + cb;
   const int nch = (i + 2 - m + W - 1) / W;
   auto copy = [&](int j) {  // chunk j's rows
@@ -1120,13 +1127,14 @@ sweep_left_kernel(double* __restrict__ H, const double* __restrict__ R, int p, i
 }
 
 // B: columns k..k+2 <- columns F for k = m..i-1, for the logs of bulges
-// 0..kNb-1.  Block (x, g, 0): rows x kRightRows + threadIdx.x <= i of H[g]
-// with the log of factor (g+1) mod p, then the structural zeros of rows
-// m+1..i written exactly; block (x, g, 1): rows of Z[g], all N, own log.
+// 0..kNb-1.  Block (x, g, 0): rows rlo + x kRightRows + threadIdx.x <= i of
+// H[g] (rlo = 0: all; the want_t=False window: its top row) with the log of
+// factor (g+1) mod p, then the structural zeros of rows m+1..i written
+// exactly; block (x, g, 1): rows of Z[g], all N, own log.
 template <int kNb>
 __global__ void __launch_bounds__(kApplyThreads)
 sweep_right_kernel(double* __restrict__ H, double* __restrict__ Z,
-                   const double* __restrict__ R, int p, int N, int m, int i) {
+                   const double* __restrict__ R, int p, int N, int m, int i, int rlo) {
   constexpr int W = kApplyChunk, P = kRightPitch, NT = kAhead + 2, NL = kAhead + 1;
   extern __shared__ double smem[];
   double* tiles = smem;                         // NT x kRightRows x P
@@ -1134,7 +1142,7 @@ sweep_right_kernel(double* __restrict__ H, double* __restrict__ Z,
   const int g = blockIdx.y, tid = threadIdx.x;
   const bool isz = blockIdx.z == 1;
   const int nrows = isz ? N : i + 1;
-  const int r0 = blockIdx.x * kRightRows;
+  const int r0 = (isz ? 0 : rlo) + blockIdx.x * kRightRows;
   if (r0 >= nrows) return;
   const int nr = min(kRightRows, nrows - r0);
   const int src = isz ? g : (g + 1) % p;
@@ -1235,18 +1243,18 @@ cudaError_t launch_apply(Kernel kernel, size_t smem, std::atomic<unsigned long l
 
 template <int kNb>
 cudaError_t launch_left(dim3 grid, cudaStream_t st, double* H, const double* R, int p,
-                        int N, int m, int i) {
+                        int N, int m, int i, int chi) {
   static std::atomic<unsigned long long> asked{0};
   return launch_apply(sweep_left_kernel<kNb>, left_smem(kNb), asked, grid, st, H, R, p, N, m,
-                      i);
+                      i, chi);
 }
 
 template <int kNb>
 cudaError_t launch_right(dim3 grid, cudaStream_t st, double* H, double* Z, const double* R,
-                         int p, int N, int m, int i) {
+                         int p, int N, int m, int i, int rlo) {
   static std::atomic<unsigned long long> asked{0};
   return launch_apply(sweep_right_kernel<kNb>, right_smem(kNb), asked, grid, st, H, Z, R, p,
-                      N, m, i);
+                      N, m, i, rlo);
 }
 
 }  // namespace
@@ -1325,35 +1333,51 @@ int psd_sweep_generate_mb(const double* H, double* work, double* R, int p, int N
   return (int)cudaGetLastError();
 }
 
-// Kernel B0, in place on H: the logs of bulges 0..nb-1 (stride p N 9).
-int psd_sweep_left(double* H, const double* R, int p, int N, int m, int i,
-                   int nb, void* stream) {
-  const int ncols = N - max(m - 1, 0);
+// Kernel B0, in place on H: the logs of bulges 0..nb-1 (stride p N 9), on
+// the columns < chi (i + 1 <= chi <= N; the want_t=False window: i + 1).
+int psd_sweep_left_bounded(double* H, const double* R, int p, int N, int m, int i,
+                           int nb, int chi, void* stream) {
+  if (chi < i + 1 || chi > N) return (int)cudaErrorInvalidValue;
+  const int ncols = chi - max(m - 1, 0);
   dim3 grid((ncols + kLeftCols - 1) / kLeftCols, p);
   cudaStream_t st = (cudaStream_t)stream;
   static_assert(kMaxNb == 4, "one instantiation of each apply kernel per bulge count");
   switch (nb) {
-    case 1: return (int)launch_left<1>(grid, st, H, R, p, N, m, i);
-    case 2: return (int)launch_left<2>(grid, st, H, R, p, N, m, i);
-    case 3: return (int)launch_left<3>(grid, st, H, R, p, N, m, i);
-    case 4: return (int)launch_left<4>(grid, st, H, R, p, N, m, i);
+    case 1: return (int)launch_left<1>(grid, st, H, R, p, N, m, i, chi);
+    case 2: return (int)launch_left<2>(grid, st, H, R, p, N, m, i, chi);
+    case 3: return (int)launch_left<3>(grid, st, H, R, p, N, m, i, chi);
+    case 4: return (int)launch_left<4>(grid, st, H, R, p, N, m, i, chi);
     default: return (int)cudaErrorInvalidValue;
   }
 }
 
+// Kernel B0 on every column.
+int psd_sweep_left(double* H, const double* R, int p, int N, int m, int i,
+                   int nb, void* stream) {
+  return psd_sweep_left_bounded(H, R, p, N, m, i, nb, N, stream);
+}
+
 // Kernel B, in place on H and (when Z != NULL) Z: the logs of bulges
-// 0..nb-1.
-int psd_sweep_right(double* H, double* Z, const double* R, int p, int N, int m,
-                    int i, int nb, void* stream) {
+// 0..nb-1, on H's rows rlo..i (0 <= rlo <= m; the want_t=False window: its
+// top row) and every row of Z.
+int psd_sweep_right_bounded(double* H, double* Z, const double* R, int p, int N, int m,
+                            int i, int nb, int rlo, void* stream) {
+  if (rlo < 0 || rlo > m) return (int)cudaErrorInvalidValue;
   dim3 grid((N + kRightRows - 1) / kRightRows, p, Z ? 2 : 1);
   cudaStream_t st = (cudaStream_t)stream;
   switch (nb) {
-    case 1: return (int)launch_right<1>(grid, st, H, Z, R, p, N, m, i);
-    case 2: return (int)launch_right<2>(grid, st, H, Z, R, p, N, m, i);
-    case 3: return (int)launch_right<3>(grid, st, H, Z, R, p, N, m, i);
-    case 4: return (int)launch_right<4>(grid, st, H, Z, R, p, N, m, i);
+    case 1: return (int)launch_right<1>(grid, st, H, Z, R, p, N, m, i, rlo);
+    case 2: return (int)launch_right<2>(grid, st, H, Z, R, p, N, m, i, rlo);
+    case 3: return (int)launch_right<3>(grid, st, H, Z, R, p, N, m, i, rlo);
+    case 4: return (int)launch_right<4>(grid, st, H, Z, R, p, N, m, i, rlo);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+// Kernel B on every row.
+int psd_sweep_right(double* H, double* Z, const double* R, int p, int N, int m,
+                    int i, int nb, void* stream) {
+  return psd_sweep_right_bounded(H, Z, R, p, N, m, i, nb, 0, stream);
 }
 
 }  // extern "C"

@@ -425,7 +425,10 @@ qz_generate_kernel(const double2* __restrict__ H, double2* __restrict__ carry,
 // chunk's first step has finished it, with H's structural zeros and the
 // logged subdiagonal H[0][r, r-1] = r (m < r < i) written exactly in the
 // same pass.  What bounds both: bytes (chip_smoke.py::cx_apply_bounds) and
-// the walk's chain of i-m dependent steps; times in PERF.md §6.
+// the walk's chain of i-m dependent steps; times in PERF.md §6.  Without T
+// (want_t=False) B0 walks only the columns < chi and B only H's rows >=
+// rlo (the *_bounded entries): whole lines drop out, and the lines kept
+// are bit for bit the unbounded launch's.
 
 constexpr int kLeftChunk = 32;   // B0: positions per chunk
 constexpr int kRightChunk = 24;  // B: positions per chunk (its outputs wait in registers)
@@ -514,17 +517,18 @@ __device__ __forceinline__ void walk_chunk(int j, int nch, int m, int i, const d
 }
 
 // B0: rows k, k+1 of every H[f] <- L[f, k] rows, for k = m..i-1.  Block (x,
-// f): columns m + x kLeftCols + threadIdx.x of H[f].
+// f): columns m + x kLeftCols + threadIdx.x < chi of H[f] (chi = n: all;
+// the want_t=False window: i + 1).
 __global__ void __launch_bounds__(kApplyThreads)
 qz_left_kernel(double2* __restrict__ H, const double2* __restrict__ Lg, int n, int m,
-               int i) {
+               int i, int chi) {
   constexpr int W = kLeftChunk, NT = kAhead + 1, NL = kAhead + 1;
   extern __shared__ double2 smem[];
   double2* tiles = smem;                         // NT x W rows x kLeftCols
   double2* logs = smem + NT * W * kLeftCols;     // NL x W steps
   const int f = blockIdx.y, tid = threadIdx.x;
   const int cb = m + blockIdx.x * kLeftCols;     // the tile's first column
-  const int nc = min(kLeftCols, n - cb);
+  const int nc = min(kLeftCols, chi - cb);
   double2* Hf = H + (size_t)f * n * n + cb;
   const int nch = (i + 1 - m + W - 1) / W;
   auto copy = [&](int j) {  // chunk j's rows
@@ -549,13 +553,14 @@ qz_left_kernel(double2* __restrict__ H, const double2* __restrict__ Lg, int n, i
   psd::apply_ring<kAhead>(nch, kLeftCols, copy, walk, [](int) {});
 }
 
-// B: columns k, k+1 <- columns M for k = m..i-1.  Block (x, g, 0): rows x
-// kRightRows + threadIdx.x <= i of H[g] with R[g, k], then (rows m+1..i) the
-// structural zeros and the logged subdiagonal of H[0], written exactly;
-// block (x, g, 1): rows of Z[g], all n, with ZR[g, k].
+// B: columns k, k+1 <- columns M for k = m..i-1.  Block (x, g, 0): rows rlo
+// + x kRightRows + threadIdx.x <= i of H[g] (rlo = 0: all; the want_t=False
+// window: its top row) with R[g, k], then (rows m+1..i) the structural
+// zeros and the logged subdiagonal of H[0], written exactly; block (x, g,
+// 1): rows of Z[g], all n, with ZR[g, k].
 __global__ void __launch_bounds__(kApplyThreads)
 qz_right_kernel(double2* __restrict__ H, double2* __restrict__ Z,
-                const double2* __restrict__ Lg, int n, int m, int i) {
+                const double2* __restrict__ Lg, int n, int m, int i, int rlo) {
   constexpr int W = kRightChunk, P = kRightPitch, NT = kAhead + 2, NL = kAhead + 1;
   extern __shared__ double2 smem[];
   double2* tiles = smem;                         // NT x kRightRows x P
@@ -563,7 +568,7 @@ qz_right_kernel(double2* __restrict__ H, double2* __restrict__ Z,
   const int g = blockIdx.y, tid = threadIdx.x;
   const bool isz = blockIdx.z == 1;
   const int nrows = isz ? n : i + 1;
-  const int r0 = blockIdx.x * kRightRows;
+  const int r0 = (isz ? 0 : rlo) + blockIdx.x * kRightRows;
   if (r0 >= nrows) return;
   const int nr = min(kRightRows, nrows - r0);
   double2* A = (isz ? Z : H) + (size_t)g * n * n + (size_t)r0 * n;
@@ -740,22 +745,38 @@ int psd_qz_sweep_generate(const void* H, void* work, void* Lg, const void* cs,
   return (int)cudaGetLastError();
 }
 
-// Kernel B0, in place on H.
-int psd_qz_sweep_left(void* H, const void* Lg, int p, int n, int m, int i,
-                      void* stream) {
-  dim3 grid((n - m + kLeftCols - 1) / kLeftCols, p);
+// Kernel B0, in place on H, on the columns < chi (i + 1 <= chi <= n; the
+// want_t=False window: i + 1).
+int psd_qz_sweep_left_bounded(void* H, const void* Lg, int p, int n, int m, int i,
+                              int chi, void* stream) {
+  if (chi < i + 1 || chi > n) return (int)cudaErrorInvalidValue;
+  dim3 grid((chi - m + kLeftCols - 1) / kLeftCols, p);
   qz_left_kernel<<<grid, kApplyThreads, left_smem(), (cudaStream_t)stream>>>(
-      (double2*)H, (const double2*)Lg, n, m, i);
+      (double2*)H, (const double2*)Lg, n, m, i, chi);
   return (int)cudaGetLastError();
 }
 
-// Kernel B, in place on H and (when Z != NULL) Z.
-int psd_qz_sweep_right(void* H, void* Z, const void* Lg, int p, int n, int m,
-                       int i, void* stream) {
+// Kernel B0 on every column.
+int psd_qz_sweep_left(void* H, const void* Lg, int p, int n, int m, int i,
+                      void* stream) {
+  return psd_qz_sweep_left_bounded(H, Lg, p, n, m, i, n, stream);
+}
+
+// Kernel B, in place on H's rows rlo..i (0 <= rlo <= m; the want_t=False
+// window: its top row) and (when Z != NULL) every row of Z.
+int psd_qz_sweep_right_bounded(void* H, void* Z, const void* Lg, int p, int n, int m,
+                               int i, int rlo, void* stream) {
+  if (rlo < 0 || rlo > m) return (int)cudaErrorInvalidValue;
   dim3 grid((n + kRightRows - 1) / kRightRows, p, Z ? 2 : 1);
   qz_right_kernel<<<grid, kApplyThreads, right_smem(), (cudaStream_t)stream>>>(
-      (double2*)H, (double2*)Z, (const double2*)Lg, n, m, i);
+      (double2*)H, (double2*)Z, (const double2*)Lg, n, m, i, rlo);
   return (int)cudaGetLastError();
+}
+
+// Kernel B on every row.
+int psd_qz_sweep_right(void* H, void* Z, const void* Lg, int p, int n, int m,
+                       int i, void* stream) {
+  return psd_qz_sweep_right_bounded(H, Z, Lg, p, n, m, i, 0, stream);
 }
 
 // Kernel S: writes (c, s) of the sweep's shift rotation to cs[0..1].

@@ -484,7 +484,10 @@ rg_generate_kernel(const double* __restrict__ H, double* __restrict__ carry,
 // written exactly in the same pass; column m-1, outside the walked
 // positions, takes its zeros and H[0][m, m-1] after the ring.  What bounds
 // both: bytes (chip_smoke.py's rg bounds) and the walk's chain of i-1-m
-// dependent steps; times in PERF.md §6.
+// dependent steps; times in PERF.md §6.  Without T (want_t=False) B0 walks
+// only the columns < chi and B only H's rows >= rlo (the *_bounded
+// entries): whole lines drop out, and the lines kept are bit for bit the
+// unbounded launch's.
 
 constexpr int kLeftChunk = 64;   // B0: positions per chunk
 constexpr int kRightChunk = 32;  // B: positions per chunk (its outputs wait in registers)
@@ -596,16 +599,18 @@ __device__ __forceinline__ void walk_chunk(int j, int nch, int m, int i, const d
 }
 
 // B0: rows j..j+2 of every H[f] <- L[f, j] rows, for j = m..i-2.  Block (x,
-// f): columns m - 1 + x kLeftCols + threadIdx.x of H[f].
+// f): columns m - 1 + x kLeftCols + threadIdx.x < chi of H[f] (chi = n:
+// all; the want_t=False window: i + 1).
 __global__ void __launch_bounds__(kApplyThreads)
-rg_left_kernel(double* __restrict__ H, const double* __restrict__ Lg, int n, int m, int i) {
+rg_left_kernel(double* __restrict__ H, const double* __restrict__ Lg, int n, int m, int i,
+               int chi) {
   constexpr int W = kLeftChunk, NT = kAhead + 1, NL = kAhead + 1;
   extern __shared__ double smem[];
   double* tiles = smem;                          // NT x W rows x kLeftCols
   double* logs = smem + NT * W * kLeftCols;      // NL x W steps x kLogPitch
   const int f = blockIdx.y, tid = threadIdx.x;
   const int cb = m - 1 + blockIdx.x * kLeftCols;  // the tile's first column
-  const int nc = min(kLeftCols, n - cb);
+  const int nc = min(kLeftCols, chi - cb);
   double* Hf = H + (size_t)f * n * n + cb;
   const int nch = (i + 1 - m + W - 1) / W;
   auto copy = [&](int j) {  // chunk j's rows
@@ -631,14 +636,15 @@ rg_left_kernel(double* __restrict__ H, const double* __restrict__ Lg, int n, int
   psd::apply_ring<kAhead>(nch, kLeftCols, copy, walk, [](int) {});
 }
 
-// B: columns j..j+2 <- columns M for j = m..i-2.  Block (x, g, 0): rows x
-// kRightRows + threadIdx.x <= i of H[g] with R[g, j], then (rows m..i) the
-// structural zeros, keeping the closing bulge H[0][i, i-2], and the
+// B: columns j..j+2 <- columns M for j = m..i-2.  Block (x, g, 0): rows
+// rlo + x kRightRows + threadIdx.x <= i of H[g] (rlo = 0: all; the
+// want_t=False window: its top row, m - 1) with R[g, j], then (rows m..i)
+// the structural zeros, keeping the closing bulge H[0][i, i-2], and the
 // regenerated H[0][r, r-1], written exactly; block (x, g, 1): rows of
 // Z[g], all n, with ZR[g, j].
 __global__ void __launch_bounds__(kApplyThreads)
 rg_right_kernel(double* __restrict__ H, double* __restrict__ Z,
-                const double* __restrict__ Lg, int n, int m, int i) {
+                const double* __restrict__ Lg, int n, int m, int i, int rlo) {
   constexpr int W = kRightChunk, P = kRightPitch, NT = kAhead + 2, NL = kAhead + 1;
   extern __shared__ double smem[];
   double* tiles = smem;                          // NT x kRightRows x P
@@ -646,7 +652,7 @@ rg_right_kernel(double* __restrict__ H, double* __restrict__ Z,
   const int g = blockIdx.y, tid = threadIdx.x;
   const bool isz = blockIdx.z == 1;
   const int nrows = isz ? n : i + 1;
-  const int r0 = blockIdx.x * kRightRows;
+  const int r0 = (isz ? 0 : rlo) + blockIdx.x * kRightRows;
   if (r0 >= nrows) return;
   const int nr = min(kRightRows, nrows - r0);
   double* A = (isz ? Z : H) + (size_t)g * n * n + (size_t)r0 * n;
@@ -758,25 +764,41 @@ int psd_rg_sweep_generate(const void* H, void* work, void* Lg, const int* S, int
   return (int)cudaGetLastError();
 }
 
-// Kernel rg B0, in place on H.  No step (i - 2 < m): nothing to do.
-int psd_rg_sweep_left(void* H, const void* Lg, int p, int n, int m, int i,
-                      void* stream) {
+// Kernel rg B0, in place on H, on the columns < chi (i + 1 <= chi <= n;
+// the want_t=False window: i + 1).  No step (i - 2 < m): nothing to do.
+int psd_rg_sweep_left_bounded(void* H, const void* Lg, int p, int n, int m, int i,
+                              int chi, void* stream) {
+  if (chi < i + 1 || chi > n) return (int)cudaErrorInvalidValue;
   if (i - 2 < m) return 0;
-  dim3 grid((n - m + 1 + kLeftCols - 1) / kLeftCols, p);
+  dim3 grid((chi - m + 1 + kLeftCols - 1) / kLeftCols, p);
   rg_left_kernel<<<grid, kApplyThreads, left_smem(), (cudaStream_t)stream>>>(
-      (double*)H, (const double*)Lg, n, m, i);
+      (double*)H, (const double*)Lg, n, m, i, chi);
   return (int)cudaGetLastError();
 }
 
-// Kernel rg B, in place on H and (when Z != NULL) Z.  No step: nothing to
-// do (as rg_apply_log_plain).
-int psd_rg_sweep_right(void* H, void* Z, const void* Lg, int p, int n, int m,
-                       int i, void* stream) {
+// Kernel rg B0 on every column.
+int psd_rg_sweep_left(void* H, const void* Lg, int p, int n, int m, int i,
+                      void* stream) {
+  return psd_rg_sweep_left_bounded(H, Lg, p, n, m, i, n, stream);
+}
+
+// Kernel rg B, in place on H's rows rlo..i (0 <= rlo <= m - 1; the
+// want_t=False window: its top row, m - 1) and (when Z != NULL) every row
+// of Z.  No step: nothing to do (as rg_apply_log_plain).
+int psd_rg_sweep_right_bounded(void* H, void* Z, const void* Lg, int p, int n, int m,
+                               int i, int rlo, void* stream) {
+  if (rlo < 0 || rlo > m - 1) return (int)cudaErrorInvalidValue;
   if (i - 2 < m) return 0;
   dim3 grid((n + kRightRows - 1) / kRightRows, p, Z ? 2 : 1);
   rg_right_kernel<<<grid, kApplyThreads, right_smem(), (cudaStream_t)stream>>>(
-      (double*)H, (double*)Z, (const double*)Lg, n, m, i);
+      (double*)H, (double*)Z, (const double*)Lg, n, m, i, rlo);
   return (int)cudaGetLastError();
+}
+
+// Kernel rg B on every row.
+int psd_rg_sweep_right(void* H, void* Z, const void* Lg, int p, int n, int m,
+                       int i, void* stream) {
+  return psd_rg_sweep_right_bounded(H, Z, Lg, p, n, m, i, 0, stream);
 }
 
 }  // extern "C"

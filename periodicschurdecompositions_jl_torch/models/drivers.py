@@ -2,8 +2,8 @@
 
 Ported: ``pschur`` for real and complex input, with or without a
 signature (both orientations), ``gpschur`` for real and complex pairs, and
-``phessenberg`` with or without a signature.  ``want_t=False`` raises
-``PSDNotImplemented`` (ROADMAP queue 1, item 4).
+``phessenberg`` with or without a signature; ``pschur`` and ``gpschur``
+with ``want_t`` True or False.
 
 Device rule: a torch tensor is computed on its own device (a CPU tensor is
 an explicit request for the CPU).  An array or a sequence of matrices goes
@@ -119,8 +119,11 @@ def pschur(A, lr="R", S: Optional[Sequence[bool]] = None, *,
           ``A[p-1] @ ... @ A[0]``.
       S: optional signature (True = direct, False = inverted factor); the
          generalized decomposition.
-      want_t/want_z: keep the triangular/unitary factors (want_t=False
-          raises PSDNotImplemented for now).
+      want_t/want_z: keep the triangular/unitary factors.  With
+          ``want_t=False`` every update stays inside the iteration's active
+          window (the reference's eigenvalues-only mode): the eigenvalues and
+          Z are those of the run with T, and T is valid on its diagonal
+          blocks only (``check_psd`` does not hold for it).
       maxitfac: iteration budget factor (default 120 for real input with
           ``S``, else 30).
       aggressive: fixed per-factor deflation thresholds (the real

@@ -73,20 +73,28 @@ def _declare(lib):
     lib.psd_sweep_generate_mb_scratch.restype = ctypes.c_longlong
     lib.psd_sweep_left.argtypes = [vp, vp, i32, i32, i32, i32, i32, vp]
     lib.psd_sweep_right.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, vp]
+    lib.psd_sweep_left_bounded.argtypes = [vp, vp, i32, i32, i32, i32, i32, i32, vp]
+    lib.psd_sweep_right_bounded.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, i32, vp]
     lib.psd_deflate2x2.argtypes = [vp, vp, i32, i32, i32, i32, i32, i32, i32,
                                    f64, f64, f64, vp]
+    lib.psd_deflate2x2_bounded.argtypes = [vp, vp, i32, i32, i32, i32, i32, i32, i32,
+                                           f64, f64, f64, i32, i32, vp]
     lib.psd_qz_sweep_generate.argtypes = [vp, vp, vp, vp, vp, i32, i32, i32,
                                           i32, vp]
     lib.psd_qz_sweep_generate_scratch.argtypes = [i32, i32]
     lib.psd_qz_sweep_generate_scratch.restype = ctypes.c_longlong
     lib.psd_qz_sweep_left.argtypes = [vp, vp, i32, i32, i32, i32, vp]
     lib.psd_qz_sweep_right.argtypes = [vp, vp, vp, i32, i32, i32, i32, vp]
+    lib.psd_qz_sweep_left_bounded.argtypes = [vp, vp, i32, i32, i32, i32, i32, vp]
+    lib.psd_qz_sweep_right_bounded.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, vp]
     lib.psd_qz_shift.argtypes = [vp, vp, vp, i32, i32, i32, i32, vp]
     lib.psd_rg_sweep_generate.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, vp]
     lib.psd_rg_sweep_generate_scratch.argtypes = [i32, i32]
     lib.psd_rg_sweep_generate_scratch.restype = ctypes.c_longlong
     lib.psd_rg_sweep_left.argtypes = [vp, vp, i32, i32, i32, i32, vp]
     lib.psd_rg_sweep_right.argtypes = [vp, vp, vp, i32, i32, i32, i32, vp]
+    lib.psd_rg_sweep_left_bounded.argtypes = lib.psd_qz_sweep_left_bounded.argtypes
+    lib.psd_rg_sweep_right_bounded.argtypes = lib.psd_qz_sweep_right_bounded.argtypes
     lib.psd_rg_ladder.argtypes = [vp, vp, vp, vp, i32, i32, i32, i32, i32, i32,
                                   i32, vp]
     lib.psd_hess_reduce.argtypes = [vp, vp, vp, i32, i32, ctypes.POINTER(i32), vp]
@@ -109,11 +117,14 @@ def _declare(lib):
     lib.psd_deflate_scratch.argtypes = [i32, i32]
     lib.psd_deflate_scratch.restype = ctypes.c_longlong
     for fn in (lib.psd_sweep_generate, lib.psd_sweep_generate_mb, lib.psd_sweep_left,
-               lib.psd_sweep_right, lib.psd_deflate2x2,
+               lib.psd_sweep_right, lib.psd_sweep_left_bounded, lib.psd_sweep_right_bounded,
+               lib.psd_deflate2x2, lib.psd_deflate2x2_bounded,
                lib.psd_qz_sweep_generate, lib.psd_qz_sweep_left,
-               lib.psd_qz_sweep_right, lib.psd_qz_shift,
+               lib.psd_qz_sweep_right, lib.psd_qz_sweep_left_bounded,
+               lib.psd_qz_sweep_right_bounded, lib.psd_qz_shift,
                lib.psd_rg_sweep_generate, lib.psd_rg_sweep_left,
-               lib.psd_rg_sweep_right, lib.psd_rg_ladder,
+               lib.psd_rg_sweep_right, lib.psd_rg_sweep_left_bounded,
+               lib.psd_rg_sweep_right_bounded, lib.psd_rg_ladder,
                lib.psd_hess_reduce, lib.psd_hess_reduce_c128, lib.psd_hess_signed,
                lib.psd_hess_signed_c128, lib.psd_glue, lib.psd_deflate_czshift,
                lib.psd_deflate_czshift_c128, lib.psd_deflate_pos, lib.psd_deflate_pos_c128,

@@ -429,7 +429,8 @@ def aed_analyze_cx(Hwin: np.ndarray, S, beta: complex, tol: float,
 
 def aed_apply(Hp: torch.Tensor, Zp: Optional[torch.Tensor], s: int,
               Zt: torch.Tensor, Wf: torch.Tensor,
-              sph: Optional[torch.Tensor], S=None) -> None:
+              sph: Optional[torch.Tensor], S=None, top: int = 0,
+              want_t: bool = True) -> None:
     """Apply a window's transforms to the device state, in place.
 
     ``Hp`` (p, N, N), ``Zp`` (p, N, N) or None: the state of an iteration
@@ -448,6 +449,13 @@ def aed_apply(Hp: torch.Tensor, Zp: Optional[torch.Tensor], s: int,
     is Hessenberg, the other factors triangular), so it is not touched and
     stays exactly zero; no rounding dust is written below the subdiagonal
     or inside the deflated block.
+
+    Without T (``want_t=False``, the reference's window: column updates
+    from the first row ``top`` of the diagonal block of H0 that holds row s,
+    see ``window_top``; row updates up to the window's last column) the
+    rows [0, top) above the window and the columns right of it stay as
+    they were, and the rows [top, s) take the values of the unbounded
+    product; ``Zp`` is updated in full either way.
     """
     p, w = Zt.shape[0], Zt.shape[-1]
     e = s + w
@@ -456,8 +464,11 @@ def aed_apply(Hp: torch.Tensor, Zp: Optional[torch.Tensor], s: int,
         S = (True,) * p
     left = [l if S[l] else nxt[l] for l in range(p)]
     right = [nxt[l] if S[l] else l for l in range(p)]
-    Hp[:, s:e, e:] = torch.matmul(Zt[left].mH, Hp[:, s:e, e:])
-    Hp[:, :s, s:e] = torch.matmul(Hp[:, :s, s:e], Zt[right])
+    if want_t:
+        Hp[:, s:e, e:] = torch.matmul(Zt[left].mH, Hp[:, s:e, e:])
+        Hp[:, :s, s:e] = torch.matmul(Hp[:, :s, s:e], Zt[right])
+    elif s > top:
+        Hp[:, top:s, s:e] = torch.matmul(Hp[:, :s, s:e], Zt[right])[:, top:]
     Hp[:, s:e, s:e] = Wf
     if s >= 1:
         Hp[0, s:e, s - 1] = sph
@@ -467,6 +478,16 @@ def aed_apply(Hp: torch.Tensor, Zp: Optional[torch.Tensor], s: int,
 
 # ---------------------------------------------------------------------------
 # the drivers' schedule, and the AED driver of the signed iterations
+
+
+def window_top(sub0: np.ndarray, s: int) -> int:
+    """The first row of the diagonal block of H0 that holds row s: one past
+    the last exact zero of H0's subdiagonal at rows 1..s (``sub0[r - 1] =
+    H0[r, r-1]``), else 0.  The iterations write their deflations as exact
+    zeros, and without T the entries above such a zero, right of it, are
+    the ones left behind."""
+    z = np.flatnonzero(np.asarray(sub0)[:s] == 0)
+    return int(z[-1]) + 1 if z.size else 0
 
 
 def aed_schedule(cfg, n: int, interval_div: int = 4):
@@ -526,11 +547,14 @@ def drive_signed(run, cfg, cplx: bool, chunk_iters: Optional[int] = None) -> dic
     * host tail: once ``2 <= ilast + 1 <= tail_n``, one analysis of the
       leading [0, ilast] window with beta = 0 finishes the run when
       everything deflates;
-    * AED: the trailing (p, w, w) window and ``beta = H0[s, s-1]`` come to
-      the host in one gather and one copy, ``aed_analyze_rg`` or
-      ``aed_analyze_cx`` runs on the host (its re-reduction on the state's
-      device), and ``aed_apply`` writes the deflation into the state; then
-      ``ilast -= d``, ``iiter = 0`` and ``ziter = 0`` unless it is -1.
+    * AED: the trailing (p, w, w) window, ``beta = H0[s, s-1]`` (and,
+      without T, H0's subdiagonal above it) come to the host in one gather
+      and one copy,
+      ``aed_analyze_rg`` or ``aed_analyze_cx`` runs on the host (its
+      re-reduction on the state's device), and ``aed_apply`` writes the
+      deflation into the state (without T, ``run.want_t`` False, inside
+      the diagonal block that holds row s, ``window_top``); then ``ilast
+      -= d``, ``iiter = 0`` and ``ziter = 0`` unless it is -1.
 
     The window's eigenvalue slots (``run.slots``: alpha or its real and
     imaginary parts, beta, scale) take the analysis's.  The window Schur is
@@ -588,7 +612,7 @@ def drive_signed(run, cfg, cplx: bool, chunk_iters: Optional[int] = None) -> dic
         if res is None or res[0] != m:
             return False
         Ztd, Wfd = upload(dev, res[2], res[1])
-        aed_apply(run.H, run.Zs, 0, Ztd, Wfd, None, S)
+        aed_apply(run.H, run.Zs, 0, Ztd, Wfd, None, S, want_t=run.want_t)
         deflated(res, 0, 0, -1)
         extra["host_tail_finished"] += m
         if talk:
@@ -602,17 +626,21 @@ def drive_signed(run, cfg, cplx: bool, chunk_iters: Optional[int] = None) -> dic
             return None
         s = i - w + 1
         t0 = time.perf_counter()
-        g = torch.cat([run.H[:, s:s + w, s:s + w].reshape(-1),
-                       run.H[0, s, s - 1:s]]).cpu().numpy()
+        parts = [run.H[:, s:s + w, s:s + w].reshape(-1), run.H[0, s, s - 1:s]]
+        if not run.want_t:  # H0's subdiagonal above the window: where its block starts
+            parts.append(torch.diagonal(run.H[0], -1)[:s])
+        g = torch.cat(parts).cpu().numpy()
         extra["aed_s"] += time.perf_counter() - t0
         extra["aed_events"] += 1
-        beta = complex(g[-1]) if cplx else float(g[-1])
-        res = analyze(g[:-1].reshape(p, w, w), beta, "aed")
+        nw = p * w * w
+        beta = complex(g[nw]) if cplx else float(g[nw])
+        top = 0 if run.want_t else window_top(g[nw + 1:], s)
+        res = analyze(g[:nw].reshape(p, w, w), beta, "aed")
         if res is None:
             return 0
         d = res[0]
         Ztd, Wfd, sphd = upload(dev, res[2], res[1], res[-1])
-        aed_apply(run.H, run.Zs, s, Ztd, Wfd, sphd, S)
+        aed_apply(run.H, run.Zs, s, Ztd, Wfd, sphd, S, top=top, want_t=run.want_t)
         deflated(res, s, w - d, i - d)
         extra["aed_deflated"] += d
         extra["aed_hits"] += 1

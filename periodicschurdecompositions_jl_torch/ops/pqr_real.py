@@ -39,8 +39,12 @@ loop: ``pqr_real_core`` called directly runs neither, and
 ``pschur_real_pipeline`` runs the driver (``AlgoConfig.aed``,
 ``host_tail``; ``ops/aed.py``).
 
-Not carried over yet: ``want_t=False`` windowing (raises
-``PSDNotImplemented``).
+``want_t=False`` (the JAX core's ``tlo``/``thi``): every row update
+stops at the active window's last column i and every column update of H
+starts at its first row lnew; Z takes every transform in full.  No entry
+inside the window depends on one outside it, so the iteration reads the
+same numbers as with T, and the returned T is valid on its diagonal blocks
+only (no final scrub, as the JAX core).
 """
 from __future__ import annotations
 
@@ -52,7 +56,7 @@ import numpy as np
 import torch
 
 from ..config import AlgoConfig, default_config, verbosity
-from ..types import ConvergenceFailure, PeriodicSchur, PSDNotImplemented
+from ..types import ConvergenceFailure, PeriodicSchur
 from ..utils.circshift import rev_alias
 from .deflate import deflate2x2
 from .glue import glue_buffers, glue_products_scan_shift
@@ -90,13 +94,16 @@ class _BandGather:
         return a[:, 0].copy(), a[:, 1].copy(), a[:, 2].copy(), g[3 * p].copy()
 
 
-def _repair(Hp, Zp, i, lnew, p, cfg, want_z):
+def _repair(Hp, Zp, i, lnew, p, cfg, want_z, want_t=True):
     """RQ-type chain restoring triangularity of the trailing factors when
     the product subdiagonal at lnew is negligible but H[0]'s is not
-    (reference :589-665).  Torch ops on the device."""
+    (reference :589-665).  Torch ops on the device.  Without T the row
+    updates land on the columns up to i and H's column updates on the rows
+    from lnew (the JAX core's ``thi``/``tlo``)."""
     dt, dev = Hp.dtype, Hp.device
     one = torch.ones((), dtype=dt, device=dev)
     eye2 = torch.eye(2, dtype=dt, device=dev)
+    rhi, clo = (None, None) if want_t else (i + 1, lnew)
 
     def annihilate(fa, fb, k):
         # zero Hp[fa][k, k-1] from the right; partner factor fb from the left
@@ -105,8 +112,8 @@ def _repair(Hp, Zp, i, lnew, p, cfg, want_z):
         M2 = eye2 - tau * torch.outer(wv, wv)
         Hp[fa, k, k - 1] = 0.0
         Hp[fa, k, k] = beta
-        colsk(Hp[fa], k - 1, M2, hi=k)
-        rowsk(Hp[fb], k - 1, M2, lo=k - 1)
+        colsk(Hp[fa], k - 1, M2, hi=k, clo=clo)
+        rowsk(Hp[fb], k - 1, M2, lo=k - 1, rhi=rhi)
         if want_z:
             colsk(Zp[fb], k - 1, M2)
 
@@ -261,10 +268,7 @@ def _mb_shifts(Hp, hdiag, hsub, hsup, v0, m, i, its, n, cfg):
     return v0, sig, nbact
 
 
-def _check_args(H, want_t, cfg):
-    if not want_t:
-        raise PSDNotImplemented(
-            "want_t=False windowing is not ported yet (ROADMAP queue 1, item 4)")
+def _check_args(H, cfg):
     if H.dtype != torch.float64:
         raise ValueError("pqr_real_core: H must be float64")
     if cfg.nbulges > 1:
@@ -281,7 +285,10 @@ def pqr_real_core(H: torch.Tensor, Z: Optional[torch.Tensor] = None,
          triangular (not modified).
       Z: optional (p, n, n) initial orthogonal stack (accumulated into).
       want_z: accumulate Schur vectors.
-      want_t: only True is supported in this port so far.
+      want_t: keep the whole quasi-triangular T.  False: the updates stay
+         inside the active window (see the module docstring); T is valid
+         on its diagonal blocks only, the eigenvalues and Z are those of
+         the run with T.
       maxitfac: iteration budget factor (maxit = maxitfac * n).
 
     Returns:
@@ -290,7 +297,7 @@ def pqr_real_core(H: torch.Tensor, Z: Optional[torch.Tensor] = None,
       chase steps i - m summed over the sweeps, sweeps, and bulges chased)
       when ``with_info``.
     """
-    _check_args(H, want_t, cfg)
+    _check_args(H, cfg)
     p, n, _ = H.shape
     dev = H.device
     maxit = maxitfac * n
@@ -305,7 +312,7 @@ def pqr_real_core(H: torch.Tensor, Z: Optional[torch.Tensor] = None,
         return out + ({"niter": 0, "maxit": maxit, "sweep_steps": 0, "sweeps": 0,
                        "bulges": 0},) if with_info else out
 
-    run = _Run(H, Z, want_z, maxitfac, cfg)
+    run = _Run(H, Z, want_z, maxitfac, cfg, want_t)
     run.iterate(run.maxit)
     return run.finish(with_info)
 
@@ -316,10 +323,11 @@ class _Run:
     ``iterate`` resumes the loop up to an absolute iteration cap, so a
     driver can stop it between iterations (``pqr_real_core_aed``)."""
 
-    def __init__(self, H, Z, want_z, maxitfac, cfg):
+    def __init__(self, H, Z, want_z, maxitfac, cfg, want_t=True):
         p, n, _ = H.shape
         dev = H.device
         self.p, self.n, self.dev, self.cfg, self.want_z = p, n, dev, cfg, want_z
+        self.want_t = want_t
         self.ulp = ulp = float(np.finfo(np.float64).eps)
         self.smlnum = float(np.finfo(np.float64).tiny) * (n / ulp)
         self.maxit = maxitfac * n
@@ -349,6 +357,7 @@ class _Run:
         """Run iterations until the window is empty or ``jiter`` reaches
         ``it_cap``."""
         Hp, Zp, p, n, cfg, want_z = self.Hp, self.Zp, self.p, self.n, self.cfg, self.want_z
+        want_t = self.want_t
         ulp, smlnum, hnorms, gather, gbufs = (self.ulp, self.smlnum, self.hnorms,
                                               self.gather, self.gbufs)
         wr, wi, swaps = self.wr, self.wi, self.swaps
@@ -359,13 +368,15 @@ class _Run:
             g = glue_products_scan_shift(Hp, n, l, i, its, cfg, gbufs)
             hdiag, hsub, hsup, lnew = g.hdiag, g.hsub, g.hsup, g.lnew
             D, U, S0 = g.D, g.U, g.S0
+            # without T: row updates up to column i, column updates from row lnew
+            rhi, clo = (None, None) if want_t else (i + 1, lnew)
 
             # ---- subdiagonal repair -------------------------------------
             repaired = False
             if lnew > 0 and p > 1:
                 t1r = abs(D[0, lnew - 1]) + abs(D[0, lnew])
                 if abs(S0[lnew]) > max(ulp * t1r, smlnum):
-                    _repair(Hp, Zp, i, lnew, p, cfg, want_z)
+                    _repair(Hp, Zp, i, lnew, p, cfg, want_z, want_t)
                     repaired = True
             if lnew > 0:
                 Hp[0, lnew, lnew - 1] = 0.0
@@ -378,14 +389,15 @@ class _Run:
                     v0, sig, nbact = _mb_shifts(Hp, hdiag, hsub, hsup, g.v0, m, i, its, n,
                                                 cfg)
                     chase_sweep_mb(Hp, Zp, m, i, v0, sig, nbact, nb=cfg.nbulges,
-                                   gap=cfg.bulge_gap, want_z=want_z)
+                                   gap=cfg.bulge_gap, want_z=want_z, rhi=rhi, clo=clo)
                 else:
                     if cfg.allow_early_qr:
                         m, v0, early = _shift_v0(hdiag, hsub, hsup, lnew, i, its, n, cfg,
                                                  ulp)
                     else:
                         m, v0, early = lnew, g.v0, False
-                    chase_sweep(Hp, Zp, m, i, v0, want_z=want_z, early=early)
+                    chase_sweep(Hp, Zp, m, i, v0, want_z=want_z, early=early, rhi=rhi,
+                                clo=clo)
                     nbact = 1
                 steps += i - m
                 sweeps += 1
@@ -397,7 +409,7 @@ class _Run:
                 if repaired:
                     D, U, V, S0 = gather(Hp)
                 _defl2(Hp, Zp, D, U, S0, i, p, hnorms, ulp, smlnum, wr, wi,
-                       swaps, want_z)
+                       swaps, want_z, rhi, clo)
 
             if splitting:
                 i = lnew - 1
@@ -411,17 +423,19 @@ class _Run:
         self.steps, self.sweeps, self.bulges = steps, sweeps, bulges
 
     def finish(self, with_info: bool):
-        """Package (T, Z, wr, wi, ok[, info]) from the state."""
+        """Package (T, Z, wr, wi, ok[, info]) from the state (T scrubbed
+        only with T wanted, as the JAX core)."""
         n, p, dev, wr, wi = self.n, self.p, self.dev, self.wr, self.wi
         ok = self.i < 0
         T = self.Hp[:, :n, :n].contiguous()
         Zo = self.Zp[:, :n, :n].contiguous() if self.want_z else None
-        # scrub subdiagonals of real eigenvalues (reference :1066-1073)
-        keep = torch.as_tensor(wi[:-1] != 0, device=dev)
-        sub = torch.diagonal(T[0], -1)
-        sub.copy_(torch.where(keep, sub, torch.zeros_like(sub)))
-        if p > 1:
-            T[1:] = torch.triu(T[1:])
+        if self.want_t:
+            # scrub subdiagonals of real eigenvalues (reference :1066-1073)
+            keep = torch.as_tensor(wi[:-1] != 0, device=dev)
+            sub = torch.diagonal(T[0], -1)
+            sub.copy_(torch.where(keep, sub, torch.zeros_like(sub)))
+            if p > 1:
+                T[1:] = torch.triu(T[1:])
         if self.swaps:
             Dfin = torch.diagonal(T, dim1=1, dim2=2).cpu().numpy()
             for (ii, w1r, w2r) in self.swaps:
@@ -461,11 +475,13 @@ def pqr_real_core_aed(H: torch.Tensor, Z: Optional[torch.Tensor] = None,
     * host tail: once ``2 <= i + 1 <= tail_n``, one ``aed_analyze`` of the
       leading [0, i] window with beta = 0 finishes the run when everything
       deflates;
-    * AED: the trailing (p, w, w) window and ``beta = H0[s, s-1]`` come to
-      the host in one gather and one copy, ``ops.aed.aed_analyze`` runs on
-      the host (its re-reduction of the window on the state's device, the
-      reduction kernel on the card), and ``ops.aed.aed_apply`` writes the deflation into the
-      state; then ``i -= d``, ``l = 0``, ``its = 1``.
+    * AED: the trailing (p, w, w) window, ``beta = H0[s, s-1]`` (and,
+      without T, H0's subdiagonal above it) come to the host in one gather
+      and one copy, ``ops.aed.aed_analyze`` runs on the host (its
+      re-reduction of the window on the state's device, the reduction
+      kernel on the card), and ``ops.aed.aed_apply`` writes the deflation
+      into the state (without T inside the diagonal block that holds row
+      s); then ``i -= d``, ``l = 0``, ``its = 1``.
 
     The window Schur is the native C++ one: when a run can reach a segment
     boundary the library is built (or loaded) first, and a failed build
@@ -478,15 +494,15 @@ def pqr_real_core_aed(H: torch.Tensor, Z: Optional[torch.Tensor] = None,
     """
     from .. import native
     from ..types import IllConditionedException
-    from .aed import aed_analyze, aed_apply, aed_schedule, aed_tallies, upload
-    _check_args(H, want_t, cfg)
+    from .aed import aed_analyze, aed_apply, aed_schedule, aed_tallies, upload, window_top
+    _check_args(H, cfg)
     p, n, _ = H.shape
     extra = aed_tallies()
     if n == 1:
-        out = pqr_real_core(H, Z, want_z=want_z, maxitfac=maxitfac, cfg=cfg,
-                            with_info=with_info)
+        out = pqr_real_core(H, Z, want_z=want_z, want_t=want_t, maxitfac=maxitfac,
+                            cfg=cfg, with_info=with_info)
         return out[:-1] + ({**out[-1], **extra},) if with_info else out
-    run = _Run(H, Z, want_z, maxitfac, cfg)
+    run = _Run(H, Z, want_z, maxitfac, cfg, want_t)
     maxit, dev = run.maxit, run.dev
     chunk = chunk_iters(p, n)
     aed_w, aed_itv, aed_on, tail_n = aed_schedule(cfg, n)
@@ -524,7 +540,7 @@ def pqr_real_core_aed(H: torch.Tensor, Z: Optional[torch.Tensor] = None,
             return False
         _, Wf, Zt, lams, _ = res
         Ztd, Wfd = upload(dev, Zt, Wf)
-        aed_apply(run.Hp, run.Zp, 0, Ztd, Wfd, None)
+        aed_apply(run.Hp, run.Zp, 0, Ztd, Wfd, None, want_t=want_t)
         run.wr[:m] = lams.real
         run.wi[:m] = lams.imag
         run.i, run.l, run.its = -1, 0, 1
@@ -540,16 +556,20 @@ def pqr_real_core_aed(H: torch.Tensor, Z: Optional[torch.Tensor] = None,
             return None
         s = i - w + 1
         t0 = time.perf_counter()
-        g = torch.cat([run.Hp[:, s:s + w, s:s + w].reshape(-1),
-                       run.Hp[0, s, s - 1:s]]).cpu().numpy()
+        parts = [run.Hp[:, s:s + w, s:s + w].reshape(-1), run.Hp[0, s, s - 1:s]]
+        if not want_t:  # H0's subdiagonal above the window: where its block starts
+            parts.append(torch.diagonal(run.Hp[0], -1)[:s])
+        g = torch.cat(parts).cpu().numpy()
         extra["aed_s"] += time.perf_counter() - t0
         extra["aed_events"] += 1
-        res = analyze(g[:-1].reshape(p, w, w), float(g[-1]), "aed")
+        nw = p * w * w
+        top = 0 if want_t else window_top(g[nw + 1:], s)
+        res = analyze(g[:nw].reshape(p, w, w), float(g[nw]), "aed")
         if res is None:
             return 0
         d, Wf, Zt, lams, sph = res
         Ztd, Wfd, sphd = upload(dev, Zt, Wf, sph)
-        aed_apply(run.Hp, run.Zp, s, Ztd, Wfd, sphd)
+        aed_apply(run.Hp, run.Zp, s, Ztd, Wfd, sphd, top=top, want_t=want_t)
         u = w - d
         run.wr[s + u:s + w] = lams.real[u:]
         run.wi[s + u:s + w] = lams.imag[u:]
@@ -581,13 +601,15 @@ def pqr_real_core_aed(H: torch.Tensor, Z: Optional[torch.Tensor] = None,
     return out[:-1] + ({**out[-1], **extra},) if with_info else out
 
 
-def _defl2(Hp, Zp, D, U, S0, i, p, hnorms, ulp, smlnum, wr, wi, swaps, want_z):
-    """2x2 deflation at rows i-1, i: host scalars, then the device branch."""
+def _defl2(Hp, Zp, D, U, S0, i, p, hnorms, ulp, smlnum, wr, wi, swaps, want_z,
+           rhi=None, clo=None):
+    """2x2 deflation at rows i-1, i: host scalars, then the device branch
+    (``rhi``/``clo``: the want_t=False window, None: unbounded)."""
     sc = defl2_scalars(D, U, S0, i, p, hnorms, ulp, smlnum)
     (w1r, w1i, w2r, w2i), lam_real = sc["w"], sc["lam_real"]
     wr[i - 1], wi[i - 1], wr[i], wi[i] = w1r, w1i, w2r, w2i
     deflate2x2(Hp, Zp, i, sc["jmin"], sc["jmax"], sc["cs0"], sc["sn0"],
-               sc["replace0"], sc["finzero"], sc["thr"], want_z=want_z)
+               sc["replace0"], sc["finzero"], sc["thr"], want_z=want_z, rhi=rhi, clo=clo)
     if lam_real:
         swaps.append((i, w1r, w2r))
 

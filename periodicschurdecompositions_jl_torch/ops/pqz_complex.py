@@ -37,8 +37,11 @@ exclusive deflation tests with priority 1>2>3>4, the ``smlnum`` floor in
 the negligibility tests, full-range updates).  ``pqz_complex_core_aed``
 adds aggressive early deflation and the host-tail finish of the JAX
 package's chunked driver (``ops/aed.py``); ``pschur_complex_pipeline`` runs
-it.  Not carried over yet: ``want_t=False`` windowing (raises
-``PSDNotImplemented``).
+it.  ``want_t=False`` (the JAX core's ``rhi``/``clo``): the sweep's row
+updates stop at the window's last column ilast and its column updates of H
+start at its first row jlo; Z, the deflation actions (as in the JAX core)
+and the final rescaling of the diagonals act in full.  The eigenvalues and
+Z are those of the run with T; T is valid on its diagonal only.
 """
 from __future__ import annotations
 
@@ -50,8 +53,7 @@ import numpy as np
 import torch
 
 from ..config import AlgoConfig, default_config, verbosity
-from ..types import (ConvergenceFailure, GeneralizedPeriodicSchur,
-                     PSDNotImplemented)
+from ..types import ConvergenceFailure, GeneralizedPeriodicSchur
 from ..utils.circshift import rev_alias
 from ..utils.safeprod import safeprod_signed
 from . import sweep_cx
@@ -111,7 +113,9 @@ def pqz_complex_core(H: torch.Tensor, S: Sequence[bool],
       maxitfac: iteration budget factor (maxit = maxitfac * n).
       seed: seed of the torch.Generator that draws exceptional shifts.
       with_info: also return a dict of counters.
-      want_t: only True is supported in this port so far.
+      want_t: keep the whole triangular T.  False: the sweeps' updates stay
+         inside the active window (see the module docstring); T is valid on
+         its diagonal only, the eigenvalues and Z are those of the run with T.
       shift_normals: optional (>= number of sweeps, 4) float array; entry k
          gives the exceptional rotation of the (k+1)-th sweep when that
          sweep is exceptional (the JAX core's ``normal(split_k, (4,))``).
@@ -163,9 +167,6 @@ class _CxRun:
     (``pqz_complex_core_aed``)."""
 
     def __init__(self, H, S, Z, want_z, maxitfac, seed, want_t, shift_normals):
-        if not want_t:
-            raise PSDNotImplemented(
-                "want_t=False windowing is not ported yet (ROADMAP queue 1, item 4)")
         S = tuple(bool(x) for x in S)
         p, n, _ = H.shape
         if len(S) != p or not S[0]:
@@ -174,7 +175,7 @@ class _CxRun:
             raise ValueError("pqz_complex_core: H must be complex128")
         dev = H.device
         self.S, self.p, self.n, self.dev, self.want_z = S, p, n, dev, want_z
-        self.shift_normals = shift_normals
+        self.want_t, self.shift_normals = want_t, shift_normals
         fi = np.finfo(np.float64)
         self.ulp = ulp = float(fi.eps)
         unfl = float(fi.tiny)
@@ -220,7 +221,8 @@ class _CxRun:
     def iterate(self, it_cap: int) -> None:
         """Run iterations until the window is empty or ``jiter`` reaches
         ``it_cap``."""
-        H, Zs, S, p, want_z = self.H, self.Zs, self.S, self.p, self.want_z
+        H, Zs, S, p, want_z, want_t = (self.H, self.Zs, self.S, self.p, self.want_z,
+                                       self.want_t)
         ulp, smlnum, shift_normals, gen = self.ulp, self.smlnum, self.shift_normals, self.gen
         cores, gather, cs, counts = self.cores, self.gather, self.cs, self.counts
         alpha, beta, scal = self.alpha, self.beta, self.scal
@@ -287,7 +289,9 @@ class _CxRun:
                     counts["exceptional"] += 1
                 else:
                     sweep_cx.qz_shift(H, jlo, ilast, S, out=cs)
-                sweep_cx.qz_sweep(H, Zs, jlo, ilast, cs, S, want_z=want_z)
+                sweep_cx.qz_sweep(H, Zs, jlo, ilast, cs, S, want_z=want_z,
+                                  rhi=None if want_t else ilast + 1,
+                                  clo=None if want_t else jlo)
             jiter += 1
         self.ilast, self.iiter, self.jiter, self.ziter = ilast, iiter, jiter, ziter
 

@@ -43,8 +43,12 @@ a ``shift_normals`` array indexed by the count of sweeps.
 
 ``pqz_real_gen_core_aed`` adds aggressive early deflation and the
 host-tail finish of the JAX package's chunked driver (``ops/aed.py``);
-``pschur_real_gen_pipeline`` runs it.  Not carried over yet:
-``want_t=False`` windowing (raises ``PSDNotImplemented``).
+``pschur_real_gen_pipeline`` runs it.  ``want_t=False`` (the JAX core's
+``rhi``/``clo``, ``wlo``/``whi``): the sweep's and the 2x2 attack's row
+updates stop at the window's last column ilast and their column updates
+of H start at its first row jlo; Z, the deflation actions (as in the JAX
+core) and the final scrub act in full.  The eigenvalues and Z are those
+of the run with T; T is valid on its diagonal blocks only.
 """
 from __future__ import annotations
 
@@ -299,20 +303,23 @@ class _BlockGather:
 # main core
 
 
-def double_shift_sweep(H, Z, S, jlo, ilast, normals=None, want_z=True, blocks=None):
+def double_shift_sweep(H, Z, S, jlo, ilast, normals=None, want_z=True, blocks=None,
+                       want_t=True):
     """One Francis double-shift sweep on the window [jlo, ilast], in place:
     the opening rotations on the host from one gather of the window's
     blocks, then kernel R ``open``, the chase (rg A, B0, B) and R
     ``close``.  ``normals``: those of an exceptional sweep, else None;
-    ``blocks``: a ``_BlockGather`` to reuse (one is made if None)."""
+    ``blocks``: a ``_BlockGather`` to reuse (one is made if None);
+    ``want_t`` False: every update bounded to the window."""
     p, n, _ = H.shape
     blocks = blocks or _BlockGather(p, n, H.device)
     W3, W2 = blocks(H, [(jlo, 3), (ilast - 1, 2)])
     rot = torch.tensor(opening_rotations(W3, W2, S, normals), dtype=torch.float64,
                        device=H.device)
-    rgopen.rg_ladder(H, Z, "open", jlo, ilast, rot, S, want_z=want_z)
-    sweep_rg.rg_chase(H, Z, jlo + 1, ilast, S, want_z=want_z)
-    rgopen.rg_ladder(H, Z, "close", ilast - 1, ilast, rot, S, want_z=want_z)
+    win = {} if want_t else {"rhi": ilast + 1, "clo": jlo}
+    rgopen.rg_ladder(H, Z, "open", jlo, ilast, rot, S, want_z=want_z, **win)
+    sweep_rg.rg_chase(H, Z, jlo + 1, ilast, S, want_z=want_z, **win)
+    rgopen.rg_ladder(H, Z, "close", ilast - 1, ilast, rot, S, want_z=want_z, **win)
 
 
 def pqz_real_gen_core(H: torch.Tensor, S: Sequence[bool],
@@ -335,7 +342,10 @@ def pqz_real_gen_core(H: torch.Tensor, S: Sequence[bool],
          max(safmin, ||H[l]||_1 ulp) in test 1 (reference
          src/rgeneralized.jl:7,54); a controlled zero shift then raises
          ``PSDNotImplemented`` (the reference's :245-247).
-      want_t: only True is supported in this port so far.
+      want_t: keep the whole quasi-triangular T.  False: the sweeps' and
+         attacks' updates stay inside the active window (see the module
+         docstring); T is valid on its diagonal blocks only, the
+         eigenvalues and Z are those of the run with T.
       shift_normals: optional (>= number of sweeps, 4) float array; entry k
          gives the exceptional rotations of the (k+1)-th sweep when that
          sweep is exceptional (the JAX core's ``normal(split_k, (4,))``).
@@ -390,9 +400,6 @@ class _GenRun:
 
     def __init__(self, H, S, Z, want_z, maxitfac, seed, aggressive, want_t,
                  shift_normals):
-        if not want_t:
-            raise PSDNotImplemented(
-                "want_t=False windowing is not ported yet (ROADMAP queue 1, item 4)")
         S = tuple(bool(x) for x in S)
         p, n, _ = H.shape
         if len(S) != p or not S[0]:
@@ -403,6 +410,7 @@ class _GenRun:
             raise ValueError("pqz_real_gen_core: H must be float64")
         dev = H.device
         self.S, self.p, self.n, self.dev, self.want_z = S, p, n, dev, want_z
+        self.want_t = want_t
         self.aggressive, self.shift_normals = aggressive, shift_normals
         fi = np.finfo(np.float64)
         self.ulp, self.unfl = ulp, unfl = float(fi.eps), float(fi.tiny)
@@ -447,8 +455,8 @@ class _GenRun:
     def iterate(self, it_cap: int) -> None:
         """Run iterations until the window is empty or ``jiter`` reaches
         ``it_cap``."""
-        H, Zs, S, p, n, dev, want_z = (self.H, self.Zs, self.S, self.p, self.n, self.dev,
-                                       self.want_z)
+        H, Zs, S, p, n, dev, want_z, want_t = (self.H, self.Zs, self.S, self.p, self.n,
+                                               self.dev, self.want_z, self.want_t)
         ulp, smlnum, aggressive, agg_tol0 = self.ulp, self.smlnum, self.aggressive, self.agg_tol0
         shift_normals, gen, cores, gather, blocks = (self.shift_normals, self.gen, self.cores,
                                                      self.gather, self.blocks)
@@ -479,6 +487,7 @@ class _GenRun:
             split1 = ilast == 0 or (any1 and jstar == ilast)
             if any1:
                 H[0, jstar, jstar - 1] = 0.0
+            win = {} if want_t else {"rhi": ilast + 1, "clo": jlo}
 
             # Tests 2/3: negligible diagonal in a triangular factor
             supm1 = np.concatenate([np.zeros((p, 1)), sup[:, :-1]], axis=1)
@@ -537,7 +546,7 @@ class _GenRun:
                     c1, s1, _ = givens_host(c1 * float(W[0, 0, 0]) - r * s1,
                                             c1 * float(W[0, 1, 0]))
                     rgopen.rg_ladder(H, Zs, "chain", j, ilast, rot_tensor((c1, s1)), S,
-                                     want_z=want_z)
+                                     want_z=want_z, **win)
                 else:
                     w1r, w1i, _, _, s1c, s2c, bflag = eig2x2_product(W, S)
                     wi = abs(w1i)
@@ -562,7 +571,7 @@ class _GenRun:
                                                 dtype=torch.float64).tolist())
                     counts["exceptional"] += 1
                 double_shift_sweep(H, Zs, S, jlo, ilast, normals, want_z=want_z,
-                                   blocks=blocks)
+                                   blocks=blocks, want_t=want_t)
             jiter += 1
         self.ilast, self.iiter, self.jiter, self.ziter = ilast, iiter, jiter, ziter
 

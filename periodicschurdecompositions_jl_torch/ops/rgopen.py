@@ -19,7 +19,8 @@ Schur vectors ``Z``) with signature ``S``:
 writes it, the ladder reads it (``"open"`` reads all four, ``"chain"`` the
 first two, ``"close"`` none).  ``rhi`` bounds the columns of row updates
 and ``clo`` the rows of column updates (the reference's window when
-``want_t`` is False; None: unbounded).
+``want_t`` is False; None: unbounded): the entries outside keep their
+values, those inside take the values of the unbounded ladder's.
 
 * On a CUDA tensor ``rg_ladder`` launches the hand-written kernel
   ``rg_ladder`` of ``csrc/rgopen.cu`` (it replaces the Pallas kernel R of
@@ -49,26 +50,26 @@ MODES = {"open": 0, "close": 1, "chain": 2}
 def _chain510(H, Z, j, c1, s1, S, want_z, wlo, whi):
     """The single-rotation ladder (reference :1020-1048)."""
     p = H.shape[0]
-    rowsk(H[0], j, lmat(c1, s1), lo=j, hi=whi)
+    rowsk(H[0], j, lmat(c1, s1), lo=j, rhi=whi)
     if want_z:
         colsk(Z[0], j, rmat_adj(c1, s1))
     for l in range(p - 1, 0, -1):
         Hl = H[l]
         if S[l]:
-            colsk(Hl, j, rmat_adj(c1, s1), lo=wlo, hi=j + 2)
+            colsk(Hl, j, rmat_adj(c1, s1), clo=wlo, hi=j + 2)
             c1, s1, r = givens_real(Hl[j, j], Hl[j + 1, j])
             Hl[j, j] = r
             Hl[j + 1, j] = 0.0
-            rowsk(Hl, j, lmat(c1, s1), lo=j + 1, hi=whi)
+            rowsk(Hl, j, lmat(c1, s1), lo=j + 1, rhi=whi)
         else:
-            rowsk(Hl, j, lmat(c1, s1), lo=j, hi=whi)
+            rowsk(Hl, j, lmat(c1, s1), lo=j, rhi=whi)
             c1, s1, r = givens_real(Hl[j + 1, j + 1], -Hl[j + 1, j])
             Hl[j + 1, j + 1] = r
             Hl[j + 1, j] = 0.0
-            colsk(Hl, j, rmat_adj(c1, s1), lo=wlo, hi=j + 1)
+            colsk(Hl, j, rmat_adj(c1, s1), clo=wlo, hi=j + 1)
         if want_z:
             colsk(Z[l], j, rmat_adj(c1, s1))
-    colsk(H[0], j, rmat_adj(c1, s1), lo=wlo)
+    colsk(H[0], j, rmat_adj(c1, s1), clo=wlo)
 
 
 def rg_ladder_plain(H, Z, mode: str, j: int, ilast: int, rot, S: Sequence[bool], *,
@@ -87,41 +88,41 @@ def rg_ladder_plain(H, Z, mode: str, j: int, ilast: int, rot, S: Sequence[bool],
         return H, Z
     if mode != "open":
         raise ValueError(f"rg_ladder: unknown mode {mode!r}")
-    colsk(H[0], j + 1, rmat_adj(c2, s2), lo=clo, hi=ilast + 1)
-    colsk(H[0], j, rmat_adj(c1, s1), lo=clo, hi=ilast + 1)
+    colsk(H[0], j + 1, rmat_adj(c2, s2), clo=clo, hi=ilast + 1)
+    colsk(H[0], j, rmat_adj(c1, s1), clo=clo, hi=ilast + 1)
     if want_z:
         colsk(Z[1 % p], j + 1, rmat_adj(c2, s2))
         colsk(Z[1 % p], j, rmat_adj(c1, s1))
     for l in range(1, p):
         Hl = H[l]
         if S[l]:
-            rowsk(Hl, j + 1, lmat(c2, s2), lo=j, hi=rhi)
+            rowsk(Hl, j + 1, lmat(c2, s2), lo=j, rhi=rhi)
             c2, s2, r = givens_real(Hl[j + 2, j + 2], -Hl[j + 2, j + 1])
             Hl[j + 2, j + 2] = r
             Hl[j + 2, j + 1] = 0.0
-            colsk(Hl, j + 1, rmat_adj(c2, s2), lo=clo, hi=j + 2)
-            rowsk(Hl, j, lmat(c1, s1), lo=j, hi=rhi)
+            colsk(Hl, j + 1, rmat_adj(c2, s2), clo=clo, hi=j + 2)
+            rowsk(Hl, j, lmat(c1, s1), lo=j, rhi=rhi)
             c1, s1, r = givens_real(Hl[j + 1, j + 1], -Hl[j + 1, j])
             Hl[j + 1, j + 1] = r
             Hl[j + 1, j] = 0.0
-            colsk(Hl, j, rmat_adj(c1, s1), lo=clo, hi=j + 1)
+            colsk(Hl, j, rmat_adj(c1, s1), clo=clo, hi=j + 1)
         else:
-            colsk(Hl, j + 1, rmat_adj(c2, s2), lo=clo, hi=j + 3)
+            colsk(Hl, j + 1, rmat_adj(c2, s2), clo=clo, hi=j + 3)
             c2, s2, r = givens_real(Hl[j + 1, j + 1], Hl[j + 2, j + 1])
             Hl[j + 1, j + 1] = r
             Hl[j + 2, j + 1] = 0.0
-            rowsk(Hl, j + 1, lmat(c2, s2), lo=j + 2, hi=rhi)
-            colsk(Hl, j, rmat_adj(c1, s1), lo=clo, hi=j + 2)
+            rowsk(Hl, j + 1, lmat(c2, s2), lo=j + 2, rhi=rhi)
+            colsk(Hl, j, rmat_adj(c1, s1), clo=clo, hi=j + 2)
             c1, s1, r = givens_real(Hl[j, j], Hl[j + 1, j])
             Hl[j, j] = r
             Hl[j + 1, j] = 0.0
-            rowsk(Hl, j, lmat(c1, s1), lo=j + 1, hi=rhi)
+            rowsk(Hl, j, lmat(c1, s1), lo=j + 1, rhi=rhi)
         if want_z:
             ln = (l + 1) % p
             colsk(Z[ln], j + 1, rmat_adj(c2, s2))
             colsk(Z[ln], j, rmat_adj(c1, s1))
-    rowsk(H[0], j + 1, lmat(c2, s2), lo=j, hi=rhi)
-    rowsk(H[0], j, lmat(c1, s1), lo=j, hi=rhi)
+    rowsk(H[0], j + 1, lmat(c2, s2), lo=j, rhi=rhi)
+    rowsk(H[0], j, lmat(c1, s1), lo=j, rhi=rhi)
     return H, Z
 
 

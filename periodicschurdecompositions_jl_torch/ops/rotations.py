@@ -179,31 +179,44 @@ def _span(lo, hi, size):
     return a, max(a, b)
 
 
-def rowsk(H, i: int, M, lo: int = None, hi: int = None):
+def rowsk(H, i: int, M, lo: int = None, hi: int = None, rhi: int = None):
     """k-row slab update in place: H[i:i+k, lo:hi] = M @ H[i:i+k, lo:hi].
 
     As the JAX package's ``rowsk``: ``i`` is clamped to [0, m-k] and the
-    column window [lo, hi) may reach outside the matrix."""
+    column window [lo, hi) may reach outside the matrix.  ``rhi``: the
+    want_t=False bound, as the JAX package's masked update: the columns >=
+    rhi keep their values, the others take exactly those of the update
+    without it (the product runs on the whole slab)."""
     k = M.shape[0]
     m, n = H.shape
     i = _clamp(i, 0, m - k)
     a, b = _span(lo, hi, n)
-    if b > a:
+    c = b if rhi is None else _clamp(rhi, a, b)
+    if c > a:
         sl = H[i:i + k, a:b]
-        sl.copy_(M @ sl)
+        if c == b:
+            sl.copy_(M @ sl)
+        else:
+            sl[:, :c - a].copy_((M @ sl)[:, :c - a])
     return H
 
 
-def colsk(H, j: int, M, lo: int = None, hi: int = None):
+def colsk(H, j: int, M, lo: int = None, hi: int = None, clo: int = None):
     """k-column slab update in place: H[lo:hi, j:j+k] = H[lo:hi, j:j+k] @ M,
-    with the clamping of ``rowsk``."""
+    with the clamping of ``rowsk``; ``clo``: the want_t=False bound (the
+    rows < clo keep their values, the others take those of the update
+    without it)."""
     k = M.shape[0]
     m, n = H.shape
     j = _clamp(j, 0, n - k)
     a, b = _span(lo, hi, m)
-    if b > a:
+    c = a if clo is None else _clamp(clo, a, b)
+    if b > c:
         sl = H[a:b, j:j + k]
-        sl.copy_(sl @ M)
+        if c == a:
+            sl.copy_(sl @ M)
+        else:
+            sl[c - a:].copy_((sl @ M)[c - a:])
     return H
 
 

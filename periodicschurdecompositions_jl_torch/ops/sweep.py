@@ -38,6 +38,12 @@ columns behind bulge b-1 (``AlgoConfig.nbulges > 1``; the JAX package's
   bulge's transform commutes with the later transforms of the bulges
   ahead of it); the reference's forced zeros re-emerge as roundoff, which
   ``sweep_right`` replaces by exact zeros.
+* Without T (the core's ``want_t=False``) the row updates stop before
+  column ``rhi`` and the column updates of H start at row ``clo`` (the
+  active window's bottom + 1 and top; None: unbounded, Z is never
+  bounded), as the JAX package's ``tlo``/``thi``; the kernels take the
+  bound as whole lines dropped (``psd_sweep_left_bounded``,
+  ``psd_sweep_right_bounded``).
 * On a CPU tensor they run ``chase_sweep_plain`` / ``chase_sweep_mb_plain``,
   eager torch ports of ``chase_step`` (the reference order, with its forced
   writes; the multi-bulge one in tick order).  Any other device raises.
@@ -60,11 +66,13 @@ launches = {"sweep_generate": 0, "sweep_generate_mb": 0, "sweep_left": 0,
 MAX_NB = 4  # bulges per multi-bulge sweep (csrc/sweep.cu kMaxNb)
 
 
-def _step(H, Z, k: int, i: int, v, *, want_z: bool, early: bool, log, cst):
+def _step(H, Z, k: int, i: int, v, *, want_z: bool, early: bool, log, cst, rhi=None,
+          clo=None):
     """One chase step at k in the reference order (in place): the bulge
     reflector of H[0], from ``v`` at the bulge's first step (v is None
     after it: column k-1), then the 3- and 2-reflectors of factors p-1..1.
-    ``log``: None or a (p, N, 9) tensor that receives the transforms."""
+    ``log``: None or a (p, N, 9) tensor that receives the transforms;
+    ``rhi``/``clo``: the want_t=False window (None: unbounded)."""
     mask3, zero = cst
     p = H.shape[0]
     tgt = p - 1 if p > 1 else 0
@@ -84,8 +92,8 @@ def _step(H, Z, k: int, i: int, v, *, want_z: bool, early: bool, log, cst):
             [beta, zero, col[2] if k == i - 1 else zero])
     elif early:
         H[0, k, k - 1] *= 1.0 - tau
-    rowsk(H[0], k, M3, lo=k)
-    colsk(H[tgt], k, M3, hi=hi_r)
+    rowsk(H[0], k, M3, lo=k, rhi=rhi)
+    colsk(H[tgt], k, M3, clo=clo, hi=hi_r)
     if want_z:
         colsk(Z[0], k, M3)
     if log is not None:
@@ -97,8 +105,8 @@ def _step(H, Z, k: int, i: int, v, *, want_z: bool, early: bool, log, cst):
         w2, tau2, beta2 = reflector_small(colv)
         M3b = refl_mat(w2, tau2)
         H[f, k:k + 3, k] = torch.stack([beta2, zero, zero])
-        rowsk(H[f], k, M3b, lo=k + 1)
-        colsk(H[f - 1], k, M3b, hi=hi_r)
+        rowsk(H[f], k, M3b, lo=k + 1, rhi=rhi)
+        colsk(H[f - 1], k, M3b, clo=clo, hi=hi_r)
         if want_z:
             colsk(Z[f], k, M3b)
         F = M3b
@@ -107,8 +115,8 @@ def _step(H, Z, k: int, i: int, v, *, want_z: bool, early: bool, log, cst):
             wb, taub, betab = reflector_small(xc)
             M2 = refl_mat(wb, taub)
             H[f, k + 1:k + 3, k + 1] = torch.stack([betab, zero])
-            rowsk(H[f], k + 1, M2, lo=k + 2)
-            colsk(H[f - 1], k + 1, M2, hi=hi_r)
+            rowsk(H[f], k + 1, M2, lo=k + 2, rhi=rhi)
+            colsk(H[f - 1], k + 1, M2, clo=clo, hi=hi_r)
             if want_z:
                 colsk(Z[f], k + 1, M2)
             F = M3b.clone()
@@ -124,19 +132,21 @@ def _consts(H):
 
 
 def chase_sweep_plain(H, Z, m: int, i: int, v0, *, want_z: bool,
-                      early: bool = False, log=None):
+                      early: bool = False, log=None, rhi=None, clo=None):
     """Eager torch sweep in the reference order (in place on H and Z).
 
     ``early``: dlahqr early start (``allow_early_qr``): the first
     reflector also scales H[0][m, m-1] by (1 - tau).
     ``log``: optional (p, N, 9) tensor that receives the transforms in
     ``sweep_generate``'s layout (factor 0: M3; factor f: M3b @ diag(1, M2)).
+    ``rhi``/``clo``: the want_t=False window: row updates on the columns <
+    rhi, H's column updates on the rows >= clo (None: unbounded).
     """
     cst = _consts(H)
     v0 = torch.as_tensor(v0, dtype=H.dtype, device=H.device)
     for k in range(m, i):
         _step(H, Z, k, i, v0 if k == m else None, want_z=want_z, early=early,
-              log=log, cst=cst)
+              log=log, cst=cst, rhi=rhi, clo=clo)
     return H, Z
 
 
@@ -172,13 +182,14 @@ def lead_v0_plain(H, m: int, sig3):
 
 
 def chase_sweep_mb_plain(H, Z, m: int, i: int, v0, sig, nbact: int, *, nb: int,
-                         gap: int, want_z: bool, log=None):
+                         gap: int, want_z: bool, log=None, rhi=None, clo=None):
     """Eager torch multi-bulge sweep in tick order (in place on H and Z):
     at tick kk = m .. i + (nbact-1) gap - 1, bulges b = 0..nbact-1 in turn
     take their step at k = kk - b gap when m <= k <= i-1.  Bulge 0 starts
     from ``v0``, bulge b >= 1 from ``lead_v0_plain(H, m, sig[b])`` at its
     first step.  ``sig``: nb shift triples (rt1r, rt1i, rt2r); ``log``:
-    optional (nb, p, N, 9) tensor (``sweep_generate_mb``'s layout)."""
+    optional (nb, p, N, 9) tensor (``sweep_generate_mb``'s layout);
+    ``rhi``/``clo``: the want_t=False window, as ``chase_sweep_plain``."""
     check_mb(nb, gap, nbact)
     cst = _consts(H)
     v0 = torch.as_tensor(v0, dtype=H.dtype, device=H.device)
@@ -191,19 +202,26 @@ def chase_sweep_mb_plain(H, Z, m: int, i: int, v0, sig, nbact: int, *, nb: int,
             if k == m:
                 v = v0 if b == 0 else lead_v0_plain(H, m, sig[b])
             _step(H, Z, k, i, v, want_z=want_z, early=False,
-                  log=None if log is None else log[b], cst=cst)
+                  log=None if log is None else log[b], cst=cst, rhi=rhi, clo=clo)
     return H, Z
 
 
-def apply_log_plain(H, Z, R, m: int, i: int, *, want_z: bool, nb: int = 1):
+def apply_log_plain(H, Z, R, m: int, i: int, *, want_z: bool, nb: int = 1, rhi=None,
+                    clo=None):
     """Plain torch version of ``sweep_left`` + ``sweep_right``: apply the
     transform logs of bulges 0..nb-1 (R: (p, N, 9), or (NB, p, N, 9) with
     NB >= nb) to H (and Z) in place: the left products of each bulge in
     turn, then the right products of each bulge in turn, then the exact
-    structural zeros."""
+    structural zeros.  ``rhi``/``clo``: the want_t=False window (None:
+    unbounded): the left products land on the columns < rhi, the right
+    products on H's rows >= clo, each with the values of the unbounded
+    update; the structural zeros (rows m+1..i, columns < i) lie inside any
+    window."""
     p, N, _ = H.shape
     Rb = R.reshape(-1, p, N, 3, 3)
     c0 = max(m - 1, 0)
+    nc = N - c0 if rhi is None else rhi - c0
+    rlo = 0 if clo is None else clo
     for b in range(nb):
         F = Rb[b]
         for k in range(m, i):
@@ -211,13 +229,13 @@ def apply_log_plain(H, Z, R, m: int, i: int, *, want_z: bool, nb: int = 1):
             new = F[:, k].transpose(1, 2) @ rows
             if k == m and m >= 1:
                 new[0, :, 0] = rows[0, :, 0]  # window-boundary column m-1
-            rows.copy_(new)
+            rows[..., :nc].copy_(new[..., :nc])
     for b in range(nb):
         F = Rb[b]
         Fr = torch.roll(F, -1, dims=0)  # H[g] takes the log of factor (g+1) % p
         for k in range(m, i):
             cols = H[:, :i + 1, k:k + 3]
-            cols.copy_(cols @ Fr[:, k])
+            cols[:, rlo:].copy_((cols @ Fr[:, k])[:, rlo:])
             if want_z:
                 zc = Z[:, :, k:k + 3]
                 zc.copy_(zc @ F[:, k])
@@ -234,7 +252,8 @@ def _check(name, t, shape, dtype=torch.float64):
                          f"contiguous={t.is_contiguous()}")
 
 
-def chase_sweep(H, Z, m: int, i: int, v0, *, want_z: bool, early: bool = False):
+def chase_sweep(H, Z, m: int, i: int, v0, *, want_z: bool, early: bool = False,
+                rhi=None, clo=None):
     """One double-shift sweep over the window [m, i], in place.
 
     Args:
@@ -245,12 +264,17 @@ def chase_sweep(H, Z, m: int, i: int, v0, *, want_z: bool, early: bool = False):
       v0: the normalized first shifted column (3 floats).
       want_z: update Z.
       early: dlahqr early start (scale H[0][m, m-1] by 1 - tau).
+      rhi, clo: the want_t=False window (None: unbounded): row updates on
+         the columns < rhi (i + 1 <= rhi <= N), H's column updates on the
+         rows >= clo (0 <= clo <= m); entries outside stay as they were.
 
     Returns (H, Z).  Entries below the subdiagonal of H[0] and below the
     diagonal of H[1:] within the window are exact zeros on output.
     """
+    check_bounds("chase_sweep", m, i, H.shape[1], rhi, clo)
     if H.device.type == "cpu":
-        return chase_sweep_plain(H, Z, m, i, v0, want_z=want_z, early=early)
+        return chase_sweep_plain(H, Z, m, i, v0, want_z=want_z, early=early, rhi=rhi,
+                                 clo=clo)
     _check_card_args("chase_sweep", H, Z, m, i, want_z)
     if i == m:
         return H, Z
@@ -259,7 +283,7 @@ def chase_sweep(H, Z, m: int, i: int, v0, *, want_z: bool, early: bool = False):
         # the first reflector's leading row on column m-1: R[0, m, 0] is
         # exactly 1 - tau (w[0] = 1)
         H[0, m, m - 1] *= R[0, m, 0]
-    _apply_log(_cuda.load(), _cuda.stream_ptr(H), H, Z, R, m, i, 1, want_z)
+    _apply_log(_cuda.load(), _cuda.stream_ptr(H), H, Z, R, m, i, 1, want_z, rhi, clo)
     return H, Z
 
 
@@ -303,15 +327,27 @@ def _check_card_args(name, H, Z, m, i, want_z):
         raise ValueError(f"{name}: bad window m={m} i={i} for N={N}")
 
 
-def _apply_log(lib, st, H, Z, R, m, i, nb, want_z):
+def check_bounds(name, m, i, n, rhi, clo, clo_max=None):
+    """Raise ValueError unless rhi (None or i + 1 .. n) and clo (None or 0
+    .. clo_max, default m) bound the window [m, i] of an n-line stack."""
+    top = m if clo_max is None else clo_max
+    if rhi is not None and not i + 1 <= rhi <= n:
+        raise ValueError(f"{name}: rhi={rhi} outside [{i + 1}, {n}]")
+    if clo is not None and not 0 <= clo <= top:
+        raise ValueError(f"{name}: clo={clo} outside [0, {top}]")
+
+
+def _apply_log(lib, st, H, Z, R, m, i, nb, want_z, rhi=None, clo=None):
     p, N, _ = H.shape
     with _cuda.on_device(H):
-        _cuda.check(lib.psd_sweep_left(H.data_ptr(), R.data_ptr(), p, N, m, i, nb, st),
+        _cuda.check(lib.psd_sweep_left_bounded(H.data_ptr(), R.data_ptr(), p, N, m, i, nb,
+                                               N if rhi is None else int(rhi), st),
                     "sweep_left")
         launches["sweep_left"] += 1
-        _cuda.check(lib.psd_sweep_right(H.data_ptr(),
-                                        Z.data_ptr() if want_z else None,
-                                        R.data_ptr(), p, N, m, i, nb, st),
+        _cuda.check(lib.psd_sweep_right_bounded(H.data_ptr(),
+                                                Z.data_ptr() if want_z else None,
+                                                R.data_ptr(), p, N, m, i, nb,
+                                                0 if clo is None else int(clo), st),
                     "sweep_right")
     launches["sweep_right"] += 1
 
@@ -329,10 +365,10 @@ def check_mb(nb: int, gap: int, nbact: int = 1) -> None:
 
 
 def chase_sweep_mb(H, Z, m: int, i: int, v0, sig, nbact: int, *, nb: int, gap: int,
-                   want_z: bool):
+                   want_z: bool, rhi=None, clo=None):
     """One multi-bulge sweep over the window [m, i], in place.
 
-    Args beyond ``chase_sweep``:
+    Args beyond ``chase_sweep`` (``rhi``/``clo`` as there):
       sig: nb shift triples (rt1r, rt1i, rt2r) in the band's (unscaled)
         domain; bulge 0's is unused (its first column is ``v0``).
       nbact: bulges actually chased, in [1, nb].
@@ -342,16 +378,17 @@ def chase_sweep_mb(H, Z, m: int, i: int, v0, sig, nbact: int, *, nb: int, gap: i
     Returns (H, Z), with exact structural zeros as ``chase_sweep``.
     """
     check_mb(nb, gap, nbact)
+    check_bounds("chase_sweep_mb", m, i, H.shape[1], rhi, clo)
     if H.device.type == "cpu":
         return chase_sweep_mb_plain(H, Z, m, i, v0, sig, nbact, nb=nb, gap=gap,
-                                    want_z=want_z)
+                                    want_z=want_z, rhi=rhi, clo=clo)
     _check_card_args("chase_sweep_mb", H, Z, m, i, want_z)
     if len(sig) < nbact:
         raise ValueError(f"chase_sweep_mb: {len(sig)} shift triples for {nbact} bulges")
     if i == m:
         return H, Z
     R = sweep_generate_mb(H, m, i, v0, sig, nbact, nb=nb, gap=gap)
-    _apply_log(_cuda.load(), _cuda.stream_ptr(H), H, Z, R, m, i, nbact, want_z)
+    _apply_log(_cuda.load(), _cuda.stream_ptr(H), H, Z, R, m, i, nbact, want_z, rhi, clo)
     return H, Z
 
 

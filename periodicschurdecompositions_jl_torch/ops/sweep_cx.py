@@ -28,7 +28,10 @@ place on H (and Z).  ``qz_shift`` computes the sweep's shift rotation
   ``qz_sweep_generate`` runs kernel A alone and returns its log.
 
 ``qz_apply_log_plain`` is the plain version of kernels B0 + B: it replays
-a log in their deferred order.  ``launches`` counts the launches of each
+a log in their deferred order.  Without T (the core's ``want_t=False``)
+the row updates stop before column ``rhi`` and H's column updates start at
+row ``clo`` (the JAX core's ``rhi``/``clo``: ilast + 1 and jlo; None:
+unbounded; Z is never bounded).  ``launches`` counts the launches of each
 kernel.
 """
 from __future__ import annotations
@@ -39,6 +42,7 @@ import torch
 
 from . import _cuda, sweep
 from .rotations import colsk, givens_complex, lmat, rmat_adj, rowsk
+from .sweep import check_bounds
 
 launches = {"qz_sweep_generate": 0, "qz_sweep_left": 0, "qz_sweep_right": 0,
             "qz_shift": 0}
@@ -64,12 +68,13 @@ def _put(log, l, k, at, M):
 
 
 def qz_sweep_plain(H, Z, m: int, i: int, cs, S: Sequence[bool], *,
-                   want_z: bool, log=None):
+                   want_z: bool, log=None, rhi=None, clo=None):
     """Eager torch sweep in the reference (interleaved) order, in place.
 
     ``cs``: (2,) complex tensor, the shift rotation (c + 0j, s).
     ``log``: optional (p, n, 16) complex tensor that receives the rotations
-    in ``qz_sweep_generate``'s layout.
+    in ``qz_sweep_generate``'s layout.  ``rhi``/``clo``: the want_t=False
+    window (None: unbounded).
     """
     p, n, _ = H.shape
     zero = torch.zeros((), dtype=H.dtype, device=H.device)
@@ -82,7 +87,7 @@ def qz_sweep_plain(H, Z, m: int, i: int, cs, S: Sequence[bool], *,
             if log is not None:
                 log[0, k, 12] = r
         L = lmat(c, s)
-        rowsk(H[0], k, L, lo=k)
+        rowsk(H[0], k, L, lo=k, rhi=rhi)
         ZR = rmat_adj(c, s)
         if want_z:
             colsk(Z[0], k, ZR)
@@ -91,20 +96,20 @@ def qz_sweep_plain(H, Z, m: int, i: int, cs, S: Sequence[bool], *,
         for l in range(p - 1, 0, -1):
             if S[l]:
                 R = rmat_adj(c, s)
-                colsk(H[l], k, R, hi=k + 2)
+                colsk(H[l], k, R, clo=clo, hi=k + 2)
                 c, s, r = givens_complex(H[l, k, k], H[l, k + 1, k])
                 H[l, k, k] = r
                 H[l, k + 1, k] = zero
                 L = lmat(c, s)
-                rowsk(H[l], k, L, lo=k + 1)
+                rowsk(H[l], k, L, lo=k + 1, rhi=rhi)
             else:
                 L = lmat(c, s)
-                rowsk(H[l], k, L, lo=k)
+                rowsk(H[l], k, L, lo=k, rhi=rhi)
                 cn, sn, r = givens_complex(H[l, k + 1, k + 1], H[l, k + 1, k])
                 H[l, k + 1, k] = zero
                 H[l, k + 1, k + 1] = r
                 R = lmat(cn, sn)
-                colsk(H[l], k, R, hi=k + 1)
+                colsk(H[l], k, R, clo=clo, hi=k + 1)
                 c, s = cn, -sn
             ZR = rmat_adj(c, s)
             if want_z:
@@ -113,26 +118,31 @@ def qz_sweep_plain(H, Z, m: int, i: int, cs, S: Sequence[bool], *,
             _put(log, l, k, 4, R)
             _put(log, l, k, 8, ZR)
         R = rmat_adj(c, s)
-        colsk(H[0], k, R, hi=min(k + 3, n))
+        colsk(H[0], k, R, clo=clo, hi=min(k + 3, n))
         _put(log, 0, k, 4, R)
     return H, Z
 
 
-def qz_apply_log_plain(H, Z, log, m: int, i: int, *, want_z: bool):
+def qz_apply_log_plain(H, Z, log, m: int, i: int, *, want_z: bool, rhi=None, clo=None):
     """Plain torch version of ``qz_sweep_left`` + ``qz_sweep_right``: apply a
     (p, n, 16) sweep log to H (and Z) in place, left products first (rows
-    k, k+1 from column m on), then the right products (H rows 0..i, Z all
-    rows), then the exact structural zeros and the logged subdiagonal."""
+    k, k+1 from column m on, landing on the columns < rhi), then the right
+    products (H rows 0..i, landing on the rows >= clo; Z all rows), each
+    with the values of the unbounded update, then the exact structural
+    zeros and the logged subdiagonal (inside any want_t=False window;
+    ``rhi``/``clo`` None: unbounded)."""
     p, n, _ = H.shape
     L = log[:, :, 0:4].reshape(p, n, 2, 2)
     R = log[:, :, 4:8].reshape(p, n, 2, 2)
     ZR = log[:, :, 8:12].reshape(p, n, 2, 2)
+    nc = n - m if rhi is None else rhi - m
+    rlo = 0 if clo is None else clo
     for k in range(m, i):
         rows = H[:, k:k + 2, m:]
-        rows.copy_(L[:, k] @ rows)
+        rows[..., :nc].copy_((L[:, k] @ rows)[..., :nc])
     for k in range(m, i):
         cols = H[:, :i + 1, k:k + 2]
-        cols.copy_(cols @ R[:, k])
+        cols[:, rlo:].copy_((cols @ R[:, k])[:, rlo:])
         if want_z:
             zc = Z[:, :, k:k + 2]
             zc.copy_(zc @ ZR[:, k])
@@ -175,7 +185,8 @@ def _device_kind(H, what):
     return H.device.type
 
 
-def qz_sweep(H, Z, m: int, i: int, cs, S: Sequence[bool], *, want_z: bool):
+def qz_sweep(H, Z, m: int, i: int, cs, S: Sequence[bool], *, want_z: bool, rhi=None,
+             clo=None):
     """One single-shift QZ sweep over the window [m, i], in place.
 
     Args:
@@ -187,12 +198,16 @@ def qz_sweep(H, Z, m: int, i: int, cs, S: Sequence[bool], *, want_z: bool):
           (c + 0j, s) (``qz_shift``'s output or an exceptional shift).
       S: signature, one bool per factor, S[0] True.
       want_z: update Z.
+      rhi, clo: the want_t=False window (None: unbounded): row updates on
+         the columns < rhi (i + 1 <= rhi <= n), H's column updates on the
+         rows >= clo (0 <= clo <= m); entries outside stay as they were.
 
     Returns (H, Z).  Entries below the subdiagonal of H[0] and below the
     diagonal of H[1:] within the window are exact zeros on output.
     """
+    check_bounds("qz_sweep", m, i, H.shape[1], rhi, clo)
     if _device_kind(H, "qz_sweep") == "cpu":
-        return qz_sweep_plain(H, Z, m, i, cs, S, want_z=want_z)
+        return qz_sweep_plain(H, Z, m, i, cs, S, want_z=want_z, rhi=rhi, clo=clo)
     _check_card_args("qz_sweep", H, Z, m, i, cs, S, want_z)
     if i == m:
         return H, Z
@@ -201,12 +216,14 @@ def qz_sweep(H, Z, m: int, i: int, cs, S: Sequence[bool], *, want_z: bool):
     st = _cuda.stream_ptr(H)
     log = _generate(lib, st, H, m, i, cs, S)
     with _cuda.on_device(H):
-        _cuda.check(lib.psd_qz_sweep_left(H.data_ptr(), log.data_ptr(), p, n, m, i,
-                                          st), "qz_sweep_left")
+        _cuda.check(lib.psd_qz_sweep_left_bounded(H.data_ptr(), log.data_ptr(), p, n, m, i,
+                                                  n if rhi is None else int(rhi), st),
+                    "qz_sweep_left")
         launches["qz_sweep_left"] += 1
-        _cuda.check(lib.psd_qz_sweep_right(H.data_ptr(),
-                                           Z.data_ptr() if want_z else None,
-                                           log.data_ptr(), p, n, m, i, st),
+        _cuda.check(lib.psd_qz_sweep_right_bounded(H.data_ptr(),
+                                                   Z.data_ptr() if want_z else None,
+                                                   log.data_ptr(), p, n, m, i,
+                                                   0 if clo is None else int(clo), st),
                     "qz_sweep_right")
     launches["qz_sweep_right"] += 1
     return H, Z

@@ -30,8 +30,11 @@ j, j+1.
   rg A alone and returns its log.
 
 ``rg_apply_log_plain`` is the plain version of kernels B0 + B: it replays a
-log in their deferred order.  ``launches`` counts the launches of each
-kernel.
+log in their deferred order.  Without T (the core's ``want_t=False``) the
+row updates stop before column ``rhi`` and H's column updates start at
+row ``clo`` (the JAX core's ``rhi``/``clo``: ilast + 1 and the sweep's
+first row ifirst = m - 1; None: unbounded; Z is never bounded).
+``launches`` counts the launches of each kernel.
 """
 from __future__ import annotations
 
@@ -41,7 +44,7 @@ import torch
 
 from . import _cuda
 from .rotations import colsk, givens_real, lmat, rmat_adj, rowsk
-from .sweep import _check
+from .sweep import _check, check_bounds
 from .sweep_cx import _signature
 
 launches = {"rg_sweep_generate": 0, "rg_sweep_left": 0, "rg_sweep_right": 0}
@@ -72,10 +75,12 @@ def _put(log, l, j, at, M):
         log[l, j, at:at + 9] = M.reshape(9)
 
 
-def rg_chase_plain(H, Z, m: int, i: int, S: Sequence[bool], *, want_z: bool, log=None):
+def rg_chase_plain(H, Z, m: int, i: int, S: Sequence[bool], *, want_z: bool, log=None,
+                   rhi=None, clo=None):
     """Eager torch chase j = m..i-2 in the reference (interleaved) order, in
     place.  ``log``: optional (p, n, 28) float64 tensor that receives the
-    rotations in ``rg_sweep_generate``'s layout."""
+    rotations in ``rg_sweep_generate``'s layout; ``rhi``/``clo``: the
+    want_t=False window (None: unbounded)."""
     p, n, _ = H.shape
     H0 = H[0]
     for j in range(m, i - 1):
@@ -84,8 +89,8 @@ def rg_chase_plain(H, Z, m: int, i: int, S: Sequence[bool], *, want_z: bool, log
         H0[j, j - 1] = r1
         H0[j + 1, j - 1] = 0.0
         H0[j + 2, j - 1] = 0.0
-        rowsk(H0, j + 1, lmat(c2, s2), lo=j)
-        rowsk(H0, j, lmat(c1, s1), lo=j)
+        rowsk(H0, j + 1, lmat(c2, s2), lo=j, rhi=rhi)
+        rowsk(H0, j, lmat(c1, s1), lo=j, rhi=rhi)
         if want_z:
             colsk(Z[0], j + 1, rmat_adj(c2, s2))
             colsk(Z[0], j, rmat_adj(c1, s1))
@@ -96,28 +101,28 @@ def rg_chase_plain(H, Z, m: int, i: int, S: Sequence[bool], *, want_z: bool, log
         for l in range(p - 1, 0, -1):
             Hl = H[l]
             if S[l]:
-                colsk(Hl, j + 1, rmat_adj(c2, s2), hi=j + 3)
+                colsk(Hl, j + 1, rmat_adj(c2, s2), clo=clo, hi=j + 3)
                 c2n, s2n, r = givens_real(Hl[j + 1, j + 1], Hl[j + 2, j + 1])
                 Hl[j + 1, j + 1] = r
                 Hl[j + 2, j + 1] = 0.0
-                rowsk(Hl, j + 1, lmat(c2n, s2n), lo=j + 2)
-                colsk(Hl, j, rmat_adj(c1, s1), hi=j + 2)
+                rowsk(Hl, j + 1, lmat(c2n, s2n), lo=j + 2, rhi=rhi)
+                colsk(Hl, j, rmat_adj(c1, s1), clo=clo, hi=j + 2)
                 c1n, s1n, r = givens_real(Hl[j, j], Hl[j + 1, j])
                 Hl[j, j] = r
                 Hl[j + 1, j] = 0.0
-                rowsk(Hl, j, lmat(c1n, s1n), lo=j + 1)
+                rowsk(Hl, j, lmat(c1n, s1n), lo=j + 1, rhi=rhi)
                 L, R = fuse_left(c1n, s1n, c2n, s2n), fuse_right(c1, s1, c2, s2)
             else:
-                rowsk(Hl, j + 1, lmat(c2, s2), lo=j)
+                rowsk(Hl, j + 1, lmat(c2, s2), lo=j, rhi=rhi)
                 c2n, s2n, r = givens_real(Hl[j + 2, j + 2], -Hl[j + 2, j + 1])
                 Hl[j + 2, j + 1] = 0.0
                 Hl[j + 2, j + 2] = r
-                colsk(Hl, j + 1, rmat_adj(c2n, s2n), hi=j + 2)
-                rowsk(Hl, j, lmat(c1, s1), lo=j)
+                colsk(Hl, j + 1, rmat_adj(c2n, s2n), clo=clo, hi=j + 2)
+                rowsk(Hl, j, lmat(c1, s1), lo=j, rhi=rhi)
                 c1n, s1n, r = givens_real(Hl[j + 1, j + 1], -Hl[j + 1, j])
                 Hl[j + 1, j] = 0.0
                 Hl[j + 1, j + 1] = r
-                colsk(Hl, j, rmat_adj(c1n, s1n), hi=j + 1)
+                colsk(Hl, j, rmat_adj(c1n, s1n), clo=clo, hi=j + 1)
                 L, R = fuse_left(c1, s1, c2, s2), fuse_right(c1n, s1n, c2n, s2n)
             c1, s1, c2, s2 = c1n, s1n, c2n, s2n
             if want_z:
@@ -128,31 +133,36 @@ def rg_chase_plain(H, Z, m: int, i: int, S: Sequence[bool], *, want_z: bool, log
                 _put(log, l, j, 9, R)
                 _put(log, l, j, 18, fuse_right(c1, s1, c2, s2))
         lm = min(j + 3, n - 1)
-        colsk(H0, j + 1, rmat_adj(c2, s2), hi=lm + 1)
-        colsk(H0, j, rmat_adj(c1, s1), hi=lm + 1)
+        colsk(H0, j + 1, rmat_adj(c2, s2), clo=clo, hi=lm + 1)
+        colsk(H0, j, rmat_adj(c1, s1), clo=clo, hi=lm + 1)
         if log is not None:
             _put(log, 0, j, 9, fuse_right(c1, s1, c2, s2))
     return H, Z
 
 
-def rg_apply_log_plain(H, Z, log, m: int, i: int, *, want_z: bool):
+def rg_apply_log_plain(H, Z, log, m: int, i: int, *, want_z: bool, rhi=None, clo=None):
     """Plain torch version of ``rg_sweep_left`` + ``rg_sweep_right``: apply a
     (p, n, 28) chase log to H (and Z) in place, the left products first
-    (rows j..j+2 from column m-1 on), then the right products (H rows 0..i,
-    Z all rows), then the window's exact structural zeros (the closing
-    bulge H[0][i, i-2] kept) and the logged H[0][j, j-1]."""
+    (rows j..j+2 from column m-1 on, landing on the columns < rhi), then
+    the right products (H rows 0..i, landing on the rows >= clo; Z all
+    rows), each with the values of the unbounded update, then the window's
+    exact structural zeros (the closing bulge H[0][i, i-2] kept) and the
+    logged H[0][j, j-1] (inside any want_t=False window; ``rhi``/``clo``
+    None: unbounded)."""
     p, n, _ = H.shape
     if i - 2 < m:
         return H, Z
     L = log[:, :, 0:9].reshape(p, n, 3, 3)
     R = log[:, :, 9:18].reshape(p, n, 3, 3)
     ZR = log[:, :, 18:27].reshape(p, n, 3, 3)
+    nc = n - m + 1 if rhi is None else rhi - m + 1
+    rlo = 0 if clo is None else clo
     for j in range(m, i - 1):
         rows = H[:, j:j + 3, m - 1:]
-        rows.copy_(L[:, j] @ rows)
+        rows[..., :nc].copy_((L[:, j] @ rows)[..., :nc])
     for j in range(m, i - 1):
         cols = H[:, :i + 1, j:j + 3]
-        cols.copy_(cols @ R[:, j])
+        cols[:, rlo:].copy_((cols @ R[:, j])[:, rlo:])
         if want_z:
             zc = Z[:, :, j:j + 3]
             zc.copy_(zc @ ZR[:, j])
@@ -164,7 +174,8 @@ def rg_apply_log_plain(H, Z, log, m: int, i: int, *, want_z: bool):
     return H, Z
 
 
-def rg_chase(H, Z, m: int, i: int, S: Sequence[bool], *, want_z: bool):
+def rg_chase(H, Z, m: int, i: int, S: Sequence[bool], *, want_z: bool, rhi=None,
+             clo=None):
     """The chase steps j = m..i-2 of one double-shift sweep, in place.
 
     Args:
@@ -174,13 +185,17 @@ def rg_chase(H, Z, m: int, i: int, S: Sequence[bool], *, want_z: bool):
       Z: (p, n, n) float64 Schur vectors, or None when not wanted.
       m, i: host ints, 1 <= m and i <= n-1; no step runs when i - 2 < m.
       S: signature, one bool per factor, S[0] True.
+      rhi, clo: the want_t=False window (None: unbounded): row updates on
+         the columns < rhi (i + 1 <= rhi <= n), H's column updates on the
+         rows >= clo (0 <= clo <= m - 1); entries outside stay as they were.
 
     Returns (H, Z).  Entries below the subdiagonal of H[0] and below the
     diagonal of H[1:] in rows m..i are exact zeros on output, except the
     closing bulge H[0][i, i-2].
     """
+    check_bounds("rg_chase", m, i, H.shape[1], rhi, clo, clo_max=m - 1)
     if H.device.type == "cpu":
-        return rg_chase_plain(H, Z, m, i, S, want_z=want_z)
+        return rg_chase_plain(H, Z, m, i, S, want_z=want_z, rhi=rhi, clo=clo)
     _check_card_args("rg_chase", H, Z, m, i, S, want_z)
     if i - 2 < m:
         return H, Z
@@ -189,11 +204,14 @@ def rg_chase(H, Z, m: int, i: int, S: Sequence[bool], *, want_z: bool):
     st = _cuda.stream_ptr(H)
     log = _generate(lib, st, H, m, i, S)
     with _cuda.on_device(H):
-        _cuda.check(lib.psd_rg_sweep_left(H.data_ptr(), log.data_ptr(), p, n, m, i, st),
+        _cuda.check(lib.psd_rg_sweep_left_bounded(H.data_ptr(), log.data_ptr(), p, n, m, i,
+                                                  n if rhi is None else int(rhi), st),
                     "rg_sweep_left")
         launches["rg_sweep_left"] += 1
-        _cuda.check(lib.psd_rg_sweep_right(H.data_ptr(), Z.data_ptr() if want_z else None,
-                                           log.data_ptr(), p, n, m, i, st),
+        _cuda.check(lib.psd_rg_sweep_right_bounded(H.data_ptr(),
+                                                   Z.data_ptr() if want_z else None,
+                                                   log.data_ptr(), p, n, m, i,
+                                                   0 if clo is None else int(clo), st),
                     "rg_sweep_right")
     launches["rg_sweep_right"] += 1
     return H, Z

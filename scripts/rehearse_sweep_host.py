@@ -109,9 +109,17 @@ line past the first 128 walked grid-stride); up to 32 blocks of 64 threads
 (a line a thread); and at 120 bytes of shared memory, where the parent's
 design runs; about 20 seconds.
 
+``--bounds``: the want_t=False bounds of B0 and B (csrc/sweep.cu,
+sweep_cx.cu, sweep_rg.cu) and of kernel D (csrc/deflate.cu, also at one
+block and in the parent's design): each bounded launch on random logs
+against the unbounded launch on the same input, bit for bit inside the
+window and untouched outside it (``chip_smoke.py::bounded_ok``), with and
+without Z, rlo odd and off the tiles' grid; the plain versions with the
+same bounds within 1e-13; about a minute.
+
 Run from the repository root:
   python3 scripts/rehearse_sweep_host.py [--mb | --cx | --rg | --hess [--parent FILE]
-                                          | --signed | --deflate | --ladders]
+                                          | --signed | --deflate | --ladders | --bounds]
 """
 import argparse
 import ctypes
@@ -1056,6 +1064,140 @@ def main_ladders():
     return 0
 
 
+def main_bounds():
+    """The want_t=False bounds of B0/B (real, complex, rg) and of kernel D:
+    each bounded launch leaves the entries inside its window (rows >= rlo,
+    columns < chi) bit for bit as the unbounded launch on the same input,
+    the others as they were, and Z as the unbounded launch (chip_smoke.py's
+    bounded_ok), with and without Z; the plain versions with the same
+    bounds agree with the stub within 1e-13 and keep the outside exactly.
+    Logs are random (chip_smoke.py's random_logs); rlo odd and off the
+    tiles' grid, chi = i + 1 and further right."""
+    from chip_smoke import bounded_ok, deflate_cases, deflate_scalars, mk_rg_problem, random_logs
+    from periodicschurdecompositions_jl_torch.ops import deflate
+    vp, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
+    rng = np.random.default_rng(22)
+
+    def against_plain(H0, Hb, Hp_u, Hp_b, rlo, chi, Zb=None, Zp=None):
+        scale = float(H0.abs().max())
+        assert bounded_ok(H0, Hp_u, Hp_b, rlo, chi), "plain bounded != plain unbounded inside"
+        d = float((Hb - Hp_b).abs().max()) / scale
+        if Zb is not None:
+            d = max(d, float((Zb - Zp).abs().max()))
+        assert d <= 1e-13, d
+        return d
+
+    worst = 0.0
+    real = build()
+    real.psd_sweep_left_bounded.argtypes = [vp, vp, i32, i32, i32, i32, i32, i32, vp]
+    real.psd_sweep_right_bounded.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, i32, vp]
+    for (p, n, m, i, rlo, extra, nb) in [(3, 101, 40, 90, 37, 0, 1), (1, 40, 5, 33, 5, 0, 2),
+                                         (16, 70, 33, 66, 33, 0, 4), (2, 45, 0, 44, 0, 0, 3),
+                                         (4, 40, 2, 4, 1, 5, 1), (3, 101, 50, 52, 49, 0, 1),
+                                         (5, 64, 31, 62, 17, 2, 2)]:
+        N = n + 1
+        Hn, Zn, _ = problem(p, n, p * 7 + n + m)
+        H0, Z0 = torch.tensor(Hn), torch.tensor(Zn)
+        R = torch.tensor(random_logs("real", p, n, m, i, rng, 4))
+        chi = i + 1 + extra
+        for want_z in (True, False):
+            Hu, Hb = H0.clone(), H0.clone()
+            Zu, Zb = (Z0.clone(), Z0.clone()) if want_z else (None, None)
+            zp = (lambda Zx: Zx.data_ptr() if want_z else None)
+            assert real.psd_sweep_left(Hu.data_ptr(), R.data_ptr(), p, N, m, i, nb, None) == 0
+            assert real.psd_sweep_right(Hu.data_ptr(), zp(Zu), R.data_ptr(), p, N, m, i, nb,
+                                        None) == 0
+            assert real.psd_sweep_left_bounded(Hb.data_ptr(), R.data_ptr(), p, N, m, i, nb,
+                                               chi, None) == 0
+            assert real.psd_sweep_right_bounded(Hb.data_ptr(), zp(Zb), R.data_ptr(), p, N, m,
+                                                i, nb, rlo, None) == 0
+            assert bounded_ok(H0, Hu, Hb, rlo, chi, Zu, Zb), ("real", p, n, m, i, rlo, nb)
+            Ha, Za, Hc = H0.clone(), Z0.clone(), H0.clone()
+            sweep.apply_log_plain(Hc, None, R, m, i, want_z=False, nb=nb)
+            sweep.apply_log_plain(Ha, Za, R, m, i, want_z=True, nb=nb, rhi=chi, clo=rlo)
+            worst = max(worst, against_plain(H0, Hb, Hc, Ha, rlo, chi, Zb, Za if want_z else None))
+        print(f"real B0/B p={p} n={n} [{m}, {i}] NB={nb} rlo={rlo} chi={chi}: bounded == "
+              "unbounded inside, input outside, with and without Z", flush=True)
+
+    cx = build_cx()
+    cx.psd_qz_sweep_left.argtypes = [vp, vp, i32, i32, i32, i32, vp]
+    cx.psd_qz_sweep_left_bounded.argtypes = [vp, vp, i32, i32, i32, i32, i32, vp]
+    cx.psd_qz_sweep_right_bounded.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, vp]
+    rg = build_rg()
+    rg.psd_rg_sweep_left_bounded.argtypes = cx.psd_qz_sweep_left_bounded.argtypes
+    rg.psd_rg_sweep_right_bounded.argtypes = cx.psd_qz_sweep_right_bounded.argtypes
+    for kind, lib, cases in (
+            ("cx", cx, [(3, 57, 10, 50, 9, 0), (2, 40, 0, 39, 0, 0), (4, 33, 17, 20, 17, 4),
+                        (8, 64, 21, 63, 3, 0)]),
+            ("rg", rg, [(3, 57, 11, 50, 10, 0), (2, 40, 1, 39, 0, 0), (4, 33, 17, 21, 16, 4),
+                        (8, 64, 5, 63, 3, 0)])):
+        name = "qz" if kind == "cx" else "rg"
+        left, right = getattr(lib, f"psd_{name}_sweep_left"), getattr(lib, f"psd_{name}_sweep_right")
+        leftb = getattr(lib, f"psd_{name}_sweep_left_bounded")
+        rightb = getattr(lib, f"psd_{name}_sweep_right_bounded")
+        plain = sweep_cx.qz_apply_log_plain if kind == "cx" else sweep_rg.rg_apply_log_plain
+        for (p, n, m, i, rlo, extra) in cases:
+            mk = mk_cx_problem if kind == "cx" else mk_rg_problem
+            Hn, Zn, _ = mk(p, n, np.random.default_rng(p * 11 + n + m))
+            H0, Z0 = torch.tensor(Hn), torch.tensor(Zn)
+            lg = torch.tensor(random_logs(kind, p, n, m, i, rng))
+            chi = i + 1 + extra
+            for want_z in (True, False):
+                Hu, Hb = H0.clone(), H0.clone()
+                Zu, Zb = (Z0.clone(), Z0.clone()) if want_z else (None, None)
+                zp = (lambda Zx: Zx.data_ptr() if want_z else None)
+                assert left(Hu.data_ptr(), lg.data_ptr(), p, n, m, i, None) == 0
+                assert right(Hu.data_ptr(), zp(Zu), lg.data_ptr(), p, n, m, i, None) == 0
+                assert leftb(Hb.data_ptr(), lg.data_ptr(), p, n, m, i, chi, None) == 0
+                assert rightb(Hb.data_ptr(), zp(Zb), lg.data_ptr(), p, n, m, i, rlo, None) == 0
+                assert bounded_ok(H0, Hu, Hb, rlo, chi, Zu, Zb), (kind, p, n, m, i, rlo)
+                Ha, Za, Hc = H0.clone(), Z0.clone(), H0.clone()
+                plain(Hc, None, lg, m, i, want_z=False)
+                plain(Ha, Za, lg, m, i, want_z=True, rhi=chi, clo=rlo)
+                worst = max(worst, against_plain(H0, Hb, Hc, Ha, rlo, chi, Zb,
+                                                 Za if want_z else None))
+            print(f"{kind} B0/B p={p} n={n} [{m}, {i}] rlo={rlo} chi={chi}: bounded == "
+                  "unbounded inside, input outside, with and without Z", flush=True)
+
+    d, _ = build_ladders()
+    d.psd_deflate2x2_bounded.argtypes = [vp, vp, i32, i32, i32, i32, i32, i32, i32, f64, f64,
+                                         f64, i32, i32, vp]
+    for optin, grid, what in (("232448", (2, 2), "4 blocks"), ("232448", (1, 1), "one block"),
+                              ("120", (2, 2), "the parent's design")):
+        os.environ.update(STUB_SMEM_OPTIN=optin, STUB_SMS=str(grid[0]),
+                          STUB_BLOCKS_PER_SM=str(grid[1]))
+        for (p, n) in ((4, 40), (3, 23), (1, 12)):
+            for (label, Hn, Zn, i) in deflate_cases(p, n):
+                sc = deflate_scalars(Hn, i)
+                args = (i, sc["jmin"], sc["jmax"], sc["cs0"], sc["sn0"], sc["replace0"],
+                        sc["finzero"], sc["thr"])
+                cargs = (i, int(sc["jmin"]), int(sc["jmax"]), int(bool(sc["replace0"])),
+                         int(bool(sc["finzero"])), float(sc["cs0"]), float(sc["sn0"]),
+                         float(sc["thr"]))
+                H0, Z0 = torch.tensor(Hn), torch.tensor(Zn)
+                N = n + 1
+                for rlo, chi in ((i - 1, i + 1), (3, min(i + 4, N))):
+                    for want_z in (True, False):
+                        Hu, Hb = H0.clone(), H0.clone()
+                        Zu, Zb = (Z0.clone(), Z0.clone()) if want_z else (None, None)
+                        zp = (lambda Zx: Zx.data_ptr() if want_z else None)
+                        assert d.psd_deflate2x2(Hu.data_ptr(), zp(Zu), p, N, *cargs,
+                                                None) == 0
+                        assert d.psd_deflate2x2_bounded(Hb.data_ptr(), zp(Zb), p, N, *cargs,
+                                                        rlo, chi, None) == 0
+                        assert bounded_ok(H0, Hu, Hb, rlo, chi, Zu, Zb), (what, label, p, n)
+                        Ha, Za, Hc = H0.clone(), Z0.clone(), H0.clone()
+                        deflate.deflate2x2_plain(Hc, None, *args, want_z=False)
+                        deflate.deflate2x2_plain(Ha, Za, *args, want_z=True, rhi=chi, clo=rlo)
+                        worst = max(worst, against_plain(H0, Hb, Hc, Ha, rlo, chi, Zb,
+                                                         Za if want_z else None))
+        print(f"D ({what}): chainA, chainB, chainB-jmax at p=4 n=40, p=3 n=23, p=1 n=12, "
+              "bounds (i-1, i+1) and (3, i+4): bounded == unbounded inside, input outside",
+              flush=True)
+    print(f"plain versions with the same bounds: within {worst:.3e} of the stub", flush=True)
+    return 0
+
+
 def build_glue(tag, path=None, sub=()):
     vp, i32, f64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_double
     lib = build_stub("glue", path=path, sub=sub, flags=ALIGN, tag=tag)
@@ -1138,7 +1280,10 @@ def main():
     ap.add_argument("--mb", action="store_true")
     ap.add_argument("--ladders", action="store_true")
     ap.add_argument("--glue", action="store_true")
+    ap.add_argument("--bounds", action="store_true")
     args = ap.parse_args()
+    if args.bounds:
+        return main_bounds()
     if args.glue:
         return main_glue(args.parent)
     if args.ladders:

@@ -19,13 +19,21 @@ failed-block moves and the re-reduction of the window on the card), and under ``
 (device time and launches by kernel, device busy time and the idle share
 of that run's wall).
 
+``--want-t``: the legs are the same ``pschur`` call with T (leg "T", the
+default) and without it (leg "noT", ``want_t=False``), both with AED and
+the host tail; ``--no-z`` takes ``want_z=False`` in both.  The run fails
+unless the two legs agree bit for bit in niter, the AED tallies, the
+eigenvalues and Z; the profile adds the cuBLAS products (``gemm``: the AED
+apply's and the repair chain's).
+
 Prints the card's name and power limit first, a line per run, and a JSON
 summary last; the whole record goes to ``chiprun_out/time_aed_headline.json``.
 With ``--rg`` and ``--cx`` the file is ``time_aed_headline_rg.json`` or
-``time_aed_headline_cx.json`` beside it.
+``time_aed_headline_cx.json`` beside it; with ``--want-t`` the files are
+``time_want_t[_rg|_cx][_noz].json``.
 
 Run from the repository root:
-  python3 scripts/time_aed_headline.py [--rg | --cx] [--pairs K]
+  python3 scripts/time_aed_headline.py [--rg | --cx] [--pairs K] [--want-t [--no-z]]
 """
 import argparse
 import hashlib
@@ -65,7 +73,10 @@ def main():
     route = ap.add_mutually_exclusive_group()
     route.add_argument("--rg", action="store_true", help="the real generalized leg")
     route.add_argument("--cx", action="store_true", help="the complex leg")
+    ap.add_argument("--want-t", action="store_true", help="legs with and without T")
+    ap.add_argument("--no-z", action="store_true", help="--want-t legs without Z")
     args = ap.parse_args()
+    wz = not args.no_z
     kind = "rg" if args.rg else "cx" if args.cx else "real"
     sys.path.insert(0, HERE)
     import torch
@@ -93,12 +104,18 @@ def main():
         core = pqr_real
         legs = {"on": lambda: pt.pschur(A, "R"),
                 "off": lambda: pqr_real.pschur_real_pipeline(A, "R", cfg=off)}
+        if args.want_t:
+            legs = {"T": lambda: pt.pschur(A, "R", want_z=wz),
+                    "noT": lambda: pt.pschur(A, "R", want_t=False, want_z=wz)}
     elif kind == "rg":
         An, S = cs.rg_draw(cs.P_RG, cs.N_RG, cs.SEED_RG)
         A = torch.tensor(An, device="cuda")
         core = pqz_real
         legs = {"on": lambda: pt.pschur(A, "R", S=S),
                 "off": lambda: pqz_real.pschur_real_gen_pipeline(A, S, "R", cfg=off)}
+        if args.want_t:
+            legs = {"T": lambda: pt.pschur(A, "R", S=S, want_z=wz),
+                    "noT": lambda: pt.pschur(A, "R", S=S, want_t=False, want_z=wz)}
     else:
         An, S = cs.cx_draw(cs.P_CX, cs.N_CX, cs.SEED_CX), None
         A = torch.tensor(An, device="cuda")
@@ -106,6 +123,10 @@ def main():
         legs = {"on": lambda: pt.pschur(A, "R"),
                 "off": lambda: pqz_complex.pschur_complex_pipeline(A, (True,) * cs.P_CX, "R",
                                                                    cfg=off)}
+        if args.want_t:
+            legs = {"T": lambda: pt.pschur(A, "R", want_z=wz),
+                    "noT": lambda: pt.pschur(A, "R", want_t=False, want_z=wz)}
+    kernels = KERNELS[kind] + ((("gemm", "gemm"),) if args.want_t else ())
     from periodicschurdecompositions_jl_torch.models import ordschur as ordmod
     events = []
     parts = {}
@@ -138,7 +159,7 @@ def main():
     setattr(aed, names[1], timed("schur", originals["schur"]))
     ordmod.ordschur = timed("moves", originals["ordschur"])
     setattr(aed, names[2], timed("phess", originals["phess"]))
-    order = ["on", "off"]
+    order = ["T", "noT"] if args.want_t else ["on", "off"]
     for leg in order:  # warm-up: the first run of a leg loads the libraries it calls
         legs[leg]()
     events.clear()
@@ -152,16 +173,20 @@ def main():
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             info = dict(core.last_info)
-            T, Z = P.Ts.cpu().numpy(), P.Zs.cpu().numpy()
+            T = P.Ts.cpu().numpy()
+            Z = None if P.Zs is None else P.Zs.cpu().numpy()
+            valid = leg != "noT" and Z is not None  # T and Z reconstruct A
             run = {"pair": k, "leg": leg, "wall_s": wall,
                    "reduce_s": info["reduce_s"], "iterate_s": info["iterate_s"],
                    "niter": info["niter"], "sweeps": info["sweeps"],
                    **{key: info[key] for key in ("sweep_steps", "czshift") if key in info},
                    **{key: info[key] for key in ("aed_events", "aed_hits", "aed_deflated",
                                                  "host_tail_finished", "aed_s")},
-                   "backerr": (cs.backerr(An, T, Z) if S is None and kind == "real"
+                   "backerr": (None if not valid else cs.backerr(An, T, Z)
+                               if S is None and kind == "real"
                                else cs.cx_backerr(An, T, Z, S or (True,) * An.shape[0])),
-                   "T": sha(P.Ts), "Z": sha(P.Zs), "analyses": list(events)}
+                   "T": sha(P.Ts), "Z": None if Z is None else sha(P.Zs),
+                   "values": sha(P.values), "analyses": list(events)}
             torch.cuda.synchronize()
             with profile(activities=[ProfilerActivity.CUDA]) as prof:
                 t0 = time.perf_counter()
@@ -174,7 +199,7 @@ def main():
             run.update({"profiled_wall_s": pwall, "device_ms": busy,
                         "idle_share": 1 - busy / (pwall * 1e3)})
             named = 0.0
-            for tag, key in KERNELS[kind]:
+            for tag, key in kernels:
                 sel = [e for e in ev if key in e.key]
                 ms = sum(dev_us(e) for e in sel) / 1e3
                 named += ms
@@ -201,13 +226,25 @@ def main():
             summary[f"{leg} {key} median"] = float(np.median(v))
             summary[f"{leg} {key} spread"] = [min(v), max(v)]
         for key in ("niter", "sweeps", "aed_events", "aed_deflated", "host_tail_finished",
-                    "backerr", "T"):
-            summary[f"{leg} {key}"] = sorted({r[key] for r in rs})
+                    "backerr", "T", "Z", "values"):
+            summary[f"{leg} {key}"] = sorted({r[key] for r in rs}, key=str)
+        for tag, _ in kernels[1:3] + kernels[3:4] + kernels[-1:]:
+            v = [r[f"{tag}_ms"] for r in rs]
+            summary[f"{leg} {tag}_ms median"] = float(np.median(v))
     os.makedirs(os.path.join(HERE, "chiprun_out"), exist_ok=True)
     suffix = "" if kind == "real" else f"_{kind}"
-    with open(os.path.join(HERE, "chiprun_out", f"time_aed_headline{suffix}.json"), "w") as f:
+    name = (f"time_want_t{suffix}{'_noz' if args.no_z else ''}" if args.want_t
+            else f"time_aed_headline{suffix}")
+    with open(os.path.join(HERE, "chiprun_out", f"{name}.json"), "w") as f:
         json.dump({**out, "summary": summary}, f, indent=1)
     print(json.dumps(summary), flush=True)
+    if args.want_t:
+        # without T the iteration reads the numbers it reads with T
+        for key in ("niter", "sweeps", "aed_events", "aed_deflated", "host_tail_finished",
+                    "Z", "values"):
+            if summary[f"T {key}"] != summary[f"noT {key}"] or len(summary[f"T {key}"]) != 1:
+                print(f"time_aed_headline: the legs differ in {key}", file=sys.stderr)
+                return 1
     return 0
 
 

@@ -1538,3 +1538,96 @@ def test_ordschur_and_eigvecs_keep_the_card(cuda):
     assert good, rep
     Vs = pt.eigvecs(P, select)
     assert len(Vs) == 3 and all(v.device.type == "cuda" for v in Vs)
+
+
+@pytest.mark.parametrize("kind,nb", [("real", 1), ("real", 4), ("cx", 1), ("rg", 1)])
+def test_apply_kernels_bounded(cuda, kind, nb):
+    """B0 and B with the want_t=False bound (chip_smoke.py::apply_bound_case):
+    bit for bit the unbounded launch inside the window, the input outside,
+    Z bit for bit, B without Z leaving H as with Z, and the bounded plain
+    version within 1e-13; at the main path's shapes (real p=16 n=512, cx
+    and rg p=8 n=256, alternating S), rlo odd and off the tiles' grid."""
+    from chip_smoke import (alternating, apply_bound_case, mk_cx_problem, mk_rg_problem,
+                            mk_sweep_problem, random_logs)
+    rng = np.random.default_rng(22)
+    if kind == "real":
+        p, n, m, i, rlo = 16, 512, 101, 480, 77
+        Hn, Zn, v0 = mk_sweep_problem(p, n, rng)
+        H0, Z0 = torch.tensor(Hn, device=cuda), torch.tensor(Zn, device=cuda)
+        H0[0, m, m - 1] = 0.0
+        H0[0, i + 1, i] = 0.0
+        R = (sweep.sweep_generate(H0, m, i, v0) if nb == 1 else
+             torch.tensor(random_logs("real", p, n, m, i, rng, nb), device=cuda))
+    else:
+        p, n, S = 8, 256, alternating(8)
+        m, i, rlo = (37, 200, 21) if kind == "cx" else (38, 200, 37)
+        Hn, Zn, extra = (mk_cx_problem if kind == "cx" else mk_rg_problem)(p, n, rng)
+        H0, Z0 = torch.tensor(Hn, device=cuda), torch.tensor(Zn, device=cuda)
+        if kind == "cx":
+            H0[0, m, m - 1] = 0.0
+            R = sweep_cx.qz_sweep_generate(H0, m, i, torch.tensor(extra, device=cuda), S)
+        else:
+            H0[0, m - 1, m - 2] = 0.0
+            rgopen.rg_ladder_plain(H0, Z0, "open", m - 1, i, torch.tensor(extra, device=cuda),
+                                   S, want_z=True)
+            R = sweep_rg.rg_sweep_generate(H0, m, i, S)
+        H0[0, i + 1, i] = 0.0
+    d, _ = apply_bound_case(cuda, kind, H0, Z0, R, m, i, rlo, i + 1, nb)
+    assert d <= 1e-13
+
+
+@pytest.mark.parametrize("label", ["chainA", "chainB", "chainB-jmax"])
+def test_deflate_kernel_bounded(cuda, label):
+    """Kernel D with the want_t=False bound at p=16 n=512: the 2x2 window
+    alone (rlo = i - 1, chi = i + 1) and a wider window (rlo = 37, chi = i +
+    9): bit for bit the unbounded launch inside, untouched outside, Z bit
+    for bit, H without Z as with Z; the bounded plain version within 1e-12."""
+    from chip_smoke import bounded_ok, deflate_cases, deflate_scalars
+    (_, Hn, Zn, i), = [c for c in deflate_cases(16, 512) if c[0] == label]
+    sc = deflate_scalars(Hn, i)
+    args = (i, sc["jmin"], sc["jmax"], sc["cs0"], sc["sn0"], sc["replace0"], sc["finzero"],
+            sc["thr"])
+    H0, Z0 = torch.tensor(Hn, device=cuda), torch.tensor(Zn, device=cuda)
+    Hu, Zu = H0.clone(), Z0.clone()
+    deflate.deflate2x2(Hu, Zu, *args, want_z=True)
+    for rlo, chi in ((i - 1, i + 1), (37, i + 9)):
+        Hb, Zb, Hz = H0.clone(), Z0.clone(), H0.clone()
+        deflate.deflate2x2(Hb, Zb, *args, want_z=True, rhi=chi, clo=rlo)
+        deflate.deflate2x2(Hz, None, *args, want_z=False, rhi=chi, clo=rlo)
+        assert bounded_ok(H0, Hu, Hb, rlo, chi, Zu, Zb) and torch.equal(Hz, Hb)
+        Hp, Zp = H0.clone(), Z0.clone()
+        deflate.deflate2x2_plain(Hp, Zp, *args, want_z=True, rhi=chi, clo=rlo)
+        assert float((Hb - Hp).abs().max()) <= 1e-12 * float(H0.abs().max())
+        assert float((Zb - Zp).abs().max()) <= 1e-12
+
+
+@pytest.mark.parametrize("route,want_z", [("real", True), ("real", False), ("complex", True),
+                                          ("signed complex", True), ("rg", True),
+                                          ("rg", False)])
+def test_want_t_false_is_the_run_with_t(cuda, route, want_z):
+    """pschur(want_t=False) on the card at p=4 n=200 (AED and the host tail
+    on: n >= aed_min_n): niter, the AED tallies and the kernels' launches as
+    with T, the eigenvalues and Z bit for bit."""
+    rng = np.random.default_rng(200)
+    A = rng.standard_normal((4, 200, 200))
+    S = None if route in ("real", "complex") else (True, False, True, False)
+    if "complex" in route:
+        A = A + 1j * rng.standard_normal(A.shape)
+    core = pqz_complex if "complex" in route else pqz_real if route == "rg" else pqr_real
+    mods = (sweep_cx,) if "complex" in route else (sweep_rg, rgopen) if route == "rg" else (
+        sweep, deflate, glue)
+    At = torch.tensor(A, device=cuda)
+    runs = []
+    for want_t in (True, False):
+        for mod in mods:
+            for k in mod.launches:
+                mod.launches[k] = 0
+        P = pt.pschur(At, "R", S=S, want_t=want_t, want_z=want_z)
+        info = {k: v for k, v in core.last_info.items()
+                if k not in ("aed_s", "reduce_s", "iterate_s")}
+        runs.append((P, info, {k: v for mod in mods for k, v in mod.launches.items()}))
+    (P1, i1, l1), (P2, i2, l2) = runs
+    assert i1 == i2 and l1 == l2
+    assert i1["aed_events"] >= 1
+    assert torch.equal(P1.values, P2.values)
+    assert (P2.Zs is None) if not want_z else torch.equal(P1.Zs, P2.Zs)

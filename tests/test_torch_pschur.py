@@ -137,19 +137,30 @@ def test_no_z_keeps_eigenvalues():
 
 
 @pytest.mark.parametrize("route", ["complex", "signature", "want_t", "gpschur"])
-def test_unported_routes_raise(route):
-    # still to port: want_t=False windowing, for real and complex input,
-    # with and without a signature (real S= through pschur and gpschur)
-    A = np.random.default_rng(2).standard_normal((2, 4, 4))
-    with pytest.raises(pt.PSDNotImplemented):
+def test_want_t_false_keeps_the_eigenvalues(route):
+    # want_t=False (the eigenvalues-only mode) on every route: real and
+    # complex input, with and without a signature (real S= through pschur
+    # and gpschur): the iteration count and the eigenvalues of want_t=True
+    from periodicschurdecompositions_jl_torch.ops import pqz_complex, pqz_real
+    rng = np.random.default_rng(2)
+    A = rng.standard_normal((2, 12, 12))
+    C = A + 1j * rng.standard_normal(A.shape)
+    info = {"complex": pqz_complex, "signature": pqz_real, "want_t": tpq,
+            "gpschur": pqz_real}[route].last_info
+    runs = []
+    for want_t in (True, False):
         if route == "complex":
-            pt.pschur(A + 1j * A, want_t=False, device="cpu")
+            P = pt.pschur(C, want_t=want_t, device="cpu")
         elif route == "signature":
-            pt.pschur(A, S=[True, False], want_t=False, device="cpu")
+            P = pt.pschur(A, S=[True, False], want_t=want_t, device="cpu")
         elif route == "want_t":
-            pt.pschur(A, want_t=False, device="cpu")
+            P = pt.pschur(A, want_t=want_t, device="cpu")
         else:
-            pt.gpschur([A[0]], [A[1]], want_t=False, device="cpu")
+            P = pt.gpschur([A[0]], [A[1]], want_t=want_t, device="cpu")
+        runs.append((info["niter"], P.values.numpy()))
+    (n1, w1), (n2, w2) = runs
+    assert n1 == n2
+    assert np.abs(w2 - w1).max() <= 1e-12 * np.abs(w1).max()
 
 
 @pytest.mark.parametrize("backend", ["auto", "f64", "complex"])
