@@ -67,6 +67,15 @@ and checks the results:
   niter, AED tallies, launches, eigenvalues and Z bit for bit
   (``want_t_legs``).
 
+* periodic Krylov-Schur (``partial_pschur``; no kernel of its own: the
+  operator applications and their Gram-Schmidt are torch products on the
+  card, the restart logic runs on the host): the JAX package's on-chip
+  Krylov cell (p=4 n=256, nev=4, benchmarks/probe_krylov_chip.py's draw),
+  the same construction at p=4 n=4096 made on the card, and the p=12
+  N=10000 matrix-free operators of tests/test_krylov.py as callables on
+  the card; each against the reference's result contract on the card and
+  the construction's spectrum (``krylov_phase``).
+
 Each kernel's launch counter is set to 0 just before the path that runs it
 and read just after.  Any failure raises (exit code != 0).
 
@@ -2711,6 +2720,179 @@ def deflate_leg(dev):
     return out
 
 
+KRYLOV_P, KRYLOV_NEV, KRYLOV_SEED = 4, 4, 11
+KRYLOV_N, KRYLOV_N_LARGE = 256, 4096
+# tests/test_krylov.py::test_krylov_large_matrix_free (BASELINE config 5's scale)
+KRYLOV_MF_P, KRYLOV_MF_N, KRYLOV_MF_NEV, KRYLOV_MF_SEED = 12, 10000, 5, 11
+
+
+def krylov_draw(p, n, seed):
+    """The draw of benchmarks/probe_krylov_chip.py:29-37 (numpy): a shared
+    orthogonal q, A_l = q T_l q^T with T_l upper triangular, 0.05 upper
+    noise and diagonal 1.02 ** arange(n); the product's eigenvalues are
+    (1.02 ** arange(n)) ** p."""
+    rng = np.random.default_rng(seed)
+    q = np.linalg.qr(rng.standard_normal((n, n)))[0]
+    A = []
+    for _ in range(p):
+        T = np.triu(rng.standard_normal((n, n)) * 0.05)
+        np.fill_diagonal(T, 1.02 ** np.arange(n))
+        A.append(q @ T @ q.T)
+    return np.stack(A)
+
+
+def krylov_draw_card(dev, p, n, seed):
+    """The same construction made on the card from a seeded
+    torch.Generator (q from torch.linalg.qr); its spectrum is the
+    construction's, whatever q is."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f64 = torch.float64
+    q = torch.linalg.qr(torch.randn((n, n), generator=g, device=dev, dtype=f64))[0]
+    d = 1.02 ** torch.arange(n, device=dev, dtype=f64)
+    A = torch.empty((p, n, n), device=dev, dtype=f64)
+    for l in range(p):
+        T = torch.triu(torch.randn((n, n), generator=g, device=dev, dtype=f64) * 0.05)
+        T.diagonal().copy_(d)
+        A[l] = q @ T @ q.T
+    return A
+
+
+def krylov_mf_ops(dev):
+    """The p=12 N=10000 diagonal-plus-superdiagonal operators of
+    tests/test_krylov.py::test_krylov_large_matrix_free (drawn there from
+    the ``rng`` fixture, numpy default_rng(1234)), as torch callables on
+    the card."""
+    import torch
+    rng = np.random.default_rng(1234)
+    p, n = KRYLOV_MF_P, KRYLOV_MF_N
+    diags = [0.5 + rng.random(n) for _ in range(p)]
+    offs = [0.1 * rng.standard_normal(n - 1) for _ in range(p)]
+    for d in diags:
+        d[:6] += np.linspace(3.0, 1.5, 6)
+
+    def mk(d, o):
+        def op(x):
+            y = d * x
+            y[:-1] += o * x[1:]
+            return y
+        return op
+
+    return [mk(torch.tensor(diags[l], device=dev), torch.tensor(offs[l], device=dev))
+            for l in range(p)]
+
+
+def krylov_contract(apply, ps):
+    """tests/test_krylov.py::check_partial's contract, computed on the card:
+    per-column residuals of the Schur slot below max(|lambda_i|, ||T||
+    eps), the interior couplings below max(max|lambda|, 1), each V[l]
+    orthonormal within 100 k eps.  ``apply(l, X)`` is A[l] @ X.  Returns
+    (ok, the largest residual entry of the Schur slot (the Ritz residual)
+    and of the interior slots, the orthonormality, the worst column
+    residual over its threshold)."""
+    import torch
+    V, T, vals = ps.Vs, ps.Ts, ps.values
+    p, _, k = V.shape
+    eps = float(torch.finfo(torch.float64).eps)
+    if k == 0:
+        return False, float("nan"), float("nan"), float("nan"), float("nan")
+    R = apply(p - 1, V[p - 1]) - V[0] @ T[p - 1]
+    thresh = torch.clamp(vals.abs(), min=float(torch.linalg.norm(T[p - 1])) * eps)
+    col = float((torch.linalg.vector_norm(R, dim=0) / thresh).max())
+    schur, inner = float(R.abs().max()), 0.0
+    inner_ok = True
+    for l in range(p - 1):
+        Rl = apply(l, V[l]) - V[l + 1] @ T[l]
+        inner = max(inner, float(Rl.abs().max()))
+        inner_ok &= float(torch.linalg.vector_norm(Rl, dim=0).max()) < max(
+            float(vals.abs().max()), 1.0)
+    eye = torch.eye(k, dtype=V.dtype, device=V.device)
+    orth = max(float((V[l].mH @ V[l] - eye).abs().max()) for l in range(p))
+    return (col < 1.0 and inner_ok and orth < 100 * k * eps), schur, inner, orth, col
+
+
+def krylov_leg(dev, label, run, apply, nev, lam_ref=None, coupling_max=None, min_conv=None):
+    """One ``partial_pschur`` leg on the card: wall (host clock to a
+    synchronise), nprods, nconverged, the timings phases and the host reads
+    per operator application; then the same call under the profiler.
+    Checks: every output tensor on ``dev``, ``krylov_contract``, the
+    Ritz values within 1e-6 relative of ``lam_ref`` (the construction's
+    top values) and nconverged >= nev, or, without ``lam_ref``, every
+    residual entry of every slot below ``coupling_max`` and nconverged >=
+    min_conv."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ps, h = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    dev = torch.device(dev)
+    on_card = all(t.device == dev for t in (ps.Ts, ps.Vs, ps.values, ps.residuals))
+    ok, schur, inner, orth, col = krylov_contract(apply, ps)
+    line = (f"krylov {label}: wall {wall:.3f} s, nprods {h.nprods}, nconverged "
+            f"{h.nconverged}, host reads {h.host_reads} ({h.host_reads / max(h.nprods, 1):.2f} "
+            f"per operator application), timings {h.timings}; contract ok={ok} (column "
+            f"residual / threshold {col:.3e}, largest residual entry: Schur slot "
+            f"{schur:.3e}, interior slots {inner:.3e}, against max|T| "
+            f"{float(ps.Ts.abs().max()):.3e}; orth {orth:.3e}), on {dev} {on_card}")
+    if lam_ref is not None:
+        top = np.sort(np.abs(ps.values.cpu().numpy()))[-nev:]
+        err = float(np.abs(top - lam_ref).max() / lam_ref.max()) if len(top) == nev else np.inf
+        line += f", Ritz values vs the construction {err:.3e} relative"
+        good = err <= 1e-6 and h.nconverged >= nev
+    else:
+        good = max(schur, inner) < coupling_max and h.nconverged >= min_conv
+    _log(line)
+    if not (on_card and ok and good):
+        raise AssertionError(f"krylov {label} failed its checks")
+    leg_profile(f"krylov {label}", run)
+
+
+def krylov_phase(dev):
+    """``partial_pschur`` on the card through the public entry point (no
+    kernel of its own: each operator application and its Gram-Schmidt are
+    torch products on the card, the restart logic runs on the host):
+
+    (a) the JAX package's on-chip Krylov cell: the draw of
+        benchmarks/probe_krylov_chip.py at p=4 n=256 (seed 11), nev=4, LM,
+        the probe's defaults;
+    (b) the same construction at p=4 n=4096 (0.54 GB of factors), made on
+        the card, with ``tol=0``: the default tol compares a slot's
+        residual with tol |lambda| of the product, which is 1.02^(3n)
+        larger than the factors here, so every Ritz value locks after the
+        first restart at whatever accuracy that Krylov space reached (on
+        the CPU at n=4096, ``scripts/krylov_tol_check.py``: beyond 1e-6 for
+        6 of 12 start vectors); tol=0 leaves the eps^(2/3) ||T|| floor;
+    (c) BASELINE config 5's scale: the p=12 N=10000 matrix-free operators
+        of tests/test_krylov.py as torch callables on the card, nev=5,
+        mindim 12, maxdim 26, seed 11; coupling residuals below 1e-5 and
+        nconverged >= 2, as that test asks."""
+    import torch
+    import periodicschurdecompositions_jl_torch as pt
+    p, nev = KRYLOV_P, KRYLOV_NEV
+    for n, tol, make in ((KRYLOV_N, None,
+                          lambda n: torch.tensor(krylov_draw(p, n, KRYLOV_SEED), device=dev)),
+                         (KRYLOV_N_LARGE, 0.0,
+                          lambda n: krylov_draw_card(dev, p, n, KRYLOV_SEED))):
+        A = make(n)
+        lam_top = np.sort((1.02 ** np.arange(n)) ** p)[-nev:]
+        kw = {} if tol is None else {"tol": tol}
+        krylov_leg(dev, f"p={p} n={n} nev={nev} LM{'' if tol is None else f' tol={tol}'}",
+                   lambda: pt.partial_pschur(A, nev, "LM", **kw),
+                   lambda l, X: A[l] @ X, nev, lam_ref=lam_top)
+        del A
+    ops = krylov_mf_ops(dev)
+
+    def apply_mf(l, X):
+        return torch.stack([ops[l](X[:, j]) for j in range(X.shape[1])], dim=1)
+
+    krylov_leg(dev, f"matrix-free p={KRYLOV_MF_P} N={KRYLOV_MF_N} nev={KRYLOV_MF_NEV}",
+               lambda: pt.partial_pschur(ops, KRYLOV_MF_NEV, "LM", n=KRYLOV_MF_N,
+                                         dtype=torch.float64, device=dev, mindim=12,
+                                         maxdim=26, seed=KRYLOV_MF_SEED),
+               apply_mf, KRYLOV_MF_NEV, coupling_max=1e-5, min_conv=2)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2789,6 +2971,7 @@ def main() -> int:
     dl = deflate_leg(dev)
     for k in ("deflate_pos", "deflate_neg", "deflate_pos_c128", "deflate_neg_c128"):
         launches[k] = dl[k]
+    krylov_phase(dev)
 
     kernels = []
     for name in ("sweep_generate", "sweep_generate_mb", "sweep_left", "sweep_right",

@@ -20,22 +20,33 @@ window analyses on the host with the repo's native C++ window Schurs
 
 Ported so far: ``pschur`` for real and complex cycles with or without a
 signature, ``gpschur`` for real and complex pairs, ``phessenberg``,
-``ordschur``, ``eigvecs`` and ``check_psd``.  ``want_t=False`` keeps every
-update inside the iteration's active window (the kernels take the bound):
-the eigenvalues and Z are those of the run with T, and T is valid on its
-diagonal blocks only.
+``ordschur``, ``eigvecs``, ``check_psd`` and ``FacChecker``;
+``partial_pschur`` (periodic Krylov-Schur: on a tensor on the card the
+operator applications and the Gram-Schmidt run on the card, the restart
+logic on the host; ``models.vectors.eigvecs_partial`` takes its result);
+``save_decomposition`` / ``load_decomposition`` (files interchangeable
+with the JAX package's) and ``balance_pcycle``.  ``want_t=False`` keeps
+every update inside the iteration's active window (the kernels take the
+bound): the eigenvalues and Z are those of the run with T, and T is valid
+on its diagonal blocks only.
 """
 from .config import AlgoConfig, default_config, setverbosity, verbosity
-from .diagnostics import check_psd
+from .diagnostics import FacChecker, check_psd
 from .models.drivers import gpschur, phessenberg, pschur
+from .models.krylov import ArnoldiHistory, partial_pschur
 from .models.ordschur import ordschur
 from .models.vectors import eigvecs
-from .types import (ConvergenceFailure, GeneralizedPeriodicSchur,
-                    IllConditionedException, PeriodicSchur, PSDNotImplemented)
+from .types import (AbstractPeriodicSchur, ConvergenceFailure, GeneralizedPeriodicSchur,
+                    IllConditionedException, PartialPeriodicSchur, PeriodicSchur,
+                    PKSFailure, PSDNotImplemented)
+from .utils.balance import balance_pcycle
+from .utils.io import load_decomposition, save_decomposition
 
 __all__ = [
     "AlgoConfig", "default_config", "setverbosity", "verbosity", "check_psd",
-    "gpschur", "phessenberg", "pschur", "ordschur", "eigvecs", "ConvergenceFailure",
-    "GeneralizedPeriodicSchur", "IllConditionedException", "PeriodicSchur",
-    "PSDNotImplemented",
+    "FacChecker", "gpschur", "phessenberg", "pschur", "ordschur", "eigvecs",
+    "partial_pschur", "ArnoldiHistory", "save_decomposition",
+    "load_decomposition", "balance_pcycle", "AbstractPeriodicSchur",
+    "ConvergenceFailure", "GeneralizedPeriodicSchur", "IllConditionedException",
+    "PartialPeriodicSchur", "PeriodicSchur", "PKSFailure", "PSDNotImplemented",
 ]

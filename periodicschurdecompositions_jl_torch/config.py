@@ -33,6 +33,9 @@ those of the JAX package's ``AlgoConfig``:
   are deflated from the spike.  On at ``n >= aed_min_n``, or at any n with
   an explicit ``aed_window``.  ``aed_max_moves`` caps the failed-block
   moves of one analysis (-1: unlimited).
+* ``eta_orth``: the iterated Gram-Schmidt re-orthogonalization threshold
+  of the periodic Arnoldi process in ``partial_pschur`` (reference
+  src/krylov.jl:150).
 * ``host_tail``: once the active window has shrunk to ``host_tail`` rows
   or fewer, one host window Schur finishes it (0: ``min(64, n // 8)``;
   -1: off).  The window Schurs are the repo's native C++ ones
@@ -41,6 +44,7 @@ those of the JAX package's ``AlgoConfig``:
 from __future__ import annotations
 
 import dataclasses
+import math
 
 
 @dataclasses.dataclass(frozen=True)
@@ -61,6 +65,7 @@ class AlgoConfig:
     aed_min_n: int = 192
     host_tail: int = 0
     aed_max_moves: int = 4
+    eta_orth: float = 1.0 / math.sqrt(2.0)
 
     def ulp_x(self, ulp: float) -> float:
         """Tightened Ahues-Tisseur relative threshold ``eps^(1+at_pwr16/16)``."""
@@ -71,7 +76,7 @@ default_config = AlgoConfig()
 
 # Verbosity: host-side, keyed channels (the JAX package's keys that the
 # ported modules read).
-_VERBOSITY = {"main": 0, "sylswap": 0, "rordschur": 0, "r2x2": 0}
+_VERBOSITY = {"main": 0, "krylov": 0, "sylswap": 0, "rordschur": 0, "r2x2": 0}
 
 
 def setverbosity(level: int, key: str = "main") -> None:

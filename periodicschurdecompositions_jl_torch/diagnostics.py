@@ -1,4 +1,5 @@
-"""Integrity check for periodic Schur decompositions (port of ``check_psd``).
+"""Integrity checks for periodic Schur decompositions (port of ``check_psd``
+and ``FacChecker``).
 
 Host-side numpy on purpose, like the JAX package's: it is a diagnostic, not
 a hot path.  Checks triangularity of the factors, orthonormality of the
@@ -25,7 +26,7 @@ def _reconstruct(Ts, Zs, left, S):
     """Per-factor reconstruction Ahat[l] from (T, Z), honouring the
     orientation and the signature."""
     p = Ts.shape[0]
-    Ahat = np.empty_like(Ts)
+    Ahat = np.empty(Ts.shape, np.result_type(Ts, Zs))
     for l in range(p):
         ln = (l + 1) % p
         if bool(S[l]) ^ left:
@@ -89,3 +90,32 @@ def check_psd(P, A: Optional[np.ndarray] = None, *, qtol: float = 10.0,
     if verbose:
         print("check_psd:", "OK" if ok else "FAIL", report)
     return bool(ok), report
+
+
+class FacChecker:
+    """Transformation-chain verifier for debugging iteration cores.
+
+    Behavioral contract from the reference's `_FacChecker`
+    (src/diagnostics.jl:45-178): capture the initial cycle, then recompute
+    the implied original factors from the current (H, Z) at any point in an
+    iteration and report the drift.  Host numpy, like ``check_psd``; the
+    cycle and (H, Z) may be tensors (on any device) or arrays.
+    """
+
+    def __init__(self, A, S=None, left=False):
+        self.A = _np(A).copy()
+        self.p = self.A.shape[0]
+        self.S = tuple(bool(x) for x in S) if S is not None else (True,) * self.p
+        self.left = left
+
+    def __call__(self, label: str, H, Z, verbose: bool = True) -> float:
+        H = _np(H)
+        Z = _np(Z)
+        Ax = _reconstruct(H, Z, self.left, self.S)
+        worst = 0.0
+        for l in range(self.p):
+            scale = max(np.abs(self.A[l]).max(), 1e-300)
+            worst = max(worst, np.abs(Ax[l] - self.A[l]).max() / scale)
+        if verbose:
+            print(f"FacChecker[{label}]: worst factor drift {worst:.3e}")
+        return worst

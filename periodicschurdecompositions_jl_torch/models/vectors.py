@@ -14,8 +14,9 @@ internal computation normalizes to left and maps the slots back).
 
 The work is host numpy: the decomposition comes to the host once, every
 reordering runs there, and the vectors go back as complex128 tensors on the
-device ``P.Ts`` lives on.  ``eigvecs_partial`` waits for the Krylov-Schur
-port (``PartialPeriodicSchur``).
+device ``P.Ts`` lives on.  ``eigvecs_partial`` lifts the vectors of a
+``PartialPeriodicSchur``'s small k x k problem through its Ritz bases on
+that device.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ import numpy as np
 import torch
 
 from ..ops.reorder_np import babd_qr, babd_solve
-from ..types import PeriodicSchur
+from ..types import PartialPeriodicSchur, PeriodicSchur
 from ..utils.circshift import rev_alias
 from .ordschur import ordschur
 
@@ -158,3 +159,24 @@ def eigvecs(P, select: Sequence[bool], shifted: bool = True):
         # map slots back to the caller's factor labeling: V_A[j] = V_B[(p-j)%p]
         Vs = [Vs[(p - j) % p] if shifted else Vs[0] for j in range(nmat)]
     return [torch.as_tensor(v).to(dev) for v in Vs]
+
+
+def eigvecs_partial(P, select: Sequence[bool], shifted: bool = True):
+    """Eigenvectors from a PartialPeriodicSchur (reference src/krylov.jl:
+    996-1022): solve the small k x k problem with identity bases
+    (``eigvecs``), then lift through the Ritz bases ``V[l]`` on the device
+    of ``P.Vs``.
+
+    Returns:
+      list of (n, nvec) complex128 tensors on the device of ``P.Vs``.
+    """
+    if not isinstance(P, PartialPeriodicSchur):
+        raise TypeError("eigvecs_partial expects a PartialPeriodicSchur")
+    p = P.period
+    k = P.Ts.shape[-1]
+    small = PeriodicSchur(
+        Ts=P.Ts, Zs=torch.eye(k, dtype=P.Ts.dtype, device=P.Ts.device).repeat(p, 1, 1),
+        values=P.values, orientation=P.orientation, schurindex=P.schurindex)
+    V0 = eigvecs(small, select, shifted=shifted)
+    nmat = p if shifted else 1
+    return [P.Vs[l].to(V0[l].dtype) @ V0[l] for l in range(nmat)]

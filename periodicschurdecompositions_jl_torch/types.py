@@ -9,7 +9,7 @@ Same conventions as the JAX package (all indices 0-based):
 * ``schurindex``: the factor in (quasi-)triangular Schur form.
 
 The factor cycle is one stacked ``(p, n, n)`` tensor.  The result types are
-plain frozen dataclasses of tensors.
+plain frozen dataclasses of tensors, subclasses of ``AbstractPeriodicSchur``.
 """
 from __future__ import annotations
 
@@ -34,6 +34,10 @@ class PSDNotImplemented(Exception):
     """A requested variant is not implemented (in this port: not yet)."""
 
 
+class PKSFailure(Exception):
+    """Periodic Krylov-Schur failure (reference: src/krylov.jl:20-22)."""
+
+
 class ConvergenceFailure(Exception):
     """An iteration core failed to converge within its budget."""
 
@@ -42,24 +46,8 @@ class ConvergenceFailure(Exception):
         self.level = level
 
 
-@dataclasses.dataclass(frozen=True)
-class PeriodicSchur:
-    """Periodic Schur factorization of a cycle ``A[0..p-1]``.
-
-    Fields:
-      Ts: (p, n, n) stacked factors; ``Ts[schurindex]`` is quasi-triangular,
-          all others upper triangular.
-      Zs: (p, n, n) stacked orthogonal factors, or None if not requested.
-      values: (n,) complex eigenvalues of the cyclic product.
-      orientation: 'R' or 'L'.
-      schurindex: the factor carrying the quasi-triangular Schur form.
-    """
-
-    Ts: torch.Tensor
-    Zs: Optional[torch.Tensor]
-    values: torch.Tensor
-    orientation: str = "R"
-    schurindex: int = 0
+class AbstractPeriodicSchur:
+    """Common base of the periodic Schur factorizations."""
 
     @property
     def period(self) -> int:
@@ -71,7 +59,7 @@ class PeriodicSchur:
 
     @property
     def T1(self):
-        """The quasi-triangular Schur factor (factor ``schurindex``)."""
+        """The (quasi-)triangular Schur factor (factor ``schurindex``)."""
         return self.Ts[self.schurindex]
 
     @property
@@ -89,7 +77,27 @@ class PeriodicSchur:
 
 
 @dataclasses.dataclass(frozen=True)
-class GeneralizedPeriodicSchur:
+class PeriodicSchur(AbstractPeriodicSchur):
+    """Periodic Schur factorization of a cycle ``A[0..p-1]``.
+
+    Fields:
+      Ts: (p, n, n) stacked factors; ``Ts[schurindex]`` is quasi-triangular,
+          all others upper triangular.
+      Zs: (p, n, n) stacked orthogonal factors, or None if not requested.
+      values: (n,) complex eigenvalues of the cyclic product.
+      orientation: 'R' or 'L'.
+      schurindex: the factor carrying the quasi-triangular Schur form.
+    """
+
+    Ts: torch.Tensor
+    Zs: Optional[torch.Tensor]
+    values: torch.Tensor
+    orientation: str = "R"
+    schurindex: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class GeneralizedPeriodicSchur(AbstractPeriodicSchur):
     """Generalized periodic Schur factorization of ``prod_j A[j]^{s[j]}``.
 
     Fields:
@@ -125,3 +133,30 @@ class GeneralizedPeriodicSchur:
         rdt = self.alpha.real.dtype
         two = torch.tensor(2.0, dtype=rdt, device=self.alpha.device)
         return self.alpha / self.beta.to(rdt) * two ** self.alphascale.to(rdt)
+
+
+@dataclasses.dataclass(frozen=True)
+class PartialPeriodicSchur(AbstractPeriodicSchur):
+    """Partial periodic Schur decomposition from ``partial_pschur``.
+
+    Left orientation only (like the reference, src/krylov.jl:98-147):
+    ``A[l] V[l] = V[(l+1) % p] T[l]`` column-wise for the leading ``k``
+    columns, with ``T[p-1]`` (the "Schur" slot) quasi-triangular.
+
+    Fields:
+      Ts: (p, k, k) small projected factors.
+      Vs: (p, n, k) stacked orthonormal bases.
+      values: (k,) complex128 converged eigenvalue estimates of the product.
+      residuals: (k,) float64 residual estimates for each eigenvalue.
+    """
+
+    Ts: torch.Tensor
+    Vs: torch.Tensor
+    values: torch.Tensor
+    residuals: torch.Tensor
+    orientation: str = "L"
+    schurindex: int = 0
+
+    @property
+    def Q(self):
+        return [self.Vs[j] for j in range(self.period)]

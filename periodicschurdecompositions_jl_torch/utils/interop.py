@@ -8,7 +8,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..types import GeneralizedPeriodicSchur, PeriodicSchur
+from ..types import GeneralizedPeriodicSchur, PartialPeriodicSchur, PeriodicSchur
 
 
 def state_from_jax_ff(Hhi, Hlo, ZThi=None, ZTlo=None):
@@ -33,6 +33,16 @@ def schur_from_jax(P) -> PeriodicSchur:
         return None if x is None else torch.as_tensor(np.array(x))
     return PeriodicSchur(Ts=t(P.Ts), Zs=t(P.Zs), values=t(P.values),
                          orientation=P.orientation, schurindex=int(P.schurindex))
+
+
+def partial_from_jax(P, device="cpu") -> PartialPeriodicSchur:
+    """A JAX-package ``PartialPeriodicSchur`` (arrays as numpy) -> this
+    port's, its tensors on ``device``."""
+    def t(x):
+        return torch.as_tensor(np.array(x), device=device)
+    return PartialPeriodicSchur(Ts=t(P.Ts), Vs=t(P.Vs), values=t(P.values),
+                                residuals=t(P.residuals), orientation=P.orientation,
+                                schurindex=int(P.schurindex))
 
 
 def schur_to_numpy(P: PeriodicSchur) -> dict:

@@ -44,7 +44,13 @@ within 1e-13 of the CPU's with the same exact zeros; the rg and cx AED
 drivers at n=36 deflate, re-reduce each window with one ``hess_signed``
 launch, reconstruct within 1e-11 n max|A| and agree with the CPU's AED-off
 core's eigenvalues within 1e-8.  ``ordschur`` and ``eigvecs`` keep a decomposition
-on the card, and reorder bit for bit as on the CPU.
+on the card, and reorder bit for bit as on the CPU.  ``partial_pschur`` (no
+kernel of its own: the operator applications and the Gram-Schmidt are
+torch products on the card) on a tensor on the card, and through
+matrix-free operators there: outputs on the card, ``nconverged`` as on the
+CPU, Ritz values within 1e-10 relative of the CPU run's, the reference's
+``check`` contract; one ``CycleOps.apply_orth`` step on the card against
+the host ``_orth_step``: 1e-13.
 """
 import numpy as np
 import pytest
@@ -52,6 +58,8 @@ import torch
 
 import periodicschurdecompositions_jl_torch as pt
 from periodicschurdecompositions_jl_torch.config import AlgoConfig
+from periodicschurdecompositions_jl_torch.models import krylov
+from periodicschurdecompositions_jl_torch.parallel.krylov_ops import CycleOps
 from periodicschurdecompositions_jl_torch.ops import (_cuda, deflate, glue, hessenberg,
                                                      pqr_real, pqz_complex, pqz_deflate,
                                                      pqz_real, rgopen, sweep, sweep_cx,
@@ -1631,3 +1639,51 @@ def test_want_t_false_is_the_run_with_t(cuda, route, want_z):
     assert i1["aed_events"] >= 1
     assert torch.equal(P1.values, P2.values)
     assert (P2.Zs is None) if not want_z else torch.equal(P1.Zs, P2.Zs)
+
+
+@pytest.mark.parametrize("kind", ["real", "complex", "matrix_free"])
+def test_krylov_partial_pschur_on_the_card_matches_the_cpu(cuda, kind):
+    from torch_krylov_host import check_partial, mkmats
+    cplx = kind == "complex"
+    p, n, nev = (2, 24, 3) if cplx else (3, 30, 4)
+    A = mkmats(np.random.default_rng(1234), p, n, cplx=cplx)
+    pc, hc = pt.partial_pschur(torch.tensor(A), nev, "LM", seed=7)
+    Ag = torch.tensor(A, device=cuda)
+    if kind == "matrix_free":
+        pg, hg = pt.partial_pschur([lambda x, a=Ag[l]: a @ x for l in range(p)], nev, "LM",
+                                   n=n, dtype=torch.float64, seed=7)
+    else:
+        pg, hg = pt.partial_pschur(Ag, nev, "LM", seed=7)
+    assert all(t.device.type == "cuda" for t in (pg.Ts, pg.Vs, pg.values, pg.residuals))
+    assert hg.nconverged == hc.nconverged >= nev // 2
+    a = np.sort_complex(pg.values.cpu().numpy())
+    b = np.sort_complex(pc.values.numpy())
+    assert np.abs(a - b).max() <= 1e-10 * np.abs(b).max()
+    check_partial(lambda l, X: A[l] @ X, pg.Vs.cpu().numpy(), pg.Ts.cpu().numpy(), a)
+    assert hg.host_reads >= hg.nprods
+
+
+@pytest.mark.parametrize("cplx", [False, True])
+def test_krylov_cycle_ops_step_on_the_card(cuda, cplx):
+    rng = np.random.default_rng(21)
+    n, w = 300, 12
+    A = rng.standard_normal((2, n, n))
+    V = [np.linalg.qr(rng.standard_normal((n, w + 1)))[0],
+         np.linalg.qr(rng.standard_normal((n, w)))[0]]
+    if cplx:
+        A = A + 1j * rng.standard_normal(A.shape)
+        V = [v.astype(complex) for v in V]
+    x = np.linalg.solve(A[0], V[1] @ rng.standard_normal(w) + 1e-3 * rng.standard_normal(n))
+    V[0][:, 4] = x / np.linalg.norm(x)      # the re-pass
+    ops = CycleOps(torch.tensor(A, device=cuda))
+    ops.load_basis(V)
+    for l, j, lnext, ncols in ((0, 3, 1, 7), (0, 4, 1, w), (1, 2, 0, w + 1)):
+        hh, vv, ww, ii = krylov._orth_step(V[lnext][:, :ncols], A[l] @ V[l][:, j])
+        reads = ops.reads
+        h, w_, inspan = ops.apply_orth(l, lnext, j, ncols, krylov.ETA_ORTH)
+        assert ops.reads == reads + 1 and inspan == bool(ii) is False
+        assert abs(w_ - ww) <= 1e-13 * max(ww, 1.0)
+        assert np.abs(h - hh).max() <= 1e-13 * np.abs(hh).max()
+        col = ops.accept(lnext, j, w_)
+        assert np.abs(col - vv / ww).max() <= 1e-10
+        V[lnext][:, j] = col

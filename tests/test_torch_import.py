@@ -17,6 +17,7 @@ import sys
 sys.modules['jax'] = None  # any 'import jax' now raises ImportError
 import periodicschurdecompositions_jl_torch as pt
 import periodicschurdecompositions_jl_torch.native
+import periodicschurdecompositions_jl_torch.models.krylov
 import periodicschurdecompositions_jl_torch.models.ordschur
 import periodicschurdecompositions_jl_torch.models.vectors
 import periodicschurdecompositions_jl_torch.ops._cuda
@@ -34,14 +35,18 @@ import periodicschurdecompositions_jl_torch.ops.smallschur
 import periodicschurdecompositions_jl_torch.ops.sweep
 import periodicschurdecompositions_jl_torch.ops.sweep_cx
 import periodicschurdecompositions_jl_torch.ops.sweep_rg
+import periodicschurdecompositions_jl_torch.parallel.krylov_ops
+import periodicschurdecompositions_jl_torch.utils.balance
 import periodicschurdecompositions_jl_torch.utils.circshift
 import periodicschurdecompositions_jl_torch.utils.interop
+import periodicschurdecompositions_jl_torch.utils.io
 import periodicschurdecompositions_jl_torch.utils.safeprod
 assert not any(m.startswith('periodicschurdecompositions_jl_tpu') for m in sys.modules)
 assert sys.modules['jax'] is None
 from periodicschurdecompositions_jl_torch.ops.sweep import chase_sweep_mb
 print(pt.pschur.__name__, pt.check_psd.__name__, chase_sweep_mb.__name__,
-      pt.ordschur.__name__, pt.eigvecs.__name__)
+      pt.ordschur.__name__, pt.eigvecs.__name__, pt.partial_pschur.__name__,
+      pt.load_decomposition.__name__, pt.balance_pcycle.__name__)
 """
 
 
@@ -51,7 +56,8 @@ def test_port_imports_with_jax_blocked():
     res = subprocess.run([sys.executable, "-c", _PROBE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert "pschur check_psd chase_sweep_mb ordschur eigvecs" in res.stdout
+    assert ("pschur check_psd chase_sweep_mb ordschur eigvecs partial_pschur "
+            "load_decomposition balance_pcycle") in res.stdout
 
 
 def test_cuda_loader_raises_without_nvcc(monkeypatch, tmp_path):
