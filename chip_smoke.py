@@ -76,6 +76,21 @@ and checks the results:
   the card; each against the reference's result contract on the card and
   the construction's spectrum (``krylov_phase``).
 
+* several problems and shards (``parallel/``; every shard on this one card,
+  by explicit copies, the path two cards would take): the hostile rg draws
+  of benchmarks/probe_rg_hostile.py's quick subset through ``pschur(A, 'R',
+  S)`` (niter beside the native C++ core's); bench.py's throughput draw (8 x
+  (p=8, n=128), seed 99) through ``ensemble_pschur_real_pipelined``
+  sequentially and with two workers on their own streams (bit for bit,
+  problems/min, idle share); ``batched_pschur_complex`` on 4 x (p=4, n=64)
+  with an alternating S; the shard entries of B0 and B
+  (``psd_sweep_left_shard``, ``psd_sweep_right_shard``) against the
+  unsharded launches bit for bit with 1, 2 and 4 shards at p=16 n=512 and
+  p=8 n=256, and against ``apply_log_shard_plain``; ``pschur_real_sharded``
+  with two shards on a p=4 n=127 draw (bit for bit the one-card run without
+  AED; its launches are the shard entries' in the kernels line); the ring
+  and ``ShardedCycleOps`` on two shards against one card.
+
 Each kernel's launch counter is set to 0 just before the path that runs it
 and read just after.  Any failure raises (exit code != 0).
 
@@ -87,6 +102,7 @@ Run from the repository root:  python3 chip_smoke.py
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import json
 import os
 import subprocess
@@ -1390,8 +1406,9 @@ def e2e_case(dev, p, n, seed, lr, nbulges=1, ref_values=None, aed=False):
     if aed and not (info["aed_deflated"] > 0 and info["host_tail_finished"] > 0):
         raise AssertionError(f"AED deflated {info['aed_deflated']}, the host tail finished "
                              f"{info['host_tail_finished']}: both must be > 0")
-    # the signed reduction is not on the real direct path
-    unused = ("sweep_generate_mb" if nbulges == 1 else "sweep_generate", "hess_signed")
+    # the signed reduction and the shard entries are not on the real direct path
+    unused = ("sweep_generate_mb" if nbulges == 1 else "sweep_generate", "hess_signed",
+              "sweep_left_shard", "sweep_right_shard")
     for k, v in launches.items():
         if (v <= 0) != (k in unused):
             raise AssertionError(f"kernel {k} launched {v} times on the {tag} path")
@@ -2893,6 +2910,546 @@ def krylov_phase(dev):
                apply_mf, KRYLOV_MF_NEV, coupling_max=1e-5, min_conv=2)
 
 
+# ---------------------------------------------------------------------------
+# several problems at once, shards over devices, the ring (parallel/)
+
+ENS_P, ENS_N, ENS_COUNT, ENS_SEED = 8, 128, 8, 99  # bench.py:99-115
+BATCH_P, BATCH_N, BATCH_COUNT, BATCH_SEED = 4, 64, 4, 4064
+SHARD_P, SHARD_N, SHARD_SEED = 4, 127, 127
+
+
+def launch_counters():
+    """Every wrapper's launch counts (one dict per module)."""
+    from periodicschurdecompositions_jl_torch.ops import (deflate, glue, hessenberg,
+                                                         pqz_deflate, rgopen, sweep, sweep_cx,
+                                                         sweep_rg)
+    return [sweep.launches, deflate.launches, hessenberg.launches, glue.launches,
+            sweep_cx.launches, sweep_rg.launches, rgopen.launches, pqz_deflate.launches]
+
+
+def zero_counts():
+    for d in launch_counters():
+        for k in d:
+            d[k] = 0
+
+
+def read_counts():
+    return {k: v for d in launch_counters() for k, v in d.items()}
+
+
+def ensemble_draw():
+    """bench.py:99-115: default_rng(99), one warm-up cycle scaled by 0.5,
+    then 8 cycles (p=8, n=128)."""
+    rng = np.random.default_rng(ENS_SEED)
+    warm = rng.standard_normal((ENS_P, ENS_N, ENS_N)) * 0.5
+    return warm, [rng.standard_normal((ENS_P, ENS_N, ENS_N)) for _ in range(ENS_COUNT)]
+
+
+def ensemble_phase(dev):
+    """``ensemble_pschur_real_pipelined`` on bench.py's throughput draw:
+    sequentially (``workers=1``, the caller's stream) and with two workers
+    (threads, each on its own stream); walls, problems/min and, under the
+    profiler, the device idle share of both.  Each pipelined (T, Z, wr, wi)
+    must equal the sequential one bit for bit, converge, and have a backward
+    error <= 1e-12.  Returns the launch counts of the two-worker run."""
+    import torch
+    import periodicschurdecompositions_jl_torch as pt
+    warm, As = ensemble_draw()
+    pt.ensemble_pschur_real_pipelined([warm], device=dev, workers=1)  # bench.py's warm-up
+    coop_pair_check(dev, As)
+    out, walls, launches = {}, {}, {}
+    for workers in (1, 2):
+        zero_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[workers] = pt.ensemble_pschur_real_pipelined(As, device=dev, workers=workers)
+        torch.cuda.synchronize()
+        walls[workers] = time.perf_counter() - t0
+        launches[workers] = read_counts()
+    worst, same = 0.0, True
+    for b, (s, q) in enumerate(zip(out[1], out[2])):
+        if not (s[4] and q[4]):
+            raise AssertionError(f"ensemble problem {b} did not converge")
+        worst = max(worst, backerr(As[b], q[0], q[1]))
+        for name, x, y in zip(("T", "Z", "wr", "wi"), s[:4], q[:4]):
+            if not np.array_equal(x, y):
+                same = False
+                _log(f"ensemble problem {b}: pipelined {name} differs from the sequential one "
+                     f"by {np.abs(x - y).max():.3e}")
+    rate = {w: ENS_COUNT / walls[w] * 60 for w in walls}
+    _log(f"ensemble {ENS_COUNT} x (p={ENS_P}, n={ENS_N}) seed {ENS_SEED}: sequential "
+         f"{walls[1]:.3f} s ({rate[1]:.1f} problems/min), two workers {walls[2]:.3f} s "
+         f"({rate[2]:.1f} problems/min, x{walls[1] / walls[2]:.3f}); bit for bit: {same}; "
+         f"backward error <= {worst:.3e}; launches (two workers) "
+         f"{ {k: v for k, v in launches[2].items() if v} }")
+    if not same:
+        raise AssertionError("the pipelined ensemble differs from the sequential one")
+    if not worst <= 1e-12:
+        raise AssertionError(f"ensemble backward error {worst:.3e}")
+    for workers in (1, 2):
+        leg_profile(f"ensemble workers={workers}", lambda: pt.ensemble_pschur_real_pipelined(
+            As, device=dev, workers=workers))
+    return launches[2]
+
+
+def coop_cases(dev, As):
+    """The three cooperative kernels at the ensemble's size (p=8, n=128), each
+    as (label, kernel name, make, launch): ``make()`` gives fresh inputs,
+    ``launch(x, stream)`` enqueues the C entry on that stream and returns its
+    outputs (no host read, no wrapper)."""
+    import torch
+    from periodicschurdecompositions_jl_torch.ops import _cuda
+    lib = _cuda.load()
+    p, n = As[0].shape[0], As[0].shape[-1]
+
+    def hess_make(k):
+        return lambda: (torch.tensor(As[k], device=dev),
+                        torch.eye(n, dtype=torch.float64, device=dev).expand(p, n, n).clone(),
+                        torch.empty(n + 2, dtype=torch.float64, device=dev))
+
+    def hess_launch(x, st):
+        nl = ctypes.c_int(0)
+        _cuda.check(lib.psd_hess_reduce(x[0].data_ptr(), x[1].data_ptr(), x[2].data_ptr(),
+                                        p, n, ctypes.byref(nl), st), "hess_reduce")
+        return x[:2]
+
+    _, Hd, Zd, i = deflate_cases(p, n)[1]   # chainB
+    sc = deflate_scalars(Hd, i)
+
+    def d_launch(x, st):
+        _cuda.check(lib.psd_deflate2x2(
+            x[0].data_ptr(), x[1].data_ptr(), p, n + 1, i, int(sc["jmin"]), int(sc["jmax"]),
+            int(bool(sc["replace0"])), int(bool(sc["finzero"])), float(sc["cs0"]),
+            float(sc["sn0"]), float(sc["thr"]), st), "deflate2x2")
+        return x
+
+    Hr, Zr, rotn = mk_rg_problem(p, n, np.random.default_rng(2026))
+    rot = torch.tensor(rotn, device=dev)
+    Sd = torch.tensor([int(x) for x in alternating(p)], dtype=torch.int32, device=dev)
+
+    def r_launch(x, st):
+        _cuda.check(lib.psd_rg_ladder(x[0].data_ptr(), x[1].data_ptr(), rot.data_ptr(),
+                                      Sd.data_ptr(), p, n, 0, 0, n - 1, n, 0, st), "rg_ladder")
+        return x
+
+    return [("reduction", "hess_reduce_kernel", [hess_make(0), hess_make(1)], hess_launch),
+            ("D", "deflate2x2_kernel",
+             [lambda: (torch.tensor(Hd, device=dev), torch.tensor(Zd, device=dev))] * 2,
+             d_launch),
+            ("R (open)", "rg_ladder_kernel",
+             [lambda: (torch.tensor(Hr, device=dev), torch.tensor(Zr, device=dev))] * 2,
+             r_launch)]
+
+
+def coop_pair_check(dev, As):
+    """Each cooperative kernel (the reduction, D, R) launched on two streams
+    at once, as two ensemble workers may launch them: both streams wait
+    behind a ~1 ms sleep on the caller's stream, so the two launches are
+    queued before either may start, and the card decides whether they run
+    side by side.  No hang, no refused launch, each result bit for bit the
+    launch's alone.  What the card did is read from the kernels' own start
+    and end in a profiler trace (overlap: the later start before the earlier
+    end); CUDA events give the pair's device span beside one launch's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    cur = torch.cuda.current_stream(dev)
+    streams = [torch.cuda.Stream(dev) for _ in range(2)]
+    for label, kname, makes, launch in coop_cases(dev, As):
+        ref = []
+        for mk in makes:
+            ref.append(launch(mk(), cur.cuda_stream))
+        one = []
+        for _ in range(3):
+            x = makes[0]()
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            e0.record(cur)
+            launch(x, cur.cuda_stream)
+            e1.record(cur)
+            torch.cuda.synchronize()
+            one.append(e0.elapsed_time(e1))
+
+        def pair():
+            xs = [mk() for mk in makes]
+            torch.cuda.synchronize()
+            torch.cuda._sleep(2_000_000)
+            e0 = torch.cuda.Event(enable_timing=True)
+            e0.record(cur)
+            ends, outs = [], []
+            for st, x in zip(streams, xs):
+                st.wait_stream(cur)
+                outs.append(launch(x, st.cuda_stream))
+                e = torch.cuda.Event(enable_timing=True)
+                e.record(st)
+                ends.append(e)
+            torch.cuda.synchronize()
+            return outs, sorted(e0.elapsed_time(e) for e in ends)
+
+        outs, ends = pair()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            outs2, ends2 = pair()
+        iv = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                    if kname in e.name and "CUDA" in str(e.device_type))
+        if len(iv) == 2:
+            verdict = ("side by side" if iv[1][0] < iv[0][1] else "one after the other")
+            seen = (f"trace: starts {0.0:.1f} / {iv[1][0] - iv[0][0]:.1f} us, ends "
+                    f"{iv[0][1] - iv[0][0]:.1f} / {iv[1][1] - iv[0][0]:.1f} us: {verdict}")
+        else:
+            seen = f"trace: {len(iv)} of the two launches recorded, no verdict"
+        same = all(torch.equal(a, b) for o in (outs, outs2)
+                   for ox, rx in zip(o, ref) for a, b in zip(ox, rx))
+        _log(f"two cooperative launches of {label} (p={As[0].shape[0]}, n={As[0].shape[-1]}) "
+             f"on two streams, queued together: {seen}; device span of the pair after the "
+             f"release (events) {ends[1]:.4f} ms (ends {ends[0]:.4f} / {ends[1]:.4f}; profiled "
+             f"run {ends2[0]:.4f} / {ends2[1]:.4f}), one launch alone {min(one):.4f} ms: the "
+             f"later end {(ends[1] - ends[0]) / min(one):.2f} launches after the earlier; bit "
+             f"for bit the launches alone: {same}")
+        if not same:
+            raise AssertionError(f"cooperative launches of {label} on two streams changed "
+                                 f"their results")
+
+
+def batched_phase(dev):
+    """``batched_pschur_complex`` on 4 x (p=4, n=64) with an alternating
+    signature on the card (two workers on their own streams) against the
+    same call with one worker, bit for bit; every lane converged with a
+    backward error <= 1e-12."""
+    import torch
+    import periodicschurdecompositions_jl_torch as pt
+    rng = np.random.default_rng(BATCH_SEED)
+    shape = (BATCH_COUNT, BATCH_P, BATCH_N, BATCH_N)
+    A = rng.standard_normal(shape) + 1j * rng.standard_normal(shape)
+    S = alternating(BATCH_P)
+    At = torch.tensor(A, device=dev)
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = pt.batched_pschur_complex(At, S)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    ref = pt.batched_pschur_complex(At, S, workers=1)
+    same = all(torch.equal(x, y) for x, y in zip(out, ref))
+    T, Z, ok = out[0].cpu().numpy(), out[1].cpu().numpy(), out[5].cpu().numpy()
+    be = max(cx_backerr(A[b], T[b], Z[b], S) for b in range(BATCH_COUNT))
+    _log(f"batched_pschur_complex {BATCH_COUNT} x (p={BATCH_P}, n={BATCH_N}) alternating S: "
+         f"wall {wall:.3f} s, converged {ok.tolist()}, backward error <= {be:.3e}, bit for "
+         f"bit with one worker: {same}; launches { {k: v for k, v in launches.items() if v} }")
+    if not (ok.all() and same and be <= 1e-12 and out[0].device == At.device):
+        raise AssertionError("batched_pschur_complex failed its checks")
+
+
+def shard_cuts(N, D):
+    """D contiguous shards of N lines, as even as N allows: (offset, L)."""
+    b = [round(k * N / D) for k in range(D + 1)]
+    return [(b[k], b[k + 1] - b[k]) for k in range(D)]
+
+
+def shard_apply(H0, Z0, R, m, i, D, plain=False):
+    """B0 on D column shards of a copy of H0, then B on D row shards of it
+    and of a copy of Z0 (each shard a contiguous copy on the card, put back
+    after its launch): the shard entries, or ``apply_log_shard_plain``."""
+    from periodicschurdecompositions_jl_torch.ops import sweep
+    H, Z = H0.clone(), Z0.clone()
+    N = H.shape[-1]
+    for c0, L in shard_cuts(N, D):
+        Hc = H[:, :, c0:c0 + L].contiguous()
+        if plain:
+            sweep.apply_log_shard_plain(Hc, None, R, m, i, side="left", offset=c0)
+        else:
+            sweep.sweep_left_shard(Hc, R, m, i, c0)
+        H[:, :, c0:c0 + L] = Hc
+    for r0, L in shard_cuts(N, D):
+        Hr, Zr = H[:, r0:r0 + L].contiguous(), Z[:, r0:r0 + L].contiguous()
+        if plain:
+            sweep.apply_log_shard_plain(Hr, Zr, R, m, i, side="right", offset=r0, want_z=True)
+        else:
+            sweep.sweep_right_shard(Hr, Zr, R, m, i, r0, want_z=True)
+        H[:, r0:r0 + L], Z[:, r0:r0 + L] = Hr, Zr
+    return H, Z
+
+
+def shard_phase(dev, report):
+    """The shard entries (``psd_sweep_left_shard``, ``psd_sweep_right_shard``)
+    at p=16 n=512 and p=8 n=256 on kernel A's log of two windows: with D =
+    1, 2, 4 shards (N = n + 1 cut as evenly as it goes) bit for bit the
+    unsharded B0 and B on the same input and log; against
+    ``apply_log_shard_plain`` on the same shards with the gate max(1e-12, 10
+    x the plain version's own change under a relative 1e-16 perturbation of
+    H); times of D = 1 against B0 / B (CUDA events, in turns, each through
+    its C entry: offset 0, the full width)."""
+    import torch
+    from periodicschurdecompositions_jl_torch.ops import _cuda, sweep
+    lib = _cuda.load()
+    st = torch.cuda.current_stream().cuda_stream
+    err, times = 0.0, {}
+    for (p, n) in ((P_HEAD, N_HEAD), (8, 256)):
+        N = n + 1
+        Hn, Zn, v0 = mk_sweep_problem(p, n, np.random.default_rng(2424 + p))
+        for (m, i) in ((0, n - 1), (37, min(300, n - 2))):
+            H0 = torch.tensor(Hn, device=dev)
+            if m > 0:
+                H0[0, m, m - 1] = 0.0
+            H0[0, i + 1, i] = 0.0
+            Z0 = torch.tensor(Zn, device=dev)
+            R = sweep.sweep_generate(H0, m, i, v0)
+            Hu, Zu = H0.clone(), Z0.clone()
+            _cuda.check(lib.psd_sweep_left(Hu.data_ptr(), R.data_ptr(), p, N, m, i, 1, st),
+                        "sweep_left")
+            _cuda.check(lib.psd_sweep_right(Hu.data_ptr(), Zu.data_ptr(), R.data_ptr(), p, N,
+                                            m, i, 1, st), "sweep_right")
+            pert = torch.tensor(1.0 + 1e-16 * np.random.default_rng(1).standard_normal(
+                Hn.shape), device=dev)
+            Hq, Zq = shard_apply(H0 * pert, Z0, R, m, i, 1, plain=True)
+            scale = float(H0.abs().max())
+            for D in (1, 2, 4):
+                Hs, Zs = shard_apply(H0, Z0, R, m, i, D)
+                Hp, Zp = shard_apply(H0, Z0, R, m, i, D, plain=True)
+                sens_h = float((Hq - Hp).abs().max()) / scale
+                sens_z = float((Zq - Zp).abs().max())
+                dh = float((Hs - Hp).abs().max()) / scale
+                dz = float((Zs - Zp).abs().max())
+                bitwise = torch.equal(Hs, Hu) and torch.equal(Zs, Zu)
+                tol_h, tol_z = max(TOL, 10 * sens_h), max(TOL, 10 * sens_z)
+                _log(f"shards p={p} n={n} [{m}, {i}] D={D} {shard_cuts(N, D)}: bit for bit "
+                     f"B0/B: {bitwise}; vs apply_log_shard_plain {dh:.3e} / {dz:.3e} "
+                     f"(tolerance {tol_h:.3e} / {tol_z:.3e})")
+                if not bitwise:
+                    raise AssertionError(f"shard entries differ from B0/B at p={p} n={n} "
+                                         f"[{m}, {i}] D={D}")
+                if not (dh <= tol_h and dz <= tol_z):
+                    raise AssertionError("shard entries disagree with apply_log_shard_plain")
+                err = max(err, dh, dz)
+        # times on [0, n-1], D = 1, in turns with the unsharded launches
+        m, i = 0, n - 1
+        H = torch.tensor(Hn, device=dev)
+        Z = torch.tensor(Zn, device=dev)
+        R = sweep.sweep_generate(H, m, i, v0)
+        t = {"B0": [], "B0 shard": [], "B": [], "B shard": []}
+        for _ in range(3):
+            t["B0"].append(event_ms(lambda: _cuda.check(lib.psd_sweep_left(
+                H.data_ptr(), R.data_ptr(), p, N, m, i, 1, st), "sweep_left"), 20))
+            t["B0 shard"].append(event_ms(lambda: _cuda.check(lib.psd_sweep_left_shard(
+                H.data_ptr(), R.data_ptr(), p, N, m, i, 1, N, N, 0, N, st),
+                "sweep_left_shard"), 20))
+            t["B"].append(event_ms(lambda: _cuda.check(lib.psd_sweep_right(
+                H.data_ptr(), Z.data_ptr(), R.data_ptr(), p, N, m, i, 1, st),
+                "sweep_right"), 20))
+            t["B shard"].append(event_ms(lambda: _cuda.check(lib.psd_sweep_right_shard(
+                H.data_ptr(), Z.data_ptr(), R.data_ptr(), p, N, m, i, 1, 0, 0, N, st),
+                "sweep_right_shard"), 20))
+        Hp, Zp = H.clone(), Z.clone()
+        t_plain = wall_ms(lambda: shard_apply(Hp, Zp, R, m, i, 1, plain=True))
+        _log(f"shard entries at p={p} n={n} [0, {n - 1}], D = 1 (turns): "
+             + ", ".join(f"{k} {' / '.join(f'{x:.4f}' for x in v)} ms" for k, v in t.items())
+             + f"; plain (B0+B shards) {t_plain:.1f} ms")
+        if (p, n) == (P_HEAD, N_HEAD):
+            times = {k: min(v) for k, v in t.items()}
+            times["plain"] = t_plain
+    bounds = apply_bounds(P_HEAD, N_HEAD, 0, N_HEAD - 1)
+    src = "periodicschurdecompositions_jl_torch/csrc/sweep.cu"
+    rep = "periodicschurdecompositions_jl_tpu/parallel/sweep_sharded.py:56"
+    for name, key, b in (("sweep_left_shard", "B0 shard", "sweep_left"),
+                         ("sweep_right_shard", "B shard", "sweep_right")):
+        report[name] = {"name": name, "route": "cuda", "source": src, "replaces": rep,
+                        "max_abs_err": err, "ms": times[key], "plain_ms": times["plain"],
+                        "bound_ms": bounds[b][0], "bound_by": bounds[b][1],
+                        "library_ms": None}
+
+
+def sharded_pschur_phase(dev):
+    """``pschur_real_sharded`` with two shards on one card (explicit copies:
+    the two-card path) on a p=4 n=127 draw (N = 128): backward error <=
+    1e-12, and T, Z and the eigenvalues bit for bit those of the one-card
+    ``pschur_real_pipeline`` without AED and the host tail (the shard
+    entries are B0/B bit for bit).  Returns the launch counts of the
+    sharded run."""
+    import torch
+    import periodicschurdecompositions_jl_torch as pt
+    from periodicschurdecompositions_jl_torch.config import AlgoConfig
+    from periodicschurdecompositions_jl_torch.ops import pqr_real
+    A = np.random.default_rng(SHARD_SEED).standard_normal((SHARD_P, SHARD_N, SHARD_N))
+    At = torch.tensor(A, device=dev)
+    P = pqr_real.pschur_real_pipeline(At, "R", cfg=AlgoConfig(aed=False, host_tail=-1))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    P = pqr_real.pschur_real_pipeline(At, "R", cfg=AlgoConfig(aed=False, host_tail=-1))
+    torch.cuda.synchronize()
+    wall1 = time.perf_counter() - t0
+    niter = pqr_real.last_info["niter"]
+    zero_counts()
+    t0 = time.perf_counter()
+    T, Z, w, ok = pt.pschur_real_sharded(At, (dev, dev))
+    torch.cuda.synchronize()
+    wall2 = time.perf_counter() - t0
+    launches = read_counts()
+    be = backerr(A, T.cpu().numpy(), Z.cpu().numpy())
+    same = (torch.equal(T, P.Ts) and torch.equal(Z, P.Zs)
+            and np.array_equal(w, P.values.cpu().numpy()))
+    _log(f"pschur_real_sharded p={SHARD_P} n={SHARD_N} seed {SHARD_SEED}, two shards on "
+         f"{dev}: wall {wall2:.3f} s (one card, AED off: {wall1:.3f} s, niter {niter}), "
+         f"converged {ok}, backward error {be:.3e}, T, Z and eigenvalues bit for bit the "
+         f"one-card run's: {same}; launches { {k: v for k, v in launches.items() if v} }")
+    if not (ok and same and be <= 1e-12):
+        raise AssertionError("pschur_real_sharded failed its checks")
+    if launches["sweep_left"] or launches["sweep_right"]:
+        raise AssertionError("the sharded core launched the unsharded B0/B")
+    return launches
+
+
+def ring_krylov_phase(dev):
+    """Two shards on one card: ``ring_cycle_products`` and
+    ``ring_product_apply`` (p=8, n=512) against the product on one card
+    (1e-12 relative), and ``partial_pschur(ShardedCycleOps(A, (dev, dev)),
+    4, "LM")`` on the Krylov cell against the one-card ``CycleOps`` run:
+    Ritz values within 1e-10 relative, nconverged equal, two host reads an
+    operator application."""
+    import torch
+    import periodicschurdecompositions_jl_torch as pt
+    mesh = (dev, dev)
+    rng = np.random.default_rng(2425)
+    p, n, b = 8, 512, 4
+    A = torch.tensor(rng.standard_normal((p, n, n)) / np.sqrt(n), device=dev)
+    V = torch.tensor(rng.standard_normal((2, n, b)), device=dev)
+    v = torch.tensor(rng.standard_normal(n), device=dev)
+    t0 = time.perf_counter()
+    out = pt.ring_cycle_products(A, V, mesh)
+    y = pt.ring_product_apply(A, v, mesh)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    K = p // 2
+    ref = []
+    for d in range(2):
+        x = V[d]
+        for k in [(d * K + j) % p for j in range(p)]:
+            x = A[k] @ x
+        ref.append(x)
+    ref = torch.stack(ref)
+    x = v
+    for k in range(p):
+        x = A[k] @ x
+    e1 = float((out - ref).abs().max() / ref.abs().max())
+    e2 = float((y - x).abs().max() / x.abs().max())
+    Ak = torch.tensor(krylov_draw(KRYLOV_P, KRYLOV_N, KRYLOV_SEED), device=dev)
+    ps1, h1 = pt.partial_pschur(Ak, KRYLOV_NEV, "LM")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ps2, h2 = pt.partial_pschur(pt.ShardedCycleOps(Ak, mesh), KRYLOV_NEV, "LM")
+    torch.cuda.synchronize()
+    wall_k = time.perf_counter() - t0
+    a = np.sort_complex(ps2.values.cpu().numpy())
+    r = np.sort_complex(ps1.values.cpu().numpy())
+    ek = float(np.abs(a - r).max() / np.abs(r).max()) if a.shape == r.shape else np.inf
+    _log(f"ring on two shards of {dev}: cycle products vs one card {e1:.3e}, product apply "
+         f"{e2:.3e} (relative; {wall * 1e3:.1f} ms); ShardedCycleOps Krylov cell: wall "
+         f"{wall_k:.3f} s, nprods {h2.nprods} (one card {h1.nprods}), nconverged "
+         f"{h2.nconverged} / {h1.nconverged}, host reads {h2.host_reads}, Ritz values vs one "
+         f"card {ek:.3e} relative")
+    if not (e1 <= 1e-12 and e2 <= 1e-12 and out.device == A.device):
+        raise AssertionError("the ring disagrees with the one-card product")
+    if not (ek <= 1e-10 and h2.nconverged == h1.nconverged
+            and h2.host_reads == 2 * h2.nprods and ps2.Vs.device == Ak.device):
+        raise AssertionError("ShardedCycleOps disagrees with the one-card CycleOps")
+
+
+def hostile_exp_split(p, n, fac, seed):
+    """benchmarks/probe_rg_hostile.py's exponentially split spectrum: factor
+    diagonals graded fac^1..fac^3, mixed signature."""
+    r = np.random.default_rng(seed)
+    A = np.zeros((p, n, n))
+    for l in range(p):
+        d = fac ** (1 + 2 * r.random(n))
+        Tl = np.triu(r.standard_normal((n, n)), 1) * d.max() * 0.1
+        np.fill_diagonal(Tl, d)
+        q1, _ = np.linalg.qr(r.standard_normal((n, n)))
+        q2, _ = np.linalg.qr(r.standard_normal((n, n)))
+        A[l] = q1 @ Tl @ q2.T
+    return A, tuple((l % 2 == 0) or (l == 0) for l in range(p))
+
+
+def hostile_near_singular(p, n, floor, seed):
+    """The probe's near-singular inverted factors: their diagonals graded
+    down to ``floor``."""
+    r = np.random.default_rng(seed)
+    A = r.standard_normal((p, n, n))
+    S = tuple(l % 2 == 0 for l in range(p))
+    for l in range(p):
+        if not S[l]:
+            Tl = np.triu(r.standard_normal((n, n)))
+            np.fill_diagonal(Tl, np.logspace(0, np.log10(floor), n)
+                             * np.sign(r.standard_normal(n)))
+            q1, _ = np.linalg.qr(r.standard_normal((n, n)))
+            q2, _ = np.linalg.qr(r.standard_normal((n, n)))
+            A[l] = q1 @ Tl @ q2.T
+    return A, S
+
+
+def hostile_graded(p, n, seed):
+    """The probe's graded bands: plain Gaussian draws, alternating S."""
+    r = np.random.default_rng(seed)
+    return r.standard_normal((p, n, n)), tuple(l % 2 == 0 for l in range(p))
+
+
+def hostile_rg_cases(quick=False):
+    """The 33 draws of benchmarks/probe_rg_hostile.py (``quick``: its 14):
+    exp-split spectra at p=20 n=8 and p=12 n=16, near-singular inverted
+    factors at p=6 n=24, graded bands at n=128/192/256; (tag, A, S)."""
+    cases = []
+    for seed in range(5 if quick else 10):
+        cases.append((f"exp-split p=20 n=8 fac=2 seed={seed}",)
+                     + hostile_exp_split(20, 8, 2.0, seed))
+    for seed in range(3 if quick else 6):
+        cases.append((f"exp-split p=12 n=16 fac=3 seed={seed}",)
+                     + hostile_exp_split(12, 16, 3.0, seed))
+    for floor in (1e-6, 1e-10):
+        for seed in range(2 if quick else 4):
+            cases.append((f"near-sing-inv p=6 n=24 floor={floor:g} seed={seed}",)
+                         + hostile_near_singular(6, 24, floor, seed))
+    for (p, n) in ([(8, 128)] if quick else [(8, 128), (12, 192), (16, 256)]):
+        for seed in range(2 if quick else 3):
+            cases.append((f"graded p={p} n={n} seed={seed}",) + hostile_graded(p, n, seed))
+    return cases
+
+
+def hostile_rg_case(dev, A, S):
+    """One hostile draw through ``pschur(A, 'R', S)`` on ``dev``, and the
+    native C++ core (the probe's oracle) on the same reduction: (niter,
+    the native core's rc and niter, backward error honouring S, wall)."""
+    import torch
+    import periodicschurdecompositions_jl_torch as pt
+    from periodicschurdecompositions_jl_torch import native
+    from periodicschurdecompositions_jl_torch.ops import hessenberg, pqz_real
+    At = torch.tensor(A, device=dev)
+    t0 = time.perf_counter()
+    P = pt.pschur(At, "R", S)
+    if At.is_cuda:
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    niter = pqz_real.last_info["niter"]
+    H, _ = hessenberg.phessenberg_signed_core(At, S, want_q=False)
+    rc, nn, _ = native.pqz_real_gen_niter_cpu(H.cpu().numpy(), S)
+    be = cx_backerr(A, P.Ts.cpu().numpy(), P.Zs.cpu().numpy(), S)
+    return niter, rc, nn, be, wall
+
+
+def hostile_rg_phase(dev, quick=True):
+    """The probe's hostile rg draws (``quick``: its 14) through the port on
+    the card: each converges within 120 n iterations with a backward error
+    <= 1e-12; niter beside the native core's, beyond 60 n flagged."""
+    worst = 0.0
+    for tag, A, S in hostile_rg_cases(quick):
+        n = A.shape[-1]
+        niter, rc, nn, be, wall = hostile_rg_case(dev, A, S)
+        flag = "  <-- BEYOND 60n" if niter > 60 * n else ""
+        _log(f"[rg-hostile] {tag}: niter {niter} ({niter / n:.1f}n of 120n), native core rc "
+             f"{rc} niter {nn} ({nn / n:.1f}n); backward error {be:.3e}; wall {wall:.3f} s"
+             f"{flag}")
+        if not (niter <= 120 * n and be <= 1e-12):
+            raise AssertionError(f"hostile rg draw {tag}: niter {niter}, backward error {be:.3e}")
+        worst = max(worst, niter / n)
+    _log(f"[rg-hostile] worst {worst:.1f}n of the 120n budget")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2972,6 +3529,16 @@ def main() -> int:
     for k in ("deflate_pos", "deflate_neg", "deflate_pos_c128", "deflate_neg_c128"):
         launches[k] = dl[k]
     krylov_phase(dev)
+    # several problems, shards and the ring (parallel/); no run crosses two
+    # cards here: every shard lies on this card, by explicit copies
+    hostile_rg_phase(dev, quick=True)
+    ensemble_phase(dev)
+    batched_phase(dev)
+    shard_phase(dev, report)
+    shard_launches = sharded_pschur_phase(dev)
+    for k in ("sweep_left_shard", "sweep_right_shard"):
+        launches[k] = shard_launches[k]
+    ring_krylov_phase(dev)
 
     kernels = []
     for name in ("sweep_generate", "sweep_generate_mb", "sweep_left", "sweep_right",
@@ -2980,7 +3547,8 @@ def main() -> int:
                  "rg_sweep_generate", "rg_sweep_left", "rg_sweep_right", "rg_ladder",
                  "hess_reduce", "hess_reduce_c128", "hess_signed", "hess_signed_c128",
                  "glue", "deflate_czshift", "deflate_pos", "deflate_neg",
-                 "deflate_czshift_c128", "deflate_pos_c128", "deflate_neg_c128"):
+                 "deflate_czshift_c128", "deflate_pos_c128", "deflate_neg_c128",
+                 "sweep_left_shard", "sweep_right_shard"):
         if launches[name] <= 0:
             raise AssertionError(f"kernel {name} launched no time on its path")
         kernels.append({**report[name], "launches": launches[name]})

@@ -29,6 +29,17 @@ with the JAX package's) and ``balance_pcycle``.  ``want_t=False`` keeps
 every update inside the iteration's active window (the kernels take the
 bound): the eigenvalues and Z are those of the run with T, and T is valid
 on its diagonal blocks only.
+
+Several devices from one process (``parallel``): ``make_mesh`` (a tuple
+of devices), ``batched_pschur_real`` / ``batched_pschur_complex`` (problems
+round-robin over the devices, worker threads on their own streams) and
+``ensemble_pschur_real_pipelined`` (one card, problems overlapped);
+``ring_cycle_products`` / ``ring_product_apply`` (the factors over the
+devices); ``chase_sweep_sharded``, ``ShardedSweep`` and
+``pschur_real_sharded`` (the sweep's B0 and B on column and row shards,
+kernels ``psd_sweep_left_shard`` / ``psd_sweep_right_shard``);
+``sharded_dense_ops`` and ``ShardedCycleOps`` (row-sharded Krylov
+operators).  ``pschur_mp`` (mpmath, host) computes at any precision.
 """
 from .config import AlgoConfig, default_config, setverbosity, verbosity
 from .diagnostics import FacChecker, check_psd
@@ -36,6 +47,12 @@ from .models.drivers import gpschur, phessenberg, pschur
 from .models.krylov import ArnoldiHistory, partial_pschur
 from .models.ordschur import ordschur
 from .models.vectors import eigvecs
+from .ops.pqz_mp import MpGeneralizedPeriodicSchur, pschur_mp
+from .parallel.krylov_ops import ShardedCycleOps, sharded_dense_ops
+from .parallel.mesh import (batched_pschur_complex, batched_pschur_real,
+                            ensemble_pschur_real_pipelined, make_mesh)
+from .parallel.ring import ring_cycle_products, ring_product_apply
+from .parallel.sweep_sharded import ShardedSweep, chase_sweep_sharded, pschur_real_sharded
 from .types import (AbstractPeriodicSchur, ConvergenceFailure, GeneralizedPeriodicSchur,
                     IllConditionedException, PartialPeriodicSchur, PeriodicSchur,
                     PKSFailure, PSDNotImplemented)
@@ -49,4 +66,8 @@ __all__ = [
     "load_decomposition", "balance_pcycle", "AbstractPeriodicSchur",
     "ConvergenceFailure", "GeneralizedPeriodicSchur", "IllConditionedException",
     "PartialPeriodicSchur", "PeriodicSchur", "PKSFailure", "PSDNotImplemented",
+    "pschur_mp", "MpGeneralizedPeriodicSchur", "make_mesh", "batched_pschur_real",
+    "batched_pschur_complex", "ensemble_pschur_real_pipelined", "ring_cycle_products",
+    "ring_product_apply", "sharded_dense_ops", "ShardedCycleOps", "ShardedSweep",
+    "chase_sweep_sharded", "pschur_real_sharded",
 ]

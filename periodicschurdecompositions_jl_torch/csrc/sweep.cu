@@ -1083,29 +1083,32 @@ __device__ __forceinline__ void walk_chunk(int j, int nch, int m, int i, const d
 }
 
 // B0: rows k..k+2 of every H[f] <- F[f,k]^T rows, for k = m..i-1, for the
-// logs of bulges 0..kNb-1 (log stride p N 9).  Block (x, f): columns
-// max(m-1, 0) + x kLeftCols + threadIdx.x < chi of H[f] (chi = N: all; the
-// want_t=False window: i + 1).  Column m-1 of factor 0 keeps its value at
-// k == m (the window-boundary subdiagonal, reference rowsk lo=k).
+// logs of bulges 0..kNb-1 (log stride p N 9).  Block (x, f): the global
+// columns clo + x kLeftCols + threadIdx.x < chi of H[f] (unsharded: clo =
+// max(m-1, 0), chi = N, or the want_t=False window's i + 1).  H holds the
+// global columns from c0 on, its rows ld doubles apart (unsharded: c0 = 0,
+// ld = N; a column shard (p, N, L): ld = L).  Column m-1 of factor 0 keeps
+// its value at k == m (the window-boundary subdiagonal, reference rowsk
+// lo=k).
 template <int kNb>
 __global__ void __launch_bounds__(kApplyThreads)
 sweep_left_kernel(double* __restrict__ H, const double* __restrict__ R, int p, int N,
-                  int m, int i, int chi) {
+                  int m, int i, int clo, int chi, int ld, int c0) {
   constexpr int W = kApplyChunk, NT = kAhead + 1, NL = kAhead + 1;
   extern __shared__ double smem[];
   double* tiles = smem;                             // NT x W rows x kLeftCols
   double* logs = smem + NT * W * kLeftCols;         // NL x log_slot_doubles
   const int f = blockIdx.y, tid = threadIdx.x;
-  const int cb = max(m - 1, 0) + blockIdx.x * kLeftCols;  // the tile's first column
+  const int cb = clo + blockIdx.x * kLeftCols;  // the tile's first (global) column
   const int nc = min(kLeftCols, chi - cb);
-  double* Hf = H + (size_t)f * N * N + cb;
+  double* Hf = H + (size_t)f * N * ld + (cb - c0);
   const int nch = (i + 2 - m + W - 1) / W;
   auto copy = [&](int j) {  // chunk j's rows
     const int q0 = m + j * W, w = min(W, i + 2 - q0);
     double* T = tiles + (j % NT) * W * kLeftCols;
     for (int e = tid; e < w * kLeftCols; e += kApplyThreads)
       if (e % kLeftCols < nc)
-        __pipeline_memcpy_async(T + e, Hf + (size_t)(q0 + e / kLeftCols) * N + e % kLeftCols,
+        __pipeline_memcpy_async(T + e, Hf + (size_t)(q0 + e / kLeftCols) * ld + e % kLeftCols,
                                 sizeof(double));
     stage_logs<kNb>(logs + (j % NL) * log_slot_doubles(kNb), R, p, N, f, m, i, q0);
   };
@@ -1115,38 +1118,42 @@ sweep_left_kernel(double* __restrict__ H, const double* __restrict__ R, int p, i
   for (int b = 0; b < kNb; ++b) x0[b] = x1[b] = 0.0;
   auto walk = [&](int j) {  // stores: rows of consecutive columns, coalesced
     const double* T = tiles + (j % NT) * W * kLeftCols + tid;
-    double* out = Hf + (size_t)(m + j * W) * N + tid;
+    double* out = Hf + (size_t)(m + j * W) * ld + tid;
     walk_chunk<kNb>(
         j, nch, m, i, logs + (j % NL) * log_slot_doubles(kNb), keep, x0, x1,
         [&](int u) { return T[u * kLeftCols]; },
         [&](int d, double x) {
-          if (tid < nc) out[(ptrdiff_t)d * N] = x;
+          if (tid < nc) out[(ptrdiff_t)d * ld] = x;
         });
   };
   psd::apply_ring<kAhead>(nch, kLeftCols, copy, walk, [](int) {});
 }
 
 // B: columns k..k+2 <- columns F for k = m..i-1, for the logs of bulges
-// 0..kNb-1.  Block (x, g, 0): rows rlo + x kRightRows + threadIdx.x <= i of
-// H[g] (rlo = 0: all; the want_t=False window: its top row) with the log of
-// factor (g+1) mod p, then the structural zeros of rows m+1..i written
-// exactly; block (x, g, 1): rows of Z[g], all N, own log.
+// 0..kNb-1.  H and Z hold the global rows r0..r0+nloc-1 of each factor
+// (unsharded: r0 = 0, nloc = N; a row shard (p, nloc, N)).  Block (x, g,
+// 0): the global rows max(rlo, r0) + x kRightRows + threadIdx.x <= i of
+// H[g] that the shard holds (rlo = 0: all; the want_t=False window: its
+// top row) with the log of factor (g+1) mod p, then the structural zeros of
+// rows m+1..i written exactly, by global row; block (x, g, 1): the shard's
+// rows of Z[g], own log.
 template <int kNb>
 __global__ void __launch_bounds__(kApplyThreads)
 sweep_right_kernel(double* __restrict__ H, double* __restrict__ Z,
-                   const double* __restrict__ R, int p, int N, int m, int i, int rlo) {
+                   const double* __restrict__ R, int p, int N, int m, int i, int rlo,
+                   int r0, int nloc) {
   constexpr int W = kApplyChunk, P = kRightPitch, NT = kAhead + 2, NL = kAhead + 1;
   extern __shared__ double smem[];
   double* tiles = smem;                         // NT x kRightRows x P
   double* logs = smem + NT * kRightRows * P;    // NL x log_slot_doubles
   const int g = blockIdx.y, tid = threadIdx.x;
   const bool isz = blockIdx.z == 1;
-  const int nrows = isz ? N : i + 1;
-  const int r0 = (isz ? 0 : rlo) + blockIdx.x * kRightRows;
-  if (r0 >= nrows) return;
-  const int nr = min(kRightRows, nrows - r0);
+  const int rend = isz ? r0 + nloc : min(i + 1, r0 + nloc);
+  const int rb = (isz ? r0 : max(rlo, r0)) + blockIdx.x * kRightRows;  // global
+  if (rb >= rend) return;
+  const int nr = min(kRightRows, rend - rb);
   const int src = isz ? g : (g + 1) % p;
-  double* A = (isz ? Z : H) + (size_t)g * N * N + (size_t)r0 * N;
+  double* A = (isz ? Z : H) + (size_t)g * nloc * N + (size_t)(rb - r0) * N;
   const int nch = (i + 2 - m + W - 1) / W;
   auto copy = [&](int j) {  // chunk j's row segments, into chunk j-2's slot
     const int q0 = m + j * W, w = min(W, i + 2 - q0);
@@ -1163,7 +1170,7 @@ sweep_right_kernel(double* __restrict__ H, double* __restrict__ Z,
     const int q0 = m + j * W, w = min(W, i + 2 - q0);
     const double* T = tiles + (j % NT) * kRightRows * P;
     for (int e = tid; e < nr * W; e += kApplyThreads) {
-      const int rr = e / W, cc = e % W, r = r0 + rr;
+      const int rr = e / W, cc = e % W, r = rb + rr;
       if (cc >= w) continue;
       const bool zero = !isz && r > m && q0 + cc < (g == 0 ? r - 1 : r);
       A[(size_t)rr * N + q0 + cc] = zero ? 0.0 : T[rr * P + cc];
@@ -1191,7 +1198,7 @@ sweep_right_kernel(double* __restrict__ H, double* __restrict__ Z,
     if (j >= 1) write_back(j - 1);
     if (j == nch - 1) write_back(j);
   });
-  if (!isz && g == 0 && m >= 1 && tid < nr && r0 + tid > m)
+  if (!isz && g == 0 && m >= 1 && tid < nr && rb + tid > m)
     A[(size_t)tid * N + m - 1] = 0.0;  // column m-1 below the subdiagonal
 }
 
@@ -1243,18 +1250,48 @@ cudaError_t launch_apply(Kernel kernel, size_t smem, std::atomic<unsigned long l
 
 template <int kNb>
 cudaError_t launch_left(dim3 grid, cudaStream_t st, double* H, const double* R, int p,
-                        int N, int m, int i, int chi) {
+                        int N, int m, int i, int clo, int chi, int ld, int c0) {
   static std::atomic<unsigned long long> asked{0};
   return launch_apply(sweep_left_kernel<kNb>, left_smem(kNb), asked, grid, st, H, R, p, N, m,
-                      i, chi);
+                      i, clo, chi, ld, c0);
 }
 
 template <int kNb>
 cudaError_t launch_right(dim3 grid, cudaStream_t st, double* H, double* Z, const double* R,
-                         int p, int N, int m, int i, int rlo) {
+                         int p, int N, int m, int i, int rlo, int r0, int nloc) {
   static std::atomic<unsigned long long> asked{0};
   return launch_apply(sweep_right_kernel<kNb>, right_smem(kNb), asked, grid, st, H, Z, R, p,
-                      N, m, i, rlo);
+                      N, m, i, rlo, r0, nloc);
+}
+
+// B0 on the global columns [clo, chi) of H, whose rows are ld doubles apart
+// and whose local column 0 is global column c0; no launch when the range
+// is empty.
+cudaError_t left_cols(double* H, const double* R, int p, int N, int m, int i, int nb,
+                      int clo, int chi, int ld, int c0, cudaStream_t st) {
+  if (chi <= clo) return cudaSuccess;
+  dim3 grid((chi - clo + kLeftCols - 1) / kLeftCols, p);
+  static_assert(kMaxNb == 4, "one instantiation of each apply kernel per bulge count");
+  switch (nb) {
+    case 1: return launch_left<1>(grid, st, H, R, p, N, m, i, clo, chi, ld, c0);
+    case 2: return launch_left<2>(grid, st, H, R, p, N, m, i, clo, chi, ld, c0);
+    case 3: return launch_left<3>(grid, st, H, R, p, N, m, i, clo, chi, ld, c0);
+    case 4: return launch_left<4>(grid, st, H, R, p, N, m, i, clo, chi, ld, c0);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// B on the rows r0..r0+nloc-1 of H (those in [rlo, i]) and of Z (all).
+cudaError_t right_rows(double* H, double* Z, const double* R, int p, int N, int m, int i,
+                       int nb, int rlo, int r0, int nloc, cudaStream_t st) {
+  dim3 grid((nloc + kRightRows - 1) / kRightRows, p, Z ? 2 : 1);
+  switch (nb) {
+    case 1: return launch_right<1>(grid, st, H, Z, R, p, N, m, i, rlo, r0, nloc);
+    case 2: return launch_right<2>(grid, st, H, Z, R, p, N, m, i, rlo, r0, nloc);
+    case 3: return launch_right<3>(grid, st, H, Z, R, p, N, m, i, rlo, r0, nloc);
+    case 4: return launch_right<4>(grid, st, H, Z, R, p, N, m, i, rlo, r0, nloc);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -1338,17 +1375,20 @@ int psd_sweep_generate_mb(const double* H, double* work, double* R, int p, int N
 int psd_sweep_left_bounded(double* H, const double* R, int p, int N, int m, int i,
                            int nb, int chi, void* stream) {
   if (chi < i + 1 || chi > N) return (int)cudaErrorInvalidValue;
-  const int ncols = chi - max(m - 1, 0);
-  dim3 grid((ncols + kLeftCols - 1) / kLeftCols, p);
-  cudaStream_t st = (cudaStream_t)stream;
-  static_assert(kMaxNb == 4, "one instantiation of each apply kernel per bulge count");
-  switch (nb) {
-    case 1: return (int)launch_left<1>(grid, st, H, R, p, N, m, i, chi);
-    case 2: return (int)launch_left<2>(grid, st, H, R, p, N, m, i, chi);
-    case 3: return (int)launch_left<3>(grid, st, H, R, p, N, m, i, chi);
-    case 4: return (int)launch_left<4>(grid, st, H, R, p, N, m, i, chi);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return (int)left_cols(H, R, p, N, m, i, nb, max(m - 1, 0), chi, N, 0, (cudaStream_t)stream);
+}
+
+// Kernel B0 on a column shard, in place: H (p, N, ld) holds the global
+// columns c0..c0+L-1 (L <= ld, c0 + L <= N) in its local columns 0..L-1;
+// the shard's columns in [max(m-1, 0), chi) take the logs, as
+// psd_sweep_left_bounded takes them (bit for bit: the same kernel, given
+// the stride and the offset).  No launch when the shard holds none.
+int psd_sweep_left_shard(double* H, const double* R, int p, int N, int m, int i, int nb,
+                         int chi, int ld, int c0, int L, void* stream) {
+  if (chi < i + 1 || chi > N || c0 < 0 || L < 0 || L > ld || c0 + L > N)
+    return (int)cudaErrorInvalidValue;
+  return (int)left_cols(H, R, p, N, m, i, nb, max(max(m - 1, 0), c0), min(chi, c0 + L), ld,
+                        c0, (cudaStream_t)stream);
 }
 
 // Kernel B0 on every column.
@@ -1363,15 +1403,19 @@ int psd_sweep_left(double* H, const double* R, int p, int N, int m, int i,
 int psd_sweep_right_bounded(double* H, double* Z, const double* R, int p, int N, int m,
                             int i, int nb, int rlo, void* stream) {
   if (rlo < 0 || rlo > m) return (int)cudaErrorInvalidValue;
-  dim3 grid((N + kRightRows - 1) / kRightRows, p, Z ? 2 : 1);
-  cudaStream_t st = (cudaStream_t)stream;
-  switch (nb) {
-    case 1: return (int)launch_right<1>(grid, st, H, Z, R, p, N, m, i, rlo);
-    case 2: return (int)launch_right<2>(grid, st, H, Z, R, p, N, m, i, rlo);
-    case 3: return (int)launch_right<3>(grid, st, H, Z, R, p, N, m, i, rlo);
-    case 4: return (int)launch_right<4>(grid, st, H, Z, R, p, N, m, i, rlo);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return (int)right_rows(H, Z, R, p, N, m, i, nb, rlo, 0, N, (cudaStream_t)stream);
+}
+
+// Kernel B on a row shard, in place: H and (when Z != NULL) Z are (p, nloc,
+// N) and hold the global rows r0..r0+nloc-1 (r0 + nloc <= N); the shard's
+// rows of H in [rlo, i] and all its rows of Z take the logs, and its rows
+// of H get the structural zeros by global row, as psd_sweep_right_bounded
+// (bit for bit: the same kernel, given the offset).
+int psd_sweep_right_shard(double* H, double* Z, const double* R, int p, int N, int m, int i,
+                          int nb, int rlo, int r0, int nloc, void* stream) {
+  if (rlo < 0 || rlo > m || r0 < 0 || nloc < 1 || r0 + nloc > N)
+    return (int)cudaErrorInvalidValue;
+  return (int)right_rows(H, Z, R, p, N, m, i, nb, rlo, r0, nloc, (cudaStream_t)stream);
 }
 
 // Kernel B on every row.

@@ -103,6 +103,7 @@ _ARGTYPES = {
     "pschur_real_cpu": [_I, _I, _DP, _DP, _DP, _DP, _I, _I],
     "pqz_real_gen_cpu": [_I, _I, _DP, _IP, _DP, _DP, _DP, _DP, _IP, _I, _I],
     "pqz_complex_cpu": [_I, _I, _DP, _IP, _DP, _DP, _DP, _IP, _I, _I],
+    "pqz_real_gen_niter_cpu": [_I, _I, _DP, _IP, _DP, _DP, _DP, _DP, _IP, _I, _I, _IP],
 }
 
 
@@ -185,6 +186,27 @@ def pqz_real_gen_cpu(H, S, maxitfac: int = 120, want_z: bool = True):
     if rc != 0:
         return None
     return T, (Z if want_z else None), alr, ali, beta, scal
+
+
+def pqz_real_gen_niter_cpu(H, S, maxitfac: int = 120, want_z: bool = True):
+    """``pqz_real_gen_cpu`` with its iteration count (the shift-scheme
+    probe's oracle, ``benchmarks/probe_rg_hostile.py``).
+
+    Returns (rc, niter, out): rc 0 converged, 1 budget exhausted, 2
+    declined (a negligible triangular diagonal); ``out`` is (T, Z, alpha_r,
+    alpha_i, beta, scale) when rc == 0, else None.
+    """
+    fn = _entry("pqz_real_gen_niter_cpu")
+    T = np.array(H, np.float64, order="C", copy=True)
+    p, n, _ = T.shape
+    Z = np.zeros_like(T)
+    alr, ali, beta = np.zeros(n), np.zeros(n), np.zeros(n)
+    scal = np.zeros(n, np.int32)
+    niter = np.zeros(1, np.int32)
+    rc = fn(p, n, _dp(T), _ip(_signature(S)), _dp(Z), _dp(alr), _dp(ali), _dp(beta),
+            _ip(scal), int(maxitfac), int(bool(want_z)), _ip(niter))
+    out = (T, (Z if want_z else None), alr, ali, beta, scal) if rc == 0 else None
+    return int(rc), int(niter[0]), out
 
 
 def pqz_complex_cpu(H, S, maxitfac: int = 30, want_z: bool = True):

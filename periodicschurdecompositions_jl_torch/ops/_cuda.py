@@ -18,6 +18,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -28,6 +29,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC"]
 
 _lib = None
+_lock = threading.Lock()  # threads of one process build and load once
 
 
 CUDA_ROOTS = ("/usr/local/cuda",)  # searched after PATH, CUDA_HOME, CUDA_PATH
@@ -75,6 +77,10 @@ def _declare(lib):
     lib.psd_sweep_right.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, vp]
     lib.psd_sweep_left_bounded.argtypes = [vp, vp, i32, i32, i32, i32, i32, i32, vp]
     lib.psd_sweep_right_bounded.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, i32, vp]
+    lib.psd_sweep_left_shard.argtypes = [vp, vp, i32, i32, i32, i32, i32, i32, i32, i32,
+                                         i32, vp]
+    lib.psd_sweep_right_shard.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, i32, i32,
+                                          i32, vp]
     lib.psd_deflate2x2.argtypes = [vp, vp, i32, i32, i32, i32, i32, i32, i32,
                                    f64, f64, f64, vp]
     lib.psd_deflate2x2_bounded.argtypes = [vp, vp, i32, i32, i32, i32, i32, i32, i32,
@@ -118,6 +124,7 @@ def _declare(lib):
     lib.psd_deflate_scratch.restype = ctypes.c_longlong
     for fn in (lib.psd_sweep_generate, lib.psd_sweep_generate_mb, lib.psd_sweep_left,
                lib.psd_sweep_right, lib.psd_sweep_left_bounded, lib.psd_sweep_right_bounded,
+               lib.psd_sweep_left_shard, lib.psd_sweep_right_shard,
                lib.psd_deflate2x2, lib.psd_deflate2x2_bounded,
                lib.psd_qz_sweep_generate, lib.psd_qz_sweep_left,
                lib.psd_qz_sweep_right, lib.psd_qz_sweep_left_bounded,
@@ -136,19 +143,23 @@ def _declare(lib):
 
 
 def load():
-    """Build (once per source hash) and load the kernel library."""
+    """Build (once per source hash) and load the kernel library.  Threads
+    that call it together build and load it once (a lock)."""
     global _lib
     if _lib is not None:
         return _lib
-    srcs = _sources()
-    if not srcs:
-        raise RuntimeError(f"no CUDA sources under {_CSRC}")
-    nvcc = _find_nvcc()
-    so = _BUILD / f"libpsd_kernels_{_key(srcs)}.so"
-    if not so.exists():
-        _build(nvcc, srcs, so)
-    _lib = _declare(ctypes.CDLL(str(so)))
-    return _lib
+    with _lock:
+        if _lib is not None:
+            return _lib
+        srcs = _sources()
+        if not srcs:
+            raise RuntimeError(f"no CUDA sources under {_CSRC}")
+        nvcc = _find_nvcc()
+        so = _BUILD / f"libpsd_kernels_{_key(srcs)}.so"
+        if not so.exists():
+            _build(nvcc, srcs, so)
+        _lib = _declare(ctypes.CDLL(str(so)))
+        return _lib
 
 
 def _run_all(cmds):

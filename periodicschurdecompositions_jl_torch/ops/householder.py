@@ -8,9 +8,14 @@ apply the adjoint, i.e. pass ``conj(tau)`` to :func:`refl_left`).  Complex
 ``tau`` is ``(beta - re(alpha))/beta - i im(alpha)/beta``.
 
 Every generator is branch-free tensor code (``torch.where`` selects), so it
-runs on the device without reading a value back to the host.
+runs on the device without reading a value back to the host.  On the CPU a
+real reflector of at most three entries (the sweeps' plain versions) takes
+the same arithmetic in Python floats, bit for bit, at a fraction of the
+tensor operations' overhead.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -55,10 +60,43 @@ def _hyp3(x, y, z):
     return m * sqrt_rn(xs * xs + ys * ys + zs * zs)
 
 
+def _reflector_from_floats(alpha, tail):
+    """``_reflector_from`` on a real CPU tail of at most two entries, in
+    Python floats: the same IEEE operations in the same order (a sum of two
+    squares does not depend on its order; ``math.sqrt`` is correctly
+    rounded, as ``sqrt_rn``), without a tensor operation each.  None when a
+    value is not finite or |beta| needs the underflow rescue: the tensor
+    code takes those."""
+    a = float(alpha)
+    t = tail.tolist()
+    if not all(math.isfinite(x) for x in t) or not math.isfinite(a):
+        return None
+    at = [abs(x) for x in t]
+    m = max(at, default=0.0)
+    ms = m if m != 0 else 1.0
+    xnorm = m * math.sqrt(sum((x / ms) * (x / ms) for x in at)) if t else 0.0
+    if xnorm == 0:
+        return alpha.clone(), torch.zeros((), dtype=tail.dtype), torch.zeros_like(tail)
+    # from here m > 0, beta != 0 and a - beta != 0 (beta's sign is not a's)
+    m = max(abs(a), xnorm)
+    xs, zs = a / m, xnorm / m
+    h = m * math.sqrt(xs * xs + zs * zs)
+    beta = -h if a >= 0 else h
+    if abs(beta) < _safemin(tail.dtype):
+        return None
+    vtail = tail / torch.tensor(a - beta, dtype=tail.dtype)
+    return (torch.tensor(beta, dtype=tail.dtype),
+            torch.tensor((beta - a) / beta, dtype=tail.dtype), vtail)
+
+
 def _reflector_from(alpha, tail):
     """Shared xLARFG core: returns (beta, tau, scaled_tail)."""
     if tail.is_complex():
         return _reflector_from_complex(alpha, tail)
+    if tail.device.type == "cpu" and tail.numel() <= 2:
+        out = _reflector_from_floats(alpha, tail)
+        if out is not None:
+            return out
     dt = tail.dtype
     sfmin = _safemin(dt)
     rsfmin = 1.0 / sfmin

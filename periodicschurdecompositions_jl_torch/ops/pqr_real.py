@@ -67,6 +67,7 @@ from .smallschur import hess_eigs_small
 from .sweep import chase_sweep, chase_sweep_mb, check_mb, normalized, pair_column
 
 # wall-clock split and iteration count of the last pschur_real_pipeline call
+# (one caller at a time; concurrent callers take ``reduce_and_iterate``'s info)
 last_info: dict = {}
 
 
@@ -277,7 +278,8 @@ def _check_args(H, cfg):
 
 def pqr_real_core(H: torch.Tensor, Z: Optional[torch.Tensor] = None,
                   want_z: bool = True, want_t: bool = True, maxitfac: int = 30,
-                  cfg: AlgoConfig = default_config, with_info: bool = False):
+                  cfg: AlgoConfig = default_config, with_info: bool = False,
+                  sweep_fn=None):
     """Run the real periodic QR iteration.
 
     Args:
@@ -290,6 +292,9 @@ def pqr_real_core(H: torch.Tensor, Z: Optional[torch.Tensor] = None,
          on its diagonal blocks only, the eigenvalues and Z are those of
          the run with T.
       maxitfac: iteration budget factor (maxit = maxitfac * n).
+      sweep_fn: None, or a callable that takes ``chase_sweep``'s place
+         (same arguments and contract; ``parallel.sweep_sharded.ShardedSweep``).
+         With it every sweep chases one bulge, whatever ``cfg.nbulges``.
 
     Returns:
       (T, Z, wr, wi, ok) — wr, wi host float64 arrays, ok a bool — plus an
@@ -312,7 +317,7 @@ def pqr_real_core(H: torch.Tensor, Z: Optional[torch.Tensor] = None,
         return out + ({"niter": 0, "maxit": maxit, "sweep_steps": 0, "sweeps": 0,
                        "bulges": 0},) if with_info else out
 
-    run = _Run(H, Z, want_z, maxitfac, cfg, want_t)
+    run = _Run(H, Z, want_z, maxitfac, cfg, want_t, sweep_fn)
     run.iterate(run.maxit)
     return run.finish(with_info)
 
@@ -323,11 +328,12 @@ class _Run:
     ``iterate`` resumes the loop up to an absolute iteration cap, so a
     driver can stop it between iterations (``pqr_real_core_aed``)."""
 
-    def __init__(self, H, Z, want_z, maxitfac, cfg, want_t=True):
+    def __init__(self, H, Z, want_z, maxitfac, cfg, want_t=True, sweep_fn=None):
         p, n, _ = H.shape
         dev = H.device
         self.p, self.n, self.dev, self.cfg, self.want_z = p, n, dev, cfg, want_z
         self.want_t = want_t
+        self.sweep_fn = sweep_fn
         self.ulp = ulp = float(np.finfo(np.float64).eps)
         self.smlnum = float(np.finfo(np.float64).tiny) * (n / ulp)
         self.maxit = maxitfac * n
@@ -358,6 +364,8 @@ class _Run:
         ``it_cap``."""
         Hp, Zp, p, n, cfg, want_z = self.Hp, self.Zp, self.p, self.n, self.cfg, self.want_z
         want_t = self.want_t
+        sweep_fn = self.sweep_fn or chase_sweep
+        nbulges = cfg.nbulges if self.sweep_fn is None else 1
         ulp, smlnum, hnorms, gather, gbufs = (self.ulp, self.smlnum, self.hnorms,
                                               self.gather, self.gbufs)
         wr, wi, swaps = self.wr, self.wi, self.swaps
@@ -384,7 +392,7 @@ class _Run:
 
             splitting = lnew >= i - 1
             if not splitting:
-                if cfg.nbulges > 1:
+                if nbulges > 1:
                     m = lnew
                     v0, sig, nbact = _mb_shifts(Hp, hdiag, hsub, hsup, g.v0, m, i, its, n,
                                                 cfg)
@@ -396,8 +404,8 @@ class _Run:
                                                  ulp)
                     else:
                         m, v0, early = lnew, g.v0, False
-                    chase_sweep(Hp, Zp, m, i, v0, want_z=want_z, early=early, rhi=rhi,
-                                clo=clo)
+                    sweep_fn(Hp, Zp, m, i, v0, want_z=want_z, early=early, rhi=rhi,
+                             clo=clo)
                     nbact = 1
                 steps += i - m
                 sweeps += 1
@@ -665,8 +673,31 @@ def defl2_scalars(D, U, S0, i, p, hnorms, ulp, smlnum):
 
 
 def _sync(dev):
+    # the caller's stream only: concurrent callers on other streams of the
+    # card do not wait for each other
     if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+        torch.cuda.current_stream(dev).synchronize()
+
+
+def reduce_and_iterate(A: torch.Tensor, want_t: bool = True, want_z: bool = True,
+                       maxitfac: int = 30, cfg: AlgoConfig = default_config):
+    """The reduction and ``pqr_real_core_aed`` on a right-oriented cycle.
+    Returns (T, Z, wr, wi, ok, info), the info dict with the reduction's
+    and the iteration's wall-clock (``reduce_s``, ``iterate_s``); touches
+    no module state, so threads may call it together (each on its own
+    stream)."""
+    from .hessenberg import phessenberg_core
+    dev = A.device
+    t0 = time.perf_counter()
+    H, Q = phessenberg_core(A, want_q=want_z)
+    _sync(dev)
+    t1 = time.perf_counter()
+    T, Z, wr, wi, ok, info = pqr_real_core_aed(H, Z=Q, want_z=want_z, want_t=want_t,
+                                               maxitfac=maxitfac, cfg=cfg,
+                                               with_info=True)
+    _sync(dev)
+    t2 = time.perf_counter()
+    return T, Z, wr, wi, ok, {"reduce_s": t1 - t0, "iterate_s": t2 - t1, **info}
 
 
 def pschur_real_pipeline(A: torch.Tensor, orient: str, want_t: bool = True,
@@ -679,22 +710,14 @@ def pschur_real_pipeline(A: torch.Tensor, orient: str, want_t: bool = True,
     Records the reduction and iteration wall-clock, the iteration count and
     the AED tallies in ``last_info``.
     """
-    from .hessenberg import phessenberg_core
     p = A.shape[0]
     if orient == "L":
         A = torch.flip(A, (0,))
     dev = A.device
-    t0 = time.perf_counter()
-    H, Q = phessenberg_core(A, want_q=want_z)
-    _sync(dev)
-    t1 = time.perf_counter()
-    T, Z, wr, wi, ok, info = pqr_real_core_aed(H, Z=Q, want_z=want_z, want_t=want_t,
-                                               maxitfac=maxitfac, cfg=cfg,
-                                               with_info=True)
-    _sync(dev)
-    t2 = time.perf_counter()
+    T, Z, wr, wi, ok, info = reduce_and_iterate(A, want_t=want_t, want_z=want_z,
+                                                maxitfac=maxitfac, cfg=cfg)
     last_info.clear()
-    last_info.update(reduce_s=t1 - t0, iterate_s=t2 - t1, converged=ok, **info)
+    last_info.update(converged=ok, **info)
     if verbosity("main") >= 1:
         print(f"[pschur real] p={p} n={A.shape[-1]}: {info['niter']} iterations "
               f"(budget {info['maxit']}), converged={ok}")

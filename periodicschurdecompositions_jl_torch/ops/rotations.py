@@ -8,7 +8,8 @@ Generation follows LAPACK dlartg/zlartg semantics: ``c`` is real and
 with exact identity data for ``g == 0`` so structural zeros survive.
 ``givens_real``/``givens_complex`` are branch-free tensor code, so they run
 on the device without a host read; ``givens_host`` is the same arithmetic
-on host scalars, for generation chains that read their inputs back.
+on host scalars, for generation chains that read their inputs back, and
+for two 0-dim CPU tensors (the plain versions' generations).
 The JAX package refines every division and sqrt by one Newton step on the
 TPU's emulated float64; correctly rounded float64 needs no refinement, and
 on the CPU the JAX package skips it too.
@@ -33,11 +34,29 @@ def sqrt_rn(x: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(x)
 
 
+def _host_scalars(f, g):
+    """(f, g) as Python scalars when both are finite 0-dim CPU tensors (the
+    plain versions' generations), else None."""
+    if not (isinstance(f, torch.Tensor) and isinstance(g, torch.Tensor)
+            and f.device.type == "cpu" and g.device.type == "cpu"
+            and f.dim() == 0 and g.dim() == 0):
+        return None
+    f, g = f.item(), g.item()
+    if not all(math.isfinite(x) for x in (f.real, f.imag, g.real, g.imag)):
+        return None
+    return f, g
+
+
 def givens_real(f, g):
     """Real Givens: (c, s, r) with ``[c s; -s c] @ [f, g] = [r, 0]``, c >= 0.
 
-    g == 0 -> (1, 0, f) exactly; f == 0 -> (0, sign(g), |g|).
+    g == 0 -> (1, 0, f) exactly; f == 0 -> (0, sign(g), |g|).  On two
+    finite 0-dim CPU tensors it runs ``givens_host``, the same arithmetic,
+    without a tensor operation each.
     """
+    fg = _host_scalars(f, g)
+    if fg is not None and f.dtype == g.dtype == torch.float64:
+        return tuple(torch.tensor(x, dtype=torch.float64) for x in givens_host(*fg))
     one = torch.ones_like(f)
     zero = torch.zeros_like(f)
     af, ag = torch.abs(f), torch.abs(g)
@@ -63,7 +82,13 @@ def givens_complex(f, g):
     g == 0 -> (1, 0, f) exactly; f == 0 -> (0, conj(g)/|g|, |g|).
     The arithmetic is spelled out on real and imaginary parts, in the JAX
     package's order (complex products as re*re - im*im, re*im + im*re).
+    On two finite 0-dim complex128 CPU tensors it runs ``givens_host``.
     """
+    fg = _host_scalars(f, g)
+    if fg is not None and f.dtype == g.dtype == torch.complex128:
+        c, s, r = givens_host(complex(fg[0]), complex(fg[1]))
+        return (torch.tensor(c, dtype=torch.float64), torch.tensor(s, dtype=torch.complex128),
+                torch.tensor(r, dtype=torch.complex128))
     f = torch.as_tensor(f)
     g = torch.as_tensor(g, device=f.device)
     if not f.is_complex():

@@ -47,6 +47,14 @@ columns behind bulge b-1 (``AlgoConfig.nbulges > 1``; the JAX package's
 * On a CPU tensor they run ``chase_sweep_plain`` / ``chase_sweep_mb_plain``,
   eager torch ports of ``chase_step`` (the reference order, with its forced
   writes; the multi-bulge one in tick order).  Any other device raises.
+* Shards (``parallel/sweep_sharded.py``): ``sweep_left_shard`` runs B0 on a
+  column shard (p, N, L) of H that holds the global columns c0..c0+L-1,
+  ``sweep_right_shard`` runs B on row shards (p, L, N) of H and Z that hold
+  the global rows r0..r0+L-1 (structural zeros by global row); the same
+  kernels, given a stride and an offset (``psd_sweep_left_shard``,
+  ``psd_sweep_right_shard``), so a shard of the whole width at offset 0 is
+  bit for bit the unsharded launch.  Their plain version on a CPU shard is
+  ``apply_log_shard_plain``.
 
 ``launches`` counts the launches of each kernel.
 """
@@ -61,7 +69,7 @@ from .householder import refl_mat, reflector_small
 from .rotations import colsk, rowsk
 
 launches = {"sweep_generate": 0, "sweep_generate_mb": 0, "sweep_left": 0,
-            "sweep_right": 0}
+            "sweep_right": 0, "sweep_left_shard": 0, "sweep_right_shard": 0}
 
 MAX_NB = 4  # bulges per multi-bulge sweep (csrc/sweep.cu kMaxNb)
 
@@ -245,6 +253,59 @@ def apply_log_plain(H, Z, R, m: int, i: int, *, want_z: bool, nb: int = 1, rhi=N
     return H, Z
 
 
+def apply_log_shard_plain(X, Z, R, m: int, i: int, *, side: str, offset: int,
+                          want_z: bool = False, nb: int = 1, rhi=None, clo=None):
+    """Plain torch version of ``sweep_left_shard`` (``side="left"``) and
+    ``sweep_right_shard`` (``side="right"``), in place on a shard.
+
+    left: X is a column shard (p, N, L) of H holding the global columns
+    offset..offset+L-1; every bulge's left products on rows m..i+1 of its
+    columns >= max(m-1, 0) (and < ``rhi``), factor 0's column m-1 keeping
+    its value at step m.  right: X (and Z) are row shards (p, L, N) holding
+    the global rows offset..offset+L-1; every bulge's right products on
+    columns m..i+1 of H's rows <= i (and >= ``clo``), H[g] taking factor
+    (g+1) mod p's log, and of Z's rows, then the structural zeros of H's
+    rows m+1..i by global row.  R: (p, N, 9) or (NB, p, N, 9).  Each entry
+    goes through the products of ``apply_log_plain`` in its order."""
+    p, N = X.shape[0], R.shape[-2]
+    Rb = R.reshape(-1, p, N, 3, 3)
+    if side == "left":
+        L = X.shape[-1]
+        lo = max(max(m - 1, 0), offset) - offset
+        hi = min(N if rhi is None else rhi, offset + L) - offset
+        if hi <= lo:
+            return X, Z
+        for b in range(nb):
+            F = Rb[b]
+            for k in range(m, i):
+                rows = X[:, k:k + 3, lo:hi]
+                new = F[:, k].transpose(1, 2) @ rows
+                if k == m and m >= 1 and lo + offset == m - 1:
+                    new[0, :, 0] = rows[0, :, 0]  # window-boundary column m-1
+                rows.copy_(new)
+        return X, Z
+    if side != "right":
+        raise ValueError(f"side={side!r}: 'left' or 'right'")
+    L = X.shape[1]
+    lo = max(0 if clo is None else clo, offset) - offset
+    hi = min(i + 1, offset + L) - offset
+    for b in range(nb):
+        F = Rb[b]
+        Fr = torch.roll(F, -1, dims=0)  # H[g] takes the log of factor (g+1) % p
+        for k in range(m, i):
+            if hi > lo:
+                cols = X[:, lo:hi, k:k + 3]
+                cols.copy_(cols @ Fr[:, k])
+            if want_z:
+                zc = Z[:, :, k:k + 3]
+                zc.copy_(zc @ F[:, k])
+    c0 = max(m - 1, 0)
+    for r in range(max(m + 1, offset), min(i, offset + L - 1) + 1):
+        X[0, r - offset, c0:r - 1] = 0.0
+        X[1:, r - offset, m:r] = 0.0
+    return X, Z
+
+
 def _check(name, t, shape, dtype=torch.float64):
     if t.dtype != dtype or not t.is_contiguous() or tuple(t.shape) != shape:
         raise ValueError(f"{name}: expected a contiguous {dtype} tensor of shape "
@@ -291,11 +352,16 @@ def sweep_generate(H, m: int, i: int, v0):
     """Kernel A alone: the transform log R (p, N, 9) of the sweep over
     [m, i] on the CUDA stack H (read only; rows m..i-1 of R are written).
     Its scratch is the carried rows (2 p N doubles), plus the windows when
-    p is too large for them to fit in shared memory."""
-    _check_card_args("sweep_generate", H, None, m, i, False)
+    p is too large for them to fit in shared memory.  On a CPU stack:
+    ``chase_sweep_plain``'s log, H unchanged."""
     if i == m:
         raise ValueError("sweep_generate: empty window")
     p, N, _ = H.shape
+    if H.device.type == "cpu":
+        R = torch.zeros((p, N, 9), dtype=H.dtype)
+        chase_sweep_plain(H.clone(), None, m, i, v0, want_z=False, log=R)
+        return R
+    _check_card_args("sweep_generate", H, None, m, i, False)
     lib = _cuda.load()
     with _cuda.on_device(H):
         nwork = lib.psd_sweep_generate_scratch(p, N)
@@ -350,6 +416,74 @@ def _apply_log(lib, st, H, Z, R, m, i, nb, want_z, rhi=None, clo=None):
                                                 0 if clo is None else int(clo), st),
                     "sweep_right")
     launches["sweep_right"] += 1
+
+
+def sweep_left_shard(Hc, R, m: int, i: int, offset: int, *, nb: int = 1, rhi=None):
+    """Kernel B0 on a column shard, in place: Hc (p, N, L) holds the global
+    columns offset..offset+L-1 of the (p, N, N) stack; R the log(s) of the
+    sweep over [m, i] (on Hc's device).  ``rhi``: the want_t=False bound
+    (columns < rhi).  On a CUDA shard it launches ``psd_sweep_left_shard``
+    (no launch when the shard holds no column of the window's rows); on a
+    CPU shard ``apply_log_shard_plain``.  Returns Hc."""
+    p, N, L = Hc.shape
+    chi = N if rhi is None else int(rhi)
+    check_bounds("sweep_left_shard", m, i, N, rhi, None)
+    if Hc.device.type == "cpu":
+        return apply_log_shard_plain(Hc, None, R, m, i, side="left", offset=offset, nb=nb,
+                                     rhi=rhi)[0]
+    if Hc.device.type != "cuda":
+        raise ValueError(f"sweep_left_shard: unsupported device {Hc.device}")
+    if R.device != Hc.device:
+        raise ValueError(f"sweep_left_shard: the shard on {Hc.device}, the log on {R.device}")
+    _check("Hc", Hc, (p, N, L))
+    if not (0 <= offset and offset + L <= N and 0 <= m <= i <= N - 2):
+        raise ValueError(f"sweep_left_shard: bad shard offset={offset} L={L} or window "
+                         f"[{m}, {i}] for N={N}")
+    if min(chi, offset + L) <= max(m - 1, 0, offset) or i == m:
+        return Hc
+    with _cuda.on_device(Hc):
+        _cuda.check(_cuda.load().psd_sweep_left_shard(
+            Hc.data_ptr(), R.data_ptr(), p, N, m, i, nb, chi, L, offset, L,
+            _cuda.stream_ptr(Hc)), "sweep_left_shard")
+    launches["sweep_left_shard"] += 1
+    return Hc
+
+
+def sweep_right_shard(Hr, Zr, R, m: int, i: int, offset: int, *, want_z: bool, nb: int = 1,
+                      clo=None):
+    """Kernel B on row shards, in place: Hr and Zr (p, L, N) hold the global
+    rows offset..offset+L-1 of the (p, N, N) stacks (Zr None when not
+    wanted); R the log(s) of the sweep over [m, i].  ``clo``: the
+    want_t=False bound (H's rows >= clo).  The shard's rows of H get the
+    structural zeros by global row.  On a CUDA shard it launches
+    ``psd_sweep_right_shard``; on a CPU shard ``apply_log_shard_plain``.
+    Returns (Hr, Zr)."""
+    p, L, N = Hr.shape
+    check_bounds("sweep_right_shard", m, i, N, None, clo)
+    if Hr.device.type == "cpu":
+        return apply_log_shard_plain(Hr, Zr, R, m, i, side="right", offset=offset,
+                                     want_z=want_z, nb=nb, clo=clo)
+    if Hr.device.type != "cuda":
+        raise ValueError(f"sweep_right_shard: unsupported device {Hr.device}")
+    if R.device != Hr.device:
+        raise ValueError(f"sweep_right_shard: the shard on {Hr.device}, the log on {R.device}")
+    _check("Hr", Hr, (p, L, N))
+    if want_z:
+        _check("Zr", Zr, (p, L, N))
+        if Zr.device != Hr.device:
+            raise ValueError("sweep_right_shard: Hr and Zr on different devices")
+    if not (0 <= offset and offset + L <= N and 0 <= m <= i <= N - 2):
+        raise ValueError(f"sweep_right_shard: bad shard offset={offset} L={L} or window "
+                         f"[{m}, {i}] for N={N}")
+    if i == m:
+        return Hr, Zr
+    with _cuda.on_device(Hr):
+        _cuda.check(_cuda.load().psd_sweep_right_shard(
+            Hr.data_ptr(), Zr.data_ptr() if want_z else None, R.data_ptr(), p, N, m, i, nb,
+            0 if clo is None else int(clo), offset, L, _cuda.stream_ptr(Hr)),
+            "sweep_right_shard")
+    launches["sweep_right_shard"] += 1
+    return Hr, Zr
 
 
 def check_mb(nb: int, gap: int, nbact: int = 1) -> None:

@@ -58,6 +58,9 @@ def _signature(S: Sequence[bool], dev) -> torch.Tensor:
     t = _sig_cache.get(key)
     if t is None:
         t = torch.tensor([int(x) for x in key[0]], dtype=torch.int32, device=dev)
+        if t.is_cuda:
+            # other threads' streams read it: its copy must be done first
+            torch.cuda.current_stream(t.device).synchronize()
         _sig_cache[key] = t
     return t
 

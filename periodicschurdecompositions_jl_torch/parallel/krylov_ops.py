@@ -1,6 +1,6 @@
-"""The device-resident cycle of ``partial_pschur`` on one device (the
-one-card counterpart of the JAX package's ``ShardedCycleOps``, without a
-mesh).
+"""The device-resident cycle of ``partial_pschur``: on one device
+(``CycleOps``), and row-sharded over a mesh (``ShardedCycleOps``,
+``sharded_dense_ops``: the JAX package's ``parallel/krylov_ops.py``).
 
 The operator applications are the only O(n^2)-per-step work of the Krylov
 path; everything else is O(k^2 p) host bookkeeping (reference
@@ -15,6 +15,16 @@ restart logic, and any host repair reloads the mirror (``load_basis``).
 The mirror is kept transposed, one basis vector per row, so that a column
 is contiguous and both products of the projection are matrix-vector
 products on contiguous memory.
+
+Sharded: every factor is split by row blocks over the devices of a mesh
+(``parallel.mesh.make_mesh``; one process, peer copies), and so are the
+basis mirrors.  A matvec computes the local (n/D, n) @ (n,) block on each
+device; the Gram-Schmidt coefficients are the sums of the shards' partial
+products, gathered on the home device (the mesh's first); the pending
+vector stays sharded.  The host still reads (h, w, inspan) once and each
+accepted column once per application.  Shards are copies even where two
+entries of the mesh name one device, so D entries on one card (or on the
+CPU) take the same path as D cards.
 """
 from __future__ import annotations
 
@@ -22,6 +32,8 @@ from typing import Optional, Sequence
 
 import numpy as np
 import torch
+
+from .mesh import make_mesh
 
 
 class CycleOps:
@@ -111,3 +123,134 @@ class CycleOps:
         self._Vt[lnext][j] = col
         return self._read(col)
 
+
+
+def _row_blocks(n: int, devices) -> list:
+    D = len(devices)
+    if n % D != 0:
+        raise ValueError(f"n={n} not divisible by mesh size {D}")
+    L = n // D
+    return [slice(d * L, (d + 1) * L) for d in range(D)]
+
+
+def _factors(A, home):
+    if isinstance(A, torch.Tensor):
+        T = A
+    else:
+        T = torch.as_tensor(np.asarray(A)).to(home)
+    if T.ndim != 3 or T.shape[1] != T.shape[2]:
+        raise ValueError(f"expected a (p, n, n) cycle, got shape {tuple(T.shape)}")
+    return T.to(torch.complex128 if T.is_complex() else torch.float64)
+
+
+def sharded_dense_ops(A, mesh: Optional[Sequence] = None):
+    """Row-shard a (p, n, n) cycle over ``mesh`` (default: every card) and
+    return matvec callables.
+
+    Returns (ops, n, dtype): ``ops[l]`` maps an (n,) tensor to ``A[l] @ v``
+    on the mesh's first device (each device computes its row block, the
+    blocks are gathered there); for ``partial_pschur(ops, nev, which, n=n,
+    dtype=dtype, device=mesh[0])``.  n must be divisible by the mesh size.
+    """
+    devices = make_mesh(devices=mesh)
+    home = devices[0]
+    A = _factors(A, home)
+    p, n, _ = A.shape
+    rows = _row_blocks(n, devices)
+    shards = [A[:, r].to(dev, copy=True) for r, dev in zip(rows, devices)]
+
+    def make_op(l):
+        def op(v):
+            v = torch.as_tensor(v, dtype=A.dtype)
+            return torch.cat([(S[l] @ v.to(dev, copy=True)).to(home)
+                              for S, dev in zip(shards, devices)])
+        return op
+
+    return [make_op(l) for l in range(p)], n, A.dtype
+
+
+class ShardedCycleOps(CycleOps):
+    """``CycleOps`` with the factors and the basis mirrors split by row
+    blocks over the devices of ``mesh`` (default: every card); the home
+    device, where the coefficients are summed and the results of
+    ``partial_pschur`` land, is the mesh's first.  n must be divisible by
+    the mesh size (ValueError)."""
+
+    def __init__(self, A, mesh: Optional[Sequence] = None):
+        devices = make_mesh(devices=mesh)
+        home = devices[0]
+        A = _factors(A, home)
+        super().__init__(A)
+        self.device = home
+        self._A = None
+        self.devices = devices
+        self._rows = _row_blocks(self.n, devices)
+        self._shards = [A[:, r].to(dev, copy=True) for r, dev in zip(self._rows, devices)]
+
+    def _split(self, x: torch.Tensor) -> list:
+        """Row blocks of ``x`` (last axis n) on their devices, as copies."""
+        return [x[..., r].to(dev, copy=True).contiguous()
+                for r, dev in zip(self._rows, self.devices)]
+
+    def _gather(self, parts) -> torch.Tensor:
+        return torch.cat([q.to(self.device) for q in parts], dim=-1)
+
+    def _sum(self, parts) -> torch.Tensor:
+        out = parts[0].to(self.device, copy=True)
+        for q in parts[1:]:
+            out = out + q.to(self.device)
+        return out
+
+    def _bcast(self, x: torch.Tensor) -> list:
+        return [x.to(dev, copy=True) for dev in self.devices]
+
+    def _matvec(self, l: int, u: torch.Tensor) -> list:
+        """The shards of A[l] @ u, u whole on the home device."""
+        return [S[l] @ uu for S, uu in zip(self._shards, self._bcast(u))]
+
+    @staticmethod
+    def _sq(v: torch.Tensor) -> torch.Tensor:
+        return (v.conj() * v).real.sum()
+
+    # -- basis mirror management ------------------------------------------------
+    def load_basis(self, V: Sequence[np.ndarray]) -> None:
+        self._Vt = [self._split(torch.as_tensor(np.ascontiguousarray(v.T))) for v in V]
+
+    def set_col(self, l: int, j: int, col) -> None:
+        for S, part in zip(self._Vt[l], self._split(torch.as_tensor(col))):
+            S[j] = part
+
+    def get_col(self, l: int, j: int) -> np.ndarray:
+        return self._read(self._gather([S[j] for S in self._Vt[l]]))
+
+    # -- one Arnoldi step -------------------------------------------------------
+    def apply_orth(self, l: int, lnext: int, j: int, ncols: int, eta: float):
+        """``CycleOps.apply_orth`` on the shards: each device projects its
+        rows, the partial coefficients and squared norms are summed on the
+        home device and sent back; one read of (h, w, inspan)."""
+        Us = [S[:ncols] for S in self._Vt[lnext]]
+        v = self._matvec(l, self._gather([S[j] for S in self._Vt[l]]))
+        rnorm = torch.sqrt(self._sum([self._sq(x) for x in v]))
+        h1 = self._sum([torch.mv(U.conj(), x) for U, x in zip(Us, v)])
+        v1 = [x - torch.mv(U.T, hh) for U, x, hh in zip(Us, v, self._bcast(h1))]
+        w1 = torch.sqrt(self._sum([self._sq(x) for x in v1]))
+        corr = self._sum([torch.mv(U.conj(), x) for U, x in zip(Us, v1)])
+        v2 = [x - torch.mv(U.T, c) for U, x, c in zip(Us, v1, self._bcast(corr))]
+        w2 = torch.sqrt(self._sum([self._sq(x) for x in v2]))
+        repass = w1 < eta * rnorm
+        h = torch.where(repass, h1 + corr, h1)
+        w = torch.where(repass, w2, w1)
+        inspan = w <= eta * torch.where(repass, w1, rnorm)
+        self._pending = [torch.where(r, b, a) for r, a, b in zip(self._bcast(repass), v1, v2)]
+        out = self._read(torch.cat([h, torch.stack([w, inspan.to(w.dtype)]).to(h.dtype)]))
+        return out[:ncols], float(out[ncols].real), bool(out[ncols + 1].real != 0)
+
+    def apply_norm(self, l: int, j: int) -> float:
+        self._pending = self._matvec(l, self._gather([S[j] for S in self._Vt[l]]))
+        return float(self._read(torch.sqrt(self._sum([self._sq(x) for x in self._pending]))))
+
+    def accept(self, lnext: int, j: int, w: float) -> np.ndarray:
+        cols = [x / w for x in self._pending]
+        for S, c in zip(self._Vt[lnext], cols):
+            S[j] = c
+        return self._read(self._gather(cols))

@@ -45,6 +45,17 @@ def partial_from_jax(P, device="cpu") -> PartialPeriodicSchur:
                                 schurindex=int(P.schurindex))
 
 
+def mp_from_jax(P):
+    """A JAX-package ``MpGeneralizedPeriodicSchur`` (host mpmath arrays) ->
+    this port's (the same fields, the arrays copied)."""
+    from ..ops.pqz_mp import MpGeneralizedPeriodicSchur
+    return MpGeneralizedPeriodicSchur(
+        S=tuple(P.S), Ts=np.array(P.Ts, dtype=object),
+        Zs=None if P.Zs is None else np.array(P.Zs, dtype=object), alpha=list(P.alpha),
+        beta=list(P.beta), alphascale=list(P.alphascale), orientation=P.orientation,
+        schurindex=int(P.schurindex), dps=int(P.dps))
+
+
 def schur_to_numpy(P: PeriodicSchur) -> dict:
     """This port's ``PeriodicSchur`` -> a dict of numpy arrays and metadata,
     the fields of the JAX package's ``PeriodicSchur``."""

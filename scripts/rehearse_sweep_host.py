@@ -59,6 +59,14 @@ the closing bulge kept, at the source's tile and chunk sizes and at
 (ragged tiles, chunks and spans, odd n, windows of one and two steps);
 about two minutes.
 
+``--shards``: the shard entries of csrc/sweep.cu (``psd_sweep_left_shard``
+on column shards of H, ``psd_sweep_right_shard`` on row shards of H and Z,
+as ``parallel/sweep_sharded.py`` cuts them) against the unsharded B0 and B
+on the same input and log, bit for bit, with 1, 2, 4 and 8 shards, NB = 1
+and 4, with and without Z, with and without the want_t=False bounds; and
+against ``ops.sweep.apply_log_shard_plain`` on the shards (1e-13); about a
+minute.
+
 ``--hess``: csrc/hess.cu, the reduction in one cooperative launch (the
 stub runs every block at once, with a std::barrier for the grid sync), on
 float64 and complex128 cycles (p = 1, 2, 3, 5; n = 1, 2, 3, 12, 40, 150,
@@ -1269,6 +1277,81 @@ def main_glue(parent):
     return 0
 
 
+def main_shards():
+    """The shard entries against the unsharded B0/B (see the module
+    docstring)."""
+    from chip_smoke import random_logs
+    vp, i32 = ctypes.c_void_p, ctypes.c_int
+    lib = build()
+    lib.psd_sweep_left_bounded.argtypes = [vp, vp, i32, i32, i32, i32, i32, i32, vp]
+    lib.psd_sweep_right_bounded.argtypes = [vp, vp, vp, i32, i32, i32, i32, i32, i32, vp]
+    lib.psd_sweep_left_shard.argtypes = [vp, vp] + [i32] * 9 + [vp]
+    lib.psd_sweep_right_shard.argtypes = [vp, vp, vp] + [i32] * 8 + [vp]
+    worst, runs = 0.0, 0
+    for (p, n, m, i, nb, bounded) in [(3, 63, 0, 62, 1, False), (2, 47, 5, 40, 1, True),
+                                      (16, 39, 3, 30, 4, False), (1, 31, 1, 29, 1, False),
+                                      (4, 71, 33, 69, 2, True), (3, 63, 17, 19, 1, False)]:
+        N = n + 1
+        Hn, Zn, v0 = problem(p, n, p * 13 + n + m)
+        H0, Z0 = torch.tensor(Hn), torch.tensor(Zn)
+        if nb == 1:
+            work = torch.full((lib.psd_sweep_generate_scratch(p, N),), float("nan"),
+                              dtype=torch.float64)
+            R = torch.full((p, N, 9), float("nan"), dtype=torch.float64)
+            assert lib.psd_sweep_generate(H0.data_ptr(), work.data_ptr(), R.data_ptr(), p, N,
+                                          m, i, *map(float, v0), None) == 0
+        else:
+            R = torch.tensor(random_logs("real", p, n, m, i, np.random.default_rng(n), nb))
+        chi, rlo = (i + 1, max(m - 3, 0)) if bounded else (N, 0)
+        for want_z in (True, False):
+            Hu, Zu = H0.clone(), Z0.clone()
+            assert lib.psd_sweep_left_bounded(Hu.data_ptr(), R.data_ptr(), p, N, m, i, nb, chi,
+                                              None) == 0
+            assert lib.psd_sweep_right_bounded(Hu.data_ptr(), Zu.data_ptr() if want_z else None,
+                                               R.data_ptr(), p, N, m, i, nb, rlo, None) == 0
+            for D in (1, 2, 4, 8):
+                if N % D:
+                    continue
+                L = N // D
+                Hs, Zs = H0.clone(), Z0.clone()
+                Hp, Zp = H0.clone(), Z0.clone()
+                for d in range(D):
+                    c0 = d * L
+                    for X, fn in ((Hs, "stub"), (Hp, "plain")):
+                        Hc = X[:, :, c0:c0 + L].contiguous()
+                        if fn == "stub":
+                            assert lib.psd_sweep_left_shard(Hc.data_ptr(), R.data_ptr(), p, N,
+                                                            m, i, nb, chi, L, c0, L, None) == 0
+                        else:
+                            sweep.apply_log_shard_plain(Hc, None, R, m, i, side="left",
+                                                        offset=c0, nb=nb,
+                                                        rhi=chi if bounded else None)
+                        X[:, :, c0:c0 + L] = Hc
+                for d in range(D):
+                    r0 = d * L
+                    for X, Y, fn in ((Hs, Zs, "stub"), (Hp, Zp, "plain")):
+                        Hr, Zr = X[:, r0:r0 + L].contiguous(), Y[:, r0:r0 + L].contiguous()
+                        if fn == "stub":
+                            assert lib.psd_sweep_right_shard(
+                                Hr.data_ptr(), Zr.data_ptr() if want_z else None,
+                                R.data_ptr(), p, N, m, i, nb, rlo, r0, L, None) == 0
+                        else:
+                            sweep.apply_log_shard_plain(Hr, Zr, R, m, i, side="right",
+                                                        offset=r0, want_z=want_z, nb=nb,
+                                                        clo=rlo if bounded else None)
+                        X[:, r0:r0 + L], Y[:, r0:r0 + L] = Hr, Zr
+                assert torch.equal(Hs, Hu) and torch.equal(Zs, Zu), \
+                    f"shards != unsharded: p={p} n={n} [{m}, {i}] NB={nb} D={D} z={want_z}"
+                d_ = max(float((Hp - Hs).abs().max()) / float(H0.abs().max()),
+                         float((Zp - Zs).abs().max()))
+                assert d_ <= 1e-13, d_
+                worst, runs = max(worst, d_), runs + 1
+        print(f"p={p} n={n} [{m}, {i}] NB={nb} bounds={bounded}: the shard entries == B0/B "
+              f"bit for bit, D = 1, 2, 4, 8 where N allows, with and without Z", flush=True)
+    print(f"{runs} runs; apply_log_shard_plain vs the stub <= {worst:.3e}")
+    return 0
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--cx", action="store_true")
@@ -1281,7 +1364,10 @@ def main():
     ap.add_argument("--ladders", action="store_true")
     ap.add_argument("--glue", action="store_true")
     ap.add_argument("--bounds", action="store_true")
+    ap.add_argument("--shards", action="store_true")
     args = ap.parse_args()
+    if args.shards:
+        return main_shards()
     if args.bounds:
         return main_bounds()
     if args.glue:

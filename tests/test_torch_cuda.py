@@ -50,7 +50,15 @@ torch products on the card) on a tensor on the card, and through
 matrix-free operators there: outputs on the card, ``nconverged`` as on the
 CPU, Ritz values within 1e-10 relative of the CPU run's, the reference's
 ``check`` contract; one ``CycleOps.apply_orth`` step on the card against
-the host ``_orth_step``: 1e-13.
+the host ``_orth_step``: 1e-13.  Several problems and shards
+(``parallel/``): the shard entries of B0 and B bit for bit the unsharded
+launches (1, 2, 4 shards, with and without Z and the want_t=False bounds);
+``chase_sweep_sharded`` and ``pschur_real_sharded`` with shards on one card
+bit for bit the one-card sweep and run; the ensemble with two workers and
+the complex batch bit for bit their one-worker runs; the 33 hostile rg
+draws of benchmarks/probe_rg_hostile.py within 120 n iterations and a
+backward error of 1e-12.  The two-card tests (the sharded sweep, the ring,
+``ShardedCycleOps`` across cuda:0 and cuda:1) skip below two cards.
 """
 import numpy as np
 import pytest
@@ -812,6 +820,58 @@ def test_rg_chase_kernel_global_windows(cuda):
     Hs = Hk.clone()
     Hs[0, i, i - 2] = 0.0
     _structure_exact(Hs)
+
+
+def _two_cards():
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    return (torch.device("cuda:0"), torch.device("cuda:1"))
+
+
+def test_sharded_sweep_across_two_cards():
+    mesh = _two_cards()
+    p, n, m, i = 3, 63, 2, 61
+    Hn, Zn, v0 = _problem(p, n, 41)
+    H0, Z0 = torch.tensor(Hn, device=mesh[0]), torch.tensor(Zn, device=mesh[0])
+    H0[0, m, m - 1] = 0.0
+    Hu, Zu = H0.clone(), Z0.clone()
+    sweep.chase_sweep(Hu, Zu, m, i, v0, want_z=True)
+    Hs, Zs = H0.clone(), Z0.clone()
+    pt.chase_sweep_sharded(Hs, Zs, m, i, v0, devices=mesh * 2, want_z=True)
+    torch.cuda.synchronize(mesh[1])
+    assert torch.equal(Hs, Hu) and torch.equal(Zs, Zu)
+    T, Z, w, ok = pt.pschur_real_sharded(torch.tensor(np.random.default_rng(3).standard_normal(
+        (3, 31, 31)), device=mesh[0]), mesh)
+    P = pqr_real.pschur_real_pipeline(torch.tensor(np.random.default_rng(3).standard_normal(
+        (3, 31, 31)), device=mesh[0]), "R", cfg=AlgoConfig(aed=False, host_tail=-1))
+    assert ok and torch.equal(T, P.Ts) and torch.equal(Z, P.Zs)
+
+
+def test_ring_and_sharded_krylov_across_two_cards():
+    mesh = _two_cards()
+    rng = np.random.default_rng(42)
+    p, n = 4, 64
+    A = torch.tensor(rng.standard_normal((p, n, n)) / np.sqrt(n), device=mesh[0])
+    V = torch.tensor(rng.standard_normal((2, n, 3)), device=mesh[0])
+    out = pt.ring_cycle_products(A, V, mesh)
+    for d in range(2):
+        x = V[d]
+        for k in [(2 * d + j) % p for j in range(p)]:
+            x = A[k] @ x
+        assert float((out[d] - x).abs().max()) <= 1e-12 * float(x.abs().max())
+    v = V[0, :, 0]
+    x = v
+    for k in range(p):
+        x = A[k] @ x
+    y = pt.ring_product_apply(A, v, mesh)
+    assert y.device == mesh[0] and float((y - x).abs().max()) <= 1e-12 * float(x.abs().max())
+    Ak = torch.tensor(np.stack([np.diag(1.2 ** np.arange(n)) + 0.01 * rng.standard_normal((n, n))
+                                for _ in range(2)]), device=mesh[0])
+    ps1, h1 = pt.partial_pschur(Ak, 3, "LM", seed=2)
+    ps2, h2 = pt.partial_pschur(pt.ShardedCycleOps(Ak, mesh), 3, "LM", seed=2)
+    a = np.sort_complex(ps2.values.cpu().numpy())
+    b = np.sort_complex(ps1.values.cpu().numpy())
+    assert h2.nconverged == h1.nconverged and np.abs(a - b).max() <= 1e-10 * np.abs(b).max()
 
 
 def test_launches_go_to_the_tensors_card():
@@ -1687,3 +1747,112 @@ def test_krylov_cycle_ops_step_on_the_card(cuda, cplx):
         col = ops.accept(lnext, j, w_)
         assert np.abs(col - vv / ww).max() <= 1e-10
         V[lnext][:, j] = col
+
+
+def _shards(N, D):
+    b = [round(k * N / D) for k in range(D + 1)]
+    return [(b[k], b[k + 1] - b[k]) for k in range(D)]
+
+
+@pytest.mark.parametrize("p,n,m,i,nb,bounds", [
+    (3, 63, 0, 62, 1, False), (2, 47, 5, 40, 1, True), (16, 40, 3, 30, 4, False),
+    (1, 31, 1, 29, 1, False), (4, 70, 33, 68, 2, True)])
+def test_shard_entries_are_b0_b_bit_for_bit(cuda, p, n, m, i, nb, bounds):
+    N = n + 1
+    Hn, Zn, v0 = _problem(p, n, p * 13 + n)
+    H0, Z0 = torch.tensor(Hn, device=cuda), torch.tensor(Zn, device=cuda)
+    if nb == 1:
+        R = sweep.sweep_generate(H0, m, i, v0)
+    else:
+        q = np.linalg.qr(np.random.default_rng(n).standard_normal((nb, p, N, 3, 3)))[0]
+        R = torch.tensor(q.reshape(nb, p, N, 9), device=cuda)
+    rhi, clo = (i + 1, max(m - 3, 0)) if bounds else (None, None)
+    for want_z in (True, False):
+        Hu, Zu = H0.clone(), Z0.clone()
+        sweep._apply_log(_cuda.load(), _cuda.stream_ptr(Hu), Hu, Zu, R, m, i, nb, want_z,
+                         rhi, clo)
+        for D in (1, 2, 4):
+            Hs, Zs, Hp, Zp = H0.clone(), Z0.clone(), H0.clone(), Z0.clone()
+            for c0, L in _shards(N, D):
+                for X, plain in ((Hs, False), (Hp, True)):
+                    Hc = X[:, :, c0:c0 + L].contiguous()
+                    if plain:
+                        sweep.apply_log_shard_plain(Hc, None, R, m, i, side="left", offset=c0,
+                                                    nb=nb, rhi=rhi)
+                    else:
+                        sweep.sweep_left_shard(Hc, R, m, i, c0, nb=nb, rhi=rhi)
+                    X[:, :, c0:c0 + L] = Hc
+            for r0, L in _shards(N, D):
+                for X, Y, plain in ((Hs, Zs, False), (Hp, Zp, True)):
+                    Hr, Zr = X[:, r0:r0 + L].contiguous(), Y[:, r0:r0 + L].contiguous()
+                    if plain:
+                        sweep.apply_log_shard_plain(Hr, Zr, R, m, i, side="right", offset=r0,
+                                                    want_z=want_z, nb=nb, clo=clo)
+                    else:
+                        sweep.sweep_right_shard(Hr, Zr, R, m, i, r0, want_z=want_z, nb=nb,
+                                                clo=clo)
+                    X[:, r0:r0 + L], Y[:, r0:r0 + L] = Hr, Zr
+            assert torch.equal(Hs, Hu) and torch.equal(Zs, Zu), (D, want_z)
+            assert float((Hs - Hp).abs().max()) <= 1e-13 * float(H0.abs().max())
+            assert float((Zs - Zp).abs().max()) <= 1e-13
+
+
+def test_sharded_sweep_and_pschur_on_one_card(cuda):
+    p, n, m, i = 3, 63, 2, 61
+    Hn, Zn, v0 = _problem(p, n, 43)
+    H0, Z0 = torch.tensor(Hn, device=cuda), torch.tensor(Zn, device=cuda)
+    H0[0, m, m - 1] = 0.0
+    Hu, Zu = H0.clone(), Z0.clone()
+    sweep.chase_sweep(Hu, Zu, m, i, v0, want_z=True, early=True)
+    for D in (2, 4, 8):
+        Hs, Zs = H0.clone(), Z0.clone()
+        pt.chase_sweep_sharded(Hs, Zs, m, i, v0, devices=[cuda] * D, want_z=True, early=True)
+        assert torch.equal(Hs, Hu) and torch.equal(Zs, Zu), D
+    A = torch.tensor(np.random.default_rng(3).standard_normal((3, 31, 31)), device=cuda)
+    P = pqr_real.pschur_real_pipeline(A, "R", cfg=AlgoConfig(aed=False, host_tail=-1))
+    for D in (2, 4):
+        T, Z, w, ok = pt.pschur_real_sharded(A, [cuda] * D)
+        assert ok and torch.equal(T, P.Ts) and torch.equal(Z, P.Zs)
+        assert np.array_equal(w, P.values.cpu().numpy())
+
+
+def test_ensemble_and_batches_on_the_card(cuda):
+    rng = np.random.default_rng(99)
+    As = [rng.standard_normal((4, 40, 40)) for _ in range(4)]
+    seq = pt.ensemble_pschur_real_pipelined(As, device=cuda, workers=1)
+    piped = pt.ensemble_pschur_real_pipelined(As, device=cuda, workers=3)
+    for s, q in zip(seq, piped):
+        assert s[4] and all(np.array_equal(x, y) for x, y in zip(s[:4], q[:4]))
+    A = torch.tensor(np.stack(As), device=cuda)
+    one = pt.batched_pschur_real(A, workers=1)
+    two = pt.batched_pschur_real(A, mesh=[cuda, cuda], workers=2)
+    assert bool(one[4].all()) and all(torch.equal(x, y) for x, y in zip(one, two))
+    Ac = torch.tensor(np.stack(As) + 1j * rng.standard_normal((4, 4, 40, 40)), device=cuda)
+    S = (True, False, True, False)
+    one = pt.batched_pschur_complex(Ac, S, workers=1)
+    two = pt.batched_pschur_complex(Ac, S, workers=2)
+    assert bool(one[5].all()) and all(torch.equal(x, y) for x, y in zip(one, two))
+    assert one[0].device == Ac.device
+
+
+_HOSTILE = {}
+
+
+def _hostile(k):
+    if not _HOSTILE:
+        from chip_smoke import hostile_rg_cases
+        _HOSTILE.update(enumerate(hostile_rg_cases()))
+    return _HOSTILE[k]
+
+
+@pytest.mark.parametrize("k", range(33))
+def test_hostile_rg_draws_on_the_card(cuda, k):
+    # benchmarks/probe_rg_hostile.py's draws through pschur(A, 'R', S)
+    from chip_smoke import hostile_rg_case
+    tag, A, S = _hostile(k)
+    n = A.shape[-1]
+    niter, rc, nn, be, wall = hostile_rg_case(cuda, A, S)
+    msg = f"{tag}: niter {niter} ({niter / n:.1f}n), native core rc {rc} niter {nn}"
+    print(msg + ("  <-- BEYOND 60n" if niter > 60 * n else ""))
+    assert niter <= 120 * n, msg
+    assert be <= 1e-12, (msg, be)

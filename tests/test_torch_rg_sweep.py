@@ -212,8 +212,10 @@ def test_givens_host_real_branch_matches_tensor():
                                                  (-2.0, 1e-300)]
     for f, g in vals:
         ch, sh, rh = givens_host(float(f), float(g))
-        ct, st, rt = givens_real(torch.tensor(f, dtype=torch.float64),
-                                 torch.tensor(g, dtype=torch.float64))
+        # one-entry tensors: the tensor code (two 0-dim CPU tensors take
+        # givens_host itself)
+        ct, st, rt = givens_real(torch.tensor([f], dtype=torch.float64),
+                                 torch.tensor([g], dtype=torch.float64))
         assert (ch, sh, rh) == (float(ct), float(st), float(rt))
         assert isinstance(sh, float)
 
